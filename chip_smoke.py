@@ -1,0 +1,422 @@
+#!/usr/bin/env python3
+"""Chip check of the PyTorch/CUDA port (enoki_tpu_torch) on one GPU.
+
+Drives the port's main path -- the differentiable SDF sphere-march render
+at 1024^2 pixels, 64 march steps, f32, and the gradient of its mean with
+respect to the 16-float scene vector -- through the entry points a user
+calls, on the CUDA card, and holds every kernel of that path against its
+plain PyTorch version:
+
+  setup    build the kernels from enoki_tpu_torch/csrc with nvcc
+  phase 1  sdf_fwd against sdf_fwd_plain, reference + two seeded scenes
+  phase 2  sdf_bwd against sdf_bwd_plain on the same ts and a seeded g;
+           two runs must be bitwise equal
+  phase 3  the main path: SDFRender trained for a few SGD steps, each
+           step's loss and gradient against the plain PyTorch render
+           (render.sdf, the twin of the reference's jnp path); the launch
+           counters must show one sdf_fwd and one sdf_bwd (+ reduce) per
+           step
+  phase 4  timing with CUDA events: a data-chained fwd+bwd loop (as
+           bench.py chains its steps) against the same loop through the
+           twin, each kernel alone, the plain versions, and each kernel's
+           bound
+
+Run from the root of the repository:  python chip_smoke.py
+Needs one CUDA card; exits non-zero, printing no result, without one or
+outside the repository. The last line of standard output is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
+the line before it lists the kernels with their launches, errors, times
+and bounds.
+"""
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+N = 1024
+STEPS = 64
+EXTENT = 1.2
+SEEDS = (None, 1, 2)          # reference scene + two seeded ones
+TRAIN_STEPS = 3
+LR = 1e-3
+
+# published peaks of one H100 SXM at 700 W (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+# MUFU (rsqrt) results per clock per SM on compute capability 9.0
+# (CUDA C++ Programming Guide, arithmetic instruction throughput): a
+# second, tighter floor for the march, printed beside the bound
+MUFU_PER_CLK_PER_SM = 16
+
+# FP32 operations of the kernels (csrc/sdf_render.cu), each add, mul,
+# compare, max and rsqrt counted once
+FWD_FLOPS_PER_EVAL = 7     # z*z, +rxy2, rsqrt, x*r; s >= s_hit, z+s, <= esc
+FWD_FLOPS_PER_ADVANCE = 2  # z + (s - rad)
+FWD_FLOPS_PER_PIXEL = 16   # pixel coordinates, rxy2, folded constants, ts
+FWD_FLOPS_PER_HIT = 28     # closed-form normal + lambert shade
+BWD_FLOPS_PER_HIT = 89     # closed-form cotangents (pallas_kernels.py:826)
+BWD_FLOPS_PER_PIXEL = 2    # the hit test and the sum of g into d ambient
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(ok, what):
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def scene_vec(seed):
+    """The reference scene vector, or a seeded perturbation: center +-0.1,
+    radius 0.8-1.1, a random light (the CPU tests use the same recipe)."""
+    v = np.zeros(16, np.float32)
+    v[:9] = [0, 0, 0, 1.0, 0.2, 90.0, -1.0, -1.0, 2.0]
+    if seed is not None:
+        rng = np.random.default_rng(seed)
+        v[0:3] = rng.uniform(-0.1, 0.1, 3)
+        v[3] = rng.uniform(0.8, 1.1)
+        v[6:9] = rng.uniform(-2.0, 2.0, 3)
+    return v
+
+
+def nvidia_smi(query, fmt="csv,noheader"):
+    """Card 0's answer to an nvidia-smi query ("" if it cannot answer)."""
+    out = subprocess.run(["nvidia-smi", "-i", "0", f"--query-gpu={query}",
+                          f"--format={fmt}"],
+                         capture_output=True, text=True, timeout=60)
+    lines = out.stdout.strip().splitlines()
+    return lines[0] if out.returncode == 0 and lines else ""
+
+
+def robust(samples):
+    """Median and spread (max - min) / median."""
+    med = statistics.median(samples)
+    return med, (max(samples) - min(samples)) / med
+
+
+class DeviceTimer:
+    """Device time per call of ``fn``: a sleep kernel holds the stream
+    while the host enqueues ``reps`` calls between two CUDA events, so
+    the calls run back to back and the host's launch cost is hidden."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        s, e = self._events()
+        torch.cuda.synchronize()
+        s.record()
+        torch.cuda._sleep(10_000_000)
+        e.record()
+        torch.cuda.synchronize()
+        self.cycles_per_ms = 10_000_000 / s.elapsed_time(e)
+
+    def _events(self):
+        ev = self.torch.cuda.Event
+        return ev(enable_timing=True), ev(enable_timing=True)
+
+    def __call__(self, fn, reps, hold_ms=200.0):
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        s, e = self._events()
+        torch.cuda._sleep(int(self.cycles_per_ms * hold_ms))
+        t0 = time.perf_counter()
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        enqueue_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        check(enqueue_ms < hold_ms, f"timer hold {hold_ms} ms shorter than "
+              f"the enqueue ({enqueue_ms:.1f} ms): raise hold_ms")
+        return s.elapsed_time(e) / reps
+
+
+def chain_ms(torch, step, p0, iters, windows):
+    """Per-step time of ``iters`` data-chained steps, ``windows`` times:
+    each step's params depend on the previous step's loss and gradient
+    (bench.py:35-50), so no step can start before the last one ended."""
+    samples = []
+    p = step(p0, p0, 0)
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        ev = torch.cuda.Event
+        s, e = ev(enable_timing=True), ev(enable_timing=True)
+        p = p0
+        s.record()
+        for k in range(iters):
+            p = step(p0, p, k)
+        e.record()
+        torch.cuda.synchronize()
+        samples.append(s.elapsed_time(e) / iters)
+    return robust(samples)
+
+
+def device_ms_by_kernel(torch, step, p0, iters):
+    """Device time per step of ``iters`` chained steps, by kernel name,
+    from torch.profiler ({} where it saw no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    p = step(p0, p0, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        p = p0
+        for k in range(iters):
+            p = step(p0, p, k)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.key] = e.self_device_time_total / 1e3 / iters
+    return out
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false: this check "
+                           "needs a CUDA card")
+    run(torch, torch.device("cuda"))
+
+
+def run(torch, dev):
+    from enoki_tpu_torch import _build
+    from enoki_tpu_torch.render import sdf_kernels as K
+    from enoki_tpu_torch.render.sdf import (SDFScene,
+                                            render_sdf_grads_implicit)
+
+    card = torch.cuda.get_device_name(0)
+    smi = nvidia_smi("name,power.limit")
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {card}, "
+        f"{torch.cuda.device_count()} device(s)")
+
+    t0 = time.perf_counter()
+    _build.load("sdf_render")
+    log(f"build: sdf_render.cu with nvcc {' '.join(_build.NVCC_FLAGS)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def cuda_vec(seed):
+        return torch.from_numpy(scene_vec(seed)).to(dev)
+
+    # -- phase 1: sdf_fwd against its plain version ------------------------
+    fwd_err, flip_shares = 0.0, []
+    for seed in SEEDS:
+        p = cuda_vec(seed)
+        img_k, ts_k = K.sdf_fwd(p, N, STEPS, EXTENT)
+        img_p, ts_p = K.sdf_fwd_plain(p, N, STEPS, EXTENT)
+        torch.cuda.synchronize()
+        check(img_k.shape == (N, N) and torch.isfinite(img_k).all().item()
+              and torch.isfinite(ts_k).all().item(),
+              "sdf_fwd: non-finite output")
+        d = (img_k - img_p).abs()
+        dmax = d.max().item()
+        hit_k, hit_p = ts_k >= 0, ts_p >= 0
+        mask_flips = (hit_k != hit_p).sum().item()
+        both = hit_k & hit_p
+        dt = (ts_k - ts_p).abs()[both].max().item() if both.any() else 0.0
+        fwd_err = max(fwd_err, dmax)
+        if mask_flips == 0:
+            gate = f"image atol 1e-3 (max {dmax:.3e})"
+            ok = dmax <= 1e-3
+            flip_shares.append(0.0)
+        else:
+            # silhouette pixels flipped: bench.py:209-212's gate, where a
+            # hit/miss flip jumps by ~gain
+            flips = d > 1.0
+            share = flips.float().mean().item()
+            off = d[~flips].max().item()
+            flip_shares.append(share)
+            gate = f"flip share {share:.3e} < 1.5e-3, off-flip max {off:.3e}"
+            ok = share < 1.5e-3 and off < 0.05
+        log(f"phase 1 sdf_fwd scene={seed}: max|img-plain| {dmax:.3e}, "
+            f"hit-mask flips {mask_flips}, max|dt| on shared hits {dt:.3e},"
+            f" hits {hit_k.sum().item()}; gate: {gate}: "
+            f"{'pass' if ok else 'FAIL'}")
+        check(ok, f"sdf_fwd vs plain (scene {seed}): {gate}")
+
+    # -- phase 2: sdf_bwd against its plain version, determinism ----------
+    bwd_err = 0.0
+    for seed in SEEDS:
+        p = cuda_vec(seed)
+        _, ts = K.sdf_fwd(p, N, STEPS, EXTENT)
+        g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+            (N, N)).astype(np.float32)).to(dev)
+        dp1 = K.sdf_bwd(p, g, ts, N, EXTENT)
+        dp2 = K.sdf_bwd(p, g, ts, N, EXTENT)
+        ref = K.sdf_bwd_plain(p, g, ts, N, EXTENT)
+        torch.cuda.synchronize()
+        check(torch.equal(dp1, dp2), "sdf_bwd: two runs differ")
+        scale = max(1.0, ref.abs().max().item())
+        err = (dp1 - ref).abs()
+        bwd_err = max(bwd_err, err.max().item())
+        ok = bool((err <= 2e-4 * scale + 2e-4 * ref.abs()).all().item())
+        log(f"phase 2 sdf_bwd scene={seed}: max|dp-plain| "
+            f"{err.max().item():.3e} (scale {scale:.3e}), bitwise "
+            f"deterministic: yes; gate rtol 2e-4 atol 2e-4*scale: "
+            f"{'pass' if ok else 'FAIL'}")
+        check(ok, f"sdf_bwd vs plain (scene {seed}): {err.tolist()}")
+
+    # -- phase 3: the main path, counted -----------------------------------
+    model = K.SDFRender(cuda_vec(None), n=N, n_steps=STEPS, extent=EXTENT)
+    opt = torch.optim.SGD(model.parameters(), lr=LR)
+    K.reset_launch_counts()
+    for step in range(TRAIN_STEPS):
+        opt.zero_grad()
+        img = model()
+        loss = img.mean()
+        loss.backward()
+        grad = model.params.grad.detach().clone()
+        scene = K.vec_to_scene(model.params.detach(), SDFScene)
+        img_x, g_x = render_sdf_grads_implicit(scene, N, STEPS)
+        gx = K.scene_to_vec(g_x)[:9]
+        lx = img_x.mean().item()
+        torch.cuda.synchronize()
+        check(img.shape == (N, N) and torch.isfinite(img).all().item()
+              and torch.isfinite(grad).all().item(), "non-finite output")
+        tol = 1e-3 * max(1.0, gx.abs().max().item())
+        g_ok = bool(torch.allclose(grad[:9], gx, rtol=1e-2, atol=tol))
+        l_ok = abs(loss.item() - lx) <= 1e-5 + 1e-3 * abs(lx)
+        log(f"phase 3 step {step}: loss {loss.item():.7g} (twin {lx:.7g}),"
+            f" max|grad-twin| {(grad[:9] - gx).abs().max().item():.3e} "
+            f"(atol {tol:.3e}); gates: loss rtol 1e-3 "
+            f"{'pass' if l_ok else 'FAIL'}, grad rtol 1e-2 "
+            f"{'pass' if g_ok else 'FAIL'}")
+        check(l_ok and g_ok, f"main path vs twin at step {step}")
+        opt.step()
+    launches = dict(K.LAUNCHES)
+    log(f"phase 3 launches over {TRAIN_STEPS} steps: {launches}")
+    check(launches == {k: TRAIN_STEPS for k in launches},
+          f"expected one launch of each kernel per step, got {launches}")
+
+    # -- phase 4: timing ----------------------------------------------------
+    rays = N * N
+    timer = DeviceTimer(torch)
+    p_ref = cuda_vec(None)
+
+    def kernel_step(p0, p, k):
+        p = p.detach().requires_grad_(True)
+        loss = K.render_sdf_cuda(p, N, STEPS, EXTENT, min(128, N)).mean()
+        (g,) = torch.autograd.grad(loss, p)
+        return p0 + (loss.detach() + 1e-12 * g.sum()) * 1e-12 + 1e-6 * k
+
+    def twin_step(p0, p, k):
+        img, g = render_sdf_grads_implicit(K.vec_to_scene(p, SDFScene), N,
+                                           STEPS)
+        gsum = K.scene_to_vec(g).sum()
+        return p0 + (img.mean() + 1e-12 * gsum) * 1e-12 + 1e-6 * k
+
+    # interleaved: kernel, twin, twin, kernel
+    t_k1, sp_k1 = chain_ms(torch, kernel_step, p_ref, 100, 7)
+    t_x1, sp_x1 = chain_ms(torch, twin_step, p_ref, 5, 3)
+    t_x2, sp_x2 = chain_ms(torch, twin_step, p_ref, 5, 3)
+    t_k2, sp_k2 = chain_ms(torch, kernel_step, p_ref, 100, 7)
+    t_k, t_x = min(t_k1, t_k2), min(t_x1, t_x2)
+    log(f"phase 4 fwd+bwd step (chained, median of windows): kernels "
+        f"{t_k1:.4f} / {t_k2:.4f} ms (spread {sp_k1:.2%} / {sp_k2:.2%}), "
+        f"twin {t_x1:.3f} / {t_x2:.3f} ms (spread {sp_x1:.2%} / "
+        f"{sp_x2:.2%})")
+    by_kernel = device_ms_by_kernel(torch, kernel_step, p_ref, 50)
+    busy_ms = sum(by_kernel.values())
+    busy = busy_ms / t_k if by_kernel else None
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    log("phase 4 device time per fwd+bwd step (torch.profiler): "
+        + (f"{busy_ms:.5f} ms of {t_k:.4f} ms, busy share {busy:.4f}; "
+           + ", ".join(f"{k[:48]} {v:.5f} ms" for k, v in top)
+           if by_kernel else "not measured (no device events)"))
+
+    _, ts_ref = K.sdf_fwd(p_ref, N, STEPS, EXTENT)
+    g_ref = torch.full((N, N), 1.0 / rays, device=dev)
+    fwd_ms = timer(lambda: K.sdf_fwd(p_ref, N, STEPS, EXTENT), 200)
+    bwd_ms = timer(lambda: K.sdf_bwd(p_ref, g_ref, ts_ref, N, EXTENT), 200)
+    fwd_plain_ms = timer(lambda: K.sdf_fwd_plain(p_ref, N, STEPS, EXTENT),
+                         5, hold_ms=1000.0)
+    bwd_plain_ms = timer(lambda: K.sdf_bwd_plain(p_ref, g_ref, ts_ref, N,
+                                                 EXTENT), 20, hold_ms=1000.0)
+
+    # bounds from this run's data: the march work is what this scene needs
+    evals, adv = (int(c.sum().item())
+                  for c in K.march_counts(p_ref, N, STEPS, EXTENT))
+    hits = int((ts_ref >= 0).sum().item())
+    props = torch.cuda.get_device_properties(0)
+    sm_mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
+    mufu_per_s = MUFU_PER_CLK_PER_SM * props.multi_processor_count \
+        * sm_mhz * 1e6
+
+    def bound(nbytes, flops):
+        """max(bytes / HBM rate, FP32 operations / FP32 peak) in ms."""
+        t = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "operations": flops / FP32_FLOPS_PER_S}
+        by = max(t, key=t.get)
+        return 1e3 * t[by], by
+
+    # fwd reads the 16 params and writes img + ts; bwd reads params, g
+    # and ts and writes dp[16]
+    fwd_bound, fwd_by = bound(
+        8 * rays + 64,
+        FWD_FLOPS_PER_EVAL * evals + FWD_FLOPS_PER_ADVANCE * adv
+        + FWD_FLOPS_PER_PIXEL * rays + FWD_FLOPS_PER_HIT * hits)
+    bwd_bound, bwd_by = bound(8 * rays + 64 + 64,
+                              BWD_FLOPS_PER_HIT * hits
+                              + BWD_FLOPS_PER_PIXEL * rays)
+    fwd_mufu_ms = 1e3 * (evals + 2 * hits) / mufu_per_s
+    log(f"phase 4 work: {evals} march distance evaluations "
+        f"({evals / rays:.3f} per pixel) and {adv} advances, counted by "
+        f"the plain version; {hits} hit pixels; "
+        f"{props.multi_processor_count} SMs, max SM clock {sm_mhz:.0f} MHz,"
+        f" MUFU peak {mufu_per_s:.4g} rsqrt/s")
+    log(f"phase 4 sdf_fwd {fwd_ms:.5f} ms (plain {fwd_plain_ms:.4f} ms, "
+        f"bound {fwd_bound:.5f} ms by {fwd_by}, MUFU rsqrt floor "
+        f"{fwd_mufu_ms:.5f} ms); sdf_bwd {bwd_ms:.5f} ms (plain "
+        f"{bwd_plain_ms:.4f} ms, bound {bwd_bound:.5f} ms by {bwd_by}); "
+        f"library call: none computes either function")
+
+    result = {
+        "metric": "rays_per_s_per_chip_fwd_bwd",
+        "value": rays / (t_k * 1e-3),
+        "unit": "rays/s",
+        "vs_baseline": t_x / t_k,
+        "spread_pct": 100.0 * max(sp_k1, sp_k2),
+        "baseline": "plain PyTorch twin (render.sdf, implicit backward)",
+        "baseline_rays_per_s": rays / (t_x * 1e-3),
+        "step_ms": t_k, "baseline_step_ms": t_x,
+        "n": N, "n_steps": STEPS, "card": smi,
+        "fwd_flip_share_max": max(flip_shares),
+        "device_busy_share": busy,
+    }
+    log(json.dumps(result))
+    common = {"route": "cuda", "source": "enoki_tpu_torch/csrc/sdf_render.cu",
+              "library_ms": None}
+    kernels = [
+        dict(name="sdf_fwd",
+             replaces="enoki_tpu/render/pallas_kernels.py:504",
+             launches=launches["sdf_fwd"], max_abs_err=fwd_err,
+             ms=fwd_ms, plain_ms=fwd_plain_ms, bound_ms=fwd_bound,
+             bound_by=fwd_by, **common),
+        dict(name="sdf_bwd",
+             replaces="enoki_tpu/render/pallas_kernels.py:772",
+             launches=launches["sdf_bwd"], max_abs_err=bwd_err,
+             ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd_bound,
+             bound_by=bwd_by, **common),
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    try:
+        main()
+    except Exception as e:  # any failed phase or gate ends the check
+        print(f"chip_smoke: FAIL: {type(e).__name__}: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,17 @@
+"""enoki_tpu_torch -- the PyTorch/CUDA port of enoki_tpu.
+
+A second package beside ``enoki_tpu`` (the JAX reference, which stays as
+it is). Module and function names follow the reference so that each part
+has an obvious counterpart; plain tensor code is PyTorch, and every Pallas
+kernel of the reference becomes a hand-written CUDA kernel for Hopper
+(``csrc/``, built with nvcc on first use by ``_build``).
+
+Imports ``torch`` and never ``jax`` or anything of ``enoki_tpu``.
+Entry points run on the CUDA card unless the caller passes ``device``.
+
+Ported so far: the differentiable SDF sphere-march render (``render``),
+with its forward and analytic backward kernels (``render.sdf_kernels``).
+"""
+
+from ._device import resolve_device  # noqa: F401
+from . import ops, render  # noqa: F401

@@ -1,0 +1,99 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each ``csrc/*.cu`` file has a plain C interface (no PyTorch headers, so
+nvcc takes seconds, not minutes). On first use it is compiled for Hopper
+into a shared library under ``enoki_tpu_torch/_build/``, named by a hash
+of the source and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is. Nothing is built when a module is
+imported: the CPU, which has no nvcc, never reaches this file.
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+
+``--use_fast_math`` is deliberately absent: it would swap sqrt, division
+and denormal handling for approximations and break parity with the
+reference.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def find_nvcc() -> str:
+    """nvcc from PATH, else from $CUDA_HOME, else the toolkit's default
+    install prefix."""
+    candidates = [shutil.which("nvcc")]
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(var):
+            candidates.append(os.path.join(os.environ[var], "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found: put the CUDA toolkit's bin on PATH "
+                       "or set CUDA_HOME")
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library for this exact source
+    and these flags exists; returns the library's path. Raises with
+    nvcc's stderr if the build fails."""
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    out = BUILD_DIR / f"{name}-{digest[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(exist_ok=True)
+    # build beside the target and rename, so that a concurrent process
+    # never loads a half-written library
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                           str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed to build {src} "
+                           f"(exit {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# argument types of every C entry point, by library; pointers and the
+# stream are c_void_p (a bare Python int would be cut to 32 bits)
+SIGNATURES = {
+    "sdf_render": {
+        "sdf_fwd_launch": (_P, _P, _P, _I, _I, _F, _F, _P),
+        "sdf_bwd_num_blocks": (_I,),
+        "sdf_bwd_partial_launch": (_P, _P, _P, _P, _I, _F, _F, _P),
+        "sdf_bwd_reduce_launch": (_P, _I, _P, _P),
+    },
+}
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; every entry point
+    returns an int (a cudaError_t for the launches)."""
+    lib = ctypes.CDLL(str(build(name)))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    return lib
