@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Chip check of the PyTorch/CUDA port (enoki_tpu_torch) on one GPU.
 
-Drives the port's main path -- the differentiable SDF sphere-march render
-at 1024^2 pixels, 64 march steps, f32, and the gradient of its mean with
-respect to the 16-float scene vector -- through the entry points a user
-calls, on the CUDA card, and holds every kernel of that path against its
-plain PyTorch version:
+Drives the port's two render paths through the entry points a user calls,
+on the CUDA card, and holds every kernel of each path against its plain
+PyTorch version. The main path is the differentiable SDF sphere-march
+render at 1024^2 pixels, 64 march steps, f32, and the gradient of its
+mean with respect to the 16-float scene vector; the second is the
+closed-form sphere render of the reference mini-app (tests/sphere.cpp) at
+its full 1024^2, in f32 and bf16 compute, with its gradient.
 
-  setup    build the kernels from enoki_tpu_torch/csrc with nvcc
+  setup    build the kernels from enoki_tpu_torch/csrc with nvcc, one
+           process per source, all at once
   phase 1  sdf_fwd against sdf_fwd_plain, reference + two seeded scenes
   phase 2  sdf_bwd against sdf_bwd_plain on the same ts and a seeded g;
            two runs must be bitwise equal
@@ -20,6 +23,20 @@ plain PyTorch version:
            bench.py chains its steps) against the same loop through the
            twin, each kernel alone, the plain versions, and each kernel's
            bound
+  phase 5  sphere_fwd (f32 and bf16) against sphere_fwd_plain, reference +
+           two seeded scenes
+  phase 6  sphere_bwd against sphere_bwd_plain for a seeded g; two runs
+           must be bitwise equal
+  phase 7  the sphere path: SphereRender trained for a few SGD steps in
+           f32, each step's loss and gradient against the plain twin
+           (render.sphere, autograd through combined), then one bf16 step,
+           whose gradient must equal the f32 step's at the same
+           parameters; one sphere_fwd and one sphere_bwd (+ reduce) per
+           step
+  phase 8  timing: each sphere kernel alone with its bound and its plain
+           version, the chained fwd+bwd loop through SphereRender against
+           the twin's, and the mini-app's contrast, render_staged
+           (separate kernels) against one sphere_fwd launch
 
 Run from the root of the repository:  python chip_smoke.py
 Needs one CUDA card; exits non-zero, printing no result, without one or
@@ -29,6 +46,7 @@ the line before it lists the kernels with their launches, errors, times
 and bounds.
 """
 
+import concurrent.futures
 import json
 import statistics
 import subprocess
@@ -60,6 +78,12 @@ FWD_FLOPS_PER_PIXEL = 16   # pixel coordinates, rxy2, folded constants, ts
 FWD_FLOPS_PER_HIT = 28     # closed-form normal + lambert shade
 BWD_FLOPS_PER_HIT = 89     # closed-form cotangents (pallas_kernels.py:826)
 BWD_FLOPS_PER_PIXEL = 2    # the hit test and the sum of g into d ambient
+# ... and of csrc/sphere_render.cu: the forward is branch-free (every pixel
+# runs the whole quadratic and shade, in f32 or bf16); the backward runs
+# up to the hit test and the sum of g on every pixel, the rest on hits
+SPHERE_FWD_FLOPS_PER_PIXEL = 56
+SPHERE_BWD_FLOPS_PER_PIXEL = 20
+SPHERE_BWD_FLOPS_PER_HIT = 52
 
 
 class SmokeFailure(Exception):
@@ -179,6 +203,15 @@ def device_ms_by_kernel(torch, step, p0, iters):
     return out
 
 
+def bound(nbytes, flops):
+    """max(bytes / HBM rate, FP32 operations / FP32 peak) in ms, and which
+    of the two it is."""
+    t = {"bytes": nbytes / HBM_BYTES_PER_S,
+         "operations": flops / FP32_FLOPS_PER_S}
+    by = max(t, key=t.get)
+    return 1e3 * t[by], by
+
+
 def main():
     import torch
 
@@ -190,7 +223,8 @@ def main():
 
 def run(torch, dev):
     from enoki_tpu_torch import _build
-    from enoki_tpu_torch.render import sdf_kernels as K
+    from enoki_tpu_torch.render import (LAUNCHES, reset_launch_counts,
+                                        sdf_kernels as K)
     from enoki_tpu_torch.render.sdf import (SDFScene,
                                             render_sdf_grads_implicit)
 
@@ -201,9 +235,13 @@ def run(torch, dev):
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
-    _build.load("sdf_render")
-    log(f"build: sdf_render.cu with nvcc {' '.join(_build.NVCC_FLAGS)} in "
-        f"{time.perf_counter() - t0:.2f} s")
+    libs = ("sdf_render", "sphere_render")
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(_build.build, libs))  # one nvcc per source at once
+    for name in libs:
+        _build.load(name)
+    log(f"build: {', '.join(f'{n}.cu' for n in libs)} with nvcc "
+        f"{' '.join(_build.NVCC_FLAGS)} in {time.perf_counter() - t0:.2f} s")
 
     def cuda_vec(seed):
         return torch.from_numpy(scene_vec(seed)).to(dev)
@@ -269,7 +307,7 @@ def run(torch, dev):
     # -- phase 3: the main path, counted -----------------------------------
     model = K.SDFRender(cuda_vec(None), n=N, n_steps=STEPS, extent=EXTENT)
     opt = torch.optim.SGD(model.parameters(), lr=LR)
-    K.reset_launch_counts()
+    reset_launch_counts()
     for step in range(TRAIN_STEPS):
         opt.zero_grad()
         img = model()
@@ -293,9 +331,10 @@ def run(torch, dev):
             f"{'pass' if g_ok else 'FAIL'}")
         check(l_ok and g_ok, f"main path vs twin at step {step}")
         opt.step()
-    launches = dict(K.LAUNCHES)
+    launches = dict(LAUNCHES)
     log(f"phase 3 launches over {TRAIN_STEPS} steps: {launches}")
-    check(launches == {k: TRAIN_STEPS for k in launches},
+    check(launches == {k: TRAIN_STEPS for k in
+                       ("sdf_fwd", "sdf_bwd", "sdf_bwd_reduce")},
           f"expected one launch of each kernel per step, got {launches}")
 
     # -- phase 4: timing ----------------------------------------------------
@@ -352,13 +391,6 @@ def run(torch, dev):
     mufu_per_s = MUFU_PER_CLK_PER_SM * props.multi_processor_count \
         * sm_mhz * 1e6
 
-    def bound(nbytes, flops):
-        """max(bytes / HBM rate, FP32 operations / FP32 peak) in ms."""
-        t = {"bytes": nbytes / HBM_BYTES_PER_S,
-             "operations": flops / FP32_FLOPS_PER_S}
-        by = max(t, key=t.get)
-        return 1e3 * t[by], by
-
     # fwd reads the 16 params and writes img + ts; bwd reads params, g
     # and ts and writes dp[16]
     fwd_bound, fwd_by = bound(
@@ -408,10 +440,230 @@ def run(torch, dev):
              ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd_bound,
              bound_by=bwd_by, **common),
     ]
+    kernels += run_sphere(torch, dev, timer, cuda_vec)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def run_sphere(torch, dev, timer, cuda_vec):
+    """Phases 5-8: the closed-form sphere path. Returns its kernels'
+    entries of the kernels line."""
+    from enoki_tpu_torch.render import (LAUNCHES, reset_launch_counts,
+                                        sphere as TS, sphere_kernels as S)
+    from enoki_tpu_torch.render.sdf_kernels import (scene_to_vec,
+                                                    tile_pixels,
+                                                    vec_to_scene)
+    from enoki_tpu_torch.render.vec import Vec2
+
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    # -- phase 5: sphere_fwd (f32, bf16) against its plain version ---------
+    fwd_err = {f32: 0.0, bf16: 0.0}
+    for seed in SEEDS:
+        p = cuda_vec(seed)
+        for dtype in (f32, bf16):
+            img_k = S.sphere_fwd(p, N, EXTENT, dtype)
+            img_p = S.sphere_fwd_plain(p, N, EXTENT, dtype)
+            torch.cuda.synchronize()
+            check(img_k.shape == (N, N) and img_k.dtype == dtype
+                  and torch.isfinite(img_k).all().item(),
+                  f"sphere_fwd {dtype}: bad output")
+            d = (img_k.float() - img_p.float()).abs()
+            dmax = d.max().item()
+            fwd_err[dtype] = max(fwd_err[dtype], dmax)
+            flips = d > 1.0  # a hit/miss flip jumps by ~gain
+            share = flips.float().mean().item()
+            if dmax == 0.0:
+                gate, ok = "bit-equal", True
+            elif dtype == f32:
+                off = d[~flips].max().item()
+                gate = (f"flip share {share:.3e} < 1.5e-3, off-flip max "
+                        f"{off:.3e} < 0.05")
+                ok = share < 1.5e-3 and off < 0.05
+            else:  # off the flips, within one bf16 ulp (2^-7 relative)
+                rel = (d / img_p.float().abs())[~flips].max().item()
+                gate = (f"flip share {share:.3e} < 1.5e-3, off-flip max "
+                        f"relative {rel:.3e} <= 2^-7")
+                ok = share < 1.5e-3 and rel <= 2.0 ** -7
+            log(f"phase 5 sphere_fwd {str(dtype)[6:]} scene={seed}: "
+                f"max|img-plain| {dmax:.3e}, flip share {share:.3e}, "
+                f"pixels differing {(d > 0).sum().item()}; gate: {gate}: "
+                f"{'pass' if ok else 'FAIL'}")
+            check(ok, f"sphere_fwd {dtype} vs plain (scene {seed}): {gate}")
+
+    # -- phase 6: sphere_bwd against its plain version, determinism --------
+    bwd_err = 0.0
+    g_rand = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (N, N)).astype(np.float32)).to(dev)
+    for seed in SEEDS:
+        p = cuda_vec(seed)
+        dp1 = S.sphere_bwd(p, g_rand, N, EXTENT)
+        dp2 = S.sphere_bwd(p, g_rand, N, EXTENT)
+        ref = S.sphere_bwd_plain(p, g_rand, N, EXTENT)
+        torch.cuda.synchronize()
+        check(torch.equal(dp1, dp2), "sphere_bwd: two runs differ")
+        scale = max(1.0, ref.abs().max().item())
+        err = (dp1 - ref).abs()
+        bwd_err = max(bwd_err, err.max().item())
+        ok = bool((err <= 2e-4 * scale + 2e-4 * ref.abs()).all().item())
+        log(f"phase 6 sphere_bwd scene={seed}: max|dp-plain| "
+            f"{err.max().item():.3e} (scale {scale:.3e}), bitwise "
+            f"deterministic: yes; gate rtol 2e-4 atol 2e-4*scale: "
+            f"{'pass' if ok else 'FAIL'}")
+        check(ok, f"sphere_bwd vs plain (scene {seed}): {err.tolist()}")
+
+    # -- phase 7: the sphere path, counted ---------------------------------
+    model = S.SphereRender(cuda_vec(None), n=N, extent=EXTENT)
+    opt = torch.optim.SGD(model.parameters(), lr=LR)
+    reset_launch_counts()
+    for step in range(TRAIN_STEPS):
+        opt.zero_grad()
+        img = model()
+        loss = img.mean()
+        loss.backward()
+        grad = model.params.grad.detach().clone()
+        img_x, g_x = TS.render_and_grads(
+            vec_to_scene(model.params.detach(), TS.SphereScene), N)
+        gx = scene_to_vec(g_x)[:9]
+        lx = img_x.mean().item()
+        torch.cuda.synchronize()
+        check(img.shape == (N, N) and torch.isfinite(img).all().item()
+              and torch.isfinite(grad).all().item(), "non-finite output")
+        tol = 1e-3 * max(1.0, gx.abs().max().item())
+        g_ok = bool(torch.allclose(grad[:9], gx, rtol=1e-2, atol=tol))
+        l_ok = abs(loss.item() - lx) <= 1e-5 + 1e-3 * abs(lx)
+        log(f"phase 7 f32 step {step}: loss {loss.item():.7g} (twin "
+            f"{lx:.7g}), max|grad-twin| "
+            f"{(grad[:9] - gx).abs().max().item():.3e} (atol {tol:.3e}); "
+            f"gates: loss rtol 1e-3 {'pass' if l_ok else 'FAIL'}, grad "
+            f"rtol 1e-2 {'pass' if g_ok else 'FAIL'}")
+        check(l_ok and g_ok, f"sphere path vs twin at step {step}")
+        if step == TRAIN_STEPS - 1:
+            # one bf16 step at these parameters: its backward is the f32
+            # render's, so its gradient is this step's, bit for bit
+            model_b = S.SphereRender(model.params.detach(), n=N,
+                                     extent=EXTENT, dtype=bf16)
+            img_b = model_b()
+            loss_b = img_b.mean()
+            loss_b.backward()
+            torch.cuda.synchronize()
+            gb = model_b.params.grad
+            b_ok = (img_b.dtype == bf16 and torch.isfinite(gb).all().item()
+                    and torch.equal(gb, model.params.grad))
+            log(f"phase 7 bf16 step: loss {loss_b.item():.7g} (f32 "
+                f"{loss.item():.7g}), gradient equal to the f32 step's: "
+                f"{'pass' if b_ok else 'FAIL'}")
+            check(b_ok, "bf16 step's gradient differs from the f32 step's")
+        opt.step()
+    launches = dict(LAUNCHES)
+    want = {"sphere_fwd": TRAIN_STEPS, "sphere_fwd_bf16": 1,
+            "sphere_bwd": TRAIN_STEPS + 1,
+            "sphere_bwd_reduce": TRAIN_STEPS + 1}
+    log(f"phase 7 launches over {TRAIN_STEPS} f32 steps and 1 bf16 step: "
+        f"{launches}")
+    check(launches == want, f"expected {want}, got {launches}")
+
+    # -- phase 8: timing ----------------------------------------------------
+    rays = N * N
+    p_ref = cuda_vec(None)
+    g_mean = torch.full((N, N), 1.0 / rays, device=dev)
+    ms = {k: timer(fn, 200) for k, fn in (
+        ("sphere_fwd", lambda: S.sphere_fwd(p_ref, N, EXTENT, f32)),
+        ("sphere_fwd_bf16", lambda: S.sphere_fwd(p_ref, N, EXTENT, bf16)),
+        ("sphere_bwd", lambda: S.sphere_bwd(p_ref, g_mean, N, EXTENT)))}
+    plain_ms = {k: timer(fn, 20, hold_ms=1000.0) for k, fn in (
+        ("sphere_fwd", lambda: S.sphere_fwd_plain(p_ref, N, EXTENT, f32)),
+        ("sphere_fwd_bf16",
+         lambda: S.sphere_fwd_plain(p_ref, N, EXTENT, bf16)),
+        ("sphere_bwd", lambda: S.sphere_bwd_plain(p_ref, g_mean, N,
+                                                  EXTENT)))}
+    scene_ref = vec_to_scene(p_ref, TS.SphereScene)
+    staged_ms = timer(lambda: TS.render_staged(scene_ref, N), 20,
+                      hold_ms=1000.0)
+
+    # the hits of this run's scene, as the f32 forward decides them
+    px, py = tile_pixels(N, EXTENT, dev)
+    nrm = TS.intersect_rays(TS.make_rays(Vec2(px, py)), scene_ref)
+    hits = int(((nrm.x != 0) | (nrm.y != 0) | (nrm.z != 0)).sum().item())
+    bounds = {
+        # write the image (4 or 2 B per pixel), read the 64 B parameters
+        "sphere_fwd": bound(4 * rays + 64, SPHERE_FWD_FLOPS_PER_PIXEL * rays),
+        "sphere_fwd_bf16": bound(2 * rays + 64,
+                                 SPHERE_FWD_FLOPS_PER_PIXEL * rays),
+        # read g and the parameters, write dp[16]
+        "sphere_bwd": bound(4 * rays + 64 + 64,
+                            SPHERE_BWD_FLOPS_PER_PIXEL * rays
+                            + SPHERE_BWD_FLOPS_PER_HIT * hits),
+    }
+    for k in ms:
+        log(f"phase 8 {k} {ms[k]:.5f} ms (plain {plain_ms[k]:.4f} ms, "
+            f"bound {bounds[k][0]:.5f} ms by {bounds[k][1]})")
+    log(f"phase 8 work: {hits} hit pixels of {rays}; library call: none "
+        f"computes any of these functions")
+    log(f"phase 8 mini-app contrast (device time per frame): "
+        f"render_staged (separate kernels) {staged_ms:.4f} ms, one "
+        f"sphere_fwd launch {ms['sphere_fwd']:.5f} ms, "
+        f"{staged_ms / ms['sphere_fwd']:.1f}x")
+
+    def kernel_step(p0, p, k):
+        with torch.no_grad():
+            model.params.copy_(p)
+        model.params.grad = None
+        loss = model().mean()
+        loss.backward()
+        g = model.params.grad
+        return p0 + (loss.detach() + 1e-12 * g.sum()) * 1e-12 + 1e-6 * k
+
+    def twin_step(p0, p, k):
+        img, g = TS.render_and_grads(vec_to_scene(p, TS.SphereScene), N)
+        gsum = scene_to_vec(g).sum()
+        return p0 + (img.mean() + 1e-12 * gsum) * 1e-12 + 1e-6 * k
+
+    # interleaved: kernel, twin, twin, kernel
+    t_k1, sp_k1 = chain_ms(torch, kernel_step, p_ref, 100, 7)
+    t_x1, sp_x1 = chain_ms(torch, twin_step, p_ref, 10, 3)
+    t_x2, sp_x2 = chain_ms(torch, twin_step, p_ref, 10, 3)
+    t_k2, sp_k2 = chain_ms(torch, kernel_step, p_ref, 100, 7)
+    t_k, t_x = min(t_k1, t_k2), min(t_x1, t_x2)
+    log(f"phase 8 sphere fwd+bwd step through SphereRender (chained, "
+        f"median of windows): kernels {t_k1:.4f} / {t_k2:.4f} ms (spread "
+        f"{sp_k1:.2%} / {sp_k2:.2%}), twin {t_x1:.3f} / {t_x2:.3f} ms "
+        f"(spread {sp_x1:.2%} / {sp_x2:.2%}); {rays / (t_k * 1e-3):.4g} "
+        f"rays/s, {t_x / t_k:.2f}x the twin")
+    by_kernel = device_ms_by_kernel(torch, kernel_step, p_ref, 50)
+    busy_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    log("phase 8 device time per sphere fwd+bwd step (torch.profiler): "
+        + (f"{busy_ms:.5f} ms of {t_k:.4f} ms, busy share "
+           f"{busy_ms / t_k:.4f}; "
+           + ", ".join(f"{k[:48]} {v:.5f} ms" for k, v in top)
+           if by_kernel else "not measured (no device events)"))
+
+    common = {"route": "cuda",
+              "source": "enoki_tpu_torch/csrc/sphere_render.cu",
+              "library_ms": None}
+    fwd_line = "enoki_tpu/render/pallas_kernels.py:100"
+    return [
+        dict(name="sphere_fwd", replaces=fwd_line,
+             launches=launches["sphere_fwd"], max_abs_err=fwd_err[f32],
+             ms=ms["sphere_fwd"], plain_ms=plain_ms["sphere_fwd"],
+             bound_ms=bounds["sphere_fwd"][0],
+             bound_by=bounds["sphere_fwd"][1], **common),
+        dict(name="sphere_fwd_bf16", replaces=fwd_line,
+             launches=launches["sphere_fwd_bf16"],
+             max_abs_err=fwd_err[bf16], ms=ms["sphere_fwd_bf16"],
+             plain_ms=plain_ms["sphere_fwd_bf16"],
+             bound_ms=bounds["sphere_fwd_bf16"][0],
+             bound_by=bounds["sphere_fwd_bf16"][1], **common),
+        dict(name="sphere_bwd",
+             replaces="enoki_tpu/render/pallas_kernels.py:108",
+             launches=launches["sphere_bwd"], max_abs_err=bwd_err,
+             ms=ms["sphere_bwd"], plain_ms=plain_ms["sphere_bwd"],
+             bound_ms=bounds["sphere_bwd"][0],
+             bound_by=bounds["sphere_bwd"][1], **common),
+    ]
 
 
 if __name__ == "__main__":

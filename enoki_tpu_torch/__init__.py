@@ -9,8 +9,10 @@ kernel of the reference becomes a hand-written CUDA kernel for Hopper
 Imports ``torch`` and never ``jax`` or anything of ``enoki_tpu``.
 Entry points run on the CUDA card unless the caller passes ``device``.
 
-Ported so far: the differentiable SDF sphere-march render (``render``),
-with its forward and analytic backward kernels (``render.sdf_kernels``).
+Ported so far (``render``): the differentiable SDF sphere-march render,
+with its forward and analytic backward kernels (``render.sdf_kernels``),
+and the closed-form sphere render of the reference mini-app, with its f32
+and bf16 forward kernels and analytic backward (``render.sphere_kernels``).
 """
 
 from ._device import resolve_device  # noqa: F401

@@ -1,11 +1,13 @@
-"""Build the port's CUDA sources with nvcc and load them with ctypes.
+"""Build the port's CUDA sources with nvcc, load them with ctypes, and
+keep the bookkeeping every kernel wrapper shares.
 
 Each ``csrc/*.cu`` file has a plain C interface (no PyTorch headers, so
 nvcc takes seconds, not minutes). On first use it is compiled for Hopper
 into a shared library under ``enoki_tpu_torch/_build/``, named by a hash
-of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Nothing is built when a module is
-imported: the CPU, which has no nvcc, never reaches this file.
+of the source, the shared headers ``csrc/*.cuh`` and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is.
+Nothing is built when a module is imported: the CPU, which has no nvcc,
+never reaches ``build``.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
@@ -17,6 +19,7 @@ reference.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -24,6 +27,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -52,8 +57,11 @@ def build(name: str) -> Path:
     and these flags exists; returns the library's path. Raises with
     nvcc's stderr if the build fails."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     out = BUILD_DIR / f"{name}-{digest[:16]}.so"
     if out.exists():
         return out
@@ -84,6 +92,13 @@ SIGNATURES = {
         "sdf_bwd_partial_launch": (_P, _P, _P, _P, _I, _F, _F, _P),
         "sdf_bwd_reduce_launch": (_P, _I, _P, _P),
     },
+    "sphere_render": {
+        "sphere_fwd_launch": (_P, _P, _I, _F, _F, _P),
+        "sphere_fwd_bf16_launch": (_P, _P, _I, _F, _F, _P),
+        "sphere_bwd_num_blocks": (_I,),
+        "sphere_bwd_partial_launch": (_P, _P, _P, _I, _F, _F, _P),
+        "sphere_bwd_reduce_launch": (_P, _I, _P, _P),
+    },
 }
 
 
@@ -97,3 +112,44 @@ def load(name: str) -> ctypes.CDLL:
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
     return lib
+
+
+# ---------------------------------------------------------------------------
+# What every kernel wrapper shares
+# ---------------------------------------------------------------------------
+
+# kernel launches since the last reset_launch_counts(), by kernel name; a
+# wrapper adds one right after each launch it made, and nowhere else
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def reset_launch_counts():
+    LAUNCHES.clear()
+
+
+def launched(err: int, kernel: str):
+    """Raise if a launch returned a CUDA error, else count it."""
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+    LAUNCHES[kernel] += 1
+
+
+def is_cuda(x) -> bool:
+    """Whether a wrapper launches its kernel (a CUDA tensor) or takes its
+    plain version (a CPU tensor); any other device raises."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {x.device}: cuda, or cpu for the "
+                     "plain version")
+
+
+def check(x, name, shape, device):
+    """Raise unless ``x`` is what a kernel reads: a contiguous float32
+    tensor of ``shape`` on ``device``."""
+    if (x.dtype != torch.float32 or tuple(x.shape) != shape
+            or not x.is_contiguous() or x.device != device):
+        raise ValueError(f"{name}: expected a contiguous float32 tensor of "
+                         f"shape {shape} on {device}, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")

@@ -3,8 +3,8 @@ side of enoki_tpu/interop.py).
 
 The reference's scene leaves leave JAX as numpy arrays (for example
 ``np.asarray(scene_to_vec(scene))``); these helpers turn them into the
-port's 16-vector or ``SDFScene`` on a device, and back. Values are copied
-exactly, in float32.
+port's 16-vector, or a ``SphereScene`` or ``SDFScene``, on a device, and
+back. Values are copied exactly, in float32.
 """
 
 from __future__ import annotations
@@ -28,11 +28,13 @@ def params_from_numpy(v, device=None) -> torch.Tensor:
     return torch.tensor(out, device=resolve_device(device))
 
 
-def scene_from_numpy(v, device=None) -> SDFScene:
-    """The flat parameter vector -> an SDFScene of 0-d tensors."""
-    return vec_to_scene(params_from_numpy(v, device), SDFScene)
+def scene_from_numpy(v, device=None, cls=SDFScene):
+    """The flat parameter vector -> a ``cls`` (SDFScene or SphereScene)
+    of 0-d tensors."""
+    return vec_to_scene(params_from_numpy(v, device), cls)
 
 
 def scene_to_numpy(scene) -> np.ndarray:
-    """An SDFScene (of parameters or of gradients) -> its (16,) vector."""
+    """A SphereScene or SDFScene (of parameters or of gradients) -> its
+    (16,) vector."""
     return scene_to_vec(scene).detach().cpu().numpy()

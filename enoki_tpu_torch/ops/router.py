@@ -45,7 +45,11 @@ def meshgrid(x, y):
 class _SafeSqrt(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        y = torch.sqrt(torch.clamp_min(x, 0.0))
+        # sqrt in float64, rounded back once: the correctly rounded sqrt
+        # that XLA and CUDA's sqrt give. PyTorch's CPU float32 sqrt goes
+        # through MKL's vector library, which is 1 ulp off for ~0.6% of
+        # inputs, and that moves silhouette pixels of the sphere render.
+        y = torch.sqrt(torch.clamp_min(x, 0.0).double()).to(x.dtype)
         ctx.save_for_backward(x, y)
         return y
 
@@ -57,7 +61,8 @@ class _SafeSqrt(torch.autograd.Function):
 
 
 def safe_sqrt(x):
-    """sqrt(max(x, 0)) with a zero (not infinite) gradient at x <= 0."""
+    """sqrt(max(x, 0)), correctly rounded, with a zero (not infinite)
+    gradient at x <= 0."""
     return _SafeSqrt.apply(x)
 
 

@@ -21,7 +21,8 @@ import dataclasses
 import torch
 
 from .implicit import implicit_t_vjp
-from .sphere import Ray, _reference_leaves, make_rays, pixel_grid
+from .sphere import (Ray, _reference_leaves, make_rays, pixel_grid,
+                     scene_from_leaves, scene_leaves)
 from .vec import Vec3, dot3, normalize3
 from .._device import resolve_device
 
@@ -41,21 +42,6 @@ class SDFScene:
         """Unit sphere at the origin, ambient 0.2, gain 90, light
         (-1, -1, 2)."""
         return SDFScene(**_reference_leaves(resolve_device(device)))
-
-
-def scene_leaves(scene):
-    """The 9 parameters in the flat-vector order
-    [cx, cy, cz, radius, ambient, gain, lx, ly, lz]."""
-    return (scene.center.x, scene.center.y, scene.center.z, scene.radius,
-            scene.ambient, scene.gain, scene.light.x, scene.light.y,
-            scene.light.z)
-
-
-def scene_from_leaves(p, cls=None):
-    """Inverse of ``scene_leaves`` (``cls`` defaults to SDFScene)."""
-    cls = cls or SDFScene
-    return cls(center=Vec3(p[0], p[1], p[2]), radius=p[3], ambient=p[4],
-               gain=p[5], light=Vec3(p[6], p[7], p[8]))
 
 
 def sdf(p: Vec3, scene: SDFScene):
@@ -104,7 +90,7 @@ def march(ray: Ray, scene: SDFScene, n_steps: int = 64,
 def _ray_scene(leaves):
     """(ray, scene) from the 15 tensors o.xyz, d.xyz, scene leaves."""
     ray = Ray(o=Vec3(*leaves[0:3]), d=Vec3(*leaves[3:6]))
-    return ray, scene_from_leaves(leaves[6:15])
+    return ray, scene_from_leaves(leaves[6:15], SDFScene)
 
 
 class _MarchImplicit(torch.autograd.Function):
@@ -187,6 +173,7 @@ def render_sdf_grads_implicit(scene: SDFScene, n: int = 256,
     """Image and d mean(image) / d scene (an SDFScene of gradients)."""
     leaves = [x.detach().requires_grad_(True) for x in scene_leaves(scene)]
     with torch.enable_grad():
-        img = render_sdf_implicit(scene_from_leaves(leaves), n, n_steps)
+        img = render_sdf_implicit(scene_from_leaves(leaves, SDFScene), n,
+                                  n_steps)
         grads = torch.autograd.grad(torch.mean(img), leaves)
-    return img.detach(), scene_from_leaves(grads)
+    return img.detach(), scene_from_leaves(grads, SDFScene)

@@ -9,7 +9,7 @@ first use (``enoki_tpu_torch._build``).
 Each kernel has a plain PyTorch version beside it (``sdf_fwd_plain``,
 ``sdf_bwd_plain``) that repeats its arithmetic. A wrapper takes the plain
 version only for a tensor on the CPU; for a CUDA tensor it launches the
-kernel or raises. ``LAUNCHES`` counts the kernel launches.
+kernel or raises. ``_build.LAUNCHES`` counts the kernel launches.
 
 The flat parameter layout is that of the reference:
 [cx, cy, cz, radius, ambient, gain, lx, ly, lz, 0 x 7] (N_PARAMS = 16).
@@ -26,21 +26,12 @@ import torch
 from torch import nn
 
 from .. import _build
-from .sdf import SDFScene, scene_from_leaves, scene_leaves
-from .sphere import SphereScene
+from .sdf import SDFScene
+from .sphere import SphereScene, scene_from_leaves, scene_leaves
 
 N_PARAMS = 16
 EPS = 1e-4      # march convergence eps, as hardcoded in the TPU kernel
 T_MAX = 10.0    # march escape distance, likewise
-
-# kernel launches since the last reset_launch_counts(); one entry per
-# CUDA kernel, incremented by its wrapper right after the launch
-LAUNCHES = {"sdf_fwd": 0, "sdf_bwd": 0, "sdf_bwd_reduce": 0}
-
-
-def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def scene_to_vec(scene) -> torch.Tensor:
@@ -52,7 +43,7 @@ def vec_to_scene(v, cls=SphereScene):
     return scene_from_leaves([v[k] for k in range(9)], cls)
 
 
-def _step(n: int, extent: float) -> float:
+def pixel_step(n: int, extent: float) -> float:
     """The pixel pitch 2*extent/(n-1), rounded to f32 as the reference's
     kernel rounds it."""
     return torch.tensor(2.0 * extent / (n - 1), dtype=torch.float32).item()
@@ -62,7 +53,8 @@ def tile_pixels(n: int, extent: float, device):
     """Pixel coordinates of the whole (n, n) image from the integer index,
     ``col * step - extent`` in f32 with an f32 step: x varies along
     columns, y along rows. Matches linspace + meshgrid 'xy' to 1 ulp."""
-    step = torch.tensor(_step(n, extent), dtype=torch.float32, device=device)
+    step = torch.tensor(pixel_step(n, extent), dtype=torch.float32,
+                        device=device)
     ext = torch.tensor(extent, dtype=torch.float32, device=device)
     coords = torch.arange(n, device=device).to(torch.float32) * step - ext
     return coords[None, :].expand(n, n), coords[:, None].expand(n, n)
@@ -171,44 +163,21 @@ def sdf_bwd_plain(params, g, ts, n: int, extent: float = 1.2):
 # ---------------------------------------------------------------------------
 
 
-def _is_cuda(x: torch.Tensor) -> bool:
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"unsupported device {x.device}: cuda, or cpu for the "
-                     "plain version")
-
-
-def _check(x, name, shape, device):
-    if (x.dtype != torch.float32 or tuple(x.shape) != shape
-            or not x.is_contiguous() or x.device != device):
-        raise ValueError(f"{name}: expected a contiguous float32 tensor of "
-                         f"shape {shape} on {device}, got {x.dtype} "
-                         f"{tuple(x.shape)} on {x.device}")
-
-
-def _launched(err: int, kernel: str):
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
-    LAUNCHES[kernel] += 1
-
-
 def sdf_fwd(params, n: int, n_steps: int, extent: float = 1.2):
     """Forward render -> (img, ts): the sdf_fwd kernel for a CUDA tensor,
     the plain version for a CPU one."""
-    if not _is_cuda(params):
+    if not _build.is_cuda(params):
         return sdf_fwd_plain(params, n, n_steps, extent)
-    _check(params, "params", (N_PARAMS,), params.device)
+    _build.check(params, "params", (N_PARAMS,), params.device)
     lib = _build.load("sdf_render")
     img = torch.empty((n, n), dtype=torch.float32, device=params.device)
     ts = torch.empty_like(img)
     with torch.cuda.device(params.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sdf_fwd_launch(params.data_ptr(), img.data_ptr(),
-                                 ts.data_ptr(), n, n_steps, _step(n, extent),
-                                 extent, stream)
-    _launched(err, "sdf_fwd")
+                                 ts.data_ptr(), n, n_steps,
+                                 pixel_step(n, extent), extent, stream)
+    _build.launched(err, "sdf_fwd")
     return img, ts
 
 
@@ -216,12 +185,12 @@ def sdf_bwd(params, g, ts, n: int, extent: float = 1.2):
     """Parameter cotangent dp[16]: the sdf_bwd kernels (per-block partial
     sums, then one fixed-order reduce) for CUDA tensors, the plain version
     for CPU ones."""
-    if not _is_cuda(params):
+    if not _build.is_cuda(params):
         return sdf_bwd_plain(params, g, ts, n, extent)
     dev = params.device
-    _check(params, "params", (N_PARAMS,), dev)
-    _check(g, "g", (n, n), dev)
-    _check(ts, "ts", (n, n), dev)
+    _build.check(params, "params", (N_PARAMS,), dev)
+    _build.check(g, "g", (n, n), dev)
+    _build.check(ts, "ts", (n, n), dev)
     lib = _build.load("sdf_render")
     rows = lib.sdf_bwd_num_blocks(n)
     partial = torch.empty((rows, 9), dtype=torch.float32, device=dev)
@@ -230,11 +199,11 @@ def sdf_bwd(params, g, ts, n: int, extent: float = 1.2):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sdf_bwd_partial_launch(
             params.data_ptr(), g.data_ptr(), ts.data_ptr(),
-            partial.data_ptr(), n, _step(n, extent), extent, stream)
-        _launched(err, "sdf_bwd")
+            partial.data_ptr(), n, pixel_step(n, extent), extent, stream)
+        _build.launched(err, "sdf_bwd")
         err = lib.sdf_bwd_reduce_launch(partial.data_ptr(), rows,
                                         dp.data_ptr(), stream)
-        _launched(err, "sdf_bwd_reduce")
+        _build.launched(err, "sdf_bwd_reduce")
     return dp
 
 

@@ -19,6 +19,7 @@ from enoki_tpu_torch.ops.router import linspace
 from enoki_tpu_torch.render.sdf import SDFScene
 from enoki_tpu_torch.render.sdf_kernels import SDFRender
 from enoki_tpu_torch.render.sphere import SphereScene, pixel_grid
+from enoki_tpu_torch.render.sphere_kernels import SphereRender
 
 PKG = pathlib.Path(enoki_tpu_torch.__file__).parent
 REPO = PKG.parent
@@ -34,7 +35,9 @@ def _imported_modules(path):
 
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 10
+    names = {f.relative_to(PKG).as_posix() for f in files}
+    assert {"render/sphere.py", "render/sphere_kernels.py", "render/io.py",
+            "render/sdf_kernels.py", "interop.py"} <= names
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]
@@ -43,7 +46,7 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, enoki_tpu_torch, enoki_tpu_torch.render, "
-            "enoki_tpu_torch.interop; "
+            "enoki_tpu_torch.render.io, enoki_tpu_torch.interop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'enoki_tpu')]; "
             "assert not bad, bad")
@@ -58,6 +61,9 @@ ENTRY_POINTS = {
     "pixel_grid": lambda: pixel_grid(8).x,
     "linspace": lambda: linspace(-1.0, 1.0, 8),
     "SDFRender": lambda: SDFRender(n=64).params,
+    "SphereRender": lambda: SphereRender(n=64).params,
+    "SphereRender_bf16": lambda: SphereRender(n=64,
+                                              dtype=torch.bfloat16).params,
     "params_from_numpy": lambda: params_from_numpy(np.zeros(16)),
 }
 
@@ -85,3 +91,8 @@ def test_interop_round_trip_is_exact():
     np.testing.assert_array_equal(params_from_numpy(v[:9], "cpu").numpy(), v)
     with pytest.raises(ValueError):
         params_from_numpy(v[:5], "cpu")
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_reference():
+    for mod in _imported_modules(REPO / "chip_smoke.py"):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "enoki_tpu"), mod

@@ -24,10 +24,10 @@ from enoki_tpu.render.pallas_kernels import (
     _sdf_fwd_call, _sdf_vjp_bwd, render_sdf_pallas)
 
 from enoki_tpu_torch import _build
-from enoki_tpu_torch.render import sdf_kernels as K
+from enoki_tpu_torch.render import LAUNCHES, reset_launch_counts
 from enoki_tpu_torch.render.sdf_kernels import (
-    LAUNCHES, SDFRender, march_counts, render_sdf_cuda, sdf_bwd_plain,
-    sdf_fwd, sdf_fwd_plain, tile_pixels)
+    SDFRender, march_counts, render_sdf_cuda, sdf_bwd_plain, sdf_fwd,
+    sdf_fwd_plain, tile_pixels)
 from enoki_tpu_torch.ops.router import linspace
 
 from test_torch_cuda import SCENES, scene_vec as _scene_vec
@@ -148,7 +148,7 @@ def test_render_sdf_cuda_checks_shapes():
 
 
 def test_cpu_path_launches_no_kernel():
-    K.reset_launch_counts()
+    reset_launch_counts()
     p = torch.from_numpy(_scene_vec(None)).requires_grad_(True)
     render_sdf_cuda(p, 64, STEPS, 1.2, 64).sum().backward()
     assert all(v == 0 for v in LAUNCHES.values())
@@ -184,12 +184,15 @@ def test_march_counts_count_the_kernel_loop():
 
 
 def test_cuda_sources_match_their_ctypes_signatures():
-    # the argtypes ctypes declares must have the arity of the C function
-    src = (_build.CSRC_DIR / "sdf_render.cu").read_text()
-    extern = src[src.index('extern "C" {'):]
-    for name, argtypes in _build.SIGNATURES["sdf_render"].items():
-        m = re.search(rf"int {name}\(([^)]*)\)", extern)
-        assert m, name
-        assert len(m.group(1).split(",")) == len(argtypes), name
+    # the argtypes ctypes declares must have the arity of the C function,
+    # for every library
+    assert set(_build.SIGNATURES) == {"sdf_render", "sphere_render"}
+    for lib, signatures in _build.SIGNATURES.items():
+        src = (_build.CSRC_DIR / f"{lib}.cu").read_text()
+        extern = src[src.index('extern "C" {'):]
+        for name, argtypes in signatures.items():
+            m = re.search(rf"int {name}\(([^)]*)\)", extern)
+            assert m, name
+            assert len(m.group(1).split(",")) == len(argtypes), name
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
