@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Chip check of the PyTorch/CUDA port (enoki_tpu_torch) on one GPU.
 
-Drives the port's two render paths through the entry points a user calls,
-on the CUDA card, and holds every kernel of each path against its plain
+Drives the port's render paths through the entry points a user calls, on
+the CUDA card, and holds every kernel of each path against its plain
 PyTorch version. The main path is the differentiable SDF sphere-march
 render at 1024^2 pixels, 64 march steps, f32, and the gradient of its
 mean with respect to the 16-float scene vector; the second is the
 closed-form sphere render of the reference mini-app (tests/sphere.cpp) at
-its full 1024^2, in f32 and bf16 compute, with its gradient.
+its full 1024^2, in f32 and bf16 compute, with its gradient; the third is
+the SDF render with each of its options (the cone prepass, which is the
+reference's default configuration, a bf16 march, the over-relaxed march,
+the two-pass split march, the autodiff-route backward), at the same 1024^2
+and 64 steps.
 
   setup    build the kernels from enoki_tpu_torch/csrc with nvcc, one
            process per source, all at once
@@ -37,6 +41,23 @@ its full 1024^2, in f32 and bf16 compute, with its gradient.
            version, the chained fwd+bwd loop through SphereRender against
            the twin's, and the mini-app's contrast, render_staged
            (separate kernels) against one sphere_fwd launch
+  phase 9  each further sdf_fwd instantiation (start map, bf16 march,
+           over-relaxed march, and their combinations) against
+           sdf_fwd_plain: bit-equality is the aim, a differing pixel count
+           is printed and gated as phase 1 gates flips; bands=8 bit-equal
+           to bands=1; the start map conservative against the closed-form
+           hit distance
+  phase 10 the split render for (split, coarse) in (16,0), (32,0), (16,8):
+           image and ts bit-equal to the one-pass kernel's, the survivors'
+           share, pass 1 and the tail against their plain versions
+  phase 11 sdf_bwd_ad against sdf_bwd_ad_plain and against sdf_bwd, mixed
+           and all-miss scene; two runs must be bitwise equal
+  phase 12 the options' path: SDFRender(coarse=8) trained for a few SGD
+           steps against the plain twin under the head-start gates, then
+           one fwd+bwd step for each other option, each counted; timing of
+           each new kernel alone with its bound and plain version, of the
+           cone prepass, and of the chained fwd+bwd step for the five
+           candidate configurations of bench.py:233-235, interleaved
 
 Run from the root of the repository:  python chip_smoke.py
 Needs one CUDA card; exits non-zero, printing no result, without one or
@@ -84,6 +105,22 @@ BWD_FLOPS_PER_PIXEL = 2    # the hit test and the sum of g into d ambient
 SPHERE_FWD_FLOPS_PER_PIXEL = 56
 SPHERE_BWD_FLOPS_PER_PIXEL = 20
 SPHERE_BWD_FLOPS_PER_HIT = 52
+# ... and of the SDF options (csrc/sdf_render.cu, csrc/sdf_bwd_ad.cu). A
+# bf16 march counts the same operations, against the FP32 rate: the data
+# sheet gives bf16 a rate only inside the tensor cores.
+RELAX_FLOPS_PER_EVAL = 15      # z0+t, u*u, +rxy2, sqrt, -rad, back*stp,
+#                                d<, d>=eps, pos+d, <=tmax, w*d, pos+-, 3 ands
+UNIMODAL_FLOPS_PER_EVAL = 3    # stp>0, d*w, >stp
+CONT_FLOPS_PER_PIXEL = 3       # pass 1's survivor test after the hit test
+# the duals' arithmetic as written (15 products of 31, 14 sums of 11, 2
+# rsqrt of 14, the relu, the contraction), before the compiler drops the
+# derivative slots that are structurally zero
+BWD_AD_FLOPS_PER_HIT = 693
+# the five candidate configurations of bench.py:233-235:
+# (coarse, bands, relax, unimodal, split)
+CANDIDATES = ((0, 1, 1.0, False, 0), (8, 1, 1.0, False, 0),
+              (0, 1, 1.0, False, 16), (0, 1, 1.0, False, 32),
+              (8, 1, 1.0, False, 16))
 
 
 class SmokeFailure(Exception):
@@ -164,6 +201,23 @@ class DeviceTimer:
         return s.elapsed_time(e) / reps
 
 
+def event_ms(torch, fn, reps):
+    """Time per call of ``fn`` between two CUDA events with nothing held
+    back: the larger of its device time and the host's time to enqueue
+    it, which for a plain version of hundreds of eager ops is what a
+    caller waits for."""
+    fn()
+    torch.cuda.synchronize()
+    ev = torch.cuda.Event
+    s, e = ev(enable_timing=True), ev(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
 def chain_ms(torch, step, p0, iters, windows):
     """Per-step time of ``iters`` data-chained steps, ``windows`` times:
     each step's params depend on the previous step's loss and gradient
@@ -235,7 +289,7 @@ def run(torch, dev):
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
-    libs = ("sdf_render", "sphere_render")
+    libs = ("sdf_render", "sdf_bwd_ad", "sphere_render")
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(_build.build, libs))  # one nvcc per source at once
     for name in libs:
@@ -344,7 +398,8 @@ def run(torch, dev):
 
     def kernel_step(p0, p, k):
         p = p.detach().requires_grad_(True)
-        loss = K.render_sdf_cuda(p, N, STEPS, EXTENT, min(128, N)).mean()
+        loss = K.render_sdf_cuda(p, N, STEPS, EXTENT, min(128, N),
+                                 coarse=0).mean()
         (g,) = torch.autograd.grad(loss, p)
         return p0 + (loss.detach() + 1e-12 * g.sum()) * 1e-12 + 1e-6 * k
 
@@ -441,6 +496,7 @@ def run(torch, dev):
              bound_by=bwd_by, **common),
     ]
     kernels += run_sphere(torch, dev, timer, cuda_vec)
+    kernels += run_sdf_options(torch, dev, timer, cuda_vec)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
@@ -664,6 +720,451 @@ def run_sphere(torch, dev, timer, cuda_vec):
              bound_ms=bounds["sphere_bwd"][0],
              bound_by=bounds["sphere_bwd"][1], **common),
     ]
+
+
+def flip_gate(d, what):
+    """The gate of a kernel against its plain version where they are not
+    bit-equal (bench.py:209-212): a hit/miss flip jumps by ~gain; the
+    flips' share stays under 1.5e-3 and every other pixel within 0.05."""
+    flips = d > 1.0
+    share = flips.float().mean().item()
+    off = d[~flips].max().item()
+    ok = share < 1.5e-3 and off < 0.05
+    log(f"{what}: {(d > 0).sum().item()} pixels differ, flip share "
+        f"{share:.3e} < 1.5e-3, off-flip max {off:.3e} < 0.05: "
+        f"{'pass' if ok else 'FAIL'}")
+    check(ok, f"{what}: flip gate")
+
+
+def run_sdf_options(torch, dev, timer, cuda_vec):
+    """Phases 9-12: every option of the SDF render. Returns its kernels'
+    entries of the kernels line."""
+    from enoki_tpu_torch.render import (LAUNCHES, reset_launch_counts,
+                                        sdf_kernels as K)
+    from enoki_tpu_torch.render.sdf import (SDFScene,
+                                            render_sdf_grads_implicit)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    rays = N * N
+    g_rand = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (N, N)).astype(np.float32)).to(dev)
+    err = {}  # max |kernel - plain| by kernel name
+
+    def worst(name, value):
+        err[name] = max(err.get(name, 0.0), value)
+
+    # -- phase 9: the further sdf_fwd instantiations -----------------------
+    variants = (
+        ("start map", dict(cone=True)),
+        ("bf16", dict(dtype=bf16)),
+        ("bf16 + start map", dict(cone=True, dtype=bf16)),
+        ("relax 1.6 + unimodal", dict(relax=1.6, unimodal=True)),
+        ("relax 1.6 + unimodal + start map",
+         dict(cone=True, relax=1.6, unimodal=True)),
+        ("unimodal", dict(unimodal=True)),
+        ("relax 1.2", dict(relax=1.2)),
+        ("bf16 + relax 1.6 + unimodal + start map",
+         dict(cone=True, dtype=bf16, relax=1.6, unimodal=True)),
+    )
+    for seed in SEEDS:
+        p = cuda_vec(seed)
+        t0 = K._cone_t0(p, N, STEPS, EXTENT, 8)
+        # conservative: no start lies past the closed-form first hit of
+        # the sphere along the ray from z = -1 (tests/test_pallas.py:130);
+        # a ray that starts inside the sphere hits at t = 0
+        px, py = K.tile_pixels(N, EXTENT, dev)
+        pd = p.double()
+        r2 = (px.double() - pd[0]) ** 2 + (py.double() - pd[1]) ** 2
+        t_hit = torch.where(
+            r2 < pd[3] ** 2,
+            torch.clamp_min((pd[2] + 1.0) - torch.sqrt(
+                torch.clamp_min(pd[3] ** 2 - r2, 0.0)), 0.0),
+            torch.inf)
+        over = (t0.double() - t_hit).max().item()
+        log(f"phase 9 scene={seed}: start map max(t0 - t_hit) {over:.3e} "
+            f"<= 1e-5: {'pass' if over <= 1e-5 else 'FAIL'}")
+        check(over <= 1e-5, f"cone prepass not conservative (scene {seed})")
+        for label, kw in variants:
+            kw = dict(kw)
+            start = t0 if kw.pop("cone", False) else None
+            name = K.fwd_kernel_name(kw.get("dtype", f32),
+                                     kw.get("relax", 1.0),
+                                     kw.get("unimodal", False))
+            img_k, ts_k = K.sdf_fwd(p, N, STEPS, EXTENT, start, **kw)
+            img_p, ts_p = K.sdf_fwd_plain(p, N, STEPS, EXTENT, start, **kw)
+            torch.cuda.synchronize()
+            check(torch.isfinite(img_k).all().item()
+                  and torch.isfinite(ts_k).all().item(),
+                  f"{name}: non-finite output")
+            d = (img_k - img_p).abs()
+            worst(name, d.max().item())
+            what = f"phase 9 {name} ({label}) scene={seed}"
+            if torch.equal(img_k, img_p) and torch.equal(ts_k, ts_p):
+                log(f"{what}: img and ts bit-equal to plain, hits "
+                    f"{(ts_k >= 0).sum().item()}: pass")
+            else:
+                log(f"{what}: ts differs on "
+                    f"{(ts_k != ts_p).sum().item()} pixels")
+                flip_gate(d, what)
+        pg = p.clone().requires_grad_(True)
+        img1 = K.render_sdf_cuda(pg, N, STEPS, EXTENT, min(64, N), None, 8, 16,
+                                 f32, 1)
+        img8 = K.render_sdf_cuda(pg, N, STEPS, EXTENT, min(64, N), None, 8, 16,
+                                 f32, 8)
+        torch.cuda.synchronize()
+        check(torch.equal(img1, img8), f"bands=8 differs from bands=1 "
+              f"(scene {seed})")
+        log(f"phase 9 scene={seed}: bands=8 bit-equal to bands=1: pass")
+
+    # -- phase 10: the split render -----------------------------------------
+    shares = {}
+    for seed in SEEDS:
+        p = cuda_vec(seed)
+        t0 = K._cone_t0(p, N, STEPS, EXTENT, 8)
+        for split, coarse in ((16, 0), (32, 0), (16, 8)):
+            start = t0 if coarse else None
+            one = K.sdf_fwd(p, N, STEPS, EXTENT, start)
+            two = K.sdf_split(p, N, STEPS, EXTENT, split, start)
+            p1 = K.sdf_fwd_split(p, N, split, EXTENT, start)
+            p1_plain = K.sdf_fwd_split_plain(p, N, split, EXTENT, start)
+            idx = K.survivors(p1[2])
+            tail = K.sdf_tail(p, idx, p1[2], p1[0].clone(), p1[1].clone(),
+                              N, STEPS, split, EXTENT)
+            tail_plain = K.sdf_tail_plain(
+                p, idx, p1_plain[2], p1_plain[0].clone(),
+                p1_plain[1].clone(), N, STEPS, split, EXTENT)[:2]
+            torch.cuda.synchronize()
+            worst("sdf_fwd_split", (p1[0] - p1_plain[0]).abs().max().item())
+            worst("sdf_tail", (tail[0] - tail_plain[0]).abs().max().item())
+            share = idx.numel() / rays
+            if seed is None:
+                shares[(split, coarse)] = share
+            same = all(torch.equal(a, b) for a, b in zip(one, two))
+            p1_ok = all(torch.equal(a, b) for a, b in zip(p1, p1_plain))
+            tail_ok = all(torch.equal(a, b) for a, b in zip(tail, tail_plain))
+            log(f"phase 10 scene={seed} split={split} coarse={coarse}: "
+                f"survivors {idx.numel()} ({share:.4%} of the pixels); img "
+                f"and ts bit-equal to the one-pass kernel: "
+                f"{'pass' if same else 'FAIL'}; pass 1 (img, ts, cont) "
+                f"bit-equal to plain: {'pass' if p1_ok else 'FAIL'}; tail "
+                f"bit-equal to plain: {'pass' if tail_ok else 'FAIL'}")
+            check(same, f"split render differs from one pass (scene {seed}, "
+                  f"split {split}, coarse {coarse})")
+            if not p1_ok:
+                flip_gate((p1[0] - p1_plain[0]).abs(), "phase 10 pass 1")
+            if not tail_ok:
+                flip_gate((tail[0] - tail_plain[0]).abs(), "phase 10 tail")
+
+    # -- phase 11: sdf_bwd_ad against both routes, determinism -------------
+    for seed in SEEDS:
+        for shift in (0.0, 10.0):  # mixed scene / all-miss scene
+            p = cuda_vec(seed)
+            p[0] += shift
+            _, ts = K.sdf_fwd(p, N, STEPS, EXTENT)
+            dp1 = K.sdf_bwd(p, g_rand, ts, N, EXTENT, kernel="ad")
+            dp2 = K.sdf_bwd(p, g_rand, ts, N, EXTENT, kernel="ad")
+            refs = {"sdf_bwd": K.sdf_bwd(p, g_rand, ts, N, EXTENT),
+                    "plain": K.sdf_bwd_ad_plain(p, g_rand, ts, N, EXTENT)}
+            torch.cuda.synchronize()
+            check(torch.equal(dp1, dp2), "sdf_bwd_ad: two runs differ")
+            for which, ref in refs.items():
+                scale = max(1.0, ref.abs().max().item())
+                e = (dp1 - ref).abs()
+                if which == "plain":
+                    worst("sdf_bwd_ad", e.max().item())
+                ok = bool((e <= 2e-4 * scale + 2e-4 * ref.abs()).all().item())
+                log(f"phase 11 sdf_bwd_ad scene={seed} shift={shift}: "
+                    f"max|dp-{which}| {e.max().item():.3e} (scale "
+                    f"{scale:.3e}), bitwise deterministic: yes; gate rtol "
+                    f"2e-4 atol 2e-4*scale: {'pass' if ok else 'FAIL'}")
+                check(ok, f"sdf_bwd_ad vs {which} (scene {seed}, shift "
+                      f"{shift}): {e.tolist()}")
+
+    # -- phase 12: the options' path, counted -------------------------------
+    launches = {}
+
+    def count(name, value):
+        launches[name] = launches.get(name, 0) + value
+
+    def twin(params):
+        img_x, g_x = render_sdf_grads_implicit(
+            K.vec_to_scene(params.detach(), SDFScene), N, STEPS)
+        return img_x.reshape(N, N), K.scene_to_vec(g_x)[:9]
+
+    def significant_rel(g, ref):
+        sig = ref.abs() > 1e-3 * ref.abs().max()
+        return ((g - ref).abs()[sig] / ref.abs()[sig]).max().item()
+
+    model = K.SDFRender(cuda_vec(None), n=N, n_steps=STEPS, extent=EXTENT,
+                        coarse=8)
+    opt = torch.optim.SGD(model.parameters(), lr=LR)
+    reset_launch_counts()
+    for step in range(TRAIN_STEPS):
+        opt.zero_grad()
+        img = model()
+        loss = img.mean()
+        loss.backward()
+        grad = model.params.grad.detach().clone()[:9]
+        img_x, gx = twin(model.params)
+        torch.cuda.synchronize()
+        check(img.shape == (N, N) and torch.isfinite(img).all().item()
+              and torch.isfinite(grad).all().item(), "non-finite output")
+        # head-start gates (tests/test_pallas.py:94-111, :168-169). A
+        # flip is a hit/miss disagreement; the reference reads it off the
+        # image as |d| > 1, which at this size misses the few flips whose
+        # lit side is dim (n . l ~ 0 at two points of the silhouette), so
+        # a pixel lit in one image and at exactly ambient in the other
+        # counts as a flip too
+        amb = model.params.detach()[4]
+        d = (img.detach() - img_x).abs()
+        flips = (d > 1.0) | ((img.detach() == amb) != (img_x == amb))
+        share = flips.float().mean().item()
+        off_max, off_mean = d[~flips].max().item(), d[~flips].mean().item()
+        tol = 2e-3 * max(1.0, gx.abs().max().item())
+        i_ok = share < 1e-3 and off_max < 0.05 and off_mean < 5e-3
+        g_ok = bool(torch.allclose(grad, gx, rtol=5e-2, atol=tol))
+        log(f"phase 12 SDFRender(coarse=8) step {step}: loss "
+            f"{loss.item():.7g} (twin {img_x.mean().item():.7g}); flip "
+            f"share {share:.3e} < 1e-3, off-flip max {off_max:.3e} < 0.05, "
+            f"mean {off_mean:.3e} < 5e-3: {'pass' if i_ok else 'FAIL'}; "
+            f"max|grad-twin| {(grad - gx).abs().max().item():.3e} (rtol "
+            f"5e-2, atol {tol:.3e}): {'pass' if g_ok else 'FAIL'}")
+        check(i_ok and g_ok, f"SDFRender(coarse=8) vs twin at step {step}")
+        opt.step()
+    got = dict(LAUNCHES)
+    log(f"phase 12 SDFRender(coarse=8) launches over {TRAIN_STEPS} steps: "
+        f"{got}")
+    check(got == {k: TRAIN_STEPS for k in
+                  ("sdf_fwd", "sdf_bwd", "sdf_bwd_reduce")},
+          f"expected one launch of each kernel per step, got {got}")
+
+    # one fwd+bwd step of each other option at the reference scene, against
+    # the plain configuration's step
+    p_ref = cuda_vec(None)
+    base = K.SDFRender(p_ref, n=N, n_steps=STEPS, extent=EXTENT)
+    img0 = base()
+    img0.mean().backward()
+    g0 = base.params.grad[:9].clone()
+    img0 = img0.detach()
+    others = (
+        ("bf16", dict(dtype=bf16), {"sdf_fwd_bf16": 1, "sdf_bwd": 1}),
+        ("relax 1.6 + unimodal", dict(relax=1.6, unimodal=True),
+         {"sdf_fwd_relax": 1, "sdf_bwd": 1}),
+        ("bf16 + relax 1.6 + unimodal",
+         dict(dtype=bf16, relax=1.6, unimodal=True),
+         {"sdf_fwd_relax_bf16": 1, "sdf_bwd": 1}),
+        ("split 16", dict(split=16),
+         {"sdf_fwd_split": 1, "sdf_tail": 1, "sdf_bwd": 1}),
+        ('bwd_kernel="ad"', dict(bwd_kernel="ad"),
+         {"sdf_fwd": 1, "sdf_bwd_ad": 1}),
+    )
+    for label, kw, want in others:
+        m = K.SDFRender(p_ref, n=N, n_steps=STEPS, extent=EXTENT, **kw)
+        reset_launch_counts()
+        img = m()
+        img.mean().backward()
+        torch.cuda.synchronize()
+        got = dict(LAUNCHES)
+        for k, v in got.items():
+            count(k, v)
+        g = m.params.grad[:9]
+        check(torch.isfinite(img).all().item()
+              and torch.isfinite(g).all().item(), f"{label}: non-finite")
+        check(got == {**want, "sdf_bwd_reduce": 1},
+              f"{label}: expected {want} + the reduce, got {got}")
+        d = (img.detach() - img0).abs()
+        band = d > 1.0
+        share = band.float().mean().item()
+        off_mean = d[~band].mean().item()
+        if kw.get("dtype") == bf16:
+            # the bf16 policy (tests/test_pallas.py:188-218)
+            rel = significant_rel(g, g0)
+            ok = share < 0.10 and off_mean < 2e-3 and rel < 0.5
+            gate = (f"band share {share:.3e} < 0.10, off-band mean "
+                    f"{off_mean:.3e} < 2e-3, significant gradients within "
+                    f"{rel:.3f} < 0.5 of f32's")
+        elif "relax" in kw:
+            # relaxed against plain (tests/test_pallas.py:451-477)
+            rel = significant_rel(g, g0)
+            ok = share < 0.01 and off_mean < 1e-3 and rel < 0.5
+            gate = (f"flip share {share:.3e} < 0.01, off-flip mean "
+                    f"{off_mean:.3e} < 1e-3, significant gradients within "
+                    f"{rel:.3f} < 0.5 of plain's")
+        elif "split" in kw:
+            ok = torch.equal(img.detach(), img0) and torch.equal(g, g0)
+            gate = "image and gradient bit-equal to the one-pass step's"
+        else:
+            tol = 2e-4 * max(1.0, g0.abs().max().item())
+            ok = (torch.equal(img.detach(), img0)
+                  and bool(torch.allclose(g, g0, rtol=2e-4, atol=tol)))
+            gate = (f"image bit-equal, max|grad - analytic| "
+                    f"{(g - g0).abs().max().item():.3e} (rtol 2e-4, atol "
+                    f"{tol:.3e})")
+        log(f"phase 12 one step, {label}: loss {img.mean().item():.7g} "
+            f"(plain {img0.mean().item():.7g}), launches {got}; gate: "
+            f"{gate}: {'pass' if ok else 'FAIL'}")
+        check(ok, f"one step with {label}: {gate}")
+
+    # -- phase 12: timing -----------------------------------------------------
+    g_mean = torch.full((N, N), 1.0 / rays, device=dev)
+    t0 = K._cone_t0(p_ref, N, STEPS, EXTENT, 8)
+    _, ts_ref = K.sdf_fwd(p_ref, N, STEPS, EXTENT)
+    hits = int((ts_ref >= 0).sum().item())
+    relax_kw = dict(relax=1.6, unimodal=True)
+
+    def fwd_bound(nbytes, evals, adv, per_eval, per_adv, extra=0):
+        return bound(nbytes, per_eval * evals + per_adv * adv
+                     + (FWD_FLOPS_PER_PIXEL + extra) * rays
+                     + FWD_FLOPS_PER_HIT * hits)
+
+    def counts(n_steps=STEPS, **kw):
+        return tuple(int(c.sum().item()) for c in
+                     K.march_counts(p_ref, N, n_steps, EXTENT, **kw))
+
+    relax_flops = RELAX_FLOPS_PER_EVAL + UNIMODAL_FLOPS_PER_EVAL
+    p1 = K.sdf_fwd_split(p_ref, N, 16, EXTENT)
+    idx = K.survivors(p1[2])
+    tail_adv = K.sdf_tail_plain(p_ref, idx, p1[2], p1[0].clone(),
+                                p1[1].clone(), N, STEPS, 16, EXTENT)[2]
+    tail_adv_n = int(tail_adv.sum().item())
+    # a survivor's evaluations: one per advance, the one that found it
+    # frozen unless it ran to the cap, and the final hit test
+    tail_evals = int((torch.clamp_max(tail_adv + 1, STEPS - 16) + 1).sum()
+                     .item())
+    tail_hits = int((ts_ref.view(-1)[idx] >= 0).sum().item())
+    k = idx.numel()
+
+    def tail_call():
+        return K.sdf_tail(p_ref, idx, p1[2], p1[0], p1[1], N, STEPS, 16,
+                          EXTENT)
+
+    # name -> (kernel call, plain call, (bound ms, by)); each kernel at the
+    # configuration phase 12's steps ran it in
+    work = {
+        "sdf_fwd_bf16": (
+            lambda: K.sdf_fwd(p_ref, N, STEPS, EXTENT, None, bf16),
+            lambda: K.sdf_fwd_plain(p_ref, N, STEPS, EXTENT, None, bf16),
+            fwd_bound(8 * rays + 64, *counts(dtype=bf16),
+                      FWD_FLOPS_PER_EVAL, FWD_FLOPS_PER_ADVANCE)),
+        "sdf_fwd_relax": (
+            lambda: K.sdf_fwd(p_ref, N, STEPS, EXTENT, None, f32, 1.6, True),
+            lambda: K.sdf_fwd_plain(p_ref, N, STEPS, EXTENT, None, f32, 1.6,
+                                    True),
+            fwd_bound(8 * rays + 64, *counts(**relax_kw), relax_flops, 0)),
+        "sdf_fwd_relax_bf16": (
+            lambda: K.sdf_fwd(p_ref, N, STEPS, EXTENT, None, bf16, 1.6, True),
+            lambda: K.sdf_fwd_plain(p_ref, N, STEPS, EXTENT, None, bf16, 1.6,
+                                    True),
+            fwd_bound(8 * rays + 64, *counts(dtype=bf16, **relax_kw),
+                      relax_flops, 0)),
+        "sdf_fwd_split": (
+            lambda: K.sdf_fwd_split(p_ref, N, 16, EXTENT),
+            lambda: K.sdf_fwd_split_plain(p_ref, N, 16, EXTENT),
+            fwd_bound(12 * rays + 64, *counts(16), FWD_FLOPS_PER_EVAL,
+                      FWD_FLOPS_PER_ADVANCE, CONT_FLOPS_PER_PIXEL)),
+        # reads idx (8 B) and cont (4 B), writes img and ts, per survivor
+        "sdf_tail": (
+            tail_call,
+            lambda: K.sdf_tail_plain(p_ref, idx, p1[2], p1[0], p1[1], N,
+                                     STEPS, 16, EXTENT),
+            bound(20 * k + 64, FWD_FLOPS_PER_EVAL * tail_evals
+                  + FWD_FLOPS_PER_ADVANCE * tail_adv_n
+                  + FWD_FLOPS_PER_PIXEL * k + FWD_FLOPS_PER_HIT * tail_hits)),
+        "sdf_bwd_ad": (
+            lambda: K.sdf_bwd(p_ref, g_mean, ts_ref, N, EXTENT, kernel="ad"),
+            lambda: K.sdf_bwd_ad_plain(p_ref, g_mean, ts_ref, N, EXTENT),
+            bound(8 * rays + 64 + 64, BWD_AD_FLOPS_PER_HIT * hits
+                  + BWD_FLOPS_PER_PIXEL * rays)),
+    }
+    ms = {name: timer(fn, 200) for name, (fn, _, _) in work.items()}
+    plain_ms = {name: event_ms(torch, fn, 3)
+                for name, (_, fn, _) in work.items()}
+    for name, (_, _, (b_ms, b_by)) in work.items():
+        log(f"phase 12 {name} {ms[name]:.5f} ms (plain "
+            f"{plain_ms[name]:.4f} ms, bound {b_ms:.5f} ms by {b_by}); "
+            f"library call: none computes this function")
+    # the main kernel again with the start map, beside its plain march
+    ev0, adv0 = counts()
+    ev8, adv8 = counts(t0=t0)
+    fwd0_ms = timer(lambda: K.sdf_fwd(p_ref, N, STEPS, EXTENT), 200)
+    fwd8_ms = timer(lambda: K.sdf_fwd(p_ref, N, STEPS, EXTENT, t0), 200)
+    b8 = fwd_bound(12 * rays + 64, ev8, adv8, FWD_FLOPS_PER_EVAL,
+                   FWD_FLOPS_PER_ADVANCE)
+    log(f"phase 12 sdf_fwd with the coarse=8 start map {fwd8_ms:.5f} ms "
+        f"(bound {b8[0]:.5f} ms by {b8[1]}; {ev8 / rays:.3f} distance "
+        f"evaluations per pixel) against {fwd0_ms:.5f} ms without "
+        f"({ev0 / rays:.3f} per pixel)")
+    log(f"phase 12 work: split 16 leaves {k} survivors "
+        f"({k / rays:.4%}), {tail_evals / max(k, 1):.2f} evaluations each "
+        f"in the tail; survivor shares at the reference scene "
+        + ", ".join(f"split {s} coarse {c}: {v:.4%}"
+                    for (s, c), v in shares.items())
+        + f"; relaxed march {counts(**relax_kw)[0] / rays:.3f} evaluations "
+        f"per pixel, bf16 march {counts(dtype=bf16)[0] / rays:.3f}")
+
+    # the cone prepass: eager ops on a (N/8)^2 array, device and wall time
+    cone_dev_ms = timer(lambda: K._cone_t0(p_ref, N, STEPS, EXTENT, 8), 10,
+                        hold_ms=1000.0)
+    wall = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        K._cone_t0(p_ref, N, STEPS, EXTENT, 8)
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t_start))
+    cone_wall_ms, cone_spread = robust(wall)
+    log(f"phase 12 cone prepass (coarse=8, {STEPS} steps of eager ops on "
+        f"{N // 8}^2 rays): device {cone_dev_ms:.4f} ms "
+        f"({cone_dev_ms / STEPS:.5f} ms per step), wall "
+        f"{cone_wall_ms:.3f} ms ({cone_wall_ms / STEPS:.4f} ms per step, "
+        f"spread {cone_spread:.2%})")
+
+    # the chained fwd+bwd step of the five candidates, interleaved:
+    # forwards through the list, then backwards
+    def make_step(cfg):
+        coarse, bands, relax, unimodal, split = cfg
+
+        def step(p0, p, k_):
+            p = p.detach().requires_grad_(True)
+            loss = K.render_sdf_cuda(p, N, STEPS, EXTENT, min(128, N), None,
+                                     coarse, 16, f32, bands, relax, unimodal,
+                                     split).mean()
+            (g,) = torch.autograd.grad(loss, p)
+            return p0 + (loss.detach() + 1e-12 * g.sum()) * 1e-12 + 1e-6 * k_
+        return step
+
+    samples = {cfg: [] for cfg in CANDIDATES}
+    for cfg in CANDIDATES + CANDIDATES[::-1]:
+        iters, windows = (20, 3) if cfg[0] else (100, 5)
+        samples[cfg].append(chain_ms(torch, make_step(cfg), p_ref, iters,
+                                     windows))
+    best = min(CANDIDATES, key=lambda c: min(t for t, _ in samples[c]))
+    for cfg in CANDIDATES:
+        (t1, s1), (t2, s2) = samples[cfg]
+        log(f"phase 12 chained fwd+bwd step, (coarse, bands, relax, "
+            f"unimodal, split) = {cfg}: {t1:.4f} / {t2:.4f} ms (spread "
+            f"{s1:.2%} / {s2:.2%}), {rays / (min(t1, t2) * 1e-3):.4g} rays/s"
+            + ("  <- fastest on this card in this call" if cfg == best
+               else ""))
+
+    idle = [name for name in work if launches.get(name, 0) < 1]
+    check(not idle, f"kernels never launched on the options' path: {idle}")
+    replaces = {
+        "sdf_fwd_bf16": "enoki_tpu/render/pallas_kernels.py:504",
+        "sdf_fwd_relax": "enoki_tpu/render/pallas_kernels.py:504",
+        "sdf_fwd_relax_bf16": "enoki_tpu/render/pallas_kernels.py:504",
+        "sdf_fwd_split": "enoki_tpu/render/pallas_kernels.py:607",
+        "sdf_tail": "enoki_tpu/render/pallas_kernels.py:666",
+        "sdf_bwd_ad": "enoki_tpu/render/pallas_kernels.py:869",
+    }
+    return [dict(name=name, route="cuda",
+                 source="enoki_tpu_torch/csrc/" + (
+                     "sdf_bwd_ad.cu" if name == "sdf_bwd_ad"
+                     else "sdf_render.cu"),
+                 replaces=replaces[name], launches=launches.get(name, 0),
+                 max_abs_err=err[name], ms=ms[name], plain_ms=plain_ms[name],
+                 bound_ms=work[name][2][0], bound_by=work[name][2][1],
+                 library_ms=None) for name in work]
 
 
 if __name__ == "__main__":

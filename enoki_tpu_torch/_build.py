@@ -81,16 +81,24 @@ def build(name: str) -> Path:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 _F = ctypes.c_float
 
 # argument types of every C entry point, by library; pointers and the
 # stream are c_void_p (a bare Python int would be cut to 32 bits)
 SIGNATURES = {
     "sdf_render": {
-        "sdf_fwd_launch": (_P, _P, _P, _I, _I, _F, _F, _P),
+        "sdf_fwd_launch": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _P),
+        "sdf_fwd_relax_launch": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _F, _F,
+                                 _I, _P),
+        "sdf_fwd_split_launch": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
+        "sdf_tail_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _P),
         "sdf_bwd_num_blocks": (_I,),
         "sdf_bwd_partial_launch": (_P, _P, _P, _P, _I, _F, _F, _P),
         "sdf_bwd_reduce_launch": (_P, _I, _P, _P),
+    },
+    "sdf_bwd_ad": {
+        "sdf_bwd_ad_partial_launch": (_P, _P, _P, _P, _I, _F, _F, _P),
     },
     "sphere_render": {
         "sphere_fwd_launch": (_P, _P, _I, _F, _F, _P),

@@ -18,61 +18,9 @@
 // written, and c = dot3(oc, oc) - r*r in the order (xx + yy) + zz, since
 // any other order moves silhouette pixels between hit and miss.
 
-#include <cuda_bf16.h>
-
 #include "common.cuh"
 
 namespace {
-
-// Arithmetic in the compute type T, each op rounded on its own with no
-// contraction into an FMA, as PyTorch's eager ops round them. f32: the
-// _rn intrinsics. bf16: Hopper's native bf16 add/sub/mul, rounded to the
-// nearest bf16 (ties to even); PyTorch computes a bf16 op in f32 and
-// rounds the result to bf16, and for + - * that double rounding equals
-// one bf16 rounding (f32 carries more than 2 * 8 + 2 bits), so the two
-// agree bit for bit. Conversions are left only where the reference casts.
-template <typename T>
-struct Ops;
-
-template <>
-struct Ops<float> {
-  __device__ __forceinline__ static float mul(float a, float b) {
-    return __fmul_rn(a, b);
-  }
-  __device__ __forceinline__ static float add(float a, float b) {
-    return __fadd_rn(a, b);
-  }
-  __device__ __forceinline__ static float sub(float a, float b) {
-    return __fsub_rn(a, b);
-  }
-  __device__ __forceinline__ static float of(float x) { return x; }
-  __device__ __forceinline__ static float f32(float x) { return x; }
-};
-
-template <>
-struct Ops<__nv_bfloat16> {
-  using V = __nv_bfloat16;
-  __device__ __forceinline__ static V mul(V a, V b) {
-    return __hmul_rn(a, b);
-  }
-  __device__ __forceinline__ static V add(V a, V b) {
-    return __hadd_rn(a, b);
-  }
-  __device__ __forceinline__ static V sub(V a, V b) {
-    return __hsub_rn(a, b);
-  }
-  __device__ __forceinline__ static V of(float x) {
-    return __float2bfloat16_rn(x);
-  }
-  __device__ __forceinline__ static float f32(V x) {
-    return __bfloat162float(x);
-  }
-};
-
-template <typename O, typename V>
-__device__ __forceinline__ V tdot3(V ax, V ay, V az, V bx, V by, V bz) {
-  return O::add(O::add(O::mul(ax, bx), O::mul(ay, by)), O::mul(az, bz));
-}
 
 // ---------------------------------------------------------------------------
 // sphere_fwd -- replaces _sphere_fwd_kernel

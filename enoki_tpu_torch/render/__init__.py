@@ -15,8 +15,10 @@ from .sdf import (  # noqa: F401
 )
 from .._build import LAUNCHES, reset_launch_counts  # noqa: F401
 from .sdf_kernels import (  # noqa: F401
-    N_PARAMS, scene_to_vec, vec_to_scene, tile_pixels, sdf_fwd_plain,
-    sdf_bwd_plain, sdf_fwd, sdf_bwd, render_sdf_cuda, SDFRender,
+    N_PARAMS, scene_to_vec, vec_to_scene, tile_pixels, march_tile, cone_t0,
+    sdf_fwd_plain, sdf_fwd_split_plain, sdf_tail_plain, sdf_split_plain,
+    sdf_bwd_plain, sdf_bwd_ad_plain, sdf_fwd, sdf_fwd_split, sdf_tail,
+    sdf_split, sdf_bwd, render_sdf_cuda, SDFRender,
 )
 from .sphere_kernels import (  # noqa: F401
     sphere_fwd_plain, sphere_bwd_plain, sphere_fwd, sphere_bwd,

@@ -1,23 +1,36 @@
-"""SDF render kernels for the GPU: forward march and analytic backward.
+"""SDF render kernels for the GPU: the forward march in every option of
+the reference (a cone-prepass start map, an f32 or bf16 march, the plain
+or the over-relaxed march, the two-pass split march) and the backward by
+two routes (closed form, and forward-mode dual numbers).
 
-Counterpart of enoki_tpu/render/pallas_kernels.py (its SDF forward
-``_sdf_fwd_kernel``, plain f32 branch, and ``_sdf_bwd_kernel_analytic``).
-The module has another name because nothing here is Pallas: the kernels
-are CUDA C++ in ``enoki_tpu_torch/csrc/sdf_render.cu``, built with nvcc on
-first use (``enoki_tpu_torch._build``).
+Counterpart of the SDF half of enoki_tpu/render/pallas_kernels.py
+(``_march_tile``, ``_march_sphere_tile``, ``cone_t0``, ``_sdf_fwd_kernel``,
+``_sdf_fwd_kernel_split``, ``_sdf_tail_kernel``,
+``_sdf_bwd_kernel_analytic``, ``_sdf_bwd_kernel_ad``,
+``render_sdf_pallas``). The module has another name because nothing here
+is Pallas: the kernels are CUDA C++ in ``enoki_tpu_torch/csrc/
+sdf_render.cu`` and ``sdf_bwd_ad.cu``, built with nvcc on first use
+(``enoki_tpu_torch._build``).
 
 Each kernel has a plain PyTorch version beside it (``sdf_fwd_plain``,
-``sdf_bwd_plain``) that repeats its arithmetic. A wrapper takes the plain
-version only for a tensor on the CPU; for a CUDA tensor it launches the
-kernel or raises. ``_build.LAUNCHES`` counts the kernel launches.
+``sdf_fwd_split_plain``, ``sdf_tail_plain``, ``sdf_bwd_plain``,
+``sdf_bwd_ad_plain``) that repeats its arithmetic. A wrapper takes the
+plain version only for a tensor on the CPU; for a CUDA tensor it launches
+the kernel or raises. ``_build.LAUNCHES`` counts the kernel launches, by
+kernel: ``sdf_fwd``, ``sdf_fwd_bf16``, ``sdf_fwd_relax``,
+``sdf_fwd_relax_bf16``, ``sdf_fwd_split``, ``sdf_tail``, ``sdf_bwd``,
+``sdf_bwd_ad`` and ``sdf_bwd_reduce``.
+
+The cone prepass (``cone_t0``) and the generic march engine
+(``march_tile``) are plain PyTorch, as they are plain jnp in the
+reference.
 
 The flat parameter layout is that of the reference:
 [cx, cy, cz, radius, ambient, gain, lx, ly, lz, 0 x 7] (N_PARAMS = 16).
 
-``render_sdf_cuda`` keeps ``render_sdf_pallas``'s parameters in order, but
-only the plain configuration is ported. Its ``coarse`` defaults to 0 (no
-cone prepass), where the reference defaults to 8: the prepass is not
-ported yet, and 0 is the configuration the benchmark runs.
+``render_sdf_cuda`` has ``render_sdf_pallas``'s parameters, order and
+defaults (so ``coarse=8``: the cone prepass is on unless it is turned
+off), and refuses the compositions the reference refuses.
 """
 
 from __future__ import annotations
@@ -26,12 +39,19 @@ import torch
 from torch import nn
 
 from .. import _build
-from .sdf import SDFScene
+from .._device import resolve_device
+from ..ops.router import safe_sqrt
+from .implicit import implicit_t_vjp
+from .sdf import SDFScene, sdf, sdf_ortho_dist
 from .sphere import SphereScene, scene_from_leaves, scene_leaves
+from .vec import Vec3
 
 N_PARAMS = 16
-EPS = 1e-4      # march convergence eps, as hardcoded in the TPU kernel
+EPS = 1e-4      # f32 march convergence eps, as hardcoded in the TPU kernel
 T_MAX = 10.0    # march escape distance, likewise
+CONT_FROZEN = -1e9   # pass 1's ``cont`` for a lane that froze before the cap
+MARCH_DTYPES = (torch.float32, torch.bfloat16)
+BWD_KERNELS = ("analytic", "ad")
 
 
 def scene_to_vec(scene) -> torch.Tensor:
@@ -60,43 +80,180 @@ def tile_pixels(n: int, extent: float, device):
     return coords[None, :].expand(n, n), coords[:, None].expand(n, n)
 
 
-def _march_z(rxy2, z0, rad, n_steps: int):
-    """The z-carry march of _march_sphere_tile, masked over every lane:
-    returns (z, hit, advances per lane). A lane advances while
-    |p-c| >= rad + eps and z + |p-c| <= t_max + z0 + rad, and never at
-    step n_steps - 1."""
-    s_hit = rad + EPS
-    esc = T_MAX + z0 + rad
-    z = torch.zeros_like(rxy2) + z0
+def march_eps(dtype) -> float:
+    """Convergence eps of a march in ``dtype``: 1e-4 in f32, 2 ulp in
+    bf16, whose spacing at t ~ 1 (3.9e-3) the f32 eps could never reach."""
+    return EPS if dtype == torch.float32 else 2.0 * torch.finfo(dtype).eps
+
+
+def _const(v, like):
+    """A Python scalar as a 0-dim tensor of ``like``'s dtype and device.
+    Every scalar that meets a march tensor goes through here: as a bare
+    Python number PyTorch's CUDA ops would take it in f32 against a bf16
+    tensor, where the reference (and the kernel) round it to bf16 first."""
+    return torch.tensor(v, dtype=like.dtype, device=like.device)
+
+
+def _sqrt(x):
+    """sqrt in f32, correctly rounded, then rounded once to ``x``'s dtype
+    (what CUDA's sqrt and the kernels' __fsqrt_rn give; PyTorch's CPU f32
+    sqrt is 1 ulp off on ~0.6% of inputs)."""
+    return safe_sqrt(x.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Plain march engines
+# ---------------------------------------------------------------------------
+
+
+def _relax_step(dist_at, pos, stp, last, eps, t_max, w, back, unimodal):
+    """One over-relaxed sphere-trace step (``_relax_step`` of the
+    reference): returns (new_pos, new_stp, alive | over). ``last`` is
+    whether this is step n_steps - 1, where no lane advances."""
+    d = dist_at(pos)
+    zero = torch.zeros_like(pos)
+    back_stp = back * stp
+    over = d < back_stp
+    alive = (d >= eps) & (pos + d <= t_max)
+    if unimodal:
+        diverged = (~over) & (stp > zero) & (d >= eps) & (d * w > stp)
+        alive = alive & ~diverged
+    adv = alive & ~over & (not last)
+    new_stp = torch.where(adv, w * d, zero)
+    # revert (overlap failed) to the plain-step position pos - stp +
+    # stp/relax; advance otherwise; frozen lanes add 0
+    new_pos = torch.where(over, pos - back_stp, pos + new_stp)
+    if unimodal:
+        new_pos = torch.where(diverged, t_max, new_pos)
+    return new_pos, new_stp, alive | over
+
+
+def _march_relaxed(dist_at, t, n_steps, eps, t_max, relax, unimodal):
+    """The (pos, stp) march of ``_march_tile``: returns (pos, hit, steps),
+    ``steps`` counting per lane the steps up to and including the first
+    one that found it frozen (what a thread of the kernel executes)."""
+    w = _const(relax, t)
+    back = _const(1.0 - 1.0 / relax, t)
+    eps, t_max = _const(eps, t), _const(t_max, t)
+    pos, stp = t, torch.zeros_like(t)
+    going = torch.ones_like(t, dtype=torch.bool)
+    steps = torch.zeros_like(t, dtype=torch.int32)
+    for k in range(n_steps):
+        steps += going
+        pos, stp, go = _relax_step(dist_at, pos, stp, k == n_steps - 1, eps,
+                                   t_max, w, back, unimodal)
+        going = going & go
+    return pos, dist_at(pos) < eps, steps
+
+
+def march_tile(dist_at, like, n_steps: int, eps: float = 1e-4,
+               t_max: float = 10.0, chunk: int = 16, t0=None,
+               relax: float = 1.0, unimodal: bool = False):
+    """Sphere-trace every lane of ``like``'s shape and dtype: the
+    reference's ``_march_tile`` -> (t, hit).
+
+    ``dist_at(t) -> distance`` evaluates the scene SDF at parameter ``t``
+    along each lane's ray; ``t0`` optionally starts each lane at a
+    proven-safe parameter (``cone_t0``). ``relax > 1`` over-relaxes each
+    advance with the overlap test and its revert; ``unimodal`` freezes a
+    lane whose distance grew after a proven-safe step as a miss. With
+    ``relax == 1 and not unimodal`` the carry is ``t`` alone.
+
+    Masked over all lanes with no early exit: a frozen lane never
+    advances, so the reference's chunked tile-level exit changes no value
+    and ``chunk`` is accepted and ignored.
+    """
+    t = torch.zeros_like(like) if t0 is None else t0
+    if relax != 1.0 or unimodal:
+        pos, hit, _ = _march_relaxed(dist_at, t, n_steps, eps, t_max, relax,
+                                     unimodal)
+        return pos, hit
+    eps, t_max = _const(eps, t), _const(t_max, t)
+    for _ in range(n_steps - 1):  # the advance at step n_steps - 1 is masked
+        d = dist_at(t)
+        alive = (d >= eps) & (t + d <= t_max)
+        t = torch.where(alive, t + d, t)
+    return t, dist_at(t) < eps
+
+
+def _dist_len(rxy2, z):
+    x = rxy2 + z * z
+    return x * torch.rsqrt(x)
+
+
+def _march_z(rxy2, z0, rad, n_steps: int, eps: float = EPS, t0=None,
+             z_init=None):
+    """The z-carry march of _march_sphere_tile in ``rxy2``'s dtype, masked
+    over every lane: returns (z, hit, advances per lane, alive), ``alive``
+    being the lanes that would still advance at the final z. A lane
+    advances while |p-c| >= rad + eps and z + |p-c| <= t_max + z0 + rad,
+    and never at step n_steps - 1. It starts at ``z_init`` or z0 + t0."""
+    eps = _const(eps, rxy2)
+    s_hit = rad + eps
+    esc = _const(T_MAX, rxy2) + z0 + rad
+    if z_init is not None:
+        z = z_init
+    else:
+        z = z0 + (torch.zeros_like(rxy2) if t0 is None else t0)
     adv = torch.zeros_like(rxy2, dtype=torch.int32)
     for _ in range(n_steps - 1):
-        x = rxy2 + z * z
-        s = x * torch.rsqrt(x)
+        s = _dist_len(rxy2, z)
         alive = (s >= s_hit) & (z + s <= esc)
         z = torch.where(alive, z + (s - rad), z)
         adv += alive
-    x = rxy2 + z * z
-    hit = (x * torch.rsqrt(x) - rad) < EPS
-    return z, hit, adv
+    s = _dist_len(rxy2, z)
+    return z, (s - rad) < eps, adv, (s >= s_hit) & (z + s <= esc)
 
 
-def _ray_parts(params, n, extent):
-    cx, cy, cz = params[0], params[1], params[2]
-    px, py = tile_pixels(n, extent, params.device)
-    dx = px - cx
-    dy = py - cy
-    return dx, dy, dx * dx + dy * dy + 1e-12, -1.0 - cz
+def _march_parts(params, px, py, dtype):
+    """(rxy2, z0, rad) of sdf_ortho_parts in the march dtype: the scene
+    scalars and the pixel coordinates are cast, and each Python scalar of
+    the reference rounds to the dtype on its own."""
+    pm = params.to(dtype)
+    dx = px.to(dtype) - pm[0]
+    dy = py.to(dtype) - pm[1]
+    rxy2 = dx * dx + dy * dy + _const(1e-12, dx)
+    return rxy2, _const(-1.0, dx) - pm[2], pm[3]
 
 
-def sdf_fwd_plain(params, n: int, n_steps: int, extent: float = 1.2):
-    """Plain version of the sdf_fwd kernel -> (img, ts), each (n, n) f32.
-    ts = t on a hit and -t-1 on a miss."""
-    rad, amb, gain = params[3], params[4], params[5]
+def _march_t0(t0, dtype):
+    """The start map in the march dtype. A bf16 march scales it down by
+    one ulp in f32 before the cast, so that rounding to nearest never
+    lifts it past the f32 bound the cone prepass proved."""
+    if t0 is None or dtype == torch.float32:
+        return t0
+    return (t0 * (1.0 - torch.finfo(dtype).eps)).to(dtype)
+
+
+def _forward_march(params, px, py, n_steps, t0, dtype, relax, unimodal):
+    """The march of the forward kernel -> (t in f32, hit, distance
+    evaluations per lane, advances or relaxed steps per lane)."""
+    rxy2, z0, rad = _march_parts(params, px, py, dtype)
+    t0 = _march_t0(t0, dtype)
+    eps = march_eps(dtype)
+    if relax == 1.0 and not unimodal:
+        z, hit, adv, _ = _march_z(rxy2, z0, rad, n_steps, eps, t0)
+        evals = torch.clamp_max(adv + 1, max(n_steps - 1, 0)) + 1
+        return (z - z0).float(), hit, evals, adv
+
+    def dist_at(t):
+        u = z0 + t
+        return _sqrt(rxy2 + u * u) - rad
+
+    t = torch.zeros_like(rxy2) if t0 is None else t0
+    pos, hit, steps = _march_relaxed(dist_at, t, n_steps, eps, T_MAX, relax,
+                                     unimodal)
+    return pos.float(), hit, steps + 1, steps
+
+
+def _shade(params, px, py, t, hit):
+    """(img, ts) of the forward kernels from the march's (t, hit), in f32:
+    the closed-form normal, the gradient of sqrt(|d|^2 + 1e-12) - rad, and
+    the Lambert shade; ts = t on a hit and -t-1 on a miss."""
+    amb, gain = params[4], params[5]
     lx, ly, lz = params[6], params[7], params[8]
-    dx, dy, rxy2, z0 = _ray_parts(params, n, extent)
-    z, hit, _ = _march_z(rxy2, z0, rad, n_steps)
-    t = z - z0
-    # closed-form normal: the gradient of sqrt(|d|^2 + 1e-12) - rad
+    dx = px - params[0]
+    dy = py - params[1]
     dz = (-1.0 + t) - params[2]
     q = torch.rsqrt(dx * dx + dy * dy + dz * dz + 1e-12)
     gx, gy, gz = dx * q, dy * q, dz * q
@@ -106,14 +263,64 @@ def sdf_fwd_plain(params, n: int, n_steps: int, extent: float = 1.2):
     return img, torch.where(hit, t, -t - 1.0)
 
 
-def march_counts(params, n: int, n_steps: int, extent: float = 1.2):
-    """The work of the sdf_fwd kernel's march, per pixel, as two (n, n)
-    tensors: the distance evaluations it executes (the advances, the
-    evaluation that found the lane frozen unless it ran to the step cap,
-    and the final hit test) and the advances."""
-    _, _, rxy2, z0 = _ray_parts(params, n, extent)
-    _, _, adv = _march_z(rxy2, z0, params[3], n_steps)
-    return torch.clamp_max(adv + 1, max(n_steps - 1, 0)) + 1, adv
+def sdf_fwd_plain(params, n: int, n_steps: int, extent: float = 1.2,
+                  t0=None, dtype=torch.float32, relax: float = 1.0,
+                  unimodal: bool = False):
+    """Plain version of the sdf_fwd kernels -> (img, ts), each (n, n) f32.
+    ``t0`` is the cone prepass's (n, n) f32 start map or None, ``dtype``
+    the march dtype; ``relax != 1`` or ``unimodal`` take the (pos, stp)
+    march over sqrt(rxy2 + (z0+t)^2) - rad, else the z-carry march over
+    x * rsqrt(x)."""
+    px, py = tile_pixels(n, extent, params.device)
+    t, hit, _, _ = _forward_march(params, px, py, n_steps, t0, dtype, relax,
+                                  unimodal)
+    return _shade(params, px, py, t, hit)
+
+
+def march_counts(params, n: int, n_steps: int, extent: float = 1.2,
+                 t0=None, dtype=torch.float32, relax: float = 1.0,
+                 unimodal: bool = False):
+    """The work of an sdf_fwd kernel's march, per pixel, as two (n, n)
+    tensors: the distance evaluations a thread executes (its advances,
+    the evaluation that found the lane frozen unless it ran to the step
+    cap, and the final hit test), and the advances; for the relaxed march,
+    the evaluations and the steps."""
+    px, py = tile_pixels(n, extent, params.device)
+    return _forward_march(params, px, py, n_steps, t0, dtype, relax,
+                          unimodal)[2:]
+
+
+def sdf_fwd_split_plain(params, n: int, split: int, extent: float = 1.2,
+                        t0=None):
+    """Plain version of the sdf_fwd_split kernel (pass 1 of the two-pass
+    march) -> (img, ts, cont): the f32 z-carry march capped at ``split``
+    steps, and ``cont`` = the carry z itself where the lane is still alive
+    by the march's own freeze rule, -1e9 otherwise."""
+    px, py = tile_pixels(n, extent, params.device)
+    rxy2, z0, rad = _march_parts(params, px, py, torch.float32)
+    z, hit, _, alive = _march_z(rxy2, z0, rad, split, EPS, t0)
+    img, ts = _shade(params, px, py, z - z0, hit)
+    return img, ts, torch.where(alive, z, CONT_FROZEN)
+
+
+def sdf_tail_plain(params, idx, cont, img, ts, n: int, n_steps: int,
+                   split: int, extent: float = 1.2):
+    """Plain version of the sdf_tail kernel (pass 2): for the survivors
+    ``idx`` (flat pixel indices, int64) replay the advance that pass 1's
+    last step masked, march ``n_steps - split`` more steps from the carry
+    ``cont[idx]``, shade, and write ``img`` and ``ts`` at ``idx`` in
+    place. Returns (img, ts, advances per survivor)."""
+    coords = tile_pixels(n, extent, params.device)[0][0]
+    row = torch.div(idx, n, rounding_mode="floor")
+    px, py = coords[idx - row * n], coords[row]
+    rxy2, z0, rad = _march_parts(params, px, py, torch.float32)
+    z, _, replay, _ = _march_z(rxy2, z0, rad, 2, EPS,
+                               z_init=cont.reshape(-1)[idx])
+    z, hit, adv, _ = _march_z(rxy2, z0, rad, n_steps - split, EPS, z_init=z)
+    img_c, ts_c = _shade(params, px, py, z - z0, hit)
+    img.view(-1)[idx] = img_c
+    ts.view(-1)[idx] = ts_c
+    return img, ts, replay + adv
 
 
 def sdf_bwd_plain(params, g, ts, n: int, extent: float = 1.2):
@@ -158,49 +365,256 @@ def sdf_bwd_plain(params, g, ts, n: int, extent: float = 1.2):
     return torch.cat([dp, dp.new_zeros(N_PARAMS - 9)])
 
 
+def shade_tile(px, py, t, hit, pvec):
+    """Shade at fixed (t, hit), differentiable in ``pvec`` and ``t``
+    (``_sdf_shade_tile`` of the reference): the normal is the SDF's
+    gradient taken by autograd, not written in closed form."""
+    scene = vec_to_scene(pvec, SDFScene)
+    with torch.enable_grad():
+        xs = [c if c.requires_grad else c.detach().requires_grad_(True)
+              for c in (px, py, -1.0 + t)]
+        gx, gy, gz = torch.autograd.grad(sdf(Vec3(*xs), scene).sum(), xs,
+                                         create_graph=True)
+    inv = torch.rsqrt(gx * gx + gy * gy + gz * gz + 1e-12)
+    lam = (gx * scene.light.x + gy * scene.light.y
+           + gz * scene.light.z) * inv
+    img = scene.ambient + torch.maximum(lam, torch.zeros_like(lam)) \
+        * scene.gain
+    return torch.where(hit, img, scene.ambient + torch.zeros_like(img))
+
+
+def sdf_bwd_ad_plain(params, g, ts, n: int, extent: float = 1.2):
+    """Plain version of the sdf_bwd_ad kernel: the same cotangent as
+    ``sdf_bwd_plain`` by autograd through ``shade_tile`` plus
+    ``implicit_t_vjp`` of the SDF at the frozen root, a route that shares
+    nothing with either kernel's derivation."""
+    px, py = tile_pixels(n, extent, params.device)
+    hit = ts >= 0.0
+    t = torch.where(hit, ts, -1.0 - ts)
+    with torch.enable_grad():
+        pv = params.detach().requires_grad_(True)
+        tv = t.detach().requires_grad_(True)
+        img = shade_tile(px, py, tv, hit, pv)
+        dp_direct, t_bar = torch.autograd.grad(img, (pv, tv), grad_outputs=g)
+    (dp_indirect,) = implicit_t_vjp(
+        lambda a, tv: sdf(Vec3(px, py, -1.0 + tv),
+                          vec_to_scene(a[0], SDFScene)),
+        [params], t, t_bar, hit)
+    return dp_direct + dp_indirect
+
+
+# ---------------------------------------------------------------------------
+# The cone prepass (plain PyTorch, as it is plain jnp in the reference)
+# ---------------------------------------------------------------------------
+
+
+def cone_t0(dist_factory, n: int, n_steps: int, extent: float, s: int,
+            eps: float = 1e-4, t_max: float = 10.0, margin: float = 1e-3,
+            device=None):
+    """Cone-march prepass: a conservative (n, n) march start map.
+
+    One coarse ray per s x s block of fine pixels, marched with the SDF
+    deflated by R, the largest transverse offset between the block's
+    center ray and any fine ray of its footprint. The SDF is 1-Lipschitz,
+    so sdf(fine(t)) >= sdf(coarse(t)) - R and no fine ray can cross the
+    surface before the returned t0. ``dist_factory(px, py) -> (t ->
+    distance)`` supplies the SDF along orthographic rays at the coarse
+    pixel centers. The map is upsampled, lowered by ``margin``, clamped at
+    0 and detached. Runs ``n_steps`` masked steps of eager ops on an
+    (n/s)^2 array."""
+    device = resolve_device(device)
+    m = n // s
+    step = 2.0 * extent / (n - 1)
+    half = (s - 1) / 2.0
+    coords = (torch.arange(m, dtype=torch.float32, device=device) * s
+              + half) * step - extent
+    px = coords[None, :].expand(m, m)
+    py = coords[:, None].expand(m, m)
+    r_cone = (2.0 ** 0.5) * half * step
+    dist_at = dist_factory(px, py)
+    t = torch.zeros((m, m), dtype=torch.float32, device=device)
+    for _ in range(n_steps):
+        d = dist_at(t) - r_cone
+        alive = (d >= eps) & (t + d <= t_max)
+        t = torch.where(alive, t + d, t)
+    t = t.repeat_interleave(s, dim=0).repeat_interleave(s, dim=1)
+    return torch.clamp_min(t - margin, 0.0).detach()
+
+
+def _cone_t0(pvec, n, n_steps, extent, s, eps=1e-4, t_max=10.0,
+             margin=1e-3):
+    """cone_t0 over the sphere scene's hoisted orthographic SDF."""
+    scene = vec_to_scene(pvec.detach(), SDFScene)
+    return cone_t0(lambda px, py: sdf_ortho_dist(px, py, scene), n, n_steps,
+                   extent, s, eps, t_max, margin, device=pvec.device)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
 
-def sdf_fwd(params, n: int, n_steps: int, extent: float = 1.2):
-    """Forward render -> (img, ts): the sdf_fwd kernel for a CUDA tensor,
-    the plain version for a CPU one."""
+def fwd_kernel_name(dtype, relax: float = 1.0, unimodal: bool = False) -> str:
+    """The launch-counter name of the sdf_fwd instantiation that marches in
+    ``dtype`` with these options."""
+    if dtype not in MARCH_DTYPES:
+        raise ValueError(f"march dtype must be torch.float32 or "
+                         f"torch.bfloat16, got {dtype}")
+    return ("sdf_fwd" + ("_relax" if relax != 1.0 or unimodal else "")
+            + ("_bf16" if dtype == torch.bfloat16 else ""))
+
+
+def _check_t0(t0, n, device):
+    if t0 is None:
+        return 0
+    _build.check(t0, "t0", (n, n), device)
+    return t0.data_ptr()
+
+
+def sdf_fwd(params, n: int, n_steps: int, extent: float = 1.2, t0=None,
+            dtype=torch.float32, relax: float = 1.0,
+            unimodal: bool = False):
+    """Forward render -> (img, ts): the sdf_fwd kernel of these options
+    for a CUDA tensor, the plain version for a CPU one."""
+    kernel = fwd_kernel_name(dtype, relax, unimodal)
     if not _build.is_cuda(params):
-        return sdf_fwd_plain(params, n, n_steps, extent)
-    _build.check(params, "params", (N_PARAMS,), params.device)
+        return sdf_fwd_plain(params, n, n_steps, extent, t0, dtype, relax,
+                             unimodal)
+    dev = params.device
+    _build.check(params, "params", (N_PARAMS,), dev)
+    t0_ptr = _check_t0(t0, n, dev)
     lib = _build.load("sdf_render")
-    img = torch.empty((n, n), dtype=torch.float32, device=params.device)
+    img = torch.empty((n, n), dtype=torch.float32, device=dev)
     ts = torch.empty_like(img)
-    with torch.cuda.device(params.device):
+    bf16 = int(dtype == torch.bfloat16)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sdf_fwd_launch(params.data_ptr(), img.data_ptr(),
-                                 ts.data_ptr(), n, n_steps,
-                                 pixel_step(n, extent), extent, stream)
-    _build.launched(err, "sdf_fwd")
+        head = (params.data_ptr(), t0_ptr, img.data_ptr(), ts.data_ptr(), n,
+                n_steps, pixel_step(n, extent), extent, bf16)
+        if "relax" in kernel:
+            # w and back rounded to the march dtype, as the plain version
+            # holds them
+            w = torch.tensor(relax, dtype=dtype).item()
+            back = torch.tensor(1.0 - 1.0 / relax, dtype=dtype).item()
+            err = lib.sdf_fwd_relax_launch(*head, w, back, int(unimodal),
+                                           stream)
+        else:
+            err = lib.sdf_fwd_launch(*head, stream)
+    _build.launched(err, kernel)
     return img, ts
 
 
-def sdf_bwd(params, g, ts, n: int, extent: float = 1.2):
-    """Parameter cotangent dp[16]: the sdf_bwd kernels (per-block partial
-    sums, then one fixed-order reduce) for CUDA tensors, the plain version
-    for CPU ones."""
+def sdf_fwd_split(params, n: int, split: int, extent: float = 1.2, t0=None):
+    """Pass 1 of the two-pass march -> (img, ts, cont): the sdf_fwd_split
+    kernel for a CUDA tensor, the plain version for a CPU one."""
     if not _build.is_cuda(params):
-        return sdf_bwd_plain(params, g, ts, n, extent)
+        return sdf_fwd_split_plain(params, n, split, extent, t0)
+    dev = params.device
+    _build.check(params, "params", (N_PARAMS,), dev)
+    t0_ptr = _check_t0(t0, n, dev)
+    lib = _build.load("sdf_render")
+    img = torch.empty((n, n), dtype=torch.float32, device=dev)
+    ts, cont = torch.empty_like(img), torch.empty_like(img)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sdf_fwd_split_launch(
+            params.data_ptr(), t0_ptr, img.data_ptr(), ts.data_ptr(),
+            cont.data_ptr(), n, split, pixel_step(n, extent), extent, stream)
+    _build.launched(err, "sdf_fwd_split")
+    return img, ts, cont
+
+
+def sdf_tail(params, idx, cont, img, ts, n: int, n_steps: int, split: int,
+             extent: float = 1.2):
+    """Pass 2 of the two-pass march over the survivors ``idx`` (a
+    non-empty 1-D int64 tensor of flat pixel indices): writes ``img`` and
+    ``ts`` at ``idx`` in place and returns them. The sdf_tail kernel for
+    CUDA tensors, the plain version for CPU ones."""
+    if not _build.is_cuda(params):
+        return sdf_tail_plain(params, idx, cont, img, ts, n, n_steps, split,
+                              extent)[:2]
+    dev = params.device
+    _build.check(params, "params", (N_PARAMS,), dev)
+    for x, name in ((cont, "cont"), (img, "img"), (ts, "ts")):
+        _build.check(x, name, (n, n), dev)
+    if (idx.dtype != torch.int64 or idx.dim() != 1 or idx.numel() == 0
+            or not idx.is_contiguous() or idx.device != dev):
+        raise ValueError(f"idx: expected a non-empty contiguous 1-D int64 "
+                         f"tensor on {dev}, got {idx.dtype} "
+                         f"{tuple(idx.shape)} on {idx.device}")
+    lib = _build.load("sdf_render")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sdf_tail_launch(
+            params.data_ptr(), idx.data_ptr(), cont.data_ptr(),
+            img.data_ptr(), ts.data_ptr(), idx.numel(), n, n_steps - split,
+            pixel_step(n, extent), extent, stream)
+    _build.launched(err, "sdf_tail")
+    return img, ts
+
+
+def survivors(cont):
+    """The flat indices of pass 1's survivors, in row-major order. The
+    list is exact, at the price of one host sync (``torch.nonzero`` has to
+    know its length): no worklist capacity to overflow."""
+    return torch.nonzero(cont.reshape(-1) > 0.1 * CONT_FROZEN).reshape(-1)
+
+
+def _split_render(fwd, tail, params, n, n_steps, extent, split, t0):
+    img, ts, cont = fwd(params, n, split, extent, t0)
+    idx = survivors(cont)
+    if idx.numel():
+        tail(params, idx, cont, img, ts, n, n_steps, split, extent)
+    return img, ts
+
+
+def sdf_split(params, n: int, n_steps: int, extent: float = 1.2,
+              split: int = 16, t0=None):
+    """The two-pass compacted forward -> (img, ts), the one-pass march's
+    bit for bit: pass 1 capped at ``split`` steps, the survivors compacted
+    by ``torch.nonzero``, pass 2 over them."""
+    return _split_render(sdf_fwd_split, sdf_tail, params, n, n_steps, extent,
+                         split, t0)
+
+
+def sdf_split_plain(params, n: int, n_steps: int, extent: float = 1.2,
+                    split: int = 16, t0=None):
+    """``sdf_split`` through the plain versions of both passes."""
+    return _split_render(sdf_fwd_split_plain, sdf_tail_plain, params, n,
+                         n_steps, extent, split, t0)
+
+
+def sdf_bwd(params, g, ts, n: int, extent: float = 1.2,
+            kernel: str = "analytic"):
+    """Parameter cotangent dp[16]: per-block partial sums by the sdf_bwd
+    kernel (``kernel="analytic"``, the closed form) or the sdf_bwd_ad
+    kernel (``"ad"``, dual numbers), then one fixed-order reduce, for CUDA
+    tensors; the kernel's plain version for CPU ones."""
+    if kernel not in BWD_KERNELS:
+        raise ValueError(f"kernel must be one of {BWD_KERNELS}, got "
+                         f"{kernel!r}")
+    if not _build.is_cuda(params):
+        plain = sdf_bwd_plain if kernel == "analytic" else sdf_bwd_ad_plain
+        return plain(params, g, ts, n, extent)
     dev = params.device
     _build.check(params, "params", (N_PARAMS,), dev)
     _build.check(g, "g", (n, n), dev)
     _build.check(ts, "ts", (n, n), dev)
     lib = _build.load("sdf_render")
+    if kernel == "analytic":
+        partial_launch, name = lib.sdf_bwd_partial_launch, "sdf_bwd"
+    else:
+        partial_launch = _build.load("sdf_bwd_ad").sdf_bwd_ad_partial_launch
+        name = "sdf_bwd_ad"
     rows = lib.sdf_bwd_num_blocks(n)
     partial = torch.empty((rows, 9), dtype=torch.float32, device=dev)
     dp = torch.empty(N_PARAMS, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sdf_bwd_partial_launch(
+        err = partial_launch(
             params.data_ptr(), g.data_ptr(), ts.data_ptr(),
             partial.data_ptr(), n, pixel_step(n, extent), extent, stream)
-        _build.launched(err, "sdf_bwd")
+        _build.launched(err, name)
         err = lib.sdf_bwd_reduce_launch(partial.data_ptr(), rows,
                                         dp.data_ptr(), stream)
         _build.launched(err, "sdf_bwd_reduce")
@@ -208,70 +622,102 @@ def sdf_bwd(params, g, ts, n: int, extent: float = 1.2):
 
 
 class _SDFRenderFn(torch.autograd.Function):
-    """Forward: sdf_fwd, keeping the packed residual ts (one float per
-    pixel) for the backward. Backward: sdf_bwd on that residual."""
+    """Forward: the cone prepass if ``coarse``, then sdf_split or sdf_fwd,
+    keeping the packed residual ts (one float per pixel) for the backward.
+    Backward: sdf_bwd on that residual, whatever the forward's options."""
 
     @staticmethod
-    def forward(ctx, params, n, n_steps, extent):
-        img, ts = sdf_fwd(params, n, n_steps, extent)
+    def forward(ctx, params, n, n_steps, extent, coarse, dtype, relax,
+                unimodal, split, bwd_kernel):
+        p = params.detach()
+        t0 = _cone_t0(p, n, n_steps, extent, coarse) if coarse else None
+        if split:
+            img, ts = sdf_split(p, n, n_steps, extent, split, t0)
+        else:
+            img, ts = sdf_fwd(p, n, n_steps, extent, t0, dtype, relax,
+                              unimodal)
         ctx.save_for_backward(params, ts)
-        ctx.n, ctx.extent = n, extent
+        ctx.n, ctx.extent, ctx.bwd_kernel = n, extent, bwd_kernel
         return img
 
     @staticmethod
     def backward(ctx, g):
         params, ts = ctx.saved_tensors
-        return (sdf_bwd(params.detach(), g.contiguous(), ts, ctx.n,
-                        ctx.extent), None, None, None)
+        dp = sdf_bwd(params.detach(), g.contiguous(), ts, ctx.n, ctx.extent,
+                     ctx.bwd_kernel)
+        return (dp,) + (None,) * 9
 
 
-def render_sdf_cuda(params, n: int = 1024, n_steps: int = 64,
-                    extent: float = 1.2, tile: int = 128, tile_c=None,
-                    coarse: int = 0, chunk: int = 16, dtype=torch.float32,
-                    bands: int = 1, relax: float = 1.0,
-                    unimodal: bool = False, split: int = 0):
-    """SDF sphere-march render of the 16-vector ``params`` -> (n, n) image,
-    differentiable in ``params`` through the analytic backward kernel.
-
-    The parameters are ``render_sdf_pallas``'s, in order. Only the plain
-    configuration is ported: every other value raises NotImplementedError
-    naming its ROADMAP item. ``tile``/``tile_c`` must divide ``n`` as in
-    the reference, and ``chunk`` is accepted; neither changes the result,
-    and the CUDA kernels set their own launch geometry (each thread leaves
-    its march on its own, which subsumes the chunked exit).
-    """
-    if coarse:
-        raise NotImplementedError(
-            "coarse > 0 (the cone-march prepass) is not ported: ROADMAP A3")
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            "a bf16 march is not ported: ROADMAP B4")
-    if bands != 1:
-        raise NotImplementedError(
-            "bands > 1 (sub-tile early exit) is not ported: ROADMAP B4")
-    if relax != 1.0 or unimodal:
-        raise NotImplementedError(
-            "relax != 1 / unimodal (over-relaxed march) are not ported: "
-            "ROADMAP B4")
+def _render_sdf(params, n, n_steps, extent, tile, tile_c, coarse, dtype,
+                bands, relax, unimodal, split, bwd_kernel):
+    fwd_kernel_name(dtype)  # raises on another march dtype
+    if bwd_kernel not in BWD_KERNELS:
+        raise ValueError(f"bwd_kernel must be one of {BWD_KERNELS}, got "
+                         f"{bwd_kernel!r}")
+    if bands < 1:
+        raise ValueError(f"bands must be >= 1, got {bands}")
     if split:
-        raise NotImplementedError(
-            "split > 0 (the two-pass compacted march) is not ported: "
-            "ROADMAP B5")
+        if (dtype != torch.float32 or bands != 1 or relax != 1.0
+                or unimodal):
+            raise ValueError("split composes only with the plain march "
+                             "(f32, bands=1, relax=1, not unimodal)")
+        if not 0 < split < n_steps or (n_steps - split) % 2:
+            raise ValueError(f"split must satisfy 0 < split < n_steps with "
+                             f"an even n_steps - split, got split={split}, "
+                             f"n_steps={n_steps}")
     tile_c = tile_c or tile
     if n % tile or n % tile_c:
         raise ValueError("image size must be divisible by the tile size")
+    if coarse and n % coarse:
+        raise ValueError(f"image size must be divisible by the cone "
+                         f"prepass block, got n={n}, coarse={coarse}")
     if tuple(params.shape) != (N_PARAMS,):
         raise ValueError(f"params must have shape ({N_PARAMS},), got "
                          f"{tuple(params.shape)}")
-    return _SDFRenderFn.apply(params, n, n_steps, extent)
+    return _SDFRenderFn.apply(params, n, n_steps, extent, coarse, dtype,
+                              relax, unimodal, split, bwd_kernel)
+
+
+def render_sdf_cuda(params, n: int = 1024, n_steps: int = 64,
+                    extent: float = 1.2, tile: int = 64, tile_c=None,
+                    coarse: int = 8, chunk: int = 16, dtype=torch.float32,
+                    bands: int = 1, relax: float = 1.0,
+                    unimodal: bool = False, split: int = 0):
+    """SDF sphere-march render of the 16-vector ``params`` -> (n, n) f32
+    image, differentiable in ``params`` through the analytic backward
+    kernel on the forward's ``ts`` residual.
+
+    The parameters are ``render_sdf_pallas``'s, with its defaults.
+    ``coarse`` is the cone prepass's block side (``cone_t0``; 0 turns it
+    off). ``dtype`` is the march dtype, f32 or bf16; the shade, ``ts`` and
+    the gradient stay f32. ``relax > 1`` over-relaxes the march and
+    ``unimodal`` adds the convex-scene divergence exit (``march_tile``).
+    ``split > 0`` takes the two-pass compacted march (``sdf_split``); it
+    composes with ``coarse`` only, needs 0 < split < n_steps and an even
+    n_steps - split, and raises ValueError otherwise.
+
+    ``tile``/``tile_c`` must divide ``n`` as in the reference, ``chunk``
+    is accepted, and ``bands`` may be any number >= 1; none of them changes
+    the result: the CUDA kernels set their own launch geometry and each
+    thread leaves its march on its own, which does per lane what the
+    chunked exit and the row bands do per tile.
+    """
+    return _render_sdf(params, n, n_steps, extent, tile, tile_c, coarse,
+                       dtype, bands, relax, unimodal, split, "analytic")
 
 
 class SDFRender(nn.Module):
     """The SDF render as a module whose one parameter is the 16-vector.
-    ``forward()`` returns the (n, n) image."""
+    ``forward()`` returns the (n, n) image. The options are
+    ``render_sdf_cuda``'s; their defaults are the plain configuration
+    (no prepass, f32, plain one-pass march). ``bwd_kernel`` chooses the
+    backward's route, "analytic" or "ad" (``sdf_bwd``)."""
 
     def __init__(self, params=None, n: int = 1024, n_steps: int = 64,
-                 extent: float = 1.2, device=None):
+                 extent: float = 1.2, device=None, coarse: int = 0,
+                 dtype=torch.float32, bands: int = 1, relax: float = 1.0,
+                 unimodal: bool = False, split: int = 0,
+                 bwd_kernel: str = "analytic"):
         super().__init__()
         if params is None:
             params = scene_to_vec(SDFScene.reference(device))
@@ -279,8 +725,11 @@ class SDFRender(nn.Module):
             params = params.to(device)
         self.params = nn.Parameter(params.detach().to(torch.float32).clone())
         self.n, self.n_steps, self.extent = n, n_steps, extent
+        self.options = dict(coarse=coarse, dtype=dtype, bands=bands,
+                            relax=relax, unimodal=unimodal, split=split,
+                            bwd_kernel=bwd_kernel)
 
     def forward(self):
         # one tile of the whole image: the tile only has to divide n
-        return render_sdf_cuda(self.params, self.n, self.n_steps,
-                               self.extent, tile=self.n)
+        return _render_sdf(self.params, self.n, self.n_steps, self.extent,
+                           self.n, None, **self.options)

@@ -12,7 +12,9 @@ import torch
 
 from enoki_tpu_torch.render import LAUNCHES, reset_launch_counts
 from enoki_tpu_torch.render.sdf_kernels import (
-    render_sdf_cuda, sdf_bwd, sdf_bwd_plain, sdf_fwd, sdf_fwd_plain)
+    SDFRender, _cone_t0, fwd_kernel_name, render_sdf_cuda, sdf_bwd,
+    sdf_bwd_ad_plain, sdf_bwd_plain, sdf_fwd, sdf_fwd_plain, sdf_fwd_split,
+    sdf_fwd_split_plain, sdf_split, sdf_split_plain)
 from enoki_tpu_torch.render.sphere_kernels import (
     render_sphere_cuda, sphere_bwd, sphere_bwd_plain, sphere_fwd,
     sphere_fwd_plain)
@@ -78,10 +80,96 @@ def test_sdf_bwd_kernel_matches_plain_and_is_deterministic(params):
 def test_render_sdf_cuda_launches_one_of_each(cuda):
     p = torch.from_numpy(scene_vec(None)).to(cuda).requires_grad_(True)
     reset_launch_counts()
-    render_sdf_cuda(p, N, STEPS).mean().backward()
+    render_sdf_cuda(p, N, STEPS, coarse=0).mean().backward()
     torch.cuda.synchronize()
     assert LAUNCHES == {"sdf_fwd": 1, "sdf_bwd": 1, "sdf_bwd_reduce": 1}
     assert torch.isfinite(p.grad).all()
+
+
+FWD_OPTIONS = {
+    "cone": dict(coarse=8),
+    "bf16": dict(dtype=torch.bfloat16),
+    "cone_bf16": dict(coarse=8, dtype=torch.bfloat16),
+    "relax1.6_unimodal": dict(relax=1.6, unimodal=True),
+    "cone_relax1.9": dict(coarse=8, relax=1.9),
+    "unimodal": dict(unimodal=True),
+    "relax1.6_unimodal_bf16": dict(relax=1.6, unimodal=True,
+                                   dtype=torch.bfloat16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FWD_OPTIONS))
+def test_sdf_fwd_variants_are_bit_equal_to_plain(params, name):
+    # every march rounds each op on its own, in the plain version's order
+    kw = dict(FWD_OPTIONS[name])
+    coarse = kw.pop("coarse", 0)
+    t0 = _cone_t0(params, N, STEPS, 1.2, coarse) if coarse else None
+    reset_launch_counts()
+    img_k, ts_k = sdf_fwd(params, N, STEPS, 1.2, t0, **kw)
+    img_p, ts_p = sdf_fwd_plain(params, N, STEPS, 1.2, t0, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {fwd_kernel_name(
+        kw.get("dtype", torch.float32), kw.get("relax", 1.0),
+        kw.get("unimodal", False)): 1}
+    assert torch.equal(img_k, img_p) and torch.equal(ts_k, ts_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split,coarse", [(16, 0), (32, 0), (16, 8)])
+def test_split_kernels_are_bit_equal_to_one_pass_and_plain(params, split,
+                                                           coarse):
+    t0 = _cone_t0(params, N, STEPS, 1.2, coarse) if coarse else None
+    one = sdf_fwd(params, N, STEPS, 1.2, t0)
+    reset_launch_counts()
+    two = sdf_split(params, N, STEPS, 1.2, split, t0)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"sdf_fwd_split": 1, "sdf_tail": 1}
+    plain = sdf_split_plain(params, N, STEPS, 1.2, split, t0)
+    for a, b, c in zip(one, two, plain):
+        assert torch.equal(a, b) and torch.equal(b, c)
+    for a, b in zip(sdf_fwd_split(params, N, split, 1.2, t0),
+                    sdf_fwd_split_plain(params, N, split, 1.2, t0)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0.0, 10.0], ids=["mixed", "all_miss"])
+def test_sdf_bwd_ad_kernel_matches_both_routes_and_is_deterministic(params,
+                                                                    shift):
+    p = params.clone()
+    p[0] += shift
+    _, ts = sdf_fwd(p, N, STEPS, 1.2)
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (N, N)).astype(np.float32)).to(p.device)
+    reset_launch_counts()
+    dp1 = sdf_bwd(p, g, ts, N, 1.2, kernel="ad")
+    assert LAUNCHES == {"sdf_bwd_ad": 1, "sdf_bwd_reduce": 1}
+    dp2 = sdf_bwd(p, g, ts, N, 1.2, kernel="ad")
+    torch.cuda.synchronize()
+    assert torch.equal(dp1, dp2)
+    for ref in (sdf_bwd(p, g, ts, N, 1.2), sdf_bwd_ad_plain(p, g, ts, N, 1.2)):
+        scale = max(1.0, ref.abs().max().item())
+        torch.testing.assert_close(dp1, ref, rtol=2e-4, atol=2e-4 * scale)
+
+
+@pytest.mark.cuda
+def test_sdf_render_options_reach_their_kernels(cuda):
+    p = torch.from_numpy(scene_vec(None)).to(cuda)
+    for kw, want in (
+            (dict(coarse=8), {"sdf_fwd": 1, "sdf_bwd": 1}),
+            (dict(dtype=torch.bfloat16), {"sdf_fwd_bf16": 1, "sdf_bwd": 1}),
+            (dict(relax=1.6, unimodal=True),
+             {"sdf_fwd_relax": 1, "sdf_bwd": 1}),
+            (dict(split=16), {"sdf_fwd_split": 1, "sdf_tail": 1,
+                              "sdf_bwd": 1}),
+            (dict(bwd_kernel="ad"), {"sdf_fwd": 1, "sdf_bwd_ad": 1})):
+        model = SDFRender(p, n=N, n_steps=STEPS, **kw)
+        reset_launch_counts()
+        model().mean().backward()
+        torch.cuda.synchronize()
+        assert LAUNCHES == {**want, "sdf_bwd_reduce": 1}, kw
+        assert torch.isfinite(model.params.grad).all()
 
 
 @pytest.mark.cuda
