@@ -53,8 +53,9 @@ and 64 steps.
   phase 11 sdf_bwd_ad against sdf_bwd_ad_plain and against sdf_bwd, mixed
            and all-miss scene; two runs must be bitwise equal
   phase 12 the options' path: SDFRender(coarse=8) trained for a few SGD
-           steps against the plain twin under the head-start gates, then
-           one fwd+bwd step for each other option, each counted; timing of
+           steps on each scene against the plain twin under the
+           head-start gates, then one fwd+bwd step for each other option
+           at the reference scene, each counted; timing of
            each new kernel alone with its bound and plain version, of the
            cone prepass, and of the chained fwd+bwd step for the five
            candidate configurations of bench.py:233-235, interleaved
@@ -83,9 +84,14 @@ SEEDS = (None, 1, 2)          # reference scene + two seeded ones
 TRAIN_STEPS = 3
 LR = 1e-3
 
-# published peaks of one H100 SXM at 700 W (NVIDIA data sheet)
+# published peaks of one H100 SXM at 700 W: memory and FP32 from NVIDIA's
+# data sheet; bf16 outside the tensor cores from the H100 architecture
+# whitepaper's table of peak rates ("Peak BF16 TFLOPS (non-Tensor)"), the
+# rate of the scalar bf16 adds, multiplies and compares of a march (the
+# data sheet's 989 TFLOP/s is the tensor cores', which run none of them)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 133.8e12
 # MUFU (rsqrt) results per clock per SM on compute capability 9.0
 # (CUDA C++ Programming Guide, arithmetic instruction throughput): a
 # second, tighter floor for the march, printed beside the bound
@@ -105,17 +111,21 @@ BWD_FLOPS_PER_PIXEL = 2    # the hit test and the sum of g into d ambient
 SPHERE_FWD_FLOPS_PER_PIXEL = 56
 SPHERE_BWD_FLOPS_PER_PIXEL = 20
 SPHERE_BWD_FLOPS_PER_HIT = 52
-# ... and of the SDF options (csrc/sdf_render.cu, csrc/sdf_bwd_ad.cu). A
-# bf16 march counts the same operations, against the FP32 rate: the data
-# sheet gives bf16 a rate only inside the tensor cores.
-RELAX_FLOPS_PER_EVAL = 15      # z0+t, u*u, +rxy2, sqrt, -rad, back*stp,
-#                                d<, d>=eps, pos+d, <=tmax, w*d, pos+-, 3 ands
-UNIMODAL_FLOPS_PER_EVAL = 3    # stp>0, d*w, >stp
+# ... and of the SDF options (csrc/sdf_render.cu, csrc/sdf_bwd_ad.cu):
+# arithmetic and compares only, the predicates' and/or/not are no
+# floating-point operations. A bf16 march's operations are held against
+# the bf16 rate, the f32 shade's against the FP32 rate.
+RELAX_FLOPS_PER_STEP = 12      # z0+t, u*u, +rxy2, sqrt, -rad, back*stp,
+#                                d<, d>=eps, pos+d, <=tmax, w*d, pos+-
+UNIMODAL_FLOPS_PER_STEP = 3    # stp>0, d*w, >stp
+RELAX_FLOPS_HIT_TEST = 6       # z0+t, u*u, +rxy2, sqrt, -rad, d<eps
 CONT_FLOPS_PER_PIXEL = 3       # pass 1's survivor test after the hit test
-# the duals' arithmetic as written (15 products of 31, 14 sums of 11, 2
-# rsqrt of 14, the relu, the contraction), before the compiler drops the
-# derivative slots that are structurally zero
-BWD_AD_FLOPS_PER_HIT = 693
+# sdf_bwd_ad computes sdf_bwd's function, so its bound takes sdf_bwd's
+# count. For the record only: the duals' arithmetic as written (15
+# products of 31, 14 sums of 11, 2 rsqrt of 14, the relu, the
+# contraction), before the compiler drops the derivative slots that are
+# structurally zero
+BWD_AD_FLOPS_AS_WRITTEN_PER_HIT = 693
 # the five candidate configurations of bench.py:233-235:
 # (coarse, bands, relax, unimodal, split)
 CANDIDATES = ((0, 1, 1.0, False, 0), (8, 1, 1.0, False, 0),
@@ -201,23 +211,6 @@ class DeviceTimer:
         return s.elapsed_time(e) / reps
 
 
-def event_ms(torch, fn, reps):
-    """Time per call of ``fn`` between two CUDA events with nothing held
-    back: the larger of its device time and the host's time to enqueue
-    it, which for a plain version of hundreds of eager ops is what a
-    caller waits for."""
-    fn()
-    torch.cuda.synchronize()
-    ev = torch.cuda.Event
-    s, e = ev(enable_timing=True), ev(enable_timing=True)
-    s.record()
-    for _ in range(reps):
-        fn()
-    e.record()
-    torch.cuda.synchronize()
-    return s.elapsed_time(e) / reps
-
-
 def chain_ms(torch, step, p0, iters, windows):
     """Per-step time of ``iters`` data-chained steps, ``windows`` times:
     each step's params depend on the previous step's loss and gradient
@@ -257,11 +250,12 @@ def device_ms_by_kernel(torch, step, p0, iters):
     return out
 
 
-def bound(nbytes, flops):
-    """max(bytes / HBM rate, FP32 operations / FP32 peak) in ms, and which
-    of the two it is."""
+def bound(nbytes, flops, bf16_flops=0):
+    """max(bytes / HBM rate, FP32 operations / FP32 peak + bf16 operations
+    / bf16 peak) in ms, and which of the two it is."""
     t = {"bytes": nbytes / HBM_BYTES_PER_S,
-         "operations": flops / FP32_FLOPS_PER_S}
+         "operations": flops / FP32_FLOPS_PER_S
+         + bf16_flops / BF16_FLOPS_PER_S}
     by = max(t, key=t.get)
     return 1e3 * t[by], by
 
@@ -646,7 +640,7 @@ def run_sphere(torch, dev, timer, cuda_vec):
     bounds = {
         # write the image (4 or 2 B per pixel), read the 64 B parameters
         "sphere_fwd": bound(4 * rays + 64, SPHERE_FWD_FLOPS_PER_PIXEL * rays),
-        "sphere_fwd_bf16": bound(2 * rays + 64,
+        "sphere_fwd_bf16": bound(2 * rays + 64, 0,
                                  SPHERE_FWD_FLOPS_PER_PIXEL * rays),
         # read g and the parameters, write dp[16]
         "sphere_bwd": bound(4 * rays + 64 + 64,
@@ -741,8 +735,9 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
     entries of the kernels line."""
     from enoki_tpu_torch.render import (LAUNCHES, reset_launch_counts,
                                         sdf_kernels as K)
-    from enoki_tpu_torch.render.sdf import (SDFScene,
+    from enoki_tpu_torch.render.sdf import (SDFScene, march,
                                             render_sdf_grads_implicit)
+    from enoki_tpu_torch.render.sphere import make_rays, pixel_grid
 
     f32, bf16 = torch.float32, torch.bfloat16
     rays = N * N
@@ -832,7 +827,7 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
                               N, STEPS, split, EXTENT)
             tail_plain = K.sdf_tail_plain(
                 p, idx, p1_plain[2], p1_plain[0].clone(),
-                p1_plain[1].clone(), N, STEPS, split, EXTENT)[:2]
+                p1_plain[1].clone(), N, STEPS, split, EXTENT)
             torch.cuda.synchronize()
             worst("sdf_fwd_split", (p1[0] - p1_plain[0]).abs().max().item())
             worst("sdf_tail", (tail[0] - tail_plain[0]).abs().max().item())
@@ -887,54 +882,85 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
         launches[name] = launches.get(name, 0) + value
 
     def twin(params):
-        img_x, g_x = render_sdf_grads_implicit(
-            K.vec_to_scene(params.detach(), SDFScene), N, STEPS)
-        return img_x.reshape(N, N), K.scene_to_vec(g_x)[:9]
+        """The plain twin's image, hit mask and gradient at ``params``."""
+        scene = K.vec_to_scene(params.detach(), SDFScene)
+        img_x, g_x = render_sdf_grads_implicit(scene, N, STEPS)
+        _, hit_x = march(make_rays(pixel_grid(N, device=dev)), scene, STEPS)
+        return (img_x.reshape(N, N), hit_x.reshape(N, N),
+                K.scene_to_vec(g_x)[:9])
 
     def significant_rel(g, ref):
         sig = ref.abs() > 1e-3 * ref.abs().max()
         return ((g - ref).abs()[sig] / ref.abs()[sig]).max().item()
 
-    model = K.SDFRender(cuda_vec(None), n=N, n_steps=STEPS, extent=EXTENT,
-                        coarse=8)
-    opt = torch.optim.SGD(model.parameters(), lr=LR)
-    reset_launch_counts()
-    for step in range(TRAIN_STEPS):
-        opt.zero_grad()
-        img = model()
-        loss = img.mean()
-        loss.backward()
-        grad = model.params.grad.detach().clone()[:9]
-        img_x, gx = twin(model.params)
-        torch.cuda.synchronize()
-        check(img.shape == (N, N) and torch.isfinite(img).all().item()
-              and torch.isfinite(grad).all().item(), "non-finite output")
-        # head-start gates (tests/test_pallas.py:94-111, :168-169). A
-        # flip is a hit/miss disagreement; the reference reads it off the
-        # image as |d| > 1, which at this size misses the few flips whose
-        # lit side is dim (n . l ~ 0 at two points of the silhouette), so
-        # a pixel lit in one image and at exactly ambient in the other
-        # counts as a flip too
-        amb = model.params.detach()[4]
-        d = (img.detach() - img_x).abs()
-        flips = (d > 1.0) | ((img.detach() == amb) != (img_x == amb))
-        share = flips.float().mean().item()
-        off_max, off_mean = d[~flips].max().item(), d[~flips].mean().item()
-        tol = 2e-3 * max(1.0, gx.abs().max().item())
-        i_ok = share < 1e-3 and off_max < 0.05 and off_mean < 5e-3
-        g_ok = bool(torch.allclose(grad, gx, rtol=5e-2, atol=tol))
-        log(f"phase 12 SDFRender(coarse=8) step {step}: loss "
-            f"{loss.item():.7g} (twin {img_x.mean().item():.7g}); flip "
-            f"share {share:.3e} < 1e-3, off-flip max {off_max:.3e} < 0.05, "
-            f"mean {off_mean:.3e} < 5e-3: {'pass' if i_ok else 'FAIL'}; "
-            f"max|grad-twin| {(grad - gx).abs().max().item():.3e} (rtol "
-            f"5e-2, atol {tol:.3e}): {'pass' if g_ok else 'FAIL'}")
-        check(i_ok and g_ok, f"SDFRender(coarse=8) vs twin at step {step}")
-        opt.step()
-    got = dict(LAUNCHES)
-    log(f"phase 12 SDFRender(coarse=8) launches over {TRAIN_STEPS} steps: "
+    # SDFRender(coarse=8), the reference's default configuration, trained
+    # on each scene; the counts are zeroed before each step's forward and
+    # read after its backward, so the gate's own launches stay out of them
+    got = {}
+    for seed in SEEDS:
+        model = K.SDFRender(cuda_vec(seed), n=N, n_steps=STEPS,
+                            extent=EXTENT, coarse=8)
+        opt = torch.optim.SGD(model.parameters(), lr=LR)
+        for step in range(TRAIN_STEPS):
+            opt.zero_grad()
+            reset_launch_counts()
+            img = model()
+            loss = img.mean()
+            loss.backward()
+            for k, v in LAUNCHES.items():
+                got[k] = got.get(k, 0) + v
+            img = img.detach()
+            grad = model.params.grad.detach().clone()[:9]
+            p_now = model.params.detach()
+            img_x, hit_x, gx = twin(p_now)
+            # the path's hit mask: the forward kernel again on the same
+            # start map, whose image must be the path's bit for bit
+            img_k, ts_k = K.sdf_fwd(p_now, N, STEPS, EXTENT,
+                                    K._cone_t0(p_now, N, STEPS, EXTENT, 8))
+            torch.cuda.synchronize()
+            check(img.shape == (N, N) and torch.isfinite(img).all().item()
+                  and torch.isfinite(grad).all().item(), "non-finite output")
+            check(torch.equal(img_k, img), "sdf_fwd is not repeatable")
+            # head-start gates (tests/test_pallas.py:94-111, :168-169). A
+            # flip is a hit/miss disagreement. The reference reads it off
+            # the image as |d| > 1, which at this size misses the flips
+            # whose lit side is dim (n . l ~ 0 at two points of the
+            # silhouette) and files them under off-flip. Here a pixel is a
+            # flip if |d| > 1, or if the two hit masks differ and the
+            # images with them; every such pixel counts in the gated
+            # share. A flip on the unlit half of the silhouette changes no
+            # pixel (ambient on both sides): the share of all mask
+            # disagreements is printed, and so is the off-flip maximum as
+            # the reference reads it.
+            d = (img - img_x).abs()
+            by_image = d > 1.0
+            by_mask = (ts_k >= 0) != hit_x
+            flips = by_image | (by_mask & (d > 0.0))
+            share = flips.float().mean().item()
+            off_max, off_mean = (d[~flips].max().item(),
+                                 d[~flips].mean().item())
+            tol = 2e-3 * max(1.0, gx.abs().max().item())
+            i_ok = share < 1e-3 and off_max < 0.05 and off_mean < 5e-3
+            g_ok = bool(torch.allclose(grad, gx, rtol=5e-2, atol=tol))
+            g_rel = significant_rel(grad, gx)
+            log(f"phase 12 SDFRender(coarse=8) scene={seed} step {step}: "
+                f"loss {loss.item():.7g} (twin {img_x.mean().item():.7g}); "
+                f"flip share {share:.3e} < 1e-3 (by |d| > 1 alone "
+                f"{by_image.float().mean().item():.3e}, hit masks differ on "
+                f"{by_mask.float().mean().item():.3e}), off-flip max "
+                f"{off_max:.3e} < 0.05 (by |d| > 1 alone "
+                f"{d[~by_image].max().item():.3e}), mean {off_mean:.3e} < "
+                f"5e-3: {'pass' if i_ok else 'FAIL'}; max|grad-twin| "
+                f"{(grad - gx).abs().max().item():.3e} (rtol 5e-2, atol "
+                f"{tol:.3e}; largest relative error of a significant "
+                f"gradient {g_rel:.4f}): {'pass' if g_ok else 'FAIL'}")
+            check(i_ok and g_ok,
+                  f"SDFRender(coarse=8) vs twin, scene {seed}, step {step}")
+            opt.step()
+    steps_run = TRAIN_STEPS * len(SEEDS)
+    log(f"phase 12 SDFRender(coarse=8) launches over {steps_run} steps: "
         f"{got}")
-    check(got == {k: TRAIN_STEPS for k in
+    check(got == {k: steps_run for k in
                   ("sdf_fwd", "sdf_bwd", "sdf_bwd_reduce")},
           f"expected one launch of each kernel per step, got {got}")
 
@@ -1012,20 +1038,29 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
     hits = int((ts_ref >= 0).sum().item())
     relax_kw = dict(relax=1.6, unimodal=True)
 
-    def fwd_bound(nbytes, evals, adv, per_eval, per_adv, extra=0):
-        return bound(nbytes, per_eval * evals + per_adv * adv
-                     + (FWD_FLOPS_PER_PIXEL + extra) * rays
-                     + FWD_FLOPS_PER_HIT * hits)
-
     def counts(n_steps=STEPS, **kw):
         return tuple(int(c.sum().item()) for c in
                      K.march_counts(p_ref, N, n_steps, EXTENT, **kw))
 
-    relax_flops = RELAX_FLOPS_PER_EVAL + UNIMODAL_FLOPS_PER_EVAL
+    def shade_flops(extra=0):
+        return (FWD_FLOPS_PER_PIXEL + extra) * rays + FWD_FLOPS_PER_HIT * hits
+
+    def z_march_flops(n_steps=STEPS, **kw):
+        evals, adv = counts(n_steps, **kw)
+        return FWD_FLOPS_PER_EVAL * evals + FWD_FLOPS_PER_ADVANCE * adv
+
+    def relax_march_flops(**kw):
+        # every executed step in full, then the final hit test
+        steps = counts(**relax_kw, **kw)[1]
+        return ((RELAX_FLOPS_PER_STEP + UNIMODAL_FLOPS_PER_STEP) * steps
+                + RELAX_FLOPS_HIT_TEST * rays)
+
     p1 = K.sdf_fwd_split(p_ref, N, 16, EXTENT)
     idx = K.survivors(p1[2])
-    tail_adv = K.sdf_tail_plain(p_ref, idx, p1[2], p1[0].clone(),
-                                p1[1].clone(), N, STEPS, 16, EXTENT)[2]
+    # a survivor's advances in the tail: the one-pass march's less pass
+    # 1's (the split render is the one-pass render bit for bit)
+    tail_adv = (K.march_counts(p_ref, N, STEPS, EXTENT)[1]
+                - K.march_counts(p_ref, N, 16, EXTENT)[1]).view(-1)[idx]
     tail_adv_n = int(tail_adv.sum().item())
     # a survivor's evaluations: one per advance, the one that found it
     # frozen unless it ran to the cap, and the final hit test
@@ -1039,29 +1074,29 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
                           EXTENT)
 
     # name -> (kernel call, plain call, (bound ms, by)); each kernel at the
-    # configuration phase 12's steps ran it in
+    # configuration phase 12's steps ran it in. A bf16 march's operations
+    # go against the bf16 rate, everything else against the FP32 rate
     work = {
         "sdf_fwd_bf16": (
             lambda: K.sdf_fwd(p_ref, N, STEPS, EXTENT, None, bf16),
             lambda: K.sdf_fwd_plain(p_ref, N, STEPS, EXTENT, None, bf16),
-            fwd_bound(8 * rays + 64, *counts(dtype=bf16),
-                      FWD_FLOPS_PER_EVAL, FWD_FLOPS_PER_ADVANCE)),
+            bound(8 * rays + 64, shade_flops(), z_march_flops(dtype=bf16))),
         "sdf_fwd_relax": (
             lambda: K.sdf_fwd(p_ref, N, STEPS, EXTENT, None, f32, 1.6, True),
             lambda: K.sdf_fwd_plain(p_ref, N, STEPS, EXTENT, None, f32, 1.6,
                                     True),
-            fwd_bound(8 * rays + 64, *counts(**relax_kw), relax_flops, 0)),
+            bound(8 * rays + 64, shade_flops() + relax_march_flops())),
         "sdf_fwd_relax_bf16": (
             lambda: K.sdf_fwd(p_ref, N, STEPS, EXTENT, None, bf16, 1.6, True),
             lambda: K.sdf_fwd_plain(p_ref, N, STEPS, EXTENT, None, bf16, 1.6,
                                     True),
-            fwd_bound(8 * rays + 64, *counts(dtype=bf16, **relax_kw),
-                      relax_flops, 0)),
+            bound(8 * rays + 64, shade_flops(),
+                  relax_march_flops(dtype=bf16))),
         "sdf_fwd_split": (
             lambda: K.sdf_fwd_split(p_ref, N, 16, EXTENT),
             lambda: K.sdf_fwd_split_plain(p_ref, N, 16, EXTENT),
-            fwd_bound(12 * rays + 64, *counts(16), FWD_FLOPS_PER_EVAL,
-                      FWD_FLOPS_PER_ADVANCE, CONT_FLOPS_PER_PIXEL)),
+            bound(12 * rays + 64,
+                  shade_flops(CONT_FLOPS_PER_PIXEL) + z_march_flops(16))),
         # reads idx (8 B) and cont (4 B), writes img and ts, per survivor
         "sdf_tail": (
             tail_call,
@@ -1070,26 +1105,35 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
             bound(20 * k + 64, FWD_FLOPS_PER_EVAL * tail_evals
                   + FWD_FLOPS_PER_ADVANCE * tail_adv_n
                   + FWD_FLOPS_PER_PIXEL * k + FWD_FLOPS_PER_HIT * tail_hits)),
+        # the function is sdf_bwd's, so the bound is sdf_bwd's
         "sdf_bwd_ad": (
             lambda: K.sdf_bwd(p_ref, g_mean, ts_ref, N, EXTENT, kernel="ad"),
             lambda: K.sdf_bwd_ad_plain(p_ref, g_mean, ts_ref, N, EXTENT),
-            bound(8 * rays + 64 + 64, BWD_AD_FLOPS_PER_HIT * hits
+            bound(8 * rays + 64 + 64, BWD_FLOPS_PER_HIT * hits
                   + BWD_FLOPS_PER_PIXEL * rays)),
     }
     ms = {name: timer(fn, 200) for name, (fn, _, _) in work.items()}
-    plain_ms = {name: event_ms(torch, fn, 3)
+    # the plain versions as phases 4 and 8 time theirs: device time, the
+    # stream held while the host enqueues. One call at a time: the
+    # relaxed march is ~1600 eager launches, and a few calls of it fill
+    # CUDA's launch queue, which then blocks the host until the hold ends
+    plain_ms = {name: timer(fn, 1, hold_ms=1000.0)
                 for name, (_, fn, _) in work.items()}
     for name, (_, _, (b_ms, b_by)) in work.items():
         log(f"phase 12 {name} {ms[name]:.5f} ms (plain "
             f"{plain_ms[name]:.4f} ms, bound {b_ms:.5f} ms by {b_by}); "
             f"library call: none computes this function")
+    ad_ops_ms = 1e3 * BWD_AD_FLOPS_AS_WRITTEN_PER_HIT * hits / FP32_FLOPS_PER_S
+    log(f"phase 12 sdf_bwd_ad, for the record: the duals' arithmetic as "
+        f"written is {BWD_AD_FLOPS_AS_WRITTEN_PER_HIT} operations per hit "
+        f"pixel, {ad_ops_ms:.5f} ms at the FP32 peak, against the "
+        f"{BWD_FLOPS_PER_HIT} the function needs")
     # the main kernel again with the start map, beside its plain march
     ev0, adv0 = counts()
     ev8, adv8 = counts(t0=t0)
     fwd0_ms = timer(lambda: K.sdf_fwd(p_ref, N, STEPS, EXTENT), 200)
     fwd8_ms = timer(lambda: K.sdf_fwd(p_ref, N, STEPS, EXTENT, t0), 200)
-    b8 = fwd_bound(12 * rays + 64, ev8, adv8, FWD_FLOPS_PER_EVAL,
-                   FWD_FLOPS_PER_ADVANCE)
+    b8 = bound(12 * rays + 64, shade_flops() + z_march_flops(t0=t0))
     log(f"phase 12 sdf_fwd with the coarse=8 start map {fwd8_ms:.5f} ms "
         f"(bound {b8[0]:.5f} ms by {b8[1]}; {ev8 / rays:.3f} distance "
         f"evaluations per pixel) against {fwd0_ms:.5f} ms without "
@@ -1103,7 +1147,7 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
         f"per pixel, bf16 march {counts(dtype=bf16)[0] / rays:.3f}")
 
     # the cone prepass: eager ops on a (N/8)^2 array, device and wall time
-    cone_dev_ms = timer(lambda: K._cone_t0(p_ref, N, STEPS, EXTENT, 8), 10,
+    cone_dev_ms = timer(lambda: K._cone_t0(p_ref, N, STEPS, EXTENT, 8), 5,
                         hold_ms=1000.0)
     wall = []
     for _ in range(5):

@@ -26,11 +26,14 @@
 // shared reduce (sdf_bwd_reduce_launch of sdf_render.cu) sums the rows:
 // no float atomics, bitwise identical gradients from run to run.
 //
-// Bound on this card: bytes at the miss pixels (8 B/pixel read: g and
-// ts), operations at the hit pixels: ~40 dual operations of ~2 x 10 FP32
-// operations each, about 10x sdf_bwd's closed form. It is an oracle, not
-// the path's backward, so nothing is done about that beyond letting the
-// compiler drop the derivative slots that are structurally zero.
+// Bound on this card: bytes (8 B/pixel read: g and ts). The function is
+// sdf_bwd's, dp[16] from (params, g, ts), so it needs no more operations
+// than the closed form's ~89 per hit pixel, which stay far under the byte
+// time. What this kernel executes is more: ~40 dual operations of ~2 x 10
+// FP32 operations each as written, about 8x the closed form, less the
+// derivative slots that are structurally zero, which the compiler drops.
+// It is an oracle, not the path's backward, so nothing more is done about
+// the distance to the bound.
 
 #include "common.cuh"
 

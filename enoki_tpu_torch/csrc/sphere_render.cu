@@ -35,8 +35,9 @@ namespace {
 // bf16; discrim, sqrt, the divide and the hit mask in f32, t cast back;
 // a bf16 image.
 //
-// Bound on this card: bytes for f32 (4 B written per pixel, ~56 FP32
-// operations), operations for bf16 (2 B per pixel). The kernel reads
+// Bound on this card: bytes in f32 (4 B written per pixel, ~56 FP32
+// operations) and in bf16 (2 B per pixel, the same operations at the
+// card's bf16 rate outside the tensor cores). The kernel reads
 // nothing per pixel, keeps everything in registers and writes each pixel
 // once, coalesced along a warp's row. The bf16 instantiation computes in
 // native bf16 ops: an earlier build that rounded each f32 op through

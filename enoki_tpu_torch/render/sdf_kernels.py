@@ -128,22 +128,21 @@ def _relax_step(dist_at, pos, stp, last, eps, t_max, w, back, unimodal):
     return new_pos, new_stp, alive | over
 
 
+def _relax_consts(t, eps, t_max, relax):
+    """(eps, t_max, w, back) of the relaxed march as 0-dim tensors of the
+    march dtype."""
+    return (_const(eps, t), _const(t_max, t), _const(relax, t),
+            _const(1.0 - 1.0 / relax, t))
+
+
 def _march_relaxed(dist_at, t, n_steps, eps, t_max, relax, unimodal):
-    """The (pos, stp) march of ``_march_tile``: returns (pos, hit, steps),
-    ``steps`` counting per lane the steps up to and including the first
-    one that found it frozen (what a thread of the kernel executes)."""
-    w = _const(relax, t)
-    back = _const(1.0 - 1.0 / relax, t)
-    eps, t_max = _const(eps, t), _const(t_max, t)
+    """The (pos, stp) march of ``_march_tile``: returns (pos, hit)."""
+    eps, t_max, w, back = _relax_consts(t, eps, t_max, relax)
     pos, stp = t, torch.zeros_like(t)
-    going = torch.ones_like(t, dtype=torch.bool)
-    steps = torch.zeros_like(t, dtype=torch.int32)
     for k in range(n_steps):
-        steps += going
-        pos, stp, go = _relax_step(dist_at, pos, stp, k == n_steps - 1, eps,
-                                   t_max, w, back, unimodal)
-        going = going & go
-    return pos, dist_at(pos) < eps, steps
+        pos, stp, _ = _relax_step(dist_at, pos, stp, k == n_steps - 1, eps,
+                                  t_max, w, back, unimodal)
+    return pos, dist_at(pos) < eps
 
 
 def march_tile(dist_at, like, n_steps: int, eps: float = 1e-4,
@@ -165,9 +164,8 @@ def march_tile(dist_at, like, n_steps: int, eps: float = 1e-4,
     """
     t = torch.zeros_like(like) if t0 is None else t0
     if relax != 1.0 or unimodal:
-        pos, hit, _ = _march_relaxed(dist_at, t, n_steps, eps, t_max, relax,
-                                     unimodal)
-        return pos, hit
+        return _march_relaxed(dist_at, t, n_steps, eps, t_max, relax,
+                              unimodal)
     eps, t_max = _const(eps, t), _const(t_max, t)
     for _ in range(n_steps - 1):  # the advance at step n_steps - 1 is masked
         d = dist_at(t)
@@ -225,25 +223,31 @@ def _march_t0(t0, dtype):
     return (t0 * (1.0 - torch.finfo(dtype).eps)).to(dtype)
 
 
-def _forward_march(params, px, py, n_steps, t0, dtype, relax, unimodal):
-    """The march of the forward kernel -> (t in f32, hit, distance
-    evaluations per lane, advances or relaxed steps per lane)."""
+def _relaxed_parts(params, px, py, t0, dtype):
+    """(dist_at, start, eps) of the forward kernel's (pos, stp) march in
+    ``dtype``, over sqrt(rxy2 + (z0+t)^2) - rad."""
     rxy2, z0, rad = _march_parts(params, px, py, dtype)
     t0 = _march_t0(t0, dtype)
-    eps = march_eps(dtype)
-    if relax == 1.0 and not unimodal:
-        z, hit, adv, _ = _march_z(rxy2, z0, rad, n_steps, eps, t0)
-        evals = torch.clamp_max(adv + 1, max(n_steps - 1, 0)) + 1
-        return (z - z0).float(), hit, evals, adv
 
     def dist_at(t):
         u = z0 + t
         return _sqrt(rxy2 + u * u) - rad
 
-    t = torch.zeros_like(rxy2) if t0 is None else t0
-    pos, hit, steps = _march_relaxed(dist_at, t, n_steps, eps, T_MAX, relax,
-                                     unimodal)
-    return pos.float(), hit, steps + 1, steps
+    return (dist_at, torch.zeros_like(rxy2) if t0 is None else t0,
+            march_eps(dtype))
+
+
+def _forward_march(params, px, py, n_steps, t0, dtype, relax, unimodal):
+    """The march of the forward kernel -> (t in f32, hit)."""
+    if relax == 1.0 and not unimodal:
+        rxy2, z0, rad = _march_parts(params, px, py, dtype)
+        z, hit, _, _ = _march_z(rxy2, z0, rad, n_steps, march_eps(dtype),
+                                _march_t0(t0, dtype))
+        return (z - z0).float(), hit
+    dist_at, t, eps = _relaxed_parts(params, px, py, t0, dtype)
+    pos, hit = _march_relaxed(dist_at, t, n_steps, eps, T_MAX, relax,
+                              unimodal)
+    return pos.float(), hit
 
 
 def _shade(params, px, py, t, hit):
@@ -272,8 +276,8 @@ def sdf_fwd_plain(params, n: int, n_steps: int, extent: float = 1.2,
     march over sqrt(rxy2 + (z0+t)^2) - rad, else the z-carry march over
     x * rsqrt(x)."""
     px, py = tile_pixels(n, extent, params.device)
-    t, hit, _, _ = _forward_march(params, px, py, n_steps, t0, dtype, relax,
-                                  unimodal)
+    t, hit = _forward_march(params, px, py, n_steps, t0, dtype, relax,
+                            unimodal)
     return _shade(params, px, py, t, hit)
 
 
@@ -284,10 +288,26 @@ def march_counts(params, n: int, n_steps: int, extent: float = 1.2,
     tensors: the distance evaluations a thread executes (its advances,
     the evaluation that found the lane frozen unless it ran to the step
     cap, and the final hit test), and the advances; for the relaxed march,
-    the evaluations and the steps."""
+    the evaluations and the steps, a thread's steps running up to and
+    including the first one that found its lane frozen. Nothing on a
+    render's path calls this: it replays the march to count it."""
     px, py = tile_pixels(n, extent, params.device)
-    return _forward_march(params, px, py, n_steps, t0, dtype, relax,
-                          unimodal)[2:]
+    if relax == 1.0 and not unimodal:
+        rxy2, z0, rad = _march_parts(params, px, py, dtype)
+        adv = _march_z(rxy2, z0, rad, n_steps, march_eps(dtype),
+                       _march_t0(t0, dtype))[2]
+        return torch.clamp_max(adv + 1, max(n_steps - 1, 0)) + 1, adv
+    dist_at, pos, eps = _relaxed_parts(params, px, py, t0, dtype)
+    eps, t_max, w, back = _relax_consts(pos, eps, T_MAX, relax)
+    stp = torch.zeros_like(pos)
+    going = torch.ones_like(pos, dtype=torch.bool)
+    steps = torch.zeros_like(pos, dtype=torch.int32)
+    for k in range(n_steps):
+        steps += going
+        pos, stp, go = _relax_step(dist_at, pos, stp, k == n_steps - 1, eps,
+                                   t_max, w, back, unimodal)
+        going = going & go
+    return steps + 1, steps
 
 
 def sdf_fwd_split_plain(params, n: int, split: int, extent: float = 1.2,
@@ -309,18 +329,17 @@ def sdf_tail_plain(params, idx, cont, img, ts, n: int, n_steps: int,
     ``idx`` (flat pixel indices, int64) replay the advance that pass 1's
     last step masked, march ``n_steps - split`` more steps from the carry
     ``cont[idx]``, shade, and write ``img`` and ``ts`` at ``idx`` in
-    place. Returns (img, ts, advances per survivor)."""
+    place. Returns (img, ts)."""
     coords = tile_pixels(n, extent, params.device)[0][0]
     row = torch.div(idx, n, rounding_mode="floor")
     px, py = coords[idx - row * n], coords[row]
     rxy2, z0, rad = _march_parts(params, px, py, torch.float32)
-    z, _, replay, _ = _march_z(rxy2, z0, rad, 2, EPS,
-                               z_init=cont.reshape(-1)[idx])
-    z, hit, adv, _ = _march_z(rxy2, z0, rad, n_steps - split, EPS, z_init=z)
+    z = _march_z(rxy2, z0, rad, 2, EPS, z_init=cont.reshape(-1)[idx])[0]
+    z, hit, _, _ = _march_z(rxy2, z0, rad, n_steps - split, EPS, z_init=z)
     img_c, ts_c = _shade(params, px, py, z - z0, hit)
     img.view(-1)[idx] = img_c
     ts.view(-1)[idx] = ts_c
-    return img, ts, replay + adv
+    return img, ts
 
 
 def sdf_bwd_plain(params, g, ts, n: int, extent: float = 1.2):
@@ -532,7 +551,7 @@ def sdf_tail(params, idx, cont, img, ts, n: int, n_steps: int, split: int,
     CUDA tensors, the plain version for CPU ones."""
     if not _build.is_cuda(params):
         return sdf_tail_plain(params, idx, cont, img, ts, n, n_steps, split,
-                              extent)[:2]
+                              extent)
     dev = params.device
     _build.check(params, "params", (N_PARAMS,), dev)
     for x, name in ((cont, "cont"), (img, "img"), (ts, "ts")):

@@ -27,7 +27,7 @@ from enoki_tpu.render.pallas_kernels import (
 
 from enoki_tpu_torch.render import LAUNCHES, reset_launch_counts
 from enoki_tpu_torch.render.sdf_kernels import (
-    CONT_FROZEN, SDFRender, _cone_t0, render_sdf_cuda, sdf_bwd,
+    CONT_FROZEN, SDFRender, _cone_t0, march_counts, render_sdf_cuda, sdf_bwd,
     sdf_bwd_ad_plain, sdf_bwd_plain, sdf_fwd_plain, sdf_fwd_split_plain,
     sdf_split, sdf_split_plain, sdf_tail_plain, survivors)
 
@@ -97,7 +97,8 @@ def test_pass_1_flags_exactly_the_lanes_still_alive():
     assert torch.equal(ts[~live], ts1[~live])
     # ... and the tail writes the survivors only, each at most
     # n_steps - 16 advances further (the replayed one included)
-    _, _, adv = sdf_tail_plain(p, idx, cont, img, ts, N, STEPS, 16, 1.2)
+    sdf_tail_plain(p, idx, cont, img, ts, N, STEPS, 16, 1.2)
+    adv = (march_counts(p, N, STEPS)[1] - march_counts(p, N, 16)[1])[live]
     assert adv.min() >= 1 and adv.max() <= STEPS - 16
     assert torch.equal(img, img1) and torch.equal(ts, ts1)
 
