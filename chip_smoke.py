@@ -11,10 +11,14 @@ its full 1024^2, in f32 and bf16 compute, with its gradient; the third is
 the SDF render with each of its options (the cone prepass, which is the
 reference's default configuration, a bf16 march, the over-relaxed march,
 the two-pass split march, the autodiff-route backward), at the same 1024^2
-and 64 steps.
+and 64 steps; the fourth is the bring-your-own-SDF renderer
+(make_sdf_renderer) on a 12-parameter composed scene (a sphere smooth-
+blended with a torus over a ground plane), whose two kernels are generated
+per scene, at the same 1024^2 and 64 steps.
 
-  setup    build the kernels from enoki_tpu_torch/csrc with nvcc, one
-           process per source, all at once
+  setup    build the kernels from enoki_tpu_torch/csrc with nvcc, and the
+           generated sources of the generic renderer's scenes, one process
+           per source, all at once
   phase 1  sdf_fwd against sdf_fwd_plain, reference + two seeded scenes
   phase 2  sdf_bwd against sdf_bwd_plain on the same ts and a seeded g;
            two runs must be bitwise equal
@@ -59,6 +63,25 @@ and 64 steps.
            each new kernel alone with its bound and plain version, of the
            cone prepass, and of the chained fwd+bwd step for the five
            candidate configurations of bench.py:233-235, interleaved
+  phase 13 generic_fwd against generic_fwd_plain: the composed scene at
+           the reference parameters and two seeded perturbations, through
+           the orthographic and the perspective camera; a sphere-only
+           scene against sdf_fwd at the same sphere (two independent
+           kernels for one picture) under the flip gate; an all-miss
+           scene, exactly ambient
+  phase 14 generic_bwd against generic_bwd_plain on the same ts and a
+           seeded g; two runs must be bitwise equal; the all-miss gradient
+           exact
+  phase 15 the generic path: the module of make_sdf_renderer(scene_sdf, 12)
+           trained for a few SGD steps, each step's loss and gradient
+           against the plain twin; one generic_fwd and one generic_bwd
+           (+ reduce) per step; one step each of coarse=8, bands=8
+           (composed scene) and relax=1.6, unimodal (sphere-only, a second
+           scene in the same process) under the head-start gates
+  phase 16 timing: each generic kernel alone with its bound and its plain
+           version, the chained fwd+bwd step against the twin's, the cone
+           prepass over the composed scene, trace and nvcc seconds per
+           scene at first use and at a cached use
 
 Run from the root of the repository:  python chip_smoke.py
 Needs one CUDA card; exits non-zero, printing no result, without one or
@@ -126,6 +149,16 @@ CONT_FLOPS_PER_PIXEL = 3       # pass 1's survivor test after the hit test
 # contraction), before the compiler drops the derivative slots that are
 # structurally zero
 BWD_AD_FLOPS_AS_WRITTEN_PER_HIT = 693
+# ... and of the generated kernels (csrc/generic_render.cuh): what a
+# distance evaluation costs is the traced scene function's own count of
+# arithmetic nodes (Program.n_ops), to which come
+GENERIC_POINT_FLOPS = 6        # o + d * t, three components
+GENERIC_STEP_FLOPS = 3         # d >= eps, t + d, <= t_max
+# what a hit pixel's shade and cotangent need comes from the traced scene
+# function too, differentiated in reverse mode (generic_hit_programs)
+GENERIC_PARAMS = (0.15, 40.0, -1.0, -1.0, 2.0,     # ambient gain light
+                  0.1, -0.2, 0.3, 0.45,            # sphere center, radius
+                  0.55, 0.18, 1.05)                # torus R, r; plane
 # the five candidate configurations of bench.py:233-235:
 # (coarse, bands, relax, unimodal, split)
 CANDIDATES = ((0, 1, 1.0, False, 0), (8, 1, 1.0, False, 0),
@@ -157,6 +190,50 @@ def scene_vec(seed):
         v[3] = rng.uniform(0.8, 1.1)
         v[6:9] = rng.uniform(-2.0, 2.0, 3)
     return v
+
+
+def generic_vec(seed):
+    """The composed scene's 12 parameters (examples/composed.py), or a
+    seeded perturbation: sphere center +-0.1, radius 0.35-0.55, torus
+    0.45-0.65 / 0.12-0.22, plane 0.95-1.1, a random light from above."""
+    v = np.asarray(GENERIC_PARAMS, np.float32)
+    if seed is not None:
+        rng = np.random.default_rng(seed)
+        v[2:4] = rng.uniform(-2.0, 2.0, 2)
+        v[4] = rng.uniform(1.0, 2.5)
+        v[5:8] += rng.uniform(-0.1, 0.1, 3)
+        v[8] = rng.uniform(0.35, 0.55)
+        v[9] = rng.uniform(0.45, 0.65)
+        v[10] = rng.uniform(0.12, 0.22)
+        v[11] = rng.uniform(0.95, 1.1)
+    return v
+
+
+def sphere_as_generic(v16):
+    """The sphere scene's 16-vector [c, r, ambient, gain, l] in the generic
+    layout [ambient, gain, l, c, r]."""
+    return np.concatenate([v16[4:9], v16[0:4]]).astype(np.float32)
+
+
+def generic_scenes():
+    """name -> SceneKernels of the scenes phases 13-16 render."""
+    from enoki_tpu_torch.render import Vec3, generic as G, sdflib as sd
+
+    def scene_sdf(p, pv):                      # examples/composed.py:22-26
+        s = sd.sd_sphere(p, Vec3(pv[5], pv[6], pv[7]), pv[8])
+        t = sd.sd_torus(p, Vec3(0.0, 0.0, 1.0), pv[9], pv[10])
+        g = sd.sd_plane(p, Vec3(0.0, -1.0, 0.0), pv[11])
+        return sd.op_union(sd.op_smooth_union(s, t, 0.1), g)
+
+    def sphere_only(p, pv):
+        return sd.sd_sphere(p, Vec3(pv[5], pv[6], pv[7]), pv[8])
+
+    return {
+        "composed": G.make_sdf_renderer(scene_sdf, 12),
+        "composed_perspective": G.make_sdf_renderer(
+            scene_sdf, 12, ray_fn=G.perspective_camera()),
+        "sphere_only": G.make_sdf_renderer(sphere_only, 9),
+    }
 
 
 def nvidia_smi(query, fmt="csv,noheader"):
@@ -260,6 +337,123 @@ def bound(nbytes, flops, bf16_flops=0):
     return 1e3 * t[by], by
 
 
+def reverse_sweep(trace, root, seed, wrt):
+    """One reverse-mode sweep over a traced DAG, recorded into the same
+    ``trace`` (enoki_tpu_torch.render.sdf_trace.Trace): the adjoints of
+    the values ``wrt`` when the value ``root`` has the adjoint ``seed``.
+    A node's adjoint goes to each argument times the local partial and
+    adds up where a value is used more than once. The selections that the
+    partials of abs, min and max need are nodes of their own kinds
+    (``signmul(x, b)`` is b or -b by the sign of x, ``pick_min(x, y, b)``
+    is b where x is the smaller, half of it at a tie, else 0), which a
+    later sweep differentiates in their last argument. Equal expressions
+    are one node, so two sweeps from one root share what they share."""
+    from enoki_tpu_torch.render.sdf_trace import LEAVES, Sym
+
+    one, half = trace.lift(1.0), trace.lift(0.5)
+
+    def times(a, b):
+        if a.id == one.id:
+            return b
+        return a if b.id == one.id else a * b
+
+    adj = {root.id: seed}
+    for i in range(root.id, -1, -1):    # creation order is topological
+        kind, *args = trace.nodes[i]
+        if i not in adj or kind in LEAVES:
+            continue
+        bar, v, a = adj[i], Sym(trace, i), [Sym(trace, j) for j in args]
+        if kind == "add":
+            parts = [bar, bar]
+        elif kind == "sub":
+            parts = [bar, -bar]
+        elif kind == "neg":
+            parts = [-bar]
+        elif kind == "mul":
+            parts = [times(bar, a[1]), times(bar, a[0])]
+        elif kind == "div":
+            q = bar / a[1]
+            parts = [q, -(q * v)]
+        elif kind == "divn":            # by a Python number, a leaf
+            parts = [bar / float.fromhex(trace.nodes[args[1]][1])]
+        elif kind == "recip":
+            parts = [-(times(bar, v) * v)]
+        elif kind == "sqrt":
+            parts = [times(bar, half) / v]
+        elif kind == "rsqrt":
+            parts = [-(times(bar, half) * v / a[0])]
+        elif kind == "abs":
+            parts = [trace.op("signmul", a[0], bar)]
+        elif kind in ("min", "max"):
+            parts = [trace.op("pick_" + kind, a[0], a[1], bar),
+                     trace.op("pick_" + kind, a[1], a[0], bar)]
+        elif kind == "signmul":
+            parts = [None, trace.op(kind, a[0], bar)]
+        elif kind in ("pick_min", "pick_max"):
+            parts = [None, None, trace.op(kind, a[0], a[1], bar)]
+        else:
+            raise SmokeFailure(f"no partial known for a {kind} node")
+        for j, part in zip(args, parts):
+            if part is not None and trace.nodes[j][0] not in ("const",
+                                                              "number"):
+                adj[j] = adj[j] + part if j in adj else part
+    zero = trace.lift(0.0)
+    return [adj.get(w.id, zero) for w in wrt]
+
+
+def generic_hit_programs(kern):
+    """What a hit pixel of a scene (``SceneKernels``) needs, as two traced
+    programs whose arithmetic nodes the bounds count:
+
+    * the shade of generic_fwd, (o, d, t, pv) -> img: the scene function
+      at the hit point, one reverse sweep for the normal grad_p sdf, the
+      Lambert term;
+    * the cotangent of generic_bwd, (px, py, t, g, pv) -> dp[n_params]:
+      the ray, that shade, a reverse sweep through all of it for d img /
+      d(pv, t) times g, a sweep from the distance for its slopes in pv
+      and t (which shares the normal's sweep), and the implicit term
+      -(t_bar / slope_t) * slope_pv with its guard as one operation.
+
+    This is reverse mode, the cheapest way known to the function; the
+    kernel itself runs n_params + 1 forward sweeps."""
+    from enoki_tpu_torch.render import sdf_trace as T
+    from enoki_tpu_torch.render.vec import Vec3
+
+    def leaves(trace, names):
+        return [trace.leaf(("in", name)) for name in names]
+
+    def shade(trace, o, d, t, pv):
+        p = o + d * t
+        f = trace.lift(kern.sdf_fn(p, pv))
+        nx, ny, nz = reverse_sweep(trace, f, trace.lift(1.0),
+                                   (p.x, p.y, p.z))
+        inv = T.rsqrt(nx * nx + ny * ny + nz * nz + 1e-12)
+        lam = (nx * pv[2] + ny * pv[3] + nz * pv[4]) * inv
+        return f, pv[0] + T.maximum(lam, 0.0) * pv[1]
+
+    names = ("ox", "oy", "oz", "dx", "dy", "dz", "t")
+    trace = T.Trace()
+    *od, t = leaves(trace, names)
+    pv = T.ParamVec(trace, kern.n_params)
+    _, img = shade(trace, Vec3(*od[:3]), Vec3(*od[3:]), t, pv)
+    fwd = T._prune(trace, names, [img])
+
+    names = ("px", "py", "t", "g")
+    trace = T.Trace()
+    px, py, t, g = leaves(trace, names)
+    pv = T.ParamVec(trace, kern.n_params)
+    o, d = kern.ray_fn(px, py, pv)
+    lift = trace.lift
+    f, img = shade(trace, Vec3(lift(o.x), lift(o.y), lift(o.z)),
+                   Vec3(lift(d.x), lift(d.y), lift(d.z)), t, pv)
+    *direct, t_bar = reverse_sweep(trace, img, g, [*pv, t])
+    *slopes, slope_t = reverse_sweep(trace, f, lift(1.0), [*pv, t])
+    lam = -(t_bar / trace.op("guard", slope_t))
+    bwd = T._prune(trace, names,
+                   [a + lam * b for a, b in zip(direct, slopes)])
+    return fwd, bwd
+
+
 def main():
     import torch
 
@@ -284,11 +478,24 @@ def run(torch, dev):
 
     t0 = time.perf_counter()
     libs = ("sdf_render", "sdf_bwd_ad", "sphere_render")
-    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
-        list(pool.map(_build.build, libs))  # one nvcc per source at once
+    scenes = generic_scenes()
+
+    def build_scene(name):
+        # the scene's first use: one trace, then one nvcc
+        t_start = time.perf_counter()
+        scenes[name][0].kernels.lib
+        return time.perf_counter() - t_start
+
+    with concurrent.futures.ThreadPoolExecutor(len(libs)
+                                               + len(scenes)) as pool:
+        # one nvcc per source, all at once
+        built = pool.map(_build.build, libs)
+        first_use = dict(zip(scenes, pool.map(build_scene, scenes)))
+        list(built)
     for name in libs:
         _build.load(name)
-    log(f"build: {', '.join(f'{n}.cu' for n in libs)} with nvcc "
+    log(f"build: {', '.join(f'{n}.cu' for n in libs)} and the generated "
+        f"sources of {len(scenes)} scenes with nvcc "
         f"{' '.join(_build.NVCC_FLAGS)} in {time.perf_counter() - t0:.2f} s")
 
     def cuda_vec(seed):
@@ -491,6 +698,7 @@ def run(torch, dev):
     ]
     kernels += run_sphere(torch, dev, timer, cuda_vec)
     kernels += run_sdf_options(torch, dev, timer, cuda_vec)
+    kernels += run_generic(torch, dev, timer, scenes, first_use)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
@@ -1209,6 +1417,383 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
                  max_abs_err=err[name], ms=ms[name], plain_ms=plain_ms[name],
                  bound_ms=work[name][2][0], bound_by=work[name][2][1],
                  library_ms=None) for name in work]
+
+def run_generic(torch, dev, timer, scenes, first_use):
+    """Phases 13-16: the bring-your-own-SDF renderer. ``scenes`` are
+    ``generic_scenes()``'s renderers, already built; ``first_use`` their
+    trace + nvcc seconds. Returns the two kernels' entries of the kernels
+    line."""
+    from enoki_tpu_torch import _build
+    from enoki_tpu_torch.render import (LAUNCHES, generic as G,
+                                        reset_launch_counts, sdf_kernels as K)
+
+    rays = N * N
+    g_rand = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (N, N)).astype(np.float32)).to(dev)
+    err = {"generic_fwd": 0.0, "generic_bwd": 0.0}
+
+    def kernels_of(name):
+        return scenes[name][0].kernels
+
+    def vec(v):
+        return torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+
+    def significant_rel(g, ref):
+        sig = ref.abs() > 1e-3 * ref.abs().max()
+        return ((g - ref).abs()[sig] / ref.abs()[sig]).max().item()
+
+    # -- phase 13: generic_fwd against its plain version --------------------
+    for name in ("composed", "composed_perspective"):
+        kern = kernels_of(name)
+        for seed in SEEDS:
+            p = vec(generic_vec(seed))
+            img_k, ts_k = G.generic_fwd(kern, p, N, STEPS, EXTENT)
+            img_p, ts_p = G.generic_fwd_plain(kern.sdf_fn, kern.ray_fn, p, N,
+                                              STEPS, EXTENT)
+            torch.cuda.synchronize()
+            check(img_k.shape == (N, N)
+                  and torch.isfinite(img_k).all().item()
+                  and torch.isfinite(ts_k).all().item(),
+                  f"generic_fwd {name}: non-finite output")
+            d = (img_k - img_p).abs()
+            err["generic_fwd"] = max(err["generic_fwd"], d.max().item())
+            what = f"phase 13 generic_fwd {name} scene={seed}"
+            hits = (ts_k >= 0).sum().item()
+            check(0.05 * rays < hits < 0.95 * rays,
+                  f"{what}: {hits} hits, the scene is not in view")
+            if seed is None:
+                # the emitted arithmetic rounds where PyTorch's kernels
+                # round on this card (a division by a number is a product
+                # with its reciprocal there): if that ever changes, it
+                # shows here, not as a few flips under a gate
+                check(torch.equal(ts_k, ts_p),
+                      f"{what}: ts differs from the plain version's on "
+                      f"{(ts_k != ts_p).sum().item()} pixels at the "
+                      f"reference parameters, where it was bit-equal")
+            if torch.equal(ts_k, ts_p):
+                # the normal comes from dual numbers here and from
+                # autograd there: the image is equal to rounding
+                ok = d.max().item() <= 1e-3
+                log(f"{what}: ts bit-equal to plain, max|img-plain| "
+                    f"{d.max().item():.3e} <= 1e-3, {(d > 0).sum().item()} "
+                    f"pixels differ, hits {hits}: "
+                    f"{'pass' if ok else 'FAIL'}")
+                check(ok, f"{what}: image atol 1e-3")
+            else:
+                log(f"{what}: ts differs on "
+                    f"{(ts_k != ts_p).sum().item()} pixels, hit masks on "
+                    f"{((ts_k >= 0) != (ts_p >= 0)).sum().item()}")
+                flip_gate(d, what)
+
+    # two independent kernels for one picture: the sphere-only scene
+    # through generic_fwd against the main path's sdf_fwd, the same sphere
+    # (sqrt of the traced function against x * rsqrt(x) of the z-carry)
+    kern = kernels_of("sphere_only")
+    for seed in SEEDS:
+        v16 = scene_vec(seed)
+        img_g, ts_g = G.generic_fwd(kern, vec(sphere_as_generic(v16)), N,
+                                    STEPS, EXTENT)
+        img_s, ts_s = K.sdf_fwd(vec(v16), N, STEPS, EXTENT)
+        torch.cuda.synchronize()
+        log(f"phase 13 sphere-only scene={seed}: hit masks differ on "
+            f"{((ts_g >= 0) != (ts_s >= 0)).sum().item()} pixels of "
+            f"{(ts_s >= 0).sum().item()} hits")
+        flip_gate((img_g - img_s).abs(),
+                  f"phase 13 generic_fwd sphere-only against sdf_fwd "
+                  f"scene={seed}")
+
+    # every ray escapes: the image is the ambient term bit for bit
+    far = sphere_as_generic(scene_vec(None))
+    far[5] = 50.0
+    p_far = vec(far)
+    img_far, ts_far = G.generic_fwd(kern, p_far, N, STEPS, EXTENT)
+    ok = (torch.equal(img_far, torch.full((N, N), float(far[0]), device=dev))
+          and bool((ts_far < 0).all().item()))
+    log(f"phase 13 all-miss scene: image exactly ambient, no hit: "
+        f"{'pass' if ok else 'FAIL'}")
+    check(ok, "all-miss scene is not exactly ambient")
+
+    # -- phase 14: generic_bwd against its plain version, determinism ------
+    for name in ("composed", "composed_perspective"):
+        kern = kernels_of(name)
+        for seed in SEEDS:
+            p = vec(generic_vec(seed))
+            _, ts = G.generic_fwd(kern, p, N, STEPS, EXTENT)
+            dp1 = G.generic_bwd(kern, p, g_rand, ts, N, EXTENT)
+            dp2 = G.generic_bwd(kern, p, g_rand, ts, N, EXTENT)
+            ref = G.generic_bwd_plain(kern.sdf_fn, kern.ray_fn, p, g_rand,
+                                      ts, N, EXTENT)
+            torch.cuda.synchronize()
+            check(torch.equal(dp1, dp2), "generic_bwd: two runs differ")
+            check(torch.isfinite(dp1).all().item(), "generic_bwd: non-finite")
+            scale = max(1.0, ref.abs().max().item())
+            e = (dp1 - ref).abs()
+            err["generic_bwd"] = max(err["generic_bwd"], e.max().item())
+            ok = bool((e <= 2e-4 * scale + 2e-4 * ref.abs()).all().item())
+            log(f"phase 14 generic_bwd {name} scene={seed}: max|dp-plain| "
+                f"{e.max().item():.3e} (scale {scale:.3e}), bitwise "
+                f"deterministic: yes; gate rtol 2e-4 atol 2e-4*scale: "
+                f"{'pass' if ok else 'FAIL'}")
+            check(ok, f"generic_bwd vs plain ({name}, scene {seed}): "
+                  f"{e.tolist()}")
+    dp_far = G.generic_bwd(kernels_of("sphere_only"), p_far,
+                           torch.ones((N, N), device=dev), ts_far, N, EXTENT)
+    ok = dp_far[0].item() == rays and bool((dp_far[1:] == 0).all().item())
+    log(f"phase 14 all-miss scene: gradient of sum(img) exactly {rays} in "
+        f"the ambient slot and 0 elsewhere: {'pass' if ok else 'FAIL'}")
+    check(ok, f"all-miss gradient: {dp_far.tolist()}")
+
+    # -- phase 15: the generic path, counted --------------------------------
+    render, render_plain = scenes["composed"]
+    model = G.GenericRender(render, vec(generic_vec(None)), n=N,
+                            n_steps=STEPS, extent=EXTENT)
+    opt = torch.optim.SGD(model.parameters(), lr=LR)
+    reset_launch_counts()
+    for step in range(TRAIN_STEPS):
+        opt.zero_grad()
+        img = model()
+        loss = img.mean()
+        loss.backward()
+        grad = model.params.grad.detach().clone()
+        p_x = model.params.detach().clone().requires_grad_(True)
+        loss_x = render_plain(p_x, N, STEPS, EXTENT).mean()
+        (gx,) = torch.autograd.grad(loss_x, p_x)
+        torch.cuda.synchronize()
+        check(img.shape == (N, N) and torch.isfinite(img).all().item()
+              and torch.isfinite(grad).all().item(), "non-finite output")
+        lx = loss_x.item()
+        tol = 2e-3 * max(1.0, gx.abs().max().item())
+        g_ok = bool(torch.allclose(grad, gx, rtol=2e-2, atol=tol))
+        l_ok = abs(loss.item() - lx) <= 1e-5 + 1e-3 * abs(lx)
+        log(f"phase 15 step {step}: loss {loss.item():.7g} (twin {lx:.7g}), "
+            f"max|grad-twin| {(grad - gx).abs().max().item():.3e} (rtol "
+            f"2e-2, atol {tol:.3e}; largest relative error of a significant "
+            f"gradient {significant_rel(grad, gx):.4f}); gates: loss rtol "
+            f"1e-3 {'pass' if l_ok else 'FAIL'}, grad "
+            f"{'pass' if g_ok else 'FAIL'}")
+        check(l_ok and g_ok, f"generic path vs twin at step {step}")
+        opt.step()
+    launches = dict(LAUNCHES)
+    log(f"phase 15 launches over {TRAIN_STEPS} steps: {launches}")
+    check(launches == {k: TRAIN_STEPS for k in
+                       ("generic_fwd", "generic_bwd", "generic_bwd_reduce")},
+          f"expected one launch of each kernel per step, got {launches}")
+
+    def one_step(name, p, **options):
+        """(img, grad, ts) of one counted fwd+bwd step of a module."""
+        m = G.GenericRender(scenes[name][0], p, n=N, n_steps=STEPS,
+                            extent=EXTENT, **options)
+        reset_launch_counts()
+        img = m()
+        img.mean().backward()
+        torch.cuda.synchronize()
+        got = dict(LAUNCHES)
+        check(got == {"generic_fwd": 1, "generic_bwd": 1,
+                      "generic_bwd_reduce": 1},
+              f"{name} {options}: expected one launch of each kernel, got "
+              f"{got}")
+        check(torch.isfinite(img).all().item()
+              and torch.isfinite(m.params.grad).all().item(),
+              f"{name} {options}: non-finite")
+        # the step's hit mask: the forward kernel again on the same start
+        kern = kernels_of(name)
+        t0 = None
+        if options.get("coarse"):
+            t0 = G._cone_t0_generic(kern.sdf_fn, kern.ray_fn, p, N, STEPS,
+                                    EXTENT, options["coarse"], 1e-4, 10.0)
+        img_k, ts = G.generic_fwd(kern, p, N, STEPS, EXTENT, t0,
+                                  options.get("relax", 1.0),
+                                  options.get("unimodal", False))
+        check(torch.equal(img_k, img.detach()),
+              "generic_fwd is not repeatable")
+        return img.detach(), m.params.grad.detach().clone(), ts
+
+    # the head-start options against the plain configuration's step
+    # (tests/test_generic_render.py:98-117 and :145-167). A flip is a
+    # hit/miss disagreement: |d| > 1, or the hit masks differ and the
+    # images with them (phase 12 reads it the same way at this size)
+    p_c = vec(generic_vec(None))
+    p_s = vec(sphere_as_generic(scene_vec(None)))
+    img0, g0, ts0 = one_step("composed", p_c)
+    img8, g8, ts8 = one_step("composed", p_c, coarse=8, bands=8)
+    d = (img8 - img0).abs()
+    flips = (d > 1.0) | (((ts8 >= 0) != (ts0 >= 0)) & (d > 0.0))
+    share = flips.float().mean().item()
+    off_max, off_mean = d[~flips].max().item(), d[~flips].mean().item()
+    tol = 5e-3 * max(1.0, g0.abs().max().item())
+    ok = (share < 1e-3 and off_max < 0.05 and off_mean < 5e-3
+          and bool(torch.allclose(g8, g0, rtol=5e-2, atol=tol)))
+    log(f"phase 15 one step, coarse=8 bands=8 (composed): flip share "
+        f"{share:.3e} < 1e-3 (by |d| > 1 alone "
+        f"{(d > 1.0).float().mean().item():.3e}), off-flip max "
+        f"{off_max:.3e} < 0.05, mean {off_mean:.3e} < 5e-3; max|grad - "
+        f"plain step's| {(g8 - g0).abs().max().item():.3e} (rtol 5e-2, atol "
+        f"{tol:.3e}; largest relative error of a significant gradient "
+        f"{significant_rel(g8, g0):.4f}): {'pass' if ok else 'FAIL'}")
+    check(ok, "one step with coarse=8, bands=8")
+    img_s0, g_s0, _ = one_step("sphere_only", p_s)
+    img_u, _, _ = one_step("sphere_only", p_s, unimodal=True)
+    check(torch.equal(img_u, img_s0),
+          "relax=1 with unimodal differs from the plain march")
+    img_w, g_w, _ = one_step("sphere_only", p_s, relax=1.6, unimodal=True)
+    d = (img_w - img_s0).abs()
+    flips = d > 1.0
+    share, off_mean = flips.float().mean().item(), d[~flips].mean().item()
+    rel = significant_rel(g_w, g_s0)
+    ok = (share < 0.01 and off_mean < 1e-3 and rel < 0.5
+          and g_w[5:].abs().max().item() > 1e-4)
+    log(f"phase 15 one step, relax=1.6 unimodal (sphere-only, a second "
+        f"scene's library in this process): unimodal alone bit-equal to "
+        f"plain; flip share {share:.3e} < 0.01, off-flip mean "
+        f"{off_mean:.3e} < 1e-3, significant gradients within {rel:.3f} < "
+        f"0.5 of plain's: {'pass' if ok else 'FAIL'}")
+    check(ok, "one step with relax=1.6, unimodal")
+    check(kernels_of("sphere_only").lib is not kernels_of("composed").lib,
+          "two scenes share one library")
+
+    # -- phase 16: timing -----------------------------------------------------
+    kern = kernels_of("composed")
+    g_mean = torch.full((N, N), 1.0 / rays, device=dev)
+    fwd_ms = timer(lambda: G.generic_fwd(kern, p_c, N, STEPS, EXTENT), 200,
+                   hold_ms=400.0)
+    bwd_ms = timer(lambda: G.generic_bwd(kern, p_c, g_mean, ts0, N, EXTENT),
+                   200, hold_ms=400.0)
+
+    # the plain versions as the earlier phases time theirs: device time,
+    # the stream held while the host enqueues, one call at a time (each is
+    # thousands of eager launches)
+    fwd_plain_ms = timer(lambda: G.generic_fwd_plain(
+        kern.sdf_fn, kern.ray_fn, p_c, N, STEPS, EXTENT), 1, hold_ms=1000.0)
+    bwd_plain_ms = timer(lambda: G.generic_bwd_plain(
+        kern.sdf_fn, kern.ray_fn, p_c, g_mean, ts0, N, EXTENT), 1,
+        hold_ms=1000.0)
+
+    # bounds from this run's data. A hit pixel's operations are the
+    # arithmetic nodes of the scene's two reverse-mode programs; the
+    # cotangent adds its n_params sums over the image, and every pixel its
+    # hit test and the sum of g into the ambient slot
+    traced = kern.traced
+    shade_prog, cotangent_prog = generic_hit_programs(kern)
+    evals = int(G.generic_march_counts(kern.sdf_fn, kern.ray_fn, p_c, N,
+                                       STEPS, EXTENT).sum().item())
+    hits = int((ts0 >= 0).sum().item())
+    eval_flops = traced.sdf.n_ops + GENERIC_POINT_FLOPS
+    fwd_flops = ((eval_flops + GENERIC_STEP_FLOPS) * evals
+                 + (traced.ray.n_ops + 4) * rays   # the ray, the pixel, ts
+                 + shade_prog.n_ops * hits)
+    bwd_flops = (cotangent_prog.n_ops + kern.n_params) * hits + 2 * rays
+    # fwd reads the parameters and writes img + ts; bwd reads the
+    # parameters, g and ts and writes dp
+    n_par = 4 * kern.n_params
+    fwd_bound, fwd_by = bound(8 * rays + n_par, fwd_flops)
+    bwd_bound, bwd_by = bound(8 * rays + 2 * n_par, bwd_flops)
+    log(f"phase 16 work: the composed scene is {traced.sdf.n_ops} "
+        f"operations per distance evaluation ({traced.ray.n_ops} per ray); "
+        f"{evals} evaluations ({evals / rays:.3f} per pixel), counted by "
+        f"the plain march; {hits} hit pixels of {rays}, each "
+        f"{shade_prog.n_ops} operations in the forward's shade and "
+        f"{cotangent_prog.n_ops} in the backward's cotangent (the scene "
+        f"differentiated in reverse mode)")
+    log(f"phase 16 generic_fwd {fwd_ms:.5f} ms (plain {fwd_plain_ms:.3f} ms,"
+        f" bound {fwd_bound:.5f} ms by {fwd_by}: {fwd_flops} operations, "
+        f"{8 * rays + n_par} bytes); generic_bwd {bwd_ms:.5f} ms (plain "
+        f"{bwd_plain_ms:.3f} ms, bound {bwd_bound:.5f} ms by {bwd_by}: "
+        f"{bwd_flops} operations, {8 * rays + 2 * n_par} bytes); library "
+        f"call: none computes either function")
+
+    def kernel_step(p0, p, k):
+        p = p.detach().requires_grad_(True)
+        loss = render(p, N, STEPS, EXTENT, min(128, N)).mean()
+        (g,) = torch.autograd.grad(loss, p)
+        return p0 + (loss.detach() + 1e-12 * g.sum()) * 1e-12 + 1e-6 * k
+
+    def twin_step(p0, p, k):
+        p = p.detach().requires_grad_(True)
+        loss = render_plain(p, N, STEPS, EXTENT).mean()
+        (g,) = torch.autograd.grad(loss, p)
+        return p0 + (loss.detach() + 1e-12 * g.sum()) * 1e-12 + 1e-6 * k
+
+    # interleaved: kernel, twin, twin, kernel
+    t_k1, sp_k1 = chain_ms(torch, kernel_step, p_c, 50, 5)
+    t_x1, sp_x1 = chain_ms(torch, twin_step, p_c, 2, 2)
+    t_x2, sp_x2 = chain_ms(torch, twin_step, p_c, 2, 2)
+    t_k2, sp_k2 = chain_ms(torch, kernel_step, p_c, 50, 5)
+    t_k, t_x = min(t_k1, t_k2), min(t_x1, t_x2)
+    log(f"phase 16 generic fwd+bwd step (chained, median of windows): "
+        f"kernels {t_k1:.4f} / {t_k2:.4f} ms (spread {sp_k1:.2%} / "
+        f"{sp_k2:.2%}), twin {t_x1:.3f} / {t_x2:.3f} ms (spread {sp_x1:.2%} "
+        f"/ {sp_x2:.2%}); {rays / (t_k * 1e-3):.4g} rays/s, "
+        f"{t_x / t_k:.1f}x the twin")
+    by_kernel = device_ms_by_kernel(torch, kernel_step, p_c, 30)
+    busy_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+    log("phase 16 device time per generic fwd+bwd step (torch.profiler): "
+        + (f"{busy_ms:.5f} ms of {t_k:.4f} ms, busy share "
+           f"{busy_ms / t_k:.4f}; "
+           + ", ".join(f"{k[:48]} {v:.5f} ms" for k, v in top)
+           if by_kernel else "not measured (no device events)"))
+
+    # the cone prepass over the composed scene: eager ops on (N/8)^2 rays
+    def cone():
+        return G._cone_t0_generic(kern.sdf_fn, kern.ray_fn, p_c, N, STEPS,
+                                  EXTENT, 8, 1e-4, 10.0)
+
+    cone_dev_ms = timer(cone, 1, hold_ms=1000.0)
+    wall = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        cone()
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t_start))
+    cone_wall_ms, cone_spread = robust(wall)
+    t0_map = cone()
+    fwd8_ms = timer(lambda: G.generic_fwd(kern, p_c, N, STEPS, EXTENT,
+                                          t0_map), 200, hold_ms=400.0)
+    ev8 = int(G.generic_march_counts(kern.sdf_fn, kern.ray_fn, p_c, N, STEPS,
+                                     EXTENT, t0_map).sum().item())
+    log(f"phase 16 cone prepass over the composed scene (coarse=8, {STEPS} "
+        f"steps of eager ops on {N // 8}^2 rays): device {cone_dev_ms:.4f} "
+        f"ms, wall {cone_wall_ms:.3f} ms (spread {cone_spread:.2%}); "
+        f"generic_fwd with its start map {fwd8_ms:.5f} ms "
+        f"({ev8 / rays:.3f} evaluations per pixel) against {fwd_ms:.5f} ms "
+        f"without ({evals / rays:.3f})")
+
+    # host cost per scene: the first use (trace + nvcc, in setup, beside
+    # the other builds) and a cached use (a new renderer of the same
+    # functions: trace, then the library that is already built)
+    for name, (render_fn, _) in scenes.items():
+        k0 = render_fn.kernels
+        again = G.SceneKernels(k0.sdf_fn, k0.ray_fn, k0.n_params)
+        t_start = time.perf_counter()
+        path = _build.build_generated("generic_render", again.traced.source)
+        found_s = time.perf_counter() - t_start - again.trace_seconds
+        again.lib
+        check(again.lib is k0.lib and path.exists(),
+              f"{name}: a second renderer of the scene built a second "
+              f"library")
+        log(f"phase 16 host cost, scene {name}: first use "
+            f"{first_use[name]:.2f} s (trace {k0.trace_seconds * 1e3:.2f} "
+            f"ms, nvcc + load {k0.load_seconds:.2f} s, beside the other "
+            f"builds); cached use: trace {again.trace_seconds * 1e3:.2f} "
+            f"ms, finding the built library {found_s * 1e3:.2f} ms, load "
+            f"{again.load_seconds * 1e3:.3f} ms")
+
+    common = {"route": "cuda",
+              "source": "enoki_tpu_torch/csrc/generic_render.cuh",
+              "library_ms": None}
+    return [
+        dict(name="generic_fwd", replaces="enoki_tpu/render/generic.py:143",
+             launches=launches["generic_fwd"],
+             max_abs_err=err["generic_fwd"], ms=fwd_ms,
+             plain_ms=fwd_plain_ms, bound_ms=fwd_bound, bound_by=fwd_by,
+             **common),
+        dict(name="generic_bwd", replaces="enoki_tpu/render/generic.py:187",
+             launches=launches["generic_bwd"],
+             max_abs_err=err["generic_bwd"], ms=bwd_ms,
+             plain_ms=bwd_plain_ms, bound_ms=bwd_bound, bound_by=bwd_by,
+             **common),
+    ]
 
 
 if __name__ == "__main__":

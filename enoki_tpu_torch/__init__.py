@@ -10,9 +10,12 @@ Imports ``torch`` and never ``jax`` or anything of ``enoki_tpu``.
 Entry points run on the CUDA card unless the caller passes ``device``.
 
 Ported so far (``render``): the differentiable SDF sphere-march render,
-with its forward and analytic backward kernels (``render.sdf_kernels``),
-and the closed-form sphere render of the reference mini-app, with its f32
-and bf16 forward kernels and analytic backward (``render.sphere_kernels``).
+with its forward kernels in every option and both backward kernels
+(``render.sdf_kernels``); the closed-form sphere render of the reference
+mini-app, with its f32 and bf16 forward kernels and analytic backward
+(``render.sphere_kernels``); and the bring-your-own-SDF renderer
+(``render.generic``, ``render.sdflib``), whose two kernels are generated
+per scene from the scene's Python functions (``render.sdf_trace``).
 """
 
 from ._device import resolve_device  # noqa: F401

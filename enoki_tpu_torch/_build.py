@@ -1,7 +1,9 @@
 """Build the port's CUDA sources with nvcc, load them with ctypes, and
 keep the bookkeeping every kernel wrapper shares.
 
-Each ``csrc/*.cu`` file has a plain C interface (no PyTorch headers, so
+Each ``csrc/*.cu`` file, and each source generated for a scene of
+``render.generic`` (the scene's functions between two ``#include``s of
+the skeleton in ``csrc/``), has a plain C interface (no PyTorch headers, so
 nvcc takes seconds, not minutes). On first use it is compiled for Hopper
 into a shared library under ``enoki_tpu_torch/_build/``, named by a hash
 of the source, the shared headers ``csrc/*.cuh`` and the flags, so an
@@ -10,7 +12,7 @@ Nothing is built when a module is imported: the CPU, which has no nvcc,
 never reaches ``build``.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -I csrc -o _build/<name>-<hash>.so csrc/<name>.cu
 
 ``--use_fast_math`` is deliberately absent: it would swap sqrt, division
 and denormal handling for approximations and break parity with the
@@ -26,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -52,31 +55,68 @@ def find_nvcc() -> str:
                        "or set CUDA_HOME")
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library for this exact source
-    and these flags exists; returns the library's path. Raises with
-    nvcc's stderr if the build fails."""
-    src = CSRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
-        h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    digest = h.hexdigest()
+def _unique() -> str:
+    """A suffix no other process or thread uses for its temporary files."""
+    return f"{os.getpid()}.{threading.get_ident()}"
+
+
+def _compile(src: Path, digest: str, name: str) -> Path:
+    """Compile ``src`` into ``_build/<name>-<digest>.so`` unless it is
+    there; returns the library's path. Raises with nvcc's stderr and the
+    source's path if the build fails."""
     out = BUILD_DIR / f"{name}-{digest[:16]}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(exist_ok=True)
-    # build beside the target and rename, so that a concurrent process
-    # never loads a half-written library
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(src)], capture_output=True, text=True)
+    # build beside the target and rename, so that a concurrent process or
+    # thread never loads a half-written library
+    tmp = out.with_name(f"{out.stem}.{_unique()}.tmp.so")
+    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR),
+                           "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed to build {src} "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
     return out
+
+
+def _digest(source: bytes) -> str:
+    """Hash of a source, the shared headers ``csrc/*.cuh`` and the flags."""
+    h = hashlib.sha256(source)
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library for this exact source
+    and these flags exists; returns the library's path."""
+    src = CSRC_DIR / f"{name}.cu"
+    BUILD_DIR.mkdir(exist_ok=True)
+    return _compile(src, _digest(src.read_bytes()), name)
+
+
+def _write_source(src: Path, text: str):
+    """Write generated source to ``src`` unless it is there, whole or not
+    at all."""
+    if not src.exists():
+        tmp = src.with_name(f"{src.stem}.{_unique()}.tmp{src.suffix}")
+        tmp.write_text(text)
+        os.replace(tmp, src)
+
+
+def build_generated(name: str, text: str) -> Path:
+    """Compile generated source ``text`` (which includes its skeleton from
+    ``csrc/``) unless a library for this exact text, these headers and
+    these flags exists. The text is kept beside the library, as
+    ``_build/<name>-<hash>.cu``."""
+    digest = _digest(text.encode())
+    BUILD_DIR.mkdir(exist_ok=True)
+    src = BUILD_DIR / f"{name}-{digest[:16]}.cu"
+    _write_source(src, text)
+    return _compile(src, digest, name)
 
 
 _P = ctypes.c_void_p
@@ -100,6 +140,15 @@ SIGNATURES = {
     "sdf_bwd_ad": {
         "sdf_bwd_ad_partial_launch": (_P, _P, _P, _P, _I, _F, _F, _P),
     },
+    # one library per scene of render.generic.make_sdf_renderer
+    "generic_render": {
+        "generic_n_params": (),
+        "generic_fwd_launch": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F,
+                               _I, _I, _P),
+        "generic_bwd_num_blocks": (_I,),
+        "generic_bwd_partial_launch": (_P, _P, _P, _P, _I, _F, _F, _P),
+        "generic_bwd_reduce_launch": (_P, _I, _P, _P),
+    },
     "sphere_render": {
         "sphere_fwd_launch": (_P, _P, _I, _F, _F, _P),
         "sphere_fwd_bf16_launch": (_P, _P, _I, _F, _F, _P),
@@ -110,16 +159,28 @@ SIGNATURES = {
 }
 
 
-@functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; every entry point
-    returns an int (a cudaError_t for the launches)."""
-    lib = ctypes.CDLL(str(build(name)))
+def _bind(path: Path, name: str) -> ctypes.CDLL:
+    """Load a built library; every entry point returns an int (a
+    cudaError_t for the launches)."""
+    lib = ctypes.CDLL(str(path))
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``."""
+    return _bind(build(name), name)
+
+
+@functools.cache
+def load_generated(name: str, text: str) -> ctypes.CDLL:
+    """Build (if needed) and load the generated source ``text``, with the
+    entry points of ``SIGNATURES[name]``."""
+    return _bind(build_generated(name, text), name)
 
 
 # ---------------------------------------------------------------------------

@@ -168,7 +168,7 @@ sdf_bwd_ad_partial_kernel(const float* __restrict__ params,
       add_pixel_cotangent_ad(acc, params, g_img[i], ts_img[i], i, n, step,
                              extent);
   }
-  block_sum9(acc, partial + static_cast<int64_t>(blockIdx.x) * kNGrad);
+  block_sum<kNGrad>(acc, partial + static_cast<int64_t>(blockIdx.x) * kNGrad);
 }
 
 }  // namespace

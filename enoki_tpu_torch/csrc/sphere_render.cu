@@ -188,7 +188,7 @@ sphere_bwd_partial_kernel(const float* __restrict__ params,
     const int64_t i = base + static_cast<int64_t>(j) * kSumThreads;
     if (i < npix) add_pixel_cotangent(acc, sc, g[j], i, n, step, extent);
   }
-  block_sum9(acc, partial + static_cast<int64_t>(blockIdx.x) * kNGrad);
+  block_sum<kNGrad>(acc, partial + static_cast<int64_t>(blockIdx.x) * kNGrad);
 }
 
 template <typename T>
@@ -228,7 +228,7 @@ int sphere_bwd_partial_launch(const float* params, const float* g,
 
 int sphere_bwd_reduce_launch(const float* partial, int num_rows, float* dp,
                              cudaStream_t stream) {
-  return reduce_rows_launch(partial, num_rows, dp, stream);
+  return reduce_rows_launch<kNGrad, 16>(partial, num_rows, dp, stream);
 }
 
 }  // extern "C"

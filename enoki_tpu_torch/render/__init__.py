@@ -1,5 +1,6 @@
 """enoki_tpu_torch.render -- the differentiable renderer: the closed-form
-sphere and the SDF sphere march, each with its CUDA kernel pair."""
+sphere, the SDF sphere march and the bring-your-own-SDF renderer, each
+with its CUDA kernel pair."""
 
 from .vec import Vec2, Vec3, dot3, norm3, normalize3  # noqa: F401
 from .sphere import (  # noqa: F401
@@ -23,4 +24,10 @@ from .sdf_kernels import (  # noqa: F401
 from .sphere_kernels import (  # noqa: F401
     sphere_fwd_plain, sphere_bwd_plain, sphere_fwd, sphere_bwd,
     render_sphere_cuda, SphereRender,
+)
+from . import sdflib, sdf_trace  # noqa: F401
+from .generic import (  # noqa: F401
+    AMBIENT, GAIN, LIGHT, ortho_camera, perspective_camera, make_sdf_renderer,
+    generic_fwd_plain, generic_bwd_plain, generic_fwd, generic_bwd,
+    SceneKernels, GenericRender,
 )

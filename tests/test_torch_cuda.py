@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from enoki_tpu_torch.render import LAUNCHES, reset_launch_counts
+from enoki_tpu_torch.render import (LAUNCHES, Vec3, generic as G,
+                                    reset_launch_counts, sdflib as sd)
 from enoki_tpu_torch.render.sdf_kernels import (
     SDFRender, _cone_t0, fwd_kernel_name, render_sdf_cuda, sdf_bwd,
     sdf_bwd_ad_plain, sdf_bwd_plain, sdf_fwd, sdf_fwd_plain, sdf_fwd_split,
@@ -213,3 +214,143 @@ def test_render_sphere_cuda_launches_one_of_each(cuda, dtype):
     fwd = "sphere_fwd" if dtype == torch.float32 else "sphere_fwd_bf16"
     assert LAUNCHES == {fwd: 1, "sphere_bwd": 1, "sphere_bwd_reduce": 1}
     assert torch.isfinite(p.grad).all()
+
+
+# -- the bring-your-own-SDF renderer: one kernel pair per scene ---------------
+
+GENERIC_PARAMS = np.asarray(
+    [0.15, 40.0, -1.0, -1.0, 2.0, 0.1, -0.2, 0.3, 0.45, 0.55, 0.18, 1.05],
+    np.float32)
+
+
+def composed(p, pv):
+    s = sd.sd_sphere(p, Vec3(pv[5], pv[6], pv[7]), pv[8])
+    t = sd.sd_torus(p, Vec3(0.0, 0.0, 1.0), pv[9], pv[10])
+    g = sd.sd_plane(p, Vec3(0.0, -1.0, 0.0), pv[11])
+    return sd.op_union(sd.op_smooth_union(s, t, 0.1), g)
+
+
+def sphere_only(p, pv):
+    return sd.sd_sphere(p, Vec3(pv[5], pv[6], pv[7]), pv[8])
+
+
+GENERIC_CAMERAS = {"ortho": G.ortho_camera,
+                   "perspective": G.perspective_camera()}
+GENERIC_MARCHES = {"plain": {}, "relax1.6": dict(relax=1.6),
+                   "unimodal": dict(unimodal=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("march", list(GENERIC_MARCHES))
+@pytest.mark.parametrize("camera", list(GENERIC_CAMERAS))
+def test_generic_fwd_kernel_matches_plain(cuda, camera, march):
+    # the march rounds each operation on its own, in the plain version's
+    # order: ts is the plain version's up to a few grazing pixels; the
+    # normal comes from dual numbers there and from autograd here
+    ray_fn, kw = GENERIC_CAMERAS[camera], GENERIC_MARCHES[march]
+    kernels = G.SceneKernels(composed, ray_fn, 12)
+    p = torch.from_numpy(GENERIC_PARAMS).to(cuda)
+    reset_launch_counts()
+    img_k, ts_k = G.generic_fwd(kernels, p, N, STEPS, **kw)
+    assert LAUNCHES == {"generic_fwd": 1}
+    img_p, ts_p = G.generic_fwd_plain(composed, ray_fn, p, N, STEPS, **kw)
+    torch.cuda.synchronize()
+    flips = (ts_k >= 0) != (ts_p >= 0)
+    assert flips.float().mean().item() < 1e-3
+    assert (img_k - img_p).abs()[~flips].max().item() < 1e-3
+    assert (ts_k - ts_p).abs()[~flips].max().item() < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("camera", list(GENERIC_CAMERAS))
+def test_generic_bwd_kernel_matches_plain_and_is_deterministic(cuda, camera):
+    ray_fn = GENERIC_CAMERAS[camera]
+    kernels = G.SceneKernels(composed, ray_fn, 12)
+    p = torch.from_numpy(GENERIC_PARAMS).to(cuda)
+    _, ts = G.generic_fwd(kernels, p, N, STEPS)
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (N, N)).astype(np.float32)).to(cuda)
+    reset_launch_counts()
+    dp1 = G.generic_bwd(kernels, p, g, ts, N)
+    assert LAUNCHES == {"generic_bwd": 1, "generic_bwd_reduce": 1}
+    dp2 = G.generic_bwd(kernels, p, g, ts, N)
+    ref = G.generic_bwd_plain(composed, ray_fn, p, g, ts, N)
+    torch.cuda.synchronize()
+    assert torch.equal(dp1, dp2)
+    scale = max(1.0, ref.abs().max().item())
+    torch.testing.assert_close(dp1, ref, rtol=2e-4, atol=2e-4 * scale)
+
+
+@pytest.mark.cuda
+def test_generic_render_launches_one_of_each_and_misses_exactly(cuda):
+    render, _ = G.make_sdf_renderer(composed, 12)
+    p = torch.from_numpy(GENERIC_PARAMS).to(cuda).requires_grad_(True)
+    reset_launch_counts()
+    render(p, N, STEPS).mean().backward()
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"generic_fwd": 1, "generic_bwd": 1,
+                        "generic_bwd_reduce": 1}
+    assert torch.isfinite(p.grad).all()
+    # a second scene in the same process; every ray escapes: the image is
+    # the ambient term bit for bit and the gradient is n*n in its slot
+    far, _ = G.make_sdf_renderer(sphere_only, 9)
+    q = torch.tensor([0.15, 40.0, -1.0, -1.0, 2.0, 50.0, 0.0, 0.3, 0.45],
+                     device=cuda, requires_grad=True)
+    img = far(q, N, STEPS)
+    img.sum().backward()
+    torch.cuda.synchronize()
+    assert torch.equal(img.detach(), torch.full((N, N), 0.15, device=cuda))
+    assert q.grad[0].item() == N * N and (q.grad[1:] == 0).all()
+    assert far.kernels.lib is not render.kernels.lib
+
+
+def many_spheres(p, pv):
+    """Six spheres, a torus and a ground plane: 32 parameters."""
+    d = sd.sd_torus(p, Vec3(0.0, 0.0, 1.0), pv[29], pv[30])
+    for k in range(5, 29, 4):
+        d = sd.op_smooth_union(
+            d, sd.sd_sphere(p, Vec3(pv[k], pv[k + 1], pv[k + 2]), pv[k + 3]),
+            0.1)
+    return sd.op_union(d, sd.sd_plane(p, Vec3(0.0, -1.0, 0.0), pv[31]))
+
+
+@pytest.mark.cuda
+def test_generic_kernels_of_a_32_parameter_scene_match_plain(cuda):
+    # the backward unrolls n_params + 1 derivative sweeps: a wider scene
+    # than the composed one must still build and agree
+    rng = np.random.default_rng(11)
+    v = np.concatenate([
+        GENERIC_PARAMS[:5],
+        np.column_stack([rng.uniform(-0.8, 0.8, (6, 2)),
+                         rng.uniform(0.0, 0.6, (6, 1)),
+                         rng.uniform(0.15, 0.3, (6, 1))]).ravel(),
+        [0.55, 0.18, 1.05]]).astype(np.float32)
+    kernels = G.SceneKernels(many_spheres, G.ortho_camera, 32)
+    p = torch.from_numpy(v).to(cuda)
+    img_k, ts = G.generic_fwd(kernels, p, N, STEPS)
+    img_p, ts_p = G.generic_fwd_plain(many_spheres, G.ortho_camera, p, N,
+                                      STEPS)
+    flips = (ts >= 0) != (ts_p >= 0)
+    assert flips.float().mean().item() < 1e-3
+    assert (img_k - img_p).abs()[~flips].max().item() < 1e-3
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (N, N)).astype(np.float32)).to(cuda)
+    dp = G.generic_bwd(kernels, p, g, ts, N)
+    ref = G.generic_bwd_plain(many_spheres, G.ortho_camera, p, g, ts, N)
+    scale = max(1.0, ref.abs().max().item())
+    torch.testing.assert_close(dp, ref, rtol=2e-4, atol=2e-4 * scale)
+    # a sphere's depth moves nothing under parallel rays; the rest is in view
+    assert (ref.abs() > 0).sum().item() >= 24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [0.1 + 1e-12, 0.3, 1.2, 3.0, 7.0, 1e-3])
+def test_division_by_a_number_is_a_product_with_its_reciprocal(cuda, c):
+    # sdf_trace emits x / number as x * f32(1 / number), the reciprocal
+    # taken in double, because PyTorch's CUDA division by a Python number
+    # computes that (at 1e-3 the f32 reciprocal of the f32 number is one
+    # ulp off it); the generated kernels walk the plain version's march
+    # only while it does
+    x = torch.from_numpy(np.random.default_rng(13).uniform(
+        -4.0, 4.0, 1 << 20).astype(np.float32)).to(cuda)
+    assert torch.equal(x / c, x * float(np.float32(1.0 / c)))

@@ -13,9 +13,11 @@ import torch
 
 import enoki_tpu_torch
 from enoki_tpu_torch import resolve_device
-from enoki_tpu_torch.interop import (params_from_numpy, scene_from_numpy,
+from enoki_tpu_torch.interop import (generic_params_from_numpy,
+                                     params_from_numpy, scene_from_numpy,
                                      scene_to_numpy)
 from enoki_tpu_torch.ops.router import linspace
+from enoki_tpu_torch.render import generic, sdflib
 from enoki_tpu_torch.render.sdf import SDFScene
 from enoki_tpu_torch.render.sdf_kernels import SDFRender
 from enoki_tpu_torch.render.sphere import SphereScene, pixel_grid
@@ -37,7 +39,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted(PKG.rglob("*.py"))
     names = {f.relative_to(PKG).as_posix() for f in files}
     assert {"render/sphere.py", "render/sphere_kernels.py", "render/io.py",
-            "render/sdf_kernels.py", "interop.py"} <= names
+            "render/sdf_kernels.py", "render/generic.py", "render/sdflib.py",
+            "render/sdf_trace.py", "interop.py"} <= names
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]
@@ -65,7 +68,19 @@ ENTRY_POINTS = {
     "SphereRender_bf16": lambda: SphereRender(n=64,
                                               dtype=torch.bfloat16).params,
     "params_from_numpy": lambda: params_from_numpy(np.zeros(16)),
+    "generic_params_from_numpy":
+        lambda: generic_params_from_numpy(np.zeros(12)),
+    "GenericRender": lambda: generic.GenericRender(
+        _sphere_render(), np.zeros(9, np.float32), n=64).params,
+    "make_sdf_renderer.render": lambda: _sphere_render()(
+        generic_params_from_numpy(np.zeros(9)), 64),
 }
+
+
+def _sphere_render():
+    return generic.make_sdf_renderer(
+        lambda p, pv: sdflib.sd_sphere(p, generic.Vec3(pv[5], pv[6], pv[7]),
+                                       pv[8]), n_params=9)[0]
 
 
 @pytest.mark.parametrize("name", list(ENTRY_POINTS))
@@ -91,6 +106,39 @@ def test_interop_round_trip_is_exact():
     np.testing.assert_array_equal(params_from_numpy(v[:9], "cpu").numpy(), v)
     with pytest.raises(ValueError):
         params_from_numpy(v[:5], "cpu")
+
+
+def test_generic_interop_round_trip_is_exact():
+    v = np.random.default_rng(6).standard_normal(12).astype(np.float32)
+    p = generic_params_from_numpy(v, 12, "cpu")
+    assert p.dtype == torch.float32 and p.shape == (12,)
+    np.testing.assert_array_equal(p.numpy(), v)
+    # float64 input is rounded once to float32, as jnp.asarray rounds it
+    np.testing.assert_array_equal(
+        generic_params_from_numpy(v.astype(np.float64), device="cpu").numpy(),
+        v)
+    with pytest.raises(ValueError):
+        generic_params_from_numpy(v, 9, "cpu")
+    with pytest.raises(ValueError):
+        generic_params_from_numpy(v[:4], device="cpu")
+
+
+def test_render_exports_the_generic_entry_points():
+    import enoki_tpu_torch.render as R
+    for name in ("make_sdf_renderer", "sdflib", "ortho_camera",
+                 "perspective_camera", "Vec3", "GenericRender"):
+        assert hasattr(R, name), name
+    import inspect
+    sig = inspect.signature(R.make_sdf_renderer)
+    assert [(k, p.default) for k, p in sig.parameters.items()][1:] == [
+        ("n_params", inspect.Parameter.empty), ("eps", 1e-4),
+        ("t_max", 10.0), ("ray_fn", R.ortho_camera)]
+    render, _ = R.make_sdf_renderer(lambda p, pv: p.x, 5)
+    got = [(k, p.default) for k, p in
+           inspect.signature(render).parameters.items()][1:]
+    assert got == [("n", 1024), ("n_steps", 64), ("extent", 1.2),
+                   ("tile", 128), ("tile_c", None), ("coarse", 0),
+                   ("bands", 1), ("relax", 1.0), ("unimodal", False)]
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_reference():
