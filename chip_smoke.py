@@ -14,7 +14,11 @@ the two-pass split march, the autodiff-route backward), at the same 1024^2
 and 64 steps; the fourth is the bring-your-own-SDF renderer
 (make_sdf_renderer) on a 12-parameter composed scene (a sphere smooth-
 blended with a torus over a ground plane), whose two kernels are generated
-per scene, at the same 1024^2 and 64 steps.
+per scene, at the same 1024^2 and 64 steps; the fifth is the histogram
+mini-app (tests/histogram.cpp of the source paper: PCG32 -> uniform ->
+erfinv -> bin -> histogram) at its own 16M samples and 64 bins, with the
+weighted histogram's gradient and a bf16 accumulator kept by stochastic
+rounding.
 
   setup    build the kernels from enoki_tpu_torch/csrc with nvcc, and the
            generated sources of the generic renderer's scenes, one process
@@ -82,6 +86,25 @@ per scene, at the same 1024^2 and 64 steps.
            version, the chained fwd+bwd step against the twin's, the cone
            prepass over the composed scene, trace and nvcc seconds per
            scene at first use and at a cached use
+  phase 17 hist against hist_plain at 16M samples, 64 bins, on three index
+           sets (the mini-app's normal samples, a uniform set with
+           out-of-range and negative entries, every sample in one bin):
+           counting exactly equal to the plain version and to
+           torch.bincount, weighted within 1e-6 * sum|w| per bin of a
+           float64 sum, two runs bitwise equal; bins = 1, 1000 and n = 0
+  phase 18 stochastic_round against stochastic_round_plain at 16M: bit-
+           equal in bf16 and f16 on data with NaN, infinities, zeros and
+           subnormals mixed in; every result one of the two neighbours; on
+           1 + 1/512 the share rounded up and the mean; seeds
+  phase 19 the paths, counted: three chained iterations of the mini-app
+           (the counts against a float64 bincount of the same indices and
+           the normal distribution's mass per bin), the weighted
+           histogram's gradient, and a bf16 accumulator of 64 small
+           updates through stochastic_round_cuda against round-to-nearest
+  phase 20 timing: hist counting and weighted and stochastic_round, each
+           with its bound, its plain version and (hist) torch.bincount;
+           the mini-app's stages in device time and its iteration as
+           samples/s
 
 Run from the root of the repository:  python chip_smoke.py
 Needs one CUDA card; exits non-zero, printing no result, without one or
@@ -115,6 +138,10 @@ LR = 1e-3
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 133.8e12
+# 32-bit integer operations outside the tensor cores, from the same
+# whitepaper table ("Peak INT32 TOPS"): the rate of Philox's products,
+# adds and xors
+INT32_OPS_PER_S = 33.5e12
 # MUFU (rsqrt) results per clock per SM on compute capability 9.0
 # (CUDA C++ Programming Guide, arithmetic instruction throughput): a
 # second, tighter floor for the march, printed beside the bound
@@ -159,6 +186,22 @@ GENERIC_STEP_FLOPS = 3         # d >= eps, t + d, <= t_max
 GENERIC_PARAMS = (0.15, 40.0, -1.0, -1.0, 2.0,     # ambient gain light
                   0.1, -0.2, 0.3, 0.45,            # sphere center, radius
                   0.55, 0.18, 1.05)                # torus R, r; plane
+# the histogram mini-app (examples/histogram.py:23-24, :40), nothing cut
+HIST_N = 1 << 24
+HIST_BINS = 64
+HIST_LO, HIST_HI = -4.0, 4.0
+HIST_ITERS = 3                 # chained iterations of phase 19
+ACC_UPDATES = 64               # updates of phase 19's bf16 accumulator
+# operations of csrc/hist.cu's function per sample: two compares of the
+# index against the range (integer) and one f32 add; of
+# csrc/stochastic_round.cu's per element: a Philox block serves four
+# elements with 10 rounds of two 32x32->64 products (hi and lo: 2
+# operations each) and 4 xors, and 9 x 2 key increments; the bf16
+# rounding adds, masks and shifts
+HIST_INT_OPS_PER_SAMPLE = 2
+HIST_FLOPS_PER_SAMPLE = 1
+PHILOX_INT_OPS_PER_BLOCK = 10 * (2 * 2 + 4) + 9 * 2
+ROUND_INT_OPS_PER_ELEMENT = 3
 # the five candidate configurations of bench.py:233-235:
 # (coarse, bands, relax, unimodal, split)
 CANDIDATES = ((0, 1, 1.0, False, 0), (8, 1, 1.0, False, 0),
@@ -270,7 +313,12 @@ class DeviceTimer:
         ev = self.torch.cuda.Event
         return ev(enable_timing=True), ev(enable_timing=True)
 
-    def __call__(self, fn, reps, hold_ms=200.0):
+    def __call__(self, fn, reps, hold_ms=200.0, plain=False):
+        """``plain``: ``fn`` is a plain version of thousands of eager
+        launches. Those can fill the launch queue behind the held stream;
+        the host then waits for the hold to end, and the time is taken
+        again without a hold (it then includes the host's gaps between
+        launches, and the log says so). A kernel's timing never may."""
         torch = self.torch
         fn()
         torch.cuda.synchronize()
@@ -283,8 +331,19 @@ class DeviceTimer:
         e.record()
         enqueue_ms = 1e3 * (time.perf_counter() - t0)
         torch.cuda.synchronize()
-        check(enqueue_ms < hold_ms, f"timer hold {hold_ms} ms shorter than "
-              f"the enqueue ({enqueue_ms:.1f} ms): raise hold_ms")
+        if plain and enqueue_ms >= hold_ms:
+            s.record()
+            for _ in range(reps):
+                fn()
+            e.record()
+            torch.cuda.synchronize()
+            log(f"timer: the enqueue of a plain version took {enqueue_ms:.1f}"
+                f" ms of a {hold_ms} ms hold (the launch queue filled); "
+                f"timed again without a hold: "
+                f"{s.elapsed_time(e) / reps:.4f} ms, host gaps included")
+        else:
+            check(enqueue_ms < hold_ms, f"timer hold {hold_ms} ms shorter "
+                  f"than the enqueue ({enqueue_ms:.1f} ms): raise hold_ms")
         return s.elapsed_time(e) / reps
 
 
@@ -327,12 +386,13 @@ def device_ms_by_kernel(torch, step, p0, iters):
     return out
 
 
-def bound(nbytes, flops, bf16_flops=0):
+def bound(nbytes, flops, bf16_flops=0, int_ops=0):
     """max(bytes / HBM rate, FP32 operations / FP32 peak + bf16 operations
-    / bf16 peak) in ms, and which of the two it is."""
+    / bf16 peak + 32-bit integer operations / INT32 peak) in ms, and which
+    of the two it is."""
     t = {"bytes": nbytes / HBM_BYTES_PER_S,
          "operations": flops / FP32_FLOPS_PER_S
-         + bf16_flops / BF16_FLOPS_PER_S}
+         + bf16_flops / BF16_FLOPS_PER_S + int_ops / INT32_OPS_PER_S}
     by = max(t, key=t.get)
     return 1e3 * t[by], by
 
@@ -477,7 +537,8 @@ def run(torch, dev):
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
-    libs = ("sdf_render", "sdf_bwd_ad", "sphere_render")
+    libs = ("sdf_render", "sdf_bwd_ad", "sphere_render", "hist",
+            "stochastic_round")
     scenes = generic_scenes()
 
     def build_scene(name):
@@ -634,9 +695,10 @@ def run(torch, dev):
     fwd_ms = timer(lambda: K.sdf_fwd(p_ref, N, STEPS, EXTENT), 200)
     bwd_ms = timer(lambda: K.sdf_bwd(p_ref, g_ref, ts_ref, N, EXTENT), 200)
     fwd_plain_ms = timer(lambda: K.sdf_fwd_plain(p_ref, N, STEPS, EXTENT),
-                         5, hold_ms=1000.0)
+                         5, hold_ms=1000.0, plain=True)
     bwd_plain_ms = timer(lambda: K.sdf_bwd_plain(p_ref, g_ref, ts_ref, N,
-                                                 EXTENT), 20, hold_ms=1000.0)
+                                                 EXTENT), 20,
+                         hold_ms=1000.0, plain=True)
 
     # bounds from this run's data: the march work is what this scene needs
     evals, adv = (int(c.sum().item())
@@ -699,6 +761,7 @@ def run(torch, dev):
     kernels += run_sphere(torch, dev, timer, cuda_vec)
     kernels += run_sdf_options(torch, dev, timer, cuda_vec)
     kernels += run_generic(torch, dev, timer, scenes, first_use)
+    kernels += run_hist(torch, dev, timer)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
@@ -831,7 +894,7 @@ def run_sphere(torch, dev, timer, cuda_vec):
         ("sphere_fwd", lambda: S.sphere_fwd(p_ref, N, EXTENT, f32)),
         ("sphere_fwd_bf16", lambda: S.sphere_fwd(p_ref, N, EXTENT, bf16)),
         ("sphere_bwd", lambda: S.sphere_bwd(p_ref, g_mean, N, EXTENT)))}
-    plain_ms = {k: timer(fn, 20, hold_ms=1000.0) for k, fn in (
+    plain_ms = {k: timer(fn, 20, hold_ms=1000.0, plain=True) for k, fn in (
         ("sphere_fwd", lambda: S.sphere_fwd_plain(p_ref, N, EXTENT, f32)),
         ("sphere_fwd_bf16",
          lambda: S.sphere_fwd_plain(p_ref, N, EXTENT, bf16)),
@@ -839,7 +902,7 @@ def run_sphere(torch, dev, timer, cuda_vec):
                                                   EXTENT)))}
     scene_ref = vec_to_scene(p_ref, TS.SphereScene)
     staged_ms = timer(lambda: TS.render_staged(scene_ref, N), 20,
-                      hold_ms=1000.0)
+                      hold_ms=1000.0, plain=True)
 
     # the hits of this run's scene, as the f32 forward decides them
     px, py = tile_pixels(N, EXTENT, dev)
@@ -1325,7 +1388,7 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
     # stream held while the host enqueues. One call at a time: the
     # relaxed march is ~1600 eager launches, and a few calls of it fill
     # CUDA's launch queue, which then blocks the host until the hold ends
-    plain_ms = {name: timer(fn, 1, hold_ms=1000.0)
+    plain_ms = {name: timer(fn, 1, hold_ms=1000.0, plain=True)
                 for name, (_, fn, _) in work.items()}
     for name, (_, _, (b_ms, b_by)) in work.items():
         log(f"phase 12 {name} {ms[name]:.5f} ms (plain "
@@ -1356,7 +1419,7 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
 
     # the cone prepass: eager ops on a (N/8)^2 array, device and wall time
     cone_dev_ms = timer(lambda: K._cone_t0(p_ref, N, STEPS, EXTENT, 8), 5,
-                        hold_ms=1000.0)
+                        hold_ms=1000.0, plain=True)
     wall = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -1663,10 +1726,11 @@ def run_generic(torch, dev, timer, scenes, first_use):
     # the stream held while the host enqueues, one call at a time (each is
     # thousands of eager launches)
     fwd_plain_ms = timer(lambda: G.generic_fwd_plain(
-        kern.sdf_fn, kern.ray_fn, p_c, N, STEPS, EXTENT), 1, hold_ms=1000.0)
+        kern.sdf_fn, kern.ray_fn, p_c, N, STEPS, EXTENT), 1,
+        hold_ms=1000.0, plain=True)
     bwd_plain_ms = timer(lambda: G.generic_bwd_plain(
         kern.sdf_fn, kern.ray_fn, p_c, g_mean, ts0, N, EXTENT), 1,
-        hold_ms=1000.0)
+        hold_ms=1000.0, plain=True)
 
     # bounds from this run's data. A hit pixel's operations are the
     # arithmetic nodes of the scene's two reverse-mode programs; the
@@ -1738,7 +1802,7 @@ def run_generic(torch, dev, timer, scenes, first_use):
         return G._cone_t0_generic(kern.sdf_fn, kern.ray_fn, p_c, N, STEPS,
                                   EXTENT, 8, 1e-4, 10.0)
 
-    cone_dev_ms = timer(cone, 1, hold_ms=1000.0)
+    cone_dev_ms = timer(cone, 1, hold_ms=1000.0, plain=True)
     wall = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -1793,6 +1857,351 @@ def run_generic(torch, dev, timer, scenes, first_use):
              max_abs_err=err["generic_bwd"], ms=bwd_ms,
              plain_ms=bwd_plain_ms, bound_ms=bwd_bound, bound_by=bwd_by,
              **common),
+    ]
+
+
+def mini_app_step(gen):
+    """One iteration of the histogram mini-app (examples/histogram.py:
+    27-36, examples/histogram_torch.py) -> (hist, new generator, the bin
+    indices)."""
+    import math
+
+    import torch
+
+    from enoki_tpu_torch import ops
+    u, gen = gen.next_float32()
+    g = ops.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)
+    b = torch.floor((g - HIST_LO) * (HIST_BINS / (HIST_HI - HIST_LO)))
+    # clamped before the cast: what the cast of +-inf gives differs
+    # between devices; -1 and HIST_BINS are dropped indices
+    idx = torch.clamp(b, -1.0, float(HIST_BINS)).to(torch.int32)
+    return ops.histogram(idx, HIST_BINS), gen, idx
+
+
+def normal_bin_mass(bins, lo, hi):
+    """The standard normal distribution's mass in each of ``bins`` equal
+    bins over [lo, hi)."""
+    import math
+    edges = np.linspace(lo, hi, bins + 1)
+    cdf = np.array([0.5 * (1.0 + math.erf(e / math.sqrt(2.0)))
+                    for e in edges])
+    return cdf[1:] - cdf[:-1]
+
+
+def run_hist(torch, dev, timer):
+    """Phases 17-20: the histogram mini-app and stochastic rounding.
+    Returns their kernels' entries of the kernels line."""
+    from enoki_tpu_torch import ops
+    from enoki_tpu_torch._build import LAUNCHES, reset_launch_counts
+    from enoki_tpu_torch.ops import hist_kernels as H, rounding as RD
+    from enoki_tpu_torch.types import PCG32
+
+    n, bins = HIST_N, HIST_BINS
+
+    def library_hist(idx, nbins, w=None):
+        # the one PyTorch call for the same function: dropped lanes go to
+        # a slot past the bins (timed and compared here, used nowhere in
+        # the port)
+        safe = torch.where((idx < 0) | (idx >= nbins), nbins, idx)
+        return torch.bincount(safe, weights=w,
+                              minlength=nbins + 1)[:nbins].float()
+
+    # -- phase 17: hist against its plain version ----------------------------
+    rng = np.random.default_rng(17)
+    _, _, idx_normal = mini_app_step(PCG32.create(n, device=dev))
+    idx_sets = {
+        "normal": idx_normal,
+        "uniform[-3,70)": torch.from_numpy(
+            rng.integers(-3, 70, n).astype(np.int32)).to(dev),
+        "one bin": torch.full((n,), 17, dtype=torch.int32, device=dev),
+    }
+    w = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+
+    def f64_sums(idx, nbins):
+        # the weighted histogram summed in float64, and the gate per bin:
+        # 1e-6 * sum|w|, an f32 sum's error in whatever order it is taken
+        safe = torch.where((idx < 0) | (idx >= nbins), nbins, idx).long()
+        w64 = w.double()
+        zeros = torch.zeros(nbins + 1, dtype=torch.float64, device=dev)
+        return (zeros.index_add(0, safe, w64)[:nbins],
+                1e-6 * zeros.index_add(0, safe, w64.abs())[:nbins])
+
+    hist_err = 0.0
+    for name, idx in idx_sets.items():
+        count = H.hist(idx, bins)
+        torch.cuda.synchronize()
+        check(count.shape == (bins,) and count.dtype == torch.float32,
+              f"hist {name}: wrong shape or dtype")
+        plain = H.hist_plain(idx, bins)
+        lib = library_hist(idx, bins)
+        check(torch.equal(count, plain), f"hist {name}: counts differ from "
+              f"hist_plain by {(count - plain).abs().max().item()}")
+        check(torch.equal(count, lib), f"hist {name}: counts differ from "
+              "torch.bincount")
+        hw1, hw2 = H.hist(idx, bins, w), H.hist(idx, bins, w)
+        torch.cuda.synchronize()
+        check(torch.equal(hw1, hw2), f"hist {name}: two weighted runs differ")
+        exact, tol = f64_sums(idx, bins)
+        err = (hw1.double() - exact).abs()
+        ok = bool((err <= tol).all().item())
+        hist_err = max(hist_err, err.max().item())
+        p_err = (H.hist_plain(idx, bins, w).double()
+                 - exact).abs().max().item()
+        log(f"phase 17 hist {name}: {int(count.sum().item())} of {n} in "
+            f"range, counts == hist_plain == torch.bincount; weighted "
+            f"max|hist-f64 sum| {err.max().item():.3e} (plain version "
+            f"{p_err:.3e}; gate 1e-6 * sum|w| per bin, smallest "
+            f"{tol[tol > 0].min().item():.3e}), two runs bitwise equal: "
+            f"{'pass' if ok else 'FAIL'}")
+        check(ok, f"hist {name}: weighted sums off by {err.max().item()}")
+    wide = torch.from_numpy(rng.integers(-3, 1006, n).astype(np.int32)).to(dev)
+    for nbins, idx in ((1, idx_sets["uniform[-3,70)"]), (1000, wide)):
+        count = H.hist(idx, nbins)
+        check(torch.equal(count, H.hist_plain(idx, nbins))
+              and torch.equal(count, library_hist(idx, nbins)),
+              f"hist bins={nbins}: counts differ")
+        exact, tol = f64_sums(idx, nbins)
+        err = (H.hist(idx, nbins, w).double() - exact).abs()
+        check(bool((err <= tol).all().item()),
+              f"hist bins={nbins}: weighted sums off by {err.max().item()}")
+        hist_err = max(hist_err, err.max().item())
+        log(f"phase 17 hist bins={nbins}: counts exact, weighted "
+            f"max|hist-f64 sum| {err.max().item():.3e}: pass")
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    before = LAUNCHES["hist"]
+    z = H.hist(empty, bins)
+    check(z.shape == (bins,) and not z.any().item()
+          and LAUNCHES["hist"] == before, "hist n=0: not zeros, or launched")
+    log("phase 17 hist n=0: zeros without a launch: pass")
+
+    # -- phase 18: stochastic_round against its plain version ---------------
+    x = (rng.standard_normal(n) * np.exp(rng.uniform(-12, 12, n))).astype(
+        np.float32)
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-40, -1e-41,
+                        65504.0, 65519.9, 65520.0, 7e4, -65519.9, 6e-8,
+                        5.9e-8, 1e-10, -1e-10, 3.4e38, -3.4e38], np.float32)
+    x[::n // special.size][:special.size] = special
+    x = torch.from_numpy(x).to(dev)
+    seed = 0x5EED5EED5EED
+    sr_err = 0.0
+
+    def same_bits(a, b):
+        nan = torch.isnan(a)
+        return (torch.equal(nan, torch.isnan(b))
+                and torch.equal(a.view(torch.int16)[~nan],
+                                b.view(torch.int16)[~nan]))
+
+    for dtype in (torch.bfloat16, torch.float16):
+        out = RD.stochastic_round_cuda(x, seed, dtype)
+        torch.cuda.synchronize()
+        plain = RD.stochastic_round_plain(x, seed, dtype)
+        check(out.dtype == dtype and out.shape == (n,),
+              f"stochastic_round {dtype}: wrong shape or dtype")
+        differ = int((out.view(torch.int16) != plain.view(torch.int16))[
+            ~torch.isnan(out)].sum().item())
+        check(same_bits(out, plain), f"stochastic_round {dtype}: {differ} "
+              "elements differ from the plain version")
+        check(same_bits(out, RD.stochastic_round_cuda(x, seed, dtype)),
+              f"stochastic_round {dtype}: one seed gave two results")
+        other = RD.stochastic_round_cuda(x, seed + 1, dtype)
+        moved = (out.view(torch.int16) != other.view(torch.int16)
+                 ).float().mean().item()
+        check(moved > 0.1, f"stochastic_round {dtype}: another seed moved "
+              f"only {moved:.3f} of the elements")
+        fin = torch.isfinite(out.float()) & torch.isfinite(plain.float())
+        sr_err = max(sr_err, (out.float() - plain.float())[fin].abs()
+                     .max().item())
+        # one of the two neighbours of x
+        r = out.float()
+        if dtype == torch.bfloat16:
+            ok_x = torch.isfinite(x)
+            bits = x.view(torch.int32)
+            down = (bits & -65536).view(torch.float32)
+            up = ((bits + 65535) & -65536).view(torch.float32)
+        else:
+            ok_x = torch.isfinite(x) & (x.abs() < 65504.0)
+            near = x.to(dtype)
+            down = near.float()
+            up = torch.where(
+                x >= down, RD._f16_neighbour(near, True).float(),
+                RD._f16_neighbour(near, False).float())
+        inside = ((r == down) | (r == up))[ok_x]
+        check(bool(inside.all().item()), f"stochastic_round {dtype}: "
+              f"{int((~inside).sum().item())} results are no neighbour of x")
+        log(f"phase 18 stochastic_round {dtype}: bit-equal to the plain "
+            f"version on {n} elements, one seed one result, seed + 1 moves "
+            f"{moved:.3f} of them, every result a neighbour of x: pass")
+    x0 = 1.0 + 1.0 / 512.0
+    r = RD.stochastic_round_cuda(torch.full((n,), x0, device=dev), 7).float()
+    share = (r > 1.0).float().mean().item()
+    mean = r.double().mean().item()
+    # a quarter of the way between two bf16 values 2^-7 apart: the share
+    # rounded up is binomial; at 16M its gates are 9 and 12 standard
+    # deviations, a smaller run widens them to 6
+    sd = (0.25 * 0.75 / n) ** 0.5
+    share_tol, mean_tol = max(1e-3, 6 * sd), max(1e-5, 6 * sd * 2.0 ** -7)
+    ok = (bool(((r == 1.0) | (r == 1.0 + 2.0 ** -7)).all().item())
+          and abs(share - 0.25) < share_tol and abs(mean - x0) < mean_tol)
+    log(f"phase 18 stochastic_round of 1 + 1/512: share rounded up "
+        f"{share:.6f} (gate 0.25 +- {share_tol:.1e}, standard deviation "
+        f"{sd:.1e}), mean - x {mean - x0:.3e} (gate {mean_tol:.1e}, "
+        f"standard deviation {sd * 2.0 ** -7:.1e}): "
+        f"{'pass' if ok else 'FAIL'}")
+    check(ok, "stochastic_round is biased on 1 + 1/512")
+
+    # -- phase 19: the paths, counted ----------------------------------------
+    reset_launch_counts()
+    gen = PCG32.create(n, device=dev)
+    mass = normal_bin_mass(bins, HIST_LO, HIST_HI)
+    for it in range(HIST_ITERS):      # chained: iteration i + 1 needs i
+        hist, gen, idx = mini_app_step(gen)
+        torch.cuda.synchronize()
+        got = hist.cpu().numpy().astype(np.float64)
+        idx_h = idx.cpu().numpy()
+        want = np.bincount(idx_h[(idx_h >= 0) & (idx_h < bins)],
+                           minlength=bins).astype(np.float64)
+        total = got.sum()
+        full = mass * n > 2e5     # a 1% gate is then > 4 standard deviations
+        rel = np.append(
+            np.abs(got[full] - mass[full] * n) / (mass[full] * n), 0.0)
+        ok = (hist.shape == (bins,) and np.isfinite(got).all()
+              and np.array_equal(got, want) and 0.999 * n < total <= n
+              and rel.max() < 0.01)
+        log(f"phase 19 mini-app iteration {it}: {int(total)} of {n} "
+            f"samples binned, counts == float64 bincount of the indices: "
+            f"{np.array_equal(got, want)}; {int(full.sum())} well-filled "
+            f"bins within {rel.max():.3%} of the normal mass (gate 1%): "
+            f"{'pass' if ok else 'FAIL'}")
+        check(ok, f"mini-app iteration {it}")
+    launches = dict(LAUNCHES)
+    check(launches == {"hist": HIST_ITERS, "hist_reduce": HIST_ITERS},
+          f"expected one hist (+ reduce) per iteration, got {launches}")
+
+    b0 = 31
+    wg = w.clone().requires_grad_(True)
+    ops.histogram(idx, bins, wg)[b0].backward()
+    check(torch.equal(wg.grad, (idx == b0).float()),
+          "the weighted histogram's gradient is not (idx == b0)")
+    log(f"phase 19 d histogram(idx, {bins}, w)[{b0}] / dw == (idx == {b0})"
+        f" on {n} lanes: pass")
+
+    delta = 2.0 ** -12
+    acc = torch.ones(n, dtype=torch.bfloat16, device=dev)
+    acc_rn = acc.clone()
+    for step in range(ACC_UPDATES):
+        acc = RD.stochastic_round_cuda(acc.float() + delta, seed + step)
+        acc_rn = (acc_rn.float() + delta).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    want = 1.0 + ACC_UPDATES * delta
+    mean = acc.double().mean().item()
+    ok = (bool((acc_rn == 1.0).all().item()) and abs(mean - want) < 1e-4
+          and bool(torch.isfinite(acc.float()).all().item()))
+    log(f"phase 19 bf16 accumulator, {ACC_UPDATES} updates of 2^-12 on {n} "
+        f"values: round-to-nearest stays at {acc_rn.float().mean().item()}, "
+        f"stochastic mean {mean:.7f} (exact {want:.7f}, gate 1e-4): "
+        f"{'pass' if ok else 'FAIL'}")
+    check(ok, "bf16 accumulator")
+    launches = dict(LAUNCHES)
+    log(f"phase 19 launches: {launches}")
+    check(launches == {"hist": HIST_ITERS + 1, "hist_reduce": HIST_ITERS + 1,
+                       "stochastic_round": ACC_UPDATES},
+          f"expected {HIST_ITERS} + 1 hist (+ reduce) and {ACC_UPDATES} "
+          f"stochastic_round launches, got {launches}")
+
+    # -- phase 20: timing -----------------------------------------------------
+    idx = idx_sets["normal"]
+    t = {
+        "hist": timer(lambda: H.hist(idx, bins), 200),
+        "hist_w": timer(lambda: H.hist(idx, bins, w), 200),
+        "hist_plain": timer(lambda: H.hist_plain(idx, bins), 5, 1000.0, True),
+        "hist_w_plain": timer(lambda: H.hist_plain(idx, bins, w), 5, 1000.0,
+                              True),
+        "hist_lib": timer(lambda: library_hist(idx, bins), 20, 1000.0, True),
+        "hist_w_lib": timer(lambda: library_hist(idx, bins, w), 20, 1000.0,
+                            True),
+        "sr": timer(lambda: RD.stochastic_round_cuda(x, seed), 200),
+        "sr_f16": timer(lambda: RD.stochastic_round_cuda(
+            x, seed, torch.float16), 200),
+        "sr_plain": timer(lambda: RD.stochastic_round_plain(x, seed), 5,
+                          2000.0, True),
+    }
+    # hist reads the indices (and the weights) once and writes the bins;
+    # stochastic_round reads f32 and writes 16 bits per element
+    hist_bound, hist_by = bound(4 * n + 4 * bins, HIST_FLOPS_PER_SAMPLE * n,
+                                int_ops=HIST_INT_OPS_PER_SAMPLE * n)
+    hist_w_bound, hist_w_by = bound(8 * n + 4 * bins,
+                                    HIST_FLOPS_PER_SAMPLE * n,
+                                    int_ops=HIST_INT_OPS_PER_SAMPLE * n)
+    sr_ops = (PHILOX_INT_OPS_PER_BLOCK * ((n + 3) // 4)
+              + ROUND_INT_OPS_PER_ELEMENT * n)
+    sr_bound, sr_by = bound(6 * n, 0, int_ops=sr_ops)
+    log(f"phase 20 hist counting {t['hist']:.5f} ms (plain "
+        f"{t['hist_plain']:.4f} ms, torch.bincount {t['hist_lib']:.4f} ms, "
+        f"bound {hist_bound:.5f} ms by {hist_by}); weighted "
+        f"{t['hist_w']:.5f} ms (plain {t['hist_w_plain']:.4f} ms, "
+        f"torch.bincount {t['hist_w_lib']:.4f} ms, bound "
+        f"{hist_w_bound:.5f} ms by {hist_w_by}); {n} samples, {bins} bins, "
+        f"the mini-app's normal indices")
+    log(f"phase 20 stochastic_round bf16 {t['sr']:.5f} ms, f16 "
+        f"{t['sr_f16']:.5f} ms (plain bf16 {t['sr_plain']:.4f} ms, bound "
+        f"{sr_bound:.5f} ms by {sr_by}; its {sr_ops} integer operations "
+        f"alone {1e3 * sr_ops / INT32_OPS_PER_S:.5f} ms); library call: "
+        f"none rounds stochastically")
+
+    # the mini-app's stages, each alone, and the chained iteration
+    import math
+    gen = PCG32.create(n, device=dev)
+    u, _ = gen.next_float32()
+    g = ops.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)
+    scale = HIST_BINS / (HIST_HI - HIST_LO)
+    stage = {
+        "PCG32 next_float32": timer(lambda: gen.next_float32(), 20, 500.0),
+        "erfinv(2u - 1) * sqrt 2": timer(
+            lambda: ops.erfinv(2.0 * u - 1.0) * math.sqrt(2.0), 20, 500.0),
+        "floor, clamp, cast": timer(
+            lambda: torch.clamp(torch.floor((g - HIST_LO) * scale), -1.0,
+                                float(HIST_BINS)).to(torch.int32), 20, 500.0),
+        "histogram": timer(lambda: ops.histogram(idx, bins), 20, 500.0),
+    }
+    iters = 10
+    samples = []
+    for _ in range(3):
+        gen_k = gen
+        s, e = timer._events()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.record()
+        for _ in range(iters):
+            hist, gen_k, _ = mini_app_step(gen_k)
+        e.record()
+        torch.cuda.synchronize()
+        samples.append((1e3 * (time.perf_counter() - t0) / iters,
+                        s.elapsed_time(e) / iters))
+    wall_ms, dev_ms = min(samples)
+    log("phase 20 mini-app stages, device ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in stage.items())
+        + f" (sum {sum(stage.values()):.4f}); chained iteration, best of 3 "
+        f"windows of {iters}: {wall_ms:.4f} ms wall, {dev_ms:.4f} ms "
+        f"between CUDA events = {n / (wall_ms * 1e-3) / 1e9:.3f} G "
+        f"samples/s (RNG + erfinv + histogram; all windows "
+        f"{[round(a, 4) for a, _ in samples]} ms wall)")
+
+    return [
+        dict(name="hist", route="cuda",
+             source="enoki_tpu_torch/csrc/hist.cu",
+             replaces="enoki_tpu/ops/pallas_hist.py:44",
+             launches=launches["hist"], max_abs_err=hist_err,
+             ms=t["hist"], plain_ms=t["hist_plain"], bound_ms=hist_bound,
+             bound_by=hist_by, library_ms=t["hist_lib"],
+             weighted_ms=t["hist_w"], weighted_plain_ms=t["hist_w_plain"],
+             weighted_bound_ms=hist_w_bound,
+             weighted_library_ms=t["hist_w_lib"]),
+        dict(name="stochastic_round", route="cuda",
+             source="enoki_tpu_torch/csrc/stochastic_round.cu",
+             replaces="enoki_tpu/ops/rounding.py:270",
+             launches=launches["stochastic_round"], max_abs_err=sr_err,
+             ms=t["sr"], plain_ms=t["sr_plain"], bound_ms=sr_bound,
+             bound_by=sr_by, library_ms=None, f16_ms=t["sr_f16"]),
     ]
 
 

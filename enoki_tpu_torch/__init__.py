@@ -16,7 +16,11 @@ mini-app, with its f32 and bf16 forward kernels and analytic backward
 (``render.sphere_kernels``); and the bring-your-own-SDF renderer
 (``render.generic``, ``render.sdflib``), whose two kernels are generated
 per scene from the scene's Python functions (``render.sdf_trace``).
+Beside the renders: the histogram mini-app's path, a vectorised PCG32
+(``types``), ``ops.erfinv``, the memory operations of ``ops.router`` and
+the dense histogram kernel (``ops.histogram``), and ``ops.rounding`` with
+its stochastic-rounding kernel.
 """
 
 from ._device import resolve_device  # noqa: F401
-from . import ops, render  # noqa: F401
+from . import ops, render, types  # noqa: F401

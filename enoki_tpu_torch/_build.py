@@ -123,6 +123,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
+_U = ctypes.c_uint64
 
 # argument types of every C entry point, by library; pointers and the
 # stream are c_void_p (a bare Python int would be cut to 32 bits)
@@ -155,6 +156,15 @@ SIGNATURES = {
         "sphere_bwd_num_blocks": (_I,),
         "sphere_bwd_partial_launch": (_P, _P, _P, _I, _F, _F, _P),
         "sphere_bwd_reduce_launch": (_P, _I, _P, _P),
+    },
+    "hist": {
+        "hist_num_blocks": (_L,),
+        "hist_max_bins": (),
+        "hist_partial_launch": (_P, _P, _L, _I, _P, _P),
+        "hist_reduce_launch": (_P, _I, _I, _P, _P),
+    },
+    "stochastic_round": {
+        "stochastic_round_launch": (_P, _P, _L, _U, _I, _P),
     },
 }
 
@@ -214,11 +224,11 @@ def is_cuda(x) -> bool:
                      "plain version")
 
 
-def check(x, name, shape, device):
-    """Raise unless ``x`` is what a kernel reads: a contiguous float32
-    tensor of ``shape`` on ``device``."""
-    if (x.dtype != torch.float32 or tuple(x.shape) != shape
+def check(x, name, shape, device, dtype=torch.float32):
+    """Raise unless ``x`` is what a kernel reads: a contiguous tensor of
+    ``dtype`` (float32 unless given) and ``shape`` on ``device``."""
+    if (x.dtype != dtype or tuple(x.shape) != shape
             or not x.is_contiguous() or x.device != device):
-        raise ValueError(f"{name}: expected a contiguous float32 tensor of "
+        raise ValueError(f"{name}: expected a contiguous {dtype} tensor of "
                          f"shape {shape} on {device}, got {x.dtype} "
                          f"{tuple(x.shape)} on {x.device}")

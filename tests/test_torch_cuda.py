@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from enoki_tpu_torch import _build, ops as R
+from enoki_tpu_torch.ops import hist_kernels as H, rounding as RD
 from enoki_tpu_torch.render import (LAUNCHES, Vec3, generic as G,
                                     reset_launch_counts, sdflib as sd)
 from enoki_tpu_torch.render.sdf_kernels import (
@@ -354,3 +356,139 @@ def test_division_by_a_number_is_a_product_with_its_reciprocal(cuda, c):
     x = torch.from_numpy(np.random.default_rng(13).uniform(
         -4.0, 4.0, 1 << 20).astype(np.float32)).to(cuda)
     assert torch.equal(x / c, x * float(np.float32(1.0 / c)))
+
+
+# -- the histogram and stochastic-rounding kernels ---------------------------
+
+
+def _hist_inputs(n, bins, seed, dev):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(-3, bins + 6, n).astype(np.int32)
+    w = rng.standard_normal(n).astype(np.float32)
+    return torch.from_numpy(idx).to(dev), torch.from_numpy(w).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 31, 1025, 100_003])
+@pytest.mark.parametrize("bins", [1, 64, 129, 1000])
+def test_hist_kernel_matches_plain(cuda, n, bins):
+    idx, w = _hist_inputs(n, bins, n + bins, cuda)
+    reset_launch_counts()
+    count = H.hist(idx, bins)
+    weighted = H.hist(idx, bins, w)
+    again = H.hist(idx, bins, w)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == ({} if n == 0 else
+                              {"hist": 3, "hist_reduce": 3})
+    assert count.shape == (bins,) and count.dtype == torch.float32
+    # counts are sums of ones: exact in any order
+    assert torch.equal(count, H.hist_plain(idx, bins))
+    ok = (idx >= 0) & (idx < bins)
+    assert torch.equal(count, torch.bincount(
+        idx[ok].long(), minlength=bins).float())
+    # weighted: f32 sums in another order than the plain version's
+    exact = torch.zeros(bins, dtype=torch.float64, device=cuda).index_add_(
+        0, idx[ok].long(), w[ok].double())
+    scale = max(1.0, w.abs().sum().item())
+    assert (weighted.double() - exact).abs().max().item() <= 1e-6 * scale
+    assert torch.equal(weighted, again)
+
+
+@pytest.mark.cuda
+def test_hist_kernel_one_bin_conflict_and_limits(cuda):
+    n = 70_001
+    idx = torch.full((n,), 7, dtype=torch.int32, device=cuda)
+    assert torch.equal(H.hist(idx, 64),
+                       torch.zeros(64, device=cuda).index_fill_(
+                           0, torch.tensor([7], device=cuda), float(n)))
+    assert _build.load("hist").hist_max_bins() == H.MAX_BINS
+    big = H.hist(idx, H.MAX_BINS)
+    assert big[7].item() == n and big.sum().item() == n
+    with pytest.raises(ValueError, match="at most"):
+        H.hist(idx, H.MAX_BINS + 1)
+    with pytest.raises(ValueError, match="int32"):
+        H.hist(idx.long(), 64)
+    with pytest.raises(ValueError, match="weights"):
+        H.hist(idx, 64, torch.ones(n - 1, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        H.hist(torch.stack([idx, idx], 1)[:, 0], 64)
+
+
+@pytest.mark.cuda
+def test_histogram_op_runs_the_kernel_and_its_vjp(cuda):
+    idx, w = _hist_inputs(5000, 64, 3, cuda)
+    w.requires_grad_(True)
+    reset_launch_counts()
+    out = R.histogram(idx, 64, w)
+    assert LAUNCHES["hist"] == 1
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        64).astype(np.float32)).to(cuda)
+    (gw,) = torch.autograd.grad(out, w, g)
+    inr = (idx >= 0) & (idx < 64)
+    want = torch.where(inr, g[idx.clamp(0, 63).long()], 0.0)
+    assert torch.equal(gw, want)
+    # the plain route on the card, and a float index
+    fused = R.histogram(idx, 64, w.detach(), impl="fused")
+    torch.testing.assert_close(out.detach(), fused, rtol=1e-5, atol=1e-4)
+    assert torch.equal(R.histogram(idx.float() + 0.25, 64),
+                       R.histogram(torch.where(idx < 0, idx + 1, idx), 64))
+
+
+def _sr_input(n, dev):
+    rng = np.random.default_rng(n)
+    x = (rng.standard_normal(n) * np.exp(rng.uniform(-12, 12, n))).astype(
+        np.float32)
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-40, -1e-41,
+                        65504.0, 65519.9, 65520.0, 7e4, -65519.9, 6e-8,
+                        5.9e-8, 1e-10, -1e-10, 3.4e38, -3.4e38],
+                       np.float32)
+    k = min(n, special.size)
+    x[:k] = special[:k]
+    return torch.from_numpy(x).to(dev)
+
+
+def _same_bits(a, b):
+    """Equal bit patterns, any NaN standing for any NaN."""
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a.view(torch.int16)[~nan],
+                            b.view(torch.int16)[~nan]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("n", [0, 1, 31, 1025, 100_003])
+def test_stochastic_round_kernel_matches_plain(cuda, n, dtype):
+    x = _sr_input(n, cuda)
+    reset_launch_counts()
+    out = RD.stochastic_round_cuda(x, 1234567890123, dtype)
+    torch.cuda.synchronize()
+    assert dict(LAUNCHES) == ({} if n == 0 else {"stochastic_round": 1})
+    assert out.dtype == dtype and out.shape == (n,)
+    assert _same_bits(out, RD.stochastic_round_plain(x, 1234567890123, dtype))
+    assert _same_bits(out, RD.stochastic_round_cuda(x, 1234567890123, dtype))
+    if n > 31:
+        other = RD.stochastic_round_cuda(x, 1234567890124, dtype)
+        assert not _same_bits(out, other)
+        # a view that starts off a 16-byte boundary takes the scalar loads
+        # and the same words
+        shifted = torch.cat([x[:1], x])[1:]
+        assert shifted.data_ptr() % 16 != 0
+        assert _same_bits(RD.stochastic_round_cuda(shifted, 7, dtype),
+                          RD.stochastic_round_cuda(x, 7, dtype))
+
+
+@pytest.mark.cuda
+def test_stochastic_round_kernel_is_unbiased_and_checks_its_input(cuda):
+    x = torch.full((1 << 20,), 1.0 + 1.0 / 512.0, device=cuda)
+    out = RD.stochastic_round_cuda(x, 42).float()
+    lo, hi = 1.0, 1.0 + 2.0 ** -7
+    assert bool(((out == lo) | (out == hi)).all())
+    # 2^20 draws at p = 1/4: the share's standard deviation is 4.2e-4
+    assert abs((out == hi).float().mean().item() - 0.25) < 3e-3
+    with pytest.raises(ValueError, match="1-D"):
+        RD.stochastic_round_cuda(x.reshape(2, -1), 1)
+    with pytest.raises(ValueError, match="float32"):
+        RD.stochastic_round_cuda(x.double(), 1)
+    with pytest.raises(ValueError, match="bfloat16 or float16"):
+        RD.stochastic_round_cuda(x, 1, torch.float32)

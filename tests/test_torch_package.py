@@ -14,14 +14,15 @@ import torch
 import enoki_tpu_torch
 from enoki_tpu_torch import resolve_device
 from enoki_tpu_torch.interop import (generic_params_from_numpy,
-                                     params_from_numpy, scene_from_numpy,
-                                     scene_to_numpy)
+                                     params_from_numpy, pcg32_from_numpy,
+                                     scene_from_numpy, scene_to_numpy)
 from enoki_tpu_torch.ops.router import linspace
 from enoki_tpu_torch.render import generic, sdflib
 from enoki_tpu_torch.render.sdf import SDFScene
 from enoki_tpu_torch.render.sdf_kernels import SDFRender
 from enoki_tpu_torch.render.sphere import SphereScene, pixel_grid
 from enoki_tpu_torch.render.sphere_kernels import SphereRender
+from enoki_tpu_torch.types import PCG32, u64
 
 PKG = pathlib.Path(enoki_tpu_torch.__file__).parent
 REPO = PKG.parent
@@ -40,7 +41,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     names = {f.relative_to(PKG).as_posix() for f in files}
     assert {"render/sphere.py", "render/sphere_kernels.py", "render/io.py",
             "render/sdf_kernels.py", "render/generic.py", "render/sdflib.py",
-            "render/sdf_trace.py", "interop.py"} <= names
+            "render/sdf_trace.py", "interop.py", "config.py",
+            "types/u64.py", "types/random.py", "ops/polys.py", "ops/math.py",
+            "ops/special.py", "ops/rounding.py",
+            "ops/hist_kernels.py"} <= names
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]
@@ -49,7 +53,9 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, enoki_tpu_torch, enoki_tpu_torch.render, "
-            "enoki_tpu_torch.render.io, enoki_tpu_torch.interop; "
+            "enoki_tpu_torch.render.io, enoki_tpu_torch.interop, "
+            "enoki_tpu_torch.types, enoki_tpu_torch.ops.hist_kernels, "
+            "enoki_tpu_torch.ops.rounding, enoki_tpu_torch.config; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'enoki_tpu')]; "
             "assert not bad, bad")
@@ -74,6 +80,11 @@ ENTRY_POINTS = {
         _sphere_render(), np.zeros(9, np.float32), n=64).params,
     "make_sdf_renderer.render": lambda: _sphere_render()(
         generic_params_from_numpy(np.zeros(9)), 64),
+    "PCG32.create": lambda: PCG32.create(8).state.v,
+    "u64.from_py": lambda: u64.from_py(7, (4,)).v,
+    "u64.zeros": lambda: u64.zeros((4,)).v,
+    "pcg32_from_numpy": lambda: pcg32_from_numpy(
+        *(np.zeros(4, np.uint32),) * 4).state.v,
 }
 
 
@@ -144,3 +155,41 @@ def test_render_exports_the_generic_entry_points():
 def test_chip_smoke_imports_neither_jax_nor_the_reference():
     for mod in _imported_modules(REPO / "chip_smoke.py"):
         assert mod.split(".")[0] not in ("jax", "jaxlib", "enoki_tpu"), mod
+
+
+def test_histogram_example_imports_neither_jax_nor_the_reference():
+    for mod in _imported_modules(REPO / "examples" / "histogram_torch.py"):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "enoki_tpu"), mod
+
+
+def test_ops_exports_the_ported_functions():
+    from enoki_tpu_torch import ops
+    for name in ("linspace", "meshgrid", "select", "masked_assign", "rsqrt",
+                 "reinterpret", "ldexp", "frexp", "gather", "scatter",
+                 "scatter_add", "transform", "isnan", "isinf", "isfinite",
+                 "safe_sqrt", "next_float", "prev_float", "log", "erfinv",
+                 "histogram", "polys", "rounding", "round_",
+                 "round_half_away", "floor", "ceil", "trunc",
+                 "stochastic_round"):
+        assert hasattr(ops, name), name
+    import inspect
+    sig = inspect.signature(ops.histogram)
+    assert [(k, p.default) for k, p in sig.parameters.items()][1:] == [
+        ("bins", inspect.Parameter.empty), ("weights", None),
+        ("impl", "kernel")]
+
+
+def test_the_kernel_modules_build_nothing_at_import():
+    # importing the package, and running the wrappers on CPU tensors,
+    # must reach neither nvcc nor a built library
+    code = ("import torch, enoki_tpu_torch as E; "
+            "from enoki_tpu_torch import _build; "
+            "from enoki_tpu_torch.ops import rounding; "
+            "E.ops.histogram(torch.tensor([0, 1, 1]), 2); "
+            "rounding.stochastic_round_cuda(torch.ones(5), 3); "
+            "assert not _build.BUILD_DIR.exists() or not any("
+            "p.name.startswith(('hist-', 'stochastic_round-')) "
+            "for p in _build.BUILD_DIR.iterdir()); "
+            "assert _build.load.cache_info().currsize == 0")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120, env={"PATH": "/nonexistent"})

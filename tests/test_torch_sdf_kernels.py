@@ -180,7 +180,8 @@ def test_cuda_sources_match_their_ctypes_signatures():
     skeleton = (_build.CSRC_DIR / "generic_render.cuh").read_text()
     card, _ = skeleton.split("#else  // a host compiler")
     sources = {"sdf_render": None, "sdf_bwd_ad": None, "sphere_render": None,
-               "generic_render": card}
+               "generic_render": card, "hist": None,
+               "stochastic_round": None}
     assert set(_build.SIGNATURES) == set(sources)
     for lib, signatures in _build.SIGNATURES.items():
         src = sources[lib] or (_build.CSRC_DIR / f"{lib}.cu").read_text()
