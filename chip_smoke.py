@@ -82,16 +82,21 @@ rounding.
            (+ reduce) per step; one step each of coarse=8, bands=8
            (composed scene) and relax=1.6, unimodal (sphere-only, a second
            scene in the same process) under the head-start gates
-  phase 16 timing: each generic kernel alone with its bound and its plain
-           version, the chained fwd+bwd step against the twin's, the cone
-           prepass over the composed scene, trace and nvcc seconds per
-           scene at first use and at a cached use
+  phase 16 timing: each generic kernel alone with its bound (the
+           backward's counted from the reverse-mode program it runs) and
+           its plain version, ptxas's registers and spills of both, the
+           chained fwd+bwd step against the twin's, the cone prepass over
+           the composed scene, trace and nvcc seconds per scene at first
+           use and at a cached use
   phase 17 hist against hist_plain at 16M samples, 64 bins, on three index
            sets (the mini-app's normal samples, a uniform set with
            out-of-range and negative entries, every sample in one bin):
            counting exactly equal to the plain version and to
            torch.bincount, weighted within 1e-6 * sum|w| per bin of a
-           float64 sum, two runs bitwise equal; bins = 1, 1000 and n = 0
+           float64 sum, two runs bitwise equal; the same for bins = 1 and
+           SMALL_BINS (a row per thread), SMALL_BINS + 1 and 1000 (a row
+           per warp), for index and weight views off a 16-byte boundary,
+           and n = 0; ptxas's registers and spills of the hist kernels
   phase 18 stochastic_round against stochastic_round_plain at 16M: bit-
            equal in bf16 and f16 on data with NaN, infinities, zeros and
            subnormals mixed in; every result one of the two neighbours; on
@@ -182,7 +187,8 @@ BWD_AD_FLOPS_AS_WRITTEN_PER_HIT = 693
 GENERIC_POINT_FLOPS = 6        # o + d * t, three components
 GENERIC_STEP_FLOPS = 3         # d >= eps, t + d, <= t_max
 # what a hit pixel's shade and cotangent need comes from the traced scene
-# function too, differentiated in reverse mode (generic_hit_programs)
+# function too, differentiated in reverse mode
+# (sdf_trace.generic_hit_programs)
 GENERIC_PARAMS = (0.15, 40.0, -1.0, -1.0, 2.0,     # ambient gain light
                   0.1, -0.2, 0.3, 0.45,            # sphere center, radius
                   0.55, 0.18, 1.05)                # torus R, r; plane
@@ -397,121 +403,36 @@ def bound(nbytes, flops, bf16_flops=0, int_ops=0):
     return 1e3 * t[by], by
 
 
-def reverse_sweep(trace, root, seed, wrt):
-    """One reverse-mode sweep over a traced DAG, recorded into the same
-    ``trace`` (enoki_tpu_torch.render.sdf_trace.Trace): the adjoints of
-    the values ``wrt`` when the value ``root`` has the adjoint ``seed``.
-    A node's adjoint goes to each argument times the local partial and
-    adds up where a value is used more than once. The selections that the
-    partials of abs, min and max need are nodes of their own kinds
-    (``signmul(x, b)`` is b or -b by the sign of x, ``pick_min(x, y, b)``
-    is b where x is the smaller, half of it at a tie, else 0), which a
-    later sweep differentiates in their last argument. Equal expressions
-    are one node, so two sweeps from one root share what they share."""
-    from enoki_tpu_torch.render.sdf_trace import LEAVES, Sym
+def kernel_resources(lib_path, kernel):
+    """(registers, spill store bytes, spill load bytes) of the ``__global__``
+    function whose mangled name holds ``kernel``, from the ptxas report
+    kept with the library (``_build.build_log``), or None without one."""
+    import re
 
-    one, half = trace.lift(1.0), trace.lift(0.5)
-
-    def times(a, b):
-        if a.id == one.id:
-            return b
-        return a if b.id == one.id else a * b
-
-    adj = {root.id: seed}
-    for i in range(root.id, -1, -1):    # creation order is topological
-        kind, *args = trace.nodes[i]
-        if i not in adj or kind in LEAVES:
+    from enoki_tpu_torch import _build
+    for part in _build.build_log(lib_path).split(
+            "Compiling entry function")[1:]:
+        head = part.split("\n", 1)[0]
+        if kernel not in head:
             continue
-        bar, v, a = adj[i], Sym(trace, i), [Sym(trace, j) for j in args]
-        if kind == "add":
-            parts = [bar, bar]
-        elif kind == "sub":
-            parts = [bar, -bar]
-        elif kind == "neg":
-            parts = [-bar]
-        elif kind == "mul":
-            parts = [times(bar, a[1]), times(bar, a[0])]
-        elif kind == "div":
-            q = bar / a[1]
-            parts = [q, -(q * v)]
-        elif kind == "divn":            # by a Python number, a leaf
-            parts = [bar / float.fromhex(trace.nodes[args[1]][1])]
-        elif kind == "recip":
-            parts = [-(times(bar, v) * v)]
-        elif kind == "sqrt":
-            parts = [times(bar, half) / v]
-        elif kind == "rsqrt":
-            parts = [-(times(bar, half) * v / a[0])]
-        elif kind == "abs":
-            parts = [trace.op("signmul", a[0], bar)]
-        elif kind in ("min", "max"):
-            parts = [trace.op("pick_" + kind, a[0], a[1], bar),
-                     trace.op("pick_" + kind, a[1], a[0], bar)]
-        elif kind == "signmul":
-            parts = [None, trace.op(kind, a[0], bar)]
-        elif kind in ("pick_min", "pick_max"):
-            parts = [None, None, trace.op(kind, a[0], a[1], bar)]
-        else:
-            raise SmokeFailure(f"no partial known for a {kind} node")
-        for j, part in zip(args, parts):
-            if part is not None and trace.nodes[j][0] not in ("const",
-                                                              "number"):
-                adj[j] = adj[j] + part if j in adj else part
-    zero = trace.lift(0.0)
-    return [adj.get(w.id, zero) for w in wrt]
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", part)
+        if regs and spill:
+            return (int(regs.group(1)), int(spill.group(1)),
+                    int(spill.group(2)))
+    return None
 
 
-def generic_hit_programs(kern):
-    """What a hit pixel of a scene (``SceneKernels``) needs, as two traced
-    programs whose arithmetic nodes the bounds count:
-
-    * the shade of generic_fwd, (o, d, t, pv) -> img: the scene function
-      at the hit point, one reverse sweep for the normal grad_p sdf, the
-      Lambert term;
-    * the cotangent of generic_bwd, (px, py, t, g, pv) -> dp[n_params]:
-      the ray, that shade, a reverse sweep through all of it for d img /
-      d(pv, t) times g, a sweep from the distance for its slopes in pv
-      and t (which shares the normal's sweep), and the implicit term
-      -(t_bar / slope_t) * slope_pv with its guard as one operation.
-
-    This is reverse mode, the cheapest way known to the function; the
-    kernel itself runs n_params + 1 forward sweeps."""
-    from enoki_tpu_torch.render import sdf_trace as T
-    from enoki_tpu_torch.render.vec import Vec3
-
-    def leaves(trace, names):
-        return [trace.leaf(("in", name)) for name in names]
-
-    def shade(trace, o, d, t, pv):
-        p = o + d * t
-        f = trace.lift(kern.sdf_fn(p, pv))
-        nx, ny, nz = reverse_sweep(trace, f, trace.lift(1.0),
-                                   (p.x, p.y, p.z))
-        inv = T.rsqrt(nx * nx + ny * ny + nz * nz + 1e-12)
-        lam = (nx * pv[2] + ny * pv[3] + nz * pv[4]) * inv
-        return f, pv[0] + T.maximum(lam, 0.0) * pv[1]
-
-    names = ("ox", "oy", "oz", "dx", "dy", "dz", "t")
-    trace = T.Trace()
-    *od, t = leaves(trace, names)
-    pv = T.ParamVec(trace, kern.n_params)
-    _, img = shade(trace, Vec3(*od[:3]), Vec3(*od[3:]), t, pv)
-    fwd = T._prune(trace, names, [img])
-
-    names = ("px", "py", "t", "g")
-    trace = T.Trace()
-    px, py, t, g = leaves(trace, names)
-    pv = T.ParamVec(trace, kern.n_params)
-    o, d = kern.ray_fn(px, py, pv)
-    lift = trace.lift
-    f, img = shade(trace, Vec3(lift(o.x), lift(o.y), lift(o.z)),
-                   Vec3(lift(d.x), lift(d.y), lift(d.z)), t, pv)
-    *direct, t_bar = reverse_sweep(trace, img, g, [*pv, t])
-    *slopes, slope_t = reverse_sweep(trace, f, lift(1.0), [*pv, t])
-    lam = -(t_bar / trace.op("guard", slope_t))
-    bwd = T._prune(trace, names,
-                   [a + lam * b for a, b in zip(direct, slopes)])
-    return fwd, bwd
+def resources_text(lib_path, kernels):
+    """The ptxas report of ``kernels`` of a library, as a log phrase."""
+    out = []
+    for k in kernels:
+        r = kernel_resources(lib_path, k)
+        out.append(f"{k} " + ("no ptxas report" if r is None else
+                              f"{r[0]} registers, {r[1]} / {r[2]} bytes of "
+                              f"spill stores / loads"))
+    return "; ".join(out)
 
 
 def main():
@@ -1489,6 +1410,7 @@ def run_generic(torch, dev, timer, scenes, first_use):
     from enoki_tpu_torch import _build
     from enoki_tpu_torch.render import (LAUNCHES, generic as G,
                                         reset_launch_counts, sdf_kernels as K)
+    from enoki_tpu_torch.render.sdf_trace import generic_hit_programs
 
     rays = N * N
     g_rand = torch.from_numpy(np.random.default_rng(7).standard_normal(
@@ -1733,11 +1655,15 @@ def run_generic(torch, dev, timer, scenes, first_use):
         hold_ms=1000.0, plain=True)
 
     # bounds from this run's data. A hit pixel's operations are the
-    # arithmetic nodes of the scene's two reverse-mode programs; the
+    # arithmetic nodes of the scene's two reverse-mode programs, the
+    # cotangent's being the one generic_bwd runs (user_cotangent); the
     # cotangent adds its n_params sums over the image, and every pixel its
     # hit test and the sum of g into the ambient slot
     traced = kern.traced
-    shade_prog, cotangent_prog = generic_hit_programs(kern)
+    shade_prog, cotangent_prog = generic_hit_programs(
+        kern.sdf_fn, kern.ray_fn, kern.n_params)
+    check(cotangent_prog == traced.cotangent,
+          "the counted cotangent is not the program the kernel runs")
     evals = int(G.generic_march_counts(kern.sdf_fn, kern.ray_fn, p_c, N,
                                        STEPS, EXTENT).sum().item())
     hits = int((ts0 >= 0).sum().item())
@@ -1758,6 +1684,9 @@ def run_generic(torch, dev, timer, scenes, first_use):
         f"{shade_prog.n_ops} operations in the forward's shade and "
         f"{cotangent_prog.n_ops} in the backward's cotangent (the scene "
         f"differentiated in reverse mode)")
+    log("phase 16 ptxas: " + resources_text(
+        _build.build_generated("generic_render", traced.source),
+        ("generic_fwd_kernel", "generic_bwd_partial_kernel")))
     log(f"phase 16 generic_fwd {fwd_ms:.5f} ms (plain {fwd_plain_ms:.3f} ms,"
         f" bound {fwd_bound:.5f} ms by {fwd_by}: {fwd_flops} operations, "
         f"{8 * rays + n_par} bytes); generic_bwd {bwd_ms:.5f} ms (plain "
@@ -1891,7 +1820,7 @@ def normal_bin_mass(bins, lo, hi):
 def run_hist(torch, dev, timer):
     """Phases 17-20: the histogram mini-app and stochastic rounding.
     Returns their kernels' entries of the kernels line."""
-    from enoki_tpu_torch import ops
+    from enoki_tpu_torch import _build, ops
     from enoki_tpu_torch._build import LAUNCHES, reset_launch_counts
     from enoki_tpu_torch.ops import hist_kernels as H, rounding as RD
     from enoki_tpu_torch.types import PCG32
@@ -1954,19 +1883,55 @@ def run_hist(torch, dev, timer):
             f"{tol[tol > 0].min().item():.3e}), two runs bitwise equal: "
             f"{'pass' if ok else 'FAIL'}")
         check(ok, f"hist {name}: weighted sums off by {err.max().item()}")
-    wide = torch.from_numpy(rng.integers(-3, 1006, n).astype(np.int32)).to(dev)
-    for nbins, idx in ((1, idx_sets["uniform[-3,70)"]), (1000, wide)):
+    # both routes of the kernel: a row per thread up to H.SMALL_BINS bins
+    # (the mini-app's 64 above), a row per warp from one more
+    small = H.SMALL_BINS
+    for nbins in (1, small, small + 1, 1000):
+        idx = torch.from_numpy(rng.integers(-3, nbins + 6, n).astype(
+            np.int32)).to(dev)
         count = H.hist(idx, nbins)
         check(torch.equal(count, H.hist_plain(idx, nbins))
               and torch.equal(count, library_hist(idx, nbins)),
               f"hist bins={nbins}: counts differ")
         exact, tol = f64_sums(idx, nbins)
-        err = (H.hist(idx, nbins, w).double() - exact).abs()
-        check(bool((err <= tol).all().item()),
-              f"hist bins={nbins}: weighted sums off by {err.max().item()}")
+        hw1, hw2 = H.hist(idx, nbins, w), H.hist(idx, nbins, w)
+        err = (hw1.double() - exact).abs()
+        check(bool((err <= tol).all().item()) and torch.equal(hw1, hw2),
+              f"hist bins={nbins}: weighted sums off by {err.max().item()} "
+              f"or two runs differ")
         hist_err = max(hist_err, err.max().item())
-        log(f"phase 17 hist bins={nbins}: counts exact, weighted "
-            f"max|hist-f64 sum| {err.max().item():.3e}: pass")
+        log(f"phase 17 hist bins={nbins} (row per "
+            f"{'thread' if nbins <= small else 'warp'}): counts exact, "
+            f"weighted max|hist-f64 sum| {err.max().item():.3e}, two runs "
+            f"bitwise equal: pass")
+    # views that start off a 16-byte boundary: the weights misaligned as
+    # the indices are (read as float4), or aligned where the indices are
+    # not (read one by one)
+    for off, w_off in ((1, 1), (2, 2), (3, 3), (1, 0), (2, 1)):
+        idx = idx_normal[off:]
+        wv = w[w_off:w_off + n - off]
+        w_view = f"w[{w_off}:{w_off + n - off}]"
+        count = H.hist(idx, bins)
+        check(torch.equal(count, H.hist_plain(idx, bins))
+              and torch.equal(count, library_hist(idx, bins)),
+              f"hist of idx[{off}:]: counts differ")
+        safe = torch.where((idx < 0) | (idx >= bins), bins, idx).long()
+        zeros = torch.zeros(bins + 1, dtype=torch.float64, device=dev)
+        exact = zeros.index_add(0, safe, wv.double())[:bins]
+        tol = 1e-6 * zeros.index_add(0, safe, wv.double().abs())[:bins]
+        hw1, hw2 = H.hist(idx, bins, wv), H.hist(idx, bins, wv)
+        err = (hw1.double() - exact).abs()
+        check(bool((err <= tol).all().item()) and torch.equal(hw1, hw2),
+              f"hist of idx[{off}:] weighted by {w_view}: off by "
+              f"{err.max().item()} or two runs differ")
+        hist_err = max(hist_err, err.max().item())
+        log(f"phase 17 hist of the view idx[{off}:] weighted by {w_view} "
+            f"({bins} bins): counts exact, weighted max|hist-f64 sum| "
+            f"{err.max().item():.3e}, two runs bitwise equal: pass")
+    log("phase 17 ptxas: " + resources_text(_build.build("hist"), (
+        "hist_rows_kernelILb0ELb0E", "hist_rows_kernelILb1ELb1E",
+        "hist_rows_kernelILb1ELb0E", "hist_partial_kernelILb0E",
+        "hist_partial_kernelILb1E")))
     empty = torch.zeros(0, dtype=torch.int32, device=dev)
     before = LAUNCHES["hist"]
     z = H.hist(empty, bins)

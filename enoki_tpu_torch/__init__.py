@@ -23,4 +23,4 @@ its stochastic-rounding kernel.
 """
 
 from ._device import resolve_device  # noqa: F401
-from . import ops, render, types  # noqa: F401
+from . import config, interop, ops, render, types  # noqa: F401

@@ -12,11 +12,14 @@ Nothing is built when a module is imported: the CPU, which has no nvcc,
 never reaches ``build``.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -I csrc -o _build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -I csrc -o _build/<name>-<hash>.so \
+         csrc/<name>.cu
 
 ``--use_fast_math`` is deliberately absent: it would swap sqrt, division
 and denormal handling for approximations and break parity with the
-reference.
+reference. ``-Xptxas -v`` makes ptxas report each kernel's registers and
+spills; the report is kept beside the library, ``_build/<name>-<hash>.log``
+(``build_log``).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:
@@ -77,8 +80,16 @@ def _compile(src: Path, digest: str, name: str) -> Path:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed to build {src} "
                            f"(exit {proc.returncode}):\n{proc.stderr}")
+    _write_source(out.with_suffix(".log"), proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def build_log(lib: Path) -> str:
+    """What nvcc printed when it built the library ``lib`` (ptxas's report
+    of each kernel's registers and spills); "" if that was not kept."""
+    log = lib.with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def _digest(source: bytes) -> str:
@@ -99,8 +110,8 @@ def build(name: str) -> Path:
 
 
 def _write_source(src: Path, text: str):
-    """Write generated source to ``src`` unless it is there, whole or not
-    at all."""
+    """Write generated source (or a build's log) to ``src`` unless it is
+    there, whole or not at all."""
     if not src.exists():
         tmp = src.with_name(f"{src.stem}.{_unique()}.tmp{src.suffix}")
         tmp.write_text(text)
@@ -158,8 +169,9 @@ SIGNATURES = {
         "sphere_bwd_reduce_launch": (_P, _I, _P, _P),
     },
     "hist": {
-        "hist_num_blocks": (_L,),
+        "hist_num_blocks": (_L, _I),
         "hist_max_bins": (),
+        "hist_small_bins": (),
         "hist_partial_launch": (_P, _P, _L, _I, _P, _P),
         "hist_reduce_launch": (_P, _I, _I, _P, _P),
     },

@@ -8,6 +8,8 @@
 //
 //   template <class T> T    gen::user_sdf(x, y, z, const T* pv)
 //   template <class T> void gen::user_ray(px, py, const T* pv, T* o, T* d)
+//   template <class T> void gen::user_cotangent(px, py, t, g, const T* pv,
+//                                               T* dp)
 //
 // One library per scene, as the reference makes one pair of Pallas kernels
 // per scene by closing them over sdf_fn and ray_fn.
@@ -33,35 +35,45 @@
 // generic_bwd -- replaces bwd_kernel (enoki_tpu/render/generic.py:187-231).
 // The TPU kernel takes jax.vjp of the shade, whose normal is itself a
 // jax.grad of the user function, and adds implicit_t_vjp. Here a hit pixel
-// pushes one direction of (pvec, t) at a time through the nested dual
-// Dual<Dual<float, 3>, 1>: the inner level carries grad_p, the outer the
-// direction, so one evaluation of user_sdf gives the normal, its
-// derivative along the direction (the mixed second derivative the shade
-// needs) and d sdf along it, rays included (user_ray runs on the outer
-// dual, so a camera parameter in pvec is differentiated). n_params + 1
-// sweeps of an 8-float value fit in registers, where one sweep of all
-// directions (4 (n_params + 2) floats per value) would spill; the sweeps
-// are unrolled, so the compiler shares the primal work among them and
-// drops the partials that are structurally zero. The t direction runs
-// first: it gives t_bar and the slope of the implicit root (guard 1e-6,
-// sign kept, an exact zero taken as negative, render/implicit.py). A miss
-// adds g to the ambient slot and nothing else. Each thread takes
-// kSumPixels pixels, a block writes its n_params sums as one row of
-// partial[num_blocks][n_params] in a fixed order, and reduce_rows_kernel
-// (common.cuh) sums the rows: no float atomics, bitwise equal gradients
-// from run to run. The TPU kernel's n_pad padding (an SMEM layout rule)
-// is not carried over.
+// runs user_cotangent: the scene differentiated in reverse mode by the
+// tracer (sdf_trace.cotangent_program), emitted as straight-line float
+// code. It recomputes the ray and the hit point, the distance with a
+// reverse sweep for the normal, the shade, one sweep back through all of
+// it for d img / d(pvec, t) times g, one from the distance for its slopes
+// in pvec and t, and adds the implicit term -(t_bar / guard(slope_t)) *
+// slope_pvec (guard 1e-6, sign kept, an exact zero taken as negative,
+// render/implicit.py). nvcc may contract a*b+c here (a derivative is
+// held to a tolerance, not bit for bit), and a tie that the scene makes
+// by construction (two equal expressions, a
+// parameter at a clip bound or an abs at 0) stays a tie, since equal
+// expressions are one node of the program. A miss adds g to the ambient
+// slot and nothing else. Each thread takes kBwdPixels pixels, a block
+// writes its n_params sums as one row of partial[num_blocks][n_params] in
+// a fixed order, and reduce_rows_kernel (common.cuh) sums the rows: no
+// float atomics, bitwise equal gradients from run to run. The TPU
+// kernel's n_pad padding (an SMEM layout rule) is not carried over.
 // Bound on this card: 8 B read per pixel (g and ts) against the
-// operations the cotangent needs per hit pixel, which is what reverse mode
-// would run (a few passes over the scene function), not the n_params + 1
-// sweeps run here; for a scene of a few dozen operations the bytes set it.
+// operations of user_cotangent per hit pixel (a few hundred for a scene
+// of a few dozen operations: the bytes set it). What held the earlier
+// design back (45.6x its bound) was the route, not the memory: it pushed
+// n_params + 1 directions one at a time through a nested dual
+// Dual<Dual<float, 3>, 1>, 13 sweeps of the scene function on the
+// 12-parameter composed scene at 149 registers, where reverse mode needs
+// one program of a few hundred operations (264 there), at ~80 registers.
+// Divergence along the silhouettes costs little: the warps of 32
+// neighbouring pixels that hold a hit are 7% more than the hits would
+// fill. What is left is each hit's chain of dependent operations, hidden
+// by as many warps as the registers allow; 4 pixels a thread give the
+// card enough blocks for that.
 //
 // The per-pixel functions compile as host C++17 too. Without nvcc this
 // header ends in two loops over the image with a C interface
-// (generic_host_fwd, generic_host_bwd), so that the generated code and the
-// nested duals can be held against the plain PyTorch versions where there
-// is no card (tests/test_torch_generic_codegen.py builds it with
-// g++ -O2 -ffp-contract=off -shared -fPIC -x c++ <source>).
+// (generic_host_fwd, generic_host_bwd), so that the generated code, the
+// dual normal and the reverse-mode cotangent can be held against the
+// plain PyTorch versions where there is no card
+// (tests/test_torch_generic_codegen.py builds it with
+// g++ -O2 -ffp-contract=off -shared -fPIC -x c++ <source>, so that the
+// host's float rounds each operation on its own).
 
 #pragma once
 
@@ -198,50 +210,8 @@ GEN_HD void render_pixel(const float* params, float t0, int col, int row,
   *ts = hit ? t.v : -t.v - 1.0f;
 }
 
-// The derivatives of a hit pixel's shade and of its SDF residual
-// f(pv, t) = user_sdf(user_ray(px, py, pv)(t), pv) along direction k of
-// (pv[0..kNP-1], t): k = kNP is t.
-GEN_HD void directional(int k, const float* pv, float t, float px, float py,
-                        float* d_img, float* d_sdf) {
-  using D1 = Dual<float, 1>;
-  using D3 = Dual<float, 3>;
-  using D2 = Dual<D3, 1>;
-  D1 pv1[kNP];
-  D2 pv2[kNP];
-#pragma unroll
-  for (int j = 0; j < kNP; ++j) {
-    const float seed = j == k ? 1.0f : 0.0f;
-    pv1[j].v = pv[j];
-    pv1[j].d[0] = seed;
-    pv2[j].v = D3(pv[j]);
-    pv2[j].d[0] = D3(seed);
-  }
-  D1 t1;
-  t1.v = t;
-  t1.d[0] = k == kNP ? 1.0f : 0.0f;
-  // the ray and the point on it carry the direction only; grad_p is
-  // seeded at the point itself
-  D1 o[3], d[3];
-  user_ray<D1>(D1(px), D1(py), pv1, o, d);
-  D2 x[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const D1 p = o[i] + d[i] * t1;
-    x[i].v = variable<float, 3>(p.v, i);
-    x[i].d[0] = D3(p.d[0]);
-  }
-  const D2 s = user_sdf<D2>(x[0], x[1], x[2], pv2);
-  *d_sdf = s.d[0].v;
-  D1 g[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    g[i].v = s.v.d[i];
-    g[i].d[0] = s.d[0].d[i];
-  }
-  *d_img = lambert_shade<D1>(g[0], g[1], g[2], pv1).d[0];
-}
-
-// Add one pixel's cotangent terms to acc[0..kNP-1].
+// Add one pixel's cotangent terms to acc[0..kNP-1]. A hit stores t itself
+// in ts and runs the scene's reverse-mode program.
 template <class Acc>
 GEN_HD void add_pixel_cotangent(Acc (&acc)[kNP], const float* pv, float g,
                                 float tsv, float px, float py) {
@@ -250,19 +220,10 @@ GEN_HD void add_pixel_cotangent(Acc (&acc)[kNP], const float* pv, float g,
     acc[kAmbient] += g;
     return;
   }
-  // a hit stores t itself. The implicit root f(pv, t*) = eps:
-  // dt*/dtheta . t_bar = -(t_bar / f_t) f_theta
-  float d_img, d_sdf;
-  directional(kNP, pv, tsv, px, py, &d_img, &d_sdf);
-  const float t_bar = g * d_img;
-  const float sgn = d_sdf == 0.0f ? -1.0f : (d_sdf > 0.0f ? 1.0f : -1.0f);
-  const float slope = abs_(d_sdf) > 1e-6f ? d_sdf : sgn;
-  const float w = -t_bar / slope;
+  float dp[kNP];
+  user_cotangent<float>(px, py, tsv, g, pv, dp);
 #pragma unroll
-  for (int k = 0; k < kNP; ++k) {
-    directional(k, pv, tsv, px, py, &d_img, &d_sdf);
-    acc[k] += g * d_img + w * d_sdf;
-  }
+  for (int k = 0; k < kNP; ++k) acc[k] += dp[k];
 }
 
 }  // namespace gen
@@ -273,6 +234,11 @@ namespace {
 
 static_assert(gen::kNP <= kSumThreads,
               "one thread of the reduce block per parameter");
+
+// pixels per thread of generic_bwd: at 1024^2, 1024 blocks of kSumThreads
+// (2.6 waves of the 3 blocks an SM that ~80 registers allow), where
+// common.cuh's 8 left a second wave of 116 blocks of 512
+constexpr int kBwdPixels = 4;
 
 __global__ void __launch_bounds__(256)
 generic_fwd_kernel(const float* __restrict__ params,
@@ -295,7 +261,7 @@ generic_bwd_partial_kernel(const float* __restrict__ params,
                            float extent) {
   const int64_t npix = static_cast<int64_t>(n) * n;
   const int64_t base =
-      static_cast<int64_t>(blockIdx.x) * (kSumThreads * kSumPixels) +
+      static_cast<int64_t>(blockIdx.x) * (kSumThreads * kBwdPixels) +
       threadIdx.x;
   float pv[gen::kNP], acc[gen::kNP];
 #pragma unroll
@@ -303,9 +269,8 @@ generic_bwd_partial_kernel(const float* __restrict__ params,
     pv[k] = params[k];
     acc[k] = 0.0f;
   }
-  // one pixel at a time: the duals of one pixel fill the registers
 #pragma unroll 1
-  for (int j = 0; j < kSumPixels; ++j) {
+  for (int j = 0; j < kBwdPixels; ++j) {
     const int64_t i = base + static_cast<int64_t>(j) * kSumThreads;
     if (i < npix) {
       const int row = static_cast<int>(i / n);
@@ -340,15 +305,16 @@ int generic_fwd_launch(const float* params, const float* t0, float* img,
   return static_cast<int>(cudaGetLastError());
 }
 
-int generic_bwd_num_blocks(int n) { return sum_num_blocks(n); }
+int generic_bwd_num_blocks(int n) { return sum_num_blocks(n, kBwdPixels); }
 
 // partial has generic_bwd_num_blocks(n) rows of n_params.
 int generic_bwd_partial_launch(const float* params, const float* g,
                                const float* ts, float* partial, int n,
                                float step, float extent,
                                cudaStream_t stream) {
-  generic_bwd_partial_kernel<<<sum_num_blocks(n), kSumThreads, 0, stream>>>(
-      params, g, ts, partial, n, step, extent);
+  generic_bwd_partial_kernel<<<sum_num_blocks(n, kBwdPixels), kSumThreads,
+                               0, stream>>>(params, g, ts, partial, n, step,
+                                            extent);
   return static_cast<int>(cudaGetLastError());
 }
 

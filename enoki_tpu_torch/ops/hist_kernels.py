@@ -28,9 +28,11 @@ import torch
 from .. import _build
 from .router import scatter_add
 
-# warps of a block of csrc/hist.cu, each with a private row of ``bins``
-# floats in shared memory, of which a block may use 227 KiB: the most
+# csrc/hist.cu has two routes. Up to SMALL_BINS bins each of a block's
+# 256 threads keeps a private row of counters in shared memory; above, each
+# of its HIST_WARPS warps keeps one, and a block may use 227 KiB: the most
 # bins the kernel takes
+SMALL_BINS = 96
 HIST_WARPS = 8
 MAX_BINS = 7168
 
@@ -53,7 +55,8 @@ def hist(index, bins: int, weights=None):
 
     On a CUDA card ``bins`` may be at most ``MAX_BINS`` (7168: the
     block's 8 private rows must fit its shared memory); more raises
-    ``ValueError``. An empty ``index`` gives zeros without a launch."""
+    ``ValueError``. An empty ``index`` gives zeros without a launch. The
+    tensors may be views that start anywhere (``index[1:]``)."""
     if bins < 1:
         raise ValueError(f"bins must be at least 1, got {bins}")
     if not _build.is_cuda(index):
@@ -70,7 +73,7 @@ def hist(index, bins: int, weights=None):
         # a zero-size grid is a launch error
         return torch.zeros(bins, dtype=torch.float32, device=dev)
     lib = _build.load("hist")
-    rows = lib.hist_num_blocks(n)
+    rows = lib.hist_num_blocks(n, bins)
     partial = torch.empty((rows, bins), dtype=torch.float32, device=dev)
     out = torch.empty(bins, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -95,7 +98,7 @@ class _HistogramFn(torch.autograd.Function):
     def forward(ctx, index, weights, bins, impl):
         ctx.save_for_backward(index)
         ctx.bins = bins
-        fn = hist if impl == "kernel" else hist_plain
+        fn = hist_plain if impl == "fused" else hist
         return fn(index, bins, weights)
 
     @staticmethod
@@ -116,11 +119,14 @@ def histogram(index, bins: int, weights=None, impl: str = "kernel"):
     dropped. ``weights`` defaults to ones (a counting histogram) and is
     taken in float32; the result is differentiable in it. ``impl``:
     ``"kernel"`` (default) is the hand-written CUDA kernel, reproducible
-    bit for bit (on CPU tensors its plain version); ``"fused"`` is the
-    plain route through ``scatter_add`` on any device. The tensors'
-    device decides where it runs."""
-    if impl not in ("kernel", "fused"):
-        raise ValueError(f"impl must be 'kernel' or 'fused', got {impl!r}")
+    bit for bit (on CPU tensors its plain version), and ``"pallas"``,
+    the reference's name for its kernel, is another name for it;
+    ``"fused"`` is the plain route through ``scatter_add`` on any device.
+    Any other value raises ``ValueError``. The tensors' device decides
+    where it runs."""
+    if impl not in ("kernel", "pallas", "fused"):
+        raise ValueError(f"impl must be 'kernel', 'pallas' or 'fused', got "
+                         f"{impl!r}")
     index = index.detach().to(torch.int32).reshape(-1).contiguous()
     if weights is None:
         return _HistogramFn.apply(index, None, bins, impl)

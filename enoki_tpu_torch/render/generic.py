@@ -389,11 +389,13 @@ def make_sdf_renderer(sdf_fn, n_params: int, eps: float = 1e-4,
     on its own, which does per lane what the bands and the miss-tile fast
     path do per tile.
 
-    ``n_params`` may be 5 to ``MAX_PARAMS``. The backward kernel unrolls
-    ``n_params + 1`` derivative sweeps of the scene function, so nvcc's
-    time and the kernel's registers grow with it: scenes of 9, 12 and 32
-    parameters have been built and checked on an H100 (chip_smoke.py,
-    tests/test_torch_cuda.py); wider ones are untried.
+    ``n_params`` may be 5 to ``MAX_PARAMS``. The backward kernel runs the
+    scene's cotangent as one reverse-mode program per hit pixel, which
+    grows with the scene and its parameters, and nvcc's time and the
+    kernel's registers with it: scenes of 9, 12 and 32 parameters (264
+    and 969 operations a hit for 12 and 32) have been built and checked
+    on an H100 (chip_smoke.py, tests/test_torch_cuda.py); wider ones are
+    untried.
     """
     kernels = SceneKernels(sdf_fn, ray_fn, n_params)
 

@@ -318,8 +318,8 @@ def many_spheres(p, pv):
 
 @pytest.mark.cuda
 def test_generic_kernels_of_a_32_parameter_scene_match_plain(cuda):
-    # the backward unrolls n_params + 1 derivative sweeps: a wider scene
-    # than the composed one must still build and agree
+    # the backward's reverse-mode program is several times the composed
+    # scene's here: a wider scene must still build and agree
     rng = np.random.default_rng(11)
     v = np.concatenate([
         GENERIC_PARAMS[:5],
@@ -368,18 +368,14 @@ def _hist_inputs(n, bins, seed, dev):
     return torch.from_numpy(idx).to(dev), torch.from_numpy(w).to(dev)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [0, 1, 31, 1025, 100_003])
-@pytest.mark.parametrize("bins", [1, 64, 129, 1000])
-def test_hist_kernel_matches_plain(cuda, n, bins):
-    idx, w = _hist_inputs(n, bins, n + bins, cuda)
-    reset_launch_counts()
+def _check_hist(idx, bins, w):
+    """hist of ``idx`` (and weighted by ``w``) against hist_plain and
+    torch.bincount (counts exact) and a float64 sum (weighted within
+    1e-6 * sum|w|), two runs bitwise equal."""
     count = H.hist(idx, bins)
     weighted = H.hist(idx, bins, w)
     again = H.hist(idx, bins, w)
     torch.cuda.synchronize()
-    assert dict(LAUNCHES) == ({} if n == 0 else
-                              {"hist": 3, "hist_reduce": 3})
     assert count.shape == (bins,) and count.dtype == torch.float32
     # counts are sums of ones: exact in any order
     assert torch.equal(count, H.hist_plain(idx, bins))
@@ -387,11 +383,53 @@ def test_hist_kernel_matches_plain(cuda, n, bins):
     assert torch.equal(count, torch.bincount(
         idx[ok].long(), minlength=bins).float())
     # weighted: f32 sums in another order than the plain version's
-    exact = torch.zeros(bins, dtype=torch.float64, device=cuda).index_add_(
-        0, idx[ok].long(), w[ok].double())
+    exact = torch.zeros(bins, dtype=torch.float64, device=idx.device)
+    exact.index_add_(0, idx[ok].long(), w[ok].double())
     scale = max(1.0, w.abs().sum().item())
     assert (weighted.double() - exact).abs().max().item() <= 1e-6 * scale
     assert torch.equal(weighted, again)
+
+
+# both routes of csrc/hist.cu: a row per thread up to SMALL_BINS, a row
+# per warp above
+HIST_BINS = [1, 64, H.SMALL_BINS, H.SMALL_BINS + 1, 1000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 3, 31, 1025, 100_003])
+@pytest.mark.parametrize("bins", HIST_BINS)
+def test_hist_kernel_matches_plain(cuda, n, bins):
+    idx, w = _hist_inputs(n, bins, n + bins, cuda)
+    reset_launch_counts()
+    _check_hist(idx, bins, w)
+    assert dict(LAUNCHES) == ({} if n == 0 else
+                              {"hist": 3, "hist_reduce": 3})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_off", [0, 1, 2, 3])
+@pytest.mark.parametrize("off", [1, 2, 3])
+@pytest.mark.parametrize("bins", HIST_BINS)
+def test_hist_kernel_takes_views_that_start_anywhere(cuda, bins, off, w_off):
+    # a view off a 16-byte boundary: the kernel reads the ragged ends one
+    # by one, and weights misaligned otherwise than the indices one by one
+    n = 100_003
+    idx, w = _hist_inputs(n + off, bins, 5 * bins + off, cuda)
+    _, w_base = _hist_inputs(n + w_off, bins, 7, cuda)
+    iv, wv = idx[off:], w_base[w_off:]
+    assert iv.data_ptr() % 16 == 4 * off
+    _check_hist(iv, bins, wv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bins", HIST_BINS)
+def test_hist_kernel_all_in_one_bin(cuda, bins):
+    n = 70_001
+    idx = torch.full((n,), bins // 2, dtype=torch.int32, device=cuda)
+    w = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        n).astype(np.float32)).to(cuda)
+    _check_hist(idx, bins, w)
+    assert H.hist(idx, bins)[bins // 2].item() == n
 
 
 @pytest.mark.cuda
@@ -401,7 +439,9 @@ def test_hist_kernel_one_bin_conflict_and_limits(cuda):
     assert torch.equal(H.hist(idx, 64),
                        torch.zeros(64, device=cuda).index_fill_(
                            0, torch.tensor([7], device=cuda), float(n)))
-    assert _build.load("hist").hist_max_bins() == H.MAX_BINS
+    lib = _build.load("hist")
+    assert lib.hist_max_bins() == H.MAX_BINS
+    assert lib.hist_small_bins() == H.SMALL_BINS
     big = H.hist(idx, H.MAX_BINS)
     assert big[7].item() == n and big.sum().item() == n
     with pytest.raises(ValueError, match="at most"):
@@ -427,6 +467,11 @@ def test_histogram_op_runs_the_kernel_and_its_vjp(cuda):
     inr = (idx >= 0) & (idx < 64)
     want = torch.where(inr, g[idx.clamp(0, 63).long()], 0.0)
     assert torch.equal(gw, want)
+    # the reference's name for the kernel
+    reset_launch_counts()
+    assert torch.equal(R.histogram(idx, 64, w.detach(), impl="pallas"),
+                       out.detach())
+    assert LAUNCHES["hist"] == 1
     # the plain route on the card, and a float index
     fused = R.histogram(idx, 64, w.detach(), impl="fused")
     torch.testing.assert_close(out.detach(), fused, rtol=1e-5, atol=1e-4)

@@ -9,9 +9,12 @@ without a card:
 * the generated source, built by the host's C++ compiler (g++ -O2
   -ffp-contract=off: the skeleton's per-pixel functions in two loops over
   the image), agrees with generic_fwd_plain / generic_bwd_plain at 64^2.
-  That holds the emitted code, the march and the nested dual numbers
-  against the plain versions; the __global__ wrappers around the same
-  functions are held on the card (tests/test_torch_cuda.py).
+  That holds the emitted code, the march, the dual normal and the
+  reverse-mode cotangent (user_cotangent) against the plain versions, and
+  the cotangent of a scene whose hits meet the ties of minimum, abs and
+  clip against the reference's gradient in JAX; the __global__ wrappers
+  around the same functions are held on the card
+  (tests/test_torch_cuda.py).
 
 Tolerances: the host march rounds each operation as the plain version
 does, except a division by a Python number, which the emitter writes as a
@@ -19,22 +22,28 @@ product with the reciprocal (what PyTorch's CUDA kernels compute) where
 PyTorch's CPU kernels divide. So ts and the image agree within 1e-3 off
 hit/miss flips, which stay under 1e-3 of the pixels; scenes without such a
 division are bit-equal in ts. dp agrees within rtol 2e-4 / atol 2e-4 *
-max(1, |dp|max): sums of ~4000 terms in another order.
+max(1, |dp|max): sums of ~4000 terms in another order. Against JAX the
+gradient takes the slice-4 gate, rtol 2e-2 / atol 2e-3 * max(1, |g|max)
+(tests/test_generic_render.py), the two marches' hit points being each
+package's own.
 """
 
 import ctypes
 import functools
 import hashlib
-import importlib.util
 import re
 import shutil
 import subprocess
-from pathlib import Path
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
+from enoki_tpu.render import generic as jgen, sdflib as jsd
+from enoki_tpu.render.vec import Vec3 as JVec3
 from enoki_tpu_torch import _build
 from enoki_tpu_torch.render import generic as G, sdf_trace as T
 from enoki_tpu_torch.render import sdflib as sd
@@ -123,8 +132,8 @@ def _guard(s, guard=1e-6):
     return torch.where(s.abs() > guard, s, sgn)
 
 
-# the selections of chip_smoke.reverse_sweep, whose programs the bounds of
-# the chip check count
+# the selections of sdf_trace.reverse_sweep (sdf_trace.SELECTIONS), which
+# user_cotangent computes on the card
 SWEEP_OPS = {
     "signmul": lambda x, b: torch.where(_t(x) >= 0, _t(b), -_t(b)),
     "pick_min": lambda x, y, b: _t(b) * ((_t(x) < _t(y)).float()
@@ -179,17 +188,17 @@ def test_dag_equals_the_function_on_tensors_bit_for_bit(scene):
 
 def test_bound_programs_compute_what_the_kernels_compute(scene):
     """The chip check takes each generic kernel's operation count from a
-    program that differentiates the traced scene in reverse mode. That
-    program, run with torch over the image, gives generic_fwd_plain's
-    shade on the hit pixels (atol 1e-4) and generic_bwd_plain's cotangent
-    (rtol 2e-4 / atol 2e-4 * max(1, |dp|max), sums in another order): the
-    count is of a program that computes the function."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
+    program that differentiates the traced scene in reverse mode
+    (sdf_trace.generic_hit_programs; the cotangent's is the program
+    generic_bwd runs). That program, run with torch over the image, gives
+    generic_fwd_plain's shade on the hit pixels (atol 1e-4) and
+    generic_bwd_plain's cotangent (rtol 2e-4 / atol 2e-4 * max(1,
+    |dp|max), sums in another order): the count is of a program that
+    computes the function."""
     kernels, pv = scene
-    fwd, bwd = chip_smoke.generic_hit_programs(kernels)
+    fwd, bwd = T.generic_hit_programs(kernels.sdf_fn, kernels.ray_fn,
+                                      kernels.n_params)
+    assert bwd == kernels.traced.cotangent
     assert kernels.traced.sdf.n_ops < fwd.n_ops < bwd.n_ops
     img, ts = G.generic_fwd_plain(kernels.sdf_fn, kernels.ray_fn, pv, N,
                                   STEPS)
@@ -214,10 +223,31 @@ def test_source_and_hash_repeat(scene):
     kernels, _ = scene
     again = T.trace_scene(kernels.sdf_fn, kernels.ray_fn, kernels.n_params)
     assert again.source == kernels.traced.source
+    assert _build._digest(again.source.encode()) \
+        == _build._digest(kernels.traced.source.encode())
     src = again.source
     assert f"#define GENERIC_N_PARAMS {kernels.n_params}\n" in src
     assert src.index('#include "generic_num.cuh"') < src.index("user_sdf") \
-        < src.index("user_ray") < src.index('#include "generic_render.cuh"')
+        < src.index("user_ray") < src.index("user_cotangent") \
+        < src.index('#include "generic_render.cuh"')
+
+
+def test_emitted_cotangent_has_the_counted_operations(scene):
+    """user_cotangent is the cotangent program of the chip check's count,
+    one statement per arithmetic node and one store per parameter."""
+    kernels, _ = scene
+    body = kernels.traced.source.split("void user_cotangent(")[1]
+    body = body.split("\n}\n")[0]
+    _, counted = T.generic_hit_programs(kernels.sdf_fn, kernels.ray_fn,
+                                        kernels.n_params)
+    assert len(re.findall(r"^  const T v\d+ = ", body, re.M)) \
+        == counted.n_ops == kernels.traced.cotangent.n_ops
+    assert re.findall(r"^  dp\[(\d+)\] = ", body, re.M) \
+        == [str(k) for k in range(kernels.n_params)]
+    kinds = {n[0] for n in counted.nodes}
+    assert "guard" in kinds and kinds <= {
+        *T.LEAVES, *T.BINARY, *T.SELECTIONS, "divn", "neg", "recip", "sqrt",
+        "rsqrt", "abs", "min", "max"}
 
 
 def test_two_scenes_give_two_sources():
@@ -435,6 +465,89 @@ def test_host_backward_matches_plain(scene, host_lib):
     scale = max(1.0, ref.abs().max().item())
     torch.testing.assert_close(dp, ref, rtol=2e-4, atol=2e-4 * scale)
     assert ref.abs().max().item() > 1.0  # the cotangent is not trivially 0
+
+
+def many_spheres(p, pv):
+    """Six spheres, a torus and a ground plane: 32 parameters."""
+    d = sd.sd_torus(p, Vec3(0.0, 0.0, 1.0), pv[29], pv[30])
+    for k in range(5, 29, 4):
+        d = sd.op_smooth_union(
+            d, sd.sd_sphere(p, Vec3(pv[k], pv[k + 1], pv[k + 2]), pv[k + 3]),
+            0.1)
+    return sd.op_union(d, sd.sd_plane(p, Vec3(0.0, -1.0, 0.0), pv[31]))
+
+
+def test_host_backward_of_a_32_parameter_scene_matches_plain(host_lib):
+    """The widest scene built on the card: its cotangent program is a few
+    times the composed scene's, and the host build of it agrees."""
+    rng = np.random.default_rng(11)
+    v = np.concatenate([
+        PARAMS[:5],
+        np.column_stack([rng.uniform(-0.8, 0.8, (6, 2)),
+                         rng.uniform(0.0, 0.6, (6, 1)),
+                         rng.uniform(0.15, 0.3, (6, 1))]).ravel(),
+        [0.55, 0.18, 1.05]]).astype(np.float32)
+    kernels = G.SceneKernels(many_spheres, G.ortho_camera, 32)
+    pv = torch.from_numpy(v)
+    _, ts = G.generic_fwd_plain(many_spheres, G.ortho_camera, pv, N, STEPS)
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (N, N)).astype(np.float32))
+    ref = G.generic_bwd_plain(many_spheres, G.ortho_camera, pv, g, ts, N)
+    dp = host_bwd(host_lib(kernels), pv, g, ts, N)
+    scale = max(1.0, ref.abs().max().item())
+    torch.testing.assert_close(dp, ref, rtol=2e-4, atol=2e-4 * scale)
+    assert (ref.abs() > 0).sum().item() >= 24
+    assert kernels.traced.cotangent.n_ops > 3 * T.trace_scene(
+        composed, G.ortho_camera, 12).cotangent.n_ops
+
+
+def tied(sd_, Vec, ops):
+    """A scene whose every hit point meets three ties: two equal spheres
+    (pv[8] == pv[9]) under a minimum, abs at 0 (pv[10] = 0) and a clip at
+    its lower bound (pv[11] = 0); ``ops`` gives minimum, abs and clip."""
+    minimum, abs_, clip = ops
+
+    def sdf(p, pv):
+        a = sd_.sd_sphere(p, Vec(pv[5], pv[6], pv[7]), pv[8])
+        b = sd_.sd_sphere(p, Vec(pv[5], pv[6], pv[7]), pv[9])
+        return (minimum(a, b) + abs_(pv[10] * p.x)
+                + clip(pv[11], 0.0, 1.0) * p.y)
+
+    return sdf
+
+
+TIED_PARAMS = np.asarray(
+    [0.15, 40.0, -1.0, -1.0, 2.0, 0.1, -0.2, 0.3, 0.45, 0.45, 0.0, 0.0],
+    np.float32)
+
+
+def test_host_cotangent_meets_the_reference_ties(host_lib):
+    """At a minimum tie the gradient splits 0.5 / 0.5, abs has slope +1 at
+    0, clip passes 0.5 at a bound: the host build of user_cotangent
+    against generic_bwd_plain (same ts, rtol 2e-4) and against the
+    gradient of the reference's render_pallas in interpret mode (its own
+    march, the slice-4 gate)."""
+    sdf = tied(sd, Vec3, (T.minimum, T.abs, T.clip))
+    kernels = G.SceneKernels(sdf, G.ortho_camera, 12)
+    pv = torch.from_numpy(TIED_PARAMS)
+    _, ts = G.generic_fwd_plain(sdf, G.ortho_camera, pv, N, STEPS)
+    assert (ts >= 0).float().mean().item() > 0.1
+    g = torch.full((N, N), 1.0 / (N * N))
+    dp = host_bwd(host_lib(kernels), pv, g, ts, N)
+    ref = G.generic_bwd_plain(sdf, G.ortho_camera, pv, g, ts, N)
+    torch.testing.assert_close(dp, ref, rtol=2e-4,
+                               atol=2e-4 * max(1.0, ref.abs().max().item()))
+    # the two radii share the tie's gradient; abs and clip pass theirs
+    assert dp[8].item() == pytest.approx(dp[9].item(), rel=1e-5)
+    assert abs(dp[8].item()) > 1e-3
+    assert abs(dp[10].item()) > 1e-5 and abs(dp[11].item()) > 1e-5
+    jsdf = tied(jsd, JVec3, (jnp.minimum, jnp.abs, jnp.clip))
+    render_pallas, _ = jgen.make_sdf_renderer(jsdf, 12)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax.grad(lambda v: jnp.mean(
+            render_pallas(v, N, STEPS, 1.2, N)))(jnp.asarray(TIED_PARAMS)))
+    assert np.allclose(dp.numpy(), want, rtol=2e-2,
+                       atol=2e-3 * max(1.0, np.abs(want).max())), (dp, want)
 
 
 def test_host_all_miss_is_exact(host_lib):

@@ -114,9 +114,30 @@ def test_hist_wrapper_takes_the_plain_version_on_the_cpu():
     with pytest.raises(ValueError, match="bins"):
         TH.hist(_t(idx), 0)
     with pytest.raises(ValueError, match="impl"):
-        TO.histogram(_t(idx), 64, impl="pallas")
+        TO.histogram(_t(idx), 64, impl="xla")
     assert TH.MAX_BINS * TH.HIST_WARPS * 4 <= 232448
+    # the row-per-thread route: two blocks of 256 rows fit an SM
+    assert 2 * (TH.SMALL_BINS * 256 * 4 + 1024) <= 233472
+    assert 64 <= TH.SMALL_BINS < TH.MAX_BINS
     assert TO.histogram is TH.histogram
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_histogram_takes_the_reference_kernel_name(weighted):
+    """``impl="pallas"``, the reference's name for its kernel, is the
+    kernel route here; every other unknown name raises."""
+    idx, w, _ = _case(64)
+    wt = _t(w) if weighted else None
+    _build.reset_launch_counts()
+    got = TO.histogram(_t(idx), 64, wt, impl="pallas")
+    assert torch.equal(got, TO.histogram(_t(idx), 64, wt, impl="kernel"))
+    assert torch.equal(got, TH.hist_plain(_t(idx), 64, wt))
+    want = np.asarray(JO.histogram(idx, 64, None if wt is None else w,
+                                   impl="pallas"))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+    for bad in ("Pallas", "cuda", ""):
+        with pytest.raises(ValueError, match="impl"):
+            TO.histogram(_t(idx), 64, wt, impl=bad)
 
 
 def test_histogram_weight_gradients():

@@ -63,6 +63,19 @@ def test_importing_the_port_loads_no_jax():
                    timeout=120)
 
 
+def test_the_package_imports_config_and_interop_by_name():
+    # as enoki_tpu/__init__.py does; a fresh process, so that no other
+    # import made them attributes first
+    code = ("import enoki_tpu_torch as E, types; "
+            "assert isinstance(E.config, types.ModuleType); "
+            "assert isinstance(E.interop, types.ModuleType); "
+            "assert E.config.__name__ == 'enoki_tpu_torch.config'; "
+            "assert E.interop.__name__ == 'enoki_tpu_torch.interop'; "
+            "assert callable(E.interop.pcg32_from_numpy)")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
+
+
 ENTRY_POINTS = {
     "resolve_device": lambda: resolve_device(),
     "SDFScene.reference": lambda: SDFScene.reference().radius,
