@@ -83,11 +83,17 @@ rounding.
            (composed scene) and relax=1.6, unimodal (sphere-only, a second
            scene in the same process) under the head-start gates
   phase 16 timing: each generic kernel alone with its bound (the
-           backward's counted from the reverse-mode program it runs) and
-           its plain version, ptxas's registers and spills of both, the
-           chained fwd+bwd step against the twin's, the cone prepass over
-           the composed scene, trace and nvcc seconds per scene at first
-           use and at a cached use
+           shade and the cotangent counted from the reverse-mode programs
+           they run) and its plain version, ptxas's registers and spills,
+           the forward's busy-lane share per warp footprint (from the
+           per-pixel evaluation counts) and its issue floor (the SASS
+           instructions an iteration of its march loop issues, from
+           cuobjdump, its slow paths left out, times the warps'
+           evaluations, over the SMs' issue slots at the max SM clock;
+           derived, and held below the measured time), the chained
+           fwd+bwd step against the twin's, the cone
+           prepass over the composed scene, trace and nvcc seconds per
+           scene at first use and at a cached use
   phase 17 hist against hist_plain at 16M samples, 64 bins, on three index
            sets (the mini-app's normal samples, a uniform set with
            out-of-range and negative entries, every sample in one bin):
@@ -106,8 +112,9 @@ rounding.
            the normal distribution's mass per bin), the weighted
            histogram's gradient, and a bf16 accumulator of 64 small
            updates through stochastic_round_cuda against round-to-nearest
-  phase 20 timing: hist counting and weighted and stochastic_round, each
-           with its bound, its plain version and (hist) torch.bincount;
+  phase 20 timing: hist counting and weighted and stochastic_round in
+           bf16 and f16, each with its bound, its plain version and (hist)
+           torch.bincount;
            the mini-app's stages in device time and its iteration as
            samples/s
 
@@ -151,6 +158,9 @@ INT32_OPS_PER_S = 33.5e12
 # (CUDA C++ Programming Guide, arithmetic instruction throughput): a
 # second, tighter floor for the march, printed beside the bound
 MUFU_PER_CLK_PER_SM = 16
+# warp instructions an SM issues per clock: four schedulers, one each
+# (H100 architecture whitepaper): the generic march's issue floor
+ISSUE_SLOTS_PER_SM = 4
 
 # FP32 operations of the kernels (csrc/sdf_render.cu), each add, mul,
 # compare, max and rsqrt counted once
@@ -208,6 +218,12 @@ HIST_INT_OPS_PER_SAMPLE = 2
 HIST_FLOPS_PER_SAMPLE = 1
 PHILOX_INT_OPS_PER_BLOCK = 10 * (2 * 2 + 4) + 9 * 2
 ROUND_INT_OPS_PER_ELEMENT = 3
+# the f16 rounding: the two conversions, x >= lo, x - lo, its magnitude,
+# the product, the conversion and scaling of u and u < p in f32; the
+# neighbour's pattern (zero test, direction, step), its finiteness and
+# the span's exponent (field, max, halving, shift) in 32-bit integers
+F16_ROUND_FLOPS_PER_ELEMENT = 9
+F16_ROUND_INT_OPS_PER_ELEMENT = 12
 # the five candidate configurations of bench.py:233-235:
 # (coarse, bands, relax, unimodal, split)
 CANDIDATES = ((0, 1, 1.0, False, 0), (8, 1, 1.0, False, 0),
@@ -433,6 +449,151 @@ def resources_text(lib_path, kernels):
                               f"{r[0]} registers, {r[1]} / {r[2]} bytes of "
                               f"spill stores / loads"))
     return "; ".join(out)
+
+
+def fwd_footprint():
+    """generic_fwd's footprint, read from its skeleton
+    (csrc/generic_render.cuh): (warp columns, block columns, block rows).
+    A warp takes a cols x (32 / cols) tile of pixels, a block a block
+    columns x block rows rectangle of them."""
+    import re
+
+    from enoki_tpu_torch import _build
+    text = (_build.CSRC_DIR / "generic_render.cuh").read_text()
+    found = re.search(r"constexpr int kWarpCols = (\d+), kBlockCols = (\d+), "
+                      r"kBlockRows = (\d+);", text)
+    check(found is not None, "generic_render.cuh names no footprint")
+    return tuple(int(v) for v in found.groups())
+
+
+def march_loop(lib_path, kernel):
+    """The march loop of the ``__global__`` function whose mangled name
+    holds ``kernel``, from ``cuobjdump -sass`` of the library (run anew,
+    its output written beside it as ``.sass``): see ``loop_counts``."""
+    from pathlib import Path
+
+    from enoki_tpu_torch import _build
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-500:]}")
+    lib_path.with_suffix(".sass").write_text(out.stdout)
+    return loop_counts(out.stdout, kernel)
+
+
+def loop_counts(sass, kernel):
+    """(first address, back branch's address, instructions laid out
+    between them, instructions an iteration issues) of the largest loop
+    of the function whose mangled name holds ``kernel`` in ``sass``
+    (cuobjdump -sass text). An iteration's instructions are those of the
+    walk from the loop's head to its back branch that follows every
+    unconditional branch and takes a conditional one only where the
+    instructions it would fall into call a subroutine (the slow paths of
+    the IEEE square root and division, which ptxas lays out inside the
+    loop or past the kernel's end): cold code is not counted, a
+    predicated instruction is (it takes its issue slot)."""
+    import re
+    parts = [part for part in sass.split("Function : ")[1:]
+             if kernel in part.split("\n", 1)[0]]
+    check(len(parts) == 1, f"{len(parts)} functions named like {kernel} in "
+          f"the SASS")
+    # a branch names its target by label (`(.L_x_12)) or by address
+    # and is conditional with a guard, a predicate operand or .DIV
+    bra_re = re.compile(r"^(@!?U?P\w+\s+)?BRA((?:\.\w+)*)\s+(!?\w+,\s*)?"
+                        r"(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))")
+    ins, labels, starts, pending = [], {}, set(), []
+    for line in parts[0].splitlines():
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        for name in pending:
+            labels[name] = addr
+            starts.add(addr)
+        pending = []
+        ins.append((addr, m.group(2)))
+    index = {addr: i for i, (addr, _) in enumerate(ins)}
+
+    def branch(i):
+        # (target address, conditional) of a branch, else None
+        b = bra_re.match(ins[i][1])
+        if not b:
+            return None
+        target = labels.get(b.group(4)) if b.group(4) else int(b.group(5), 16)
+        return target, bool(b.group(1) or b.group(3)) or ".DIV" in b.group(2)
+
+    def calls(i):
+        # whether the straight-line code from i calls a subroutine
+        for j in range(i, len(ins)):
+            if j > i and ins[j][0] in starts:
+                return False
+            if ins[j][1].startswith("CALL"):
+                return True
+            if branch(j) is not None or "EXIT" in ins[j][1]:
+                return False
+        return False
+
+    def walk(first, last):
+        # the instructions an iteration issues from first to the back
+        # branch at last, None where the walk leaves the range or repeats
+        i, walked = index[first], set()
+        while ins[i][0] != last:
+            if (i in walked or not first <= ins[i][0] < last
+                    or re.match(r"(EXIT|RET|CALL)", ins[i][1])):
+                return None
+            walked.add(i)
+            b = branch(i)
+            if b and (not b[1] or first <= b[0] <= last and calls(i + 1)
+                      and not calls(index[b[0]])):
+                if not first <= b[0] <= last:
+                    return None
+                i = index[b[0]]
+            else:
+                i += 1
+        return len(walked) + 1
+
+    # the largest backward branch that an iteration reaches: a slow path
+    # laid out past the kernel's end branches back into the loop too
+    for first, last in sorted(
+            ((b[0], ins[i][0]) for i in range(len(ins))
+             if (b := branch(i)) and b[0] is not None and b[0] < ins[i][0]),
+            key=lambda lp: lp[0] - lp[1]):
+        issued = walk(first, last)
+        if issued is not None:
+            return first, last, sum(first <= a <= last for a, _ in ins), issued
+    raise SmokeFailure(f"{kernel}: no loop in its SASS")
+
+
+def tile_max(counts, cols, rows):
+    """The largest of ``counts`` in each ``cols`` x ``rows`` tile of them,
+    padded with zeros to whole tiles."""
+    n_r, n_c = counts.shape
+    pad = counts.new_zeros((-(-n_r // rows) * rows, -(-n_c // cols) * cols))
+    pad[:n_r, :n_c] = counts
+    return pad.reshape(pad.shape[0] // rows, rows, pad.shape[1] // cols,
+                       cols).amax(dim=(1, 3))
+
+
+def warp_evaluations(counts, cols):
+    """Evaluations a march of ``counts`` (one per pixel) costs its warps
+    when each warp takes a ``cols`` x (32 / ``cols``) tile of pixels: the
+    sum over the tiles of their largest count (a warp waits for its
+    longest lane)."""
+    return int(tile_max(counts, cols, 32 // cols).sum().item())
+
+
+def block_share(counts, cols, block_cols, block_rows):
+    """The share of a block's warp slots its warps keep busy, a block
+    holding its slot until its slowest warp ends: the warps' evaluations
+    over (warps a block) x the slowest warp's, summed over the blocks."""
+    warps = tile_max(counts, cols, 32 // cols)
+    across, down = block_cols // cols, block_rows // (32 // cols)
+    slowest = tile_max(warps, across, down)
+    return warps.sum().item() / (across * down * slowest.sum().item())
 
 
 def main():
@@ -1456,7 +1617,7 @@ def run_generic(torch, dev, timer, scenes, first_use):
                       f"{(ts_k != ts_p).sum().item()} pixels at the "
                       f"reference parameters, where it was bit-equal")
             if torch.equal(ts_k, ts_p):
-                # the normal comes from dual numbers here and from
+                # the normal comes from a reverse sweep here and from
                 # autograd there: the image is equal to rounding
                 ok = d.max().item() <= 1e-3
                 log(f"{what}: ts bit-equal to plain, max|img-plain| "
@@ -1662,10 +1823,12 @@ def run_generic(torch, dev, timer, scenes, first_use):
     traced = kern.traced
     shade_prog, cotangent_prog = generic_hit_programs(
         kern.sdf_fn, kern.ray_fn, kern.n_params)
-    check(cotangent_prog == traced.cotangent,
-          "the counted cotangent is not the program the kernel runs")
-    evals = int(G.generic_march_counts(kern.sdf_fn, kern.ray_fn, p_c, N,
-                                       STEPS, EXTENT).sum().item())
+    check(shade_prog == traced.shade
+          and cotangent_prog == traced.cotangent,
+          "the counted programs are not the programs the kernels run")
+    counts = G.generic_march_counts(kern.sdf_fn, kern.ray_fn, p_c, N, STEPS,
+                                    EXTENT)
+    evals = int(counts.sum().item())
     hits = int((ts0 >= 0).sum().item())
     eval_flops = traced.sdf.n_ops + GENERIC_POINT_FLOPS
     fwd_flops = ((eval_flops + GENERIC_STEP_FLOPS) * evals
@@ -1684,12 +1847,51 @@ def run_generic(torch, dev, timer, scenes, first_use):
         f"{shade_prog.n_ops} operations in the forward's shade and "
         f"{cotangent_prog.n_ops} in the backward's cotangent (the scene "
         f"differentiated in reverse mode)")
+    lib_path = _build.build_generated("generic_render", traced.source)
     log("phase 16 ptxas: " + resources_text(
-        _build.build_generated("generic_render", traced.source),
-        ("generic_fwd_kernel", "generic_bwd_partial_kernel")))
+        lib_path, ("generic_fwd_kernelILb0E", "generic_fwd_kernelILb1E",
+                   "generic_bwd_partial_kernel")))
+
+    # what a warp waits for: each footprint's busy-lane share, the
+    # evaluations over the lane slots its warps spend (the shipped one's
+    # are what the issue floor counts), and what a block waits for
+    cols, block_cols, block_rows = fwd_footprint()
+    slots = {c: warp_evaluations(counts, c) for c in (32, 16, 8, 4)}
+    log("phase 16 generic_fwd busy-lane share by warp footprint (cols x "
+        "rows): " + ", ".join(
+            f"{c}x{32 // c} {evals / (32 * w):.4f} ({32 * w / rays:.3f} "
+            f"lane slots a pixel)" + (" <- shipped" if c == cols else "")
+            for c, w in slots.items())
+        + f"; in blocks of {block_cols}x{block_rows} pixels the warps keep "
+        f"{block_share(counts, cols, block_cols, block_rows):.4f} of their "
+        f"blocks' warp slots busy (32x8: "
+        f"{block_share(counts, cols, 32, 8):.4f}); computed from the plain "
+        f"march's counts, not measured")
+    first, last, laid_out, loop_ins = march_loop(lib_path,
+                                                 "generic_fwd_kernelILb0E")
+    props = torch.cuda.get_device_properties(0)
+    sm_mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
+    floor_ms = 1e3 * loop_ins * slots[cols] / (
+        props.multi_processor_count * ISSUE_SLOTS_PER_SM * sm_mhz * 1e6)
+    # an iteration evaluates the scene once, an instruction an operation at
+    # the least; a floor above the measured time would count what a step
+    # does not run
+    check(loop_ins >= traced.sdf.n_ops, f"generic_fwd: the loop found in its "
+          f"SASS issues {loop_ins} instructions, fewer than the scene's "
+          f"{traced.sdf.n_ops} operations")
+    check(floor_ms <= fwd_ms, f"generic_fwd's issue floor {floor_ms:.5f} ms "
+          f"is above its time {fwd_ms:.5f} ms")
+    log(f"phase 16 generic_fwd issue floor (derived, not measured): an "
+        f"iteration of the plain march issues {loop_ins} SASS instructions "
+        f"(the loop {first:#x}-{last:#x} lays out {laid_out}, its slow "
+        f"paths included; cuobjdump); x {slots[cols]} warp evaluations over "
+        f"{props.multi_processor_count} SMs x {ISSUE_SLOTS_PER_SM} issue "
+        f"slots x {sm_mhz:.0f} MHz = {floor_ms:.5f} ms, "
+        f"{floor_ms / fwd_ms:.4f} of the measured {fwd_ms:.5f} ms")
     log(f"phase 16 generic_fwd {fwd_ms:.5f} ms (plain {fwd_plain_ms:.3f} ms,"
         f" bound {fwd_bound:.5f} ms by {fwd_by}: {fwd_flops} operations, "
-        f"{8 * rays + n_par} bytes); generic_bwd {bwd_ms:.5f} ms (plain "
+        f"{8 * rays + n_par} bytes); "
+        f"generic_bwd {bwd_ms:.5f} ms (plain "
         f"{bwd_plain_ms:.3f} ms, bound {bwd_bound:.5f} ms by {bwd_by}: "
         f"{bwd_flops} operations, {8 * rays + 2 * n_par} bytes); library "
         f"call: none computes either function")
@@ -1780,7 +1982,7 @@ def run_generic(torch, dev, timer, scenes, first_use):
              launches=launches["generic_fwd"],
              max_abs_err=err["generic_fwd"], ms=fwd_ms,
              plain_ms=fwd_plain_ms, bound_ms=fwd_bound, bound_by=fwd_by,
-             **common),
+             coarse8_ms=fwd8_ms, **common),
         dict(name="generic_bwd", replaces="enoki_tpu/render/generic.py:187",
              launches=launches["generic_bwd"],
              max_abs_err=err["generic_bwd"], ms=bwd_ms,
@@ -2097,9 +2299,12 @@ def run_hist(torch, dev, timer):
     hist_w_bound, hist_w_by = bound(8 * n + 4 * bins,
                                     HIST_FLOPS_PER_SAMPLE * n,
                                     int_ops=HIST_INT_OPS_PER_SAMPLE * n)
-    sr_ops = (PHILOX_INT_OPS_PER_BLOCK * ((n + 3) // 4)
-              + ROUND_INT_OPS_PER_ELEMENT * n)
+    philox_ops = PHILOX_INT_OPS_PER_BLOCK * ((n + 3) // 4)
+    sr_ops = philox_ops + ROUND_INT_OPS_PER_ELEMENT * n
     sr_bound, sr_by = bound(6 * n, 0, int_ops=sr_ops)
+    f16_bound, f16_by = bound(
+        6 * n, F16_ROUND_FLOPS_PER_ELEMENT * n,
+        int_ops=philox_ops + F16_ROUND_INT_OPS_PER_ELEMENT * n)
     log(f"phase 20 hist counting {t['hist']:.5f} ms (plain "
         f"{t['hist_plain']:.4f} ms, torch.bincount {t['hist_lib']:.4f} ms, "
         f"bound {hist_bound:.5f} ms by {hist_by}); weighted "
@@ -2107,11 +2312,12 @@ def run_hist(torch, dev, timer):
         f"torch.bincount {t['hist_w_lib']:.4f} ms, bound "
         f"{hist_w_bound:.5f} ms by {hist_w_by}); {n} samples, {bins} bins, "
         f"the mini-app's normal indices")
-    log(f"phase 20 stochastic_round bf16 {t['sr']:.5f} ms, f16 "
-        f"{t['sr_f16']:.5f} ms (plain bf16 {t['sr_plain']:.4f} ms, bound "
-        f"{sr_bound:.5f} ms by {sr_by}; its {sr_ops} integer operations "
-        f"alone {1e3 * sr_ops / INT32_OPS_PER_S:.5f} ms); library call: "
-        f"none rounds stochastically")
+    log(f"phase 20 stochastic_round bf16 {t['sr']:.5f} ms (plain "
+        f"{t['sr_plain']:.4f} ms, bound {sr_bound:.5f} ms by {sr_by}; its "
+        f"{sr_ops} integer operations alone "
+        f"{1e3 * sr_ops / INT32_OPS_PER_S:.5f} ms), f16 {t['sr_f16']:.5f} "
+        f"ms (bound {f16_bound:.5f} ms by {f16_by}); library call: none "
+        f"rounds stochastically")
 
     # the mini-app's stages, each alone, and the chained iteration
     import math
@@ -2166,7 +2372,8 @@ def run_hist(torch, dev, timer):
              replaces="enoki_tpu/ops/rounding.py:270",
              launches=launches["stochastic_round"], max_abs_err=sr_err,
              ms=t["sr"], plain_ms=t["sr_plain"], bound_ms=sr_bound,
-             bound_by=sr_by, library_ms=None, f16_ms=t["sr_f16"]),
+             bound_by=sr_by, library_ms=None, f16_ms=t["sr_f16"],
+             f16_bound_ms=f16_bound),
     ]
 
 

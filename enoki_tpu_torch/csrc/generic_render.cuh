@@ -8,6 +8,8 @@
 //
 //   template <class T> T    gen::user_sdf(x, y, z, const T* pv)
 //   template <class T> void gen::user_ray(px, py, const T* pv, T* o, T* d)
+//   template <class T> T    gen::user_shade(ox, oy, oz, dx, dy, dz, t,
+//                                           const T* pv)
 //   template <class T> void gen::user_cotangent(px, py, t, g, const T* pv,
 //                                               T* dp)
 //
@@ -15,22 +17,39 @@
 // per scene by closing them over sdf_fn and ray_fn.
 //
 // generic_fwd -- replaces fwd_kernel (enoki_tpu/render/generic.py:143-185).
-// One thread per pixel on a 2-D grid. The thread builds its ray with
-// user_ray, marches user_sdf along it from the start map t0 (null = 0) as
-// _march_tile does (pallas_kernels.py:191-313: the plain carry, or the
-// (pos, stp) carry of the over-relaxed / divergence-exit march, neither
-// advancing at step n_steps - 1), shades a hit with the normal grad_p
-// user_sdf taken by a 3-partial dual, and writes the image and the packed
-// residual ts (t on a hit, -t-1 on a miss). eps and t_max are arguments.
-// Each thread leaves its loop on its own and a miss skips the shade, which
-// does per lane what the TPU kernel's bands and its miss-band fast path do
-// per tile. The march runs in gen::Real, every operation rounded on its
-// own in the plain version's order, so that it walks the plain version's
-// trajectory (nvcc would contract a*b+c otherwise, see sdf_render.cu).
+// One thread per pixel. The thread builds its ray with user_ray, marches
+// user_sdf along it from the start map t0 (null = 0) as _march_tile does
+// (pallas_kernels.py:191-313: the plain carry, or the (pos, stp) carry of
+// the over-relaxed / divergence-exit march, neither advancing at step
+// n_steps - 1; one kernel for each), shades a hit with user_shade (the
+// normal grad_p user_sdf by a reverse sweep and the Lambert term, emitted
+// by the tracer: sdf_trace.shade_program), and writes the image and the
+// packed residual ts (t on a hit, -t-1 on a miss). eps and t_max are
+// arguments. Each thread leaves its loop on its own and a miss skips the
+// shade, which does per lane what the TPU kernel's bands and its miss-band
+// fast path do per tile. The march runs in gen::Real, every operation
+// rounded on its own in the plain version's order, so that it walks the
+// plain version's trajectory (nvcc would contract a*b+c otherwise, see
+// sdf_render.cu); the shade is float code that nvcc may contract (the
+// image is held to a tolerance).
 // Bound on this card: 8 B written per pixel (4 B more read with a start
 // map) against the operations of the traced scene function times the
-// evaluations the march makes; for a scene of a few dozen operations the
+// evaluations the march needs; for a scene of a few dozen operations the
 // operations set it (chip_smoke.py computes both from the run's data).
+// What the design does about it: a warp waits for its longest march, so a
+// warp takes a kWarpCols x (32 / kWarpCols) tile of pixels (8 x 4), whose
+// marches are more alike than those of a row of 32; and a block holds its
+// slot on the SM until its slowest warp ends, so a block is four warps on
+// 16 x 8 pixels (with eight on 32 x 8 the tiles' gain was lost there).
+// The hit test takes the distance the loop computed last, at the same t,
+// and evaluates anew only where the march ran to its step cap (or,
+// relaxed, moved after it); the normal is one reverse sweep, not a
+// 3-partial dual over the scene; and a square root whose argument the
+// tracer bounds (sdflib's all) skips the range check of the IEEE one
+// (sqrt_pos_, generic_num.cuh). kernel_variants.py times each choice.
+// Each operation of the march is an IEEE operation of its own (the square
+// roots several instructions each), so the instructions a warp issues, not
+// the FP32 peak, are what is left: chip_smoke.py prints that floor.
 //
 // generic_bwd -- replaces bwd_kernel (enoki_tpu/render/generic.py:187-231).
 // The TPU kernel takes jax.vjp of the shade, whose normal is itself a
@@ -69,7 +88,7 @@
 // The per-pixel functions compile as host C++17 too. Without nvcc this
 // header ends in two loops over the image with a C interface
 // (generic_host_fwd, generic_host_bwd), so that the generated code, the
-// dual normal and the reverse-mode cotangent can be held against the
+// march, the shade and the reverse-mode cotangent can be held against the
 // plain PyTorch versions where there is no card
 // (tests/test_torch_generic_codegen.py builds it with
 // g++ -O2 -ffp-contract=off -shared -fPIC -x c++ <source>, so that the
@@ -94,7 +113,7 @@ static_assert(kNP >= 5, "pv[0:5] are ambient, gain and the light");
 struct March {
   int n_steps;
   float eps, t_max, w, back;
-  int relaxed, unimodal;
+  int unimodal;
 };
 
 struct Ray {
@@ -115,17 +134,20 @@ GEN_HD Real dist_at(const Ray& r, const Real* pv, Real t) {
 // The plain carry of _march_tile from t: at most n_steps - 1 advances,
 // leaving the loop when the lane freezes (a frozen lane never advances,
 // so this is trajectory-exact against the masked march). Returns t; hit
-// is d(t) < eps.
+// is d(t) < eps, with the d the loop computed last, which is d(t) bit for
+// bit: one evaluation per advance and one more (n_steps at the cap).
 GEN_HD Real march_plain(const Ray& r, const Real* pv, Real t, const March& m,
                         bool* hit) {
-  for (int k = 0; k < m.n_steps - 1; ++k) {
-    const Real d = dist_at(r, pv, t);
+  Real d;
+#pragma unroll 1
+  for (int k = 0;; ++k) {
+    d = dist_at(r, pv, t);
+    if (k >= m.n_steps - 1) break;
     const Real next = t + d;
-    const bool alive = (d.v >= m.eps) & (next.v <= m.t_max);
-    if (!alive) break;
+    if (!((d.v >= m.eps) & (next.v <= m.t_max))) break;
     t = next;
   }
-  *hit = dist_at(r, pv, t).v < m.eps;
+  *hit = d.v < m.eps;
   return t;
 }
 
@@ -133,13 +155,17 @@ GEN_HD Real march_plain(const Ray& r, const Real* pv, Real t, const March& m,
 // path and _relax_step (pallas_kernels.py:291-349): over, alive, diverged,
 // adv, new_stp, new_pos in that order. No advance at k = n_steps - 1; the
 // lane leaves once !(alive | over), after which (pos, stp = 0) is a fixed
-// point of the step. Returns pos; hit is d(pos) < eps.
+// point of the step. Returns pos; hit is d(pos) < eps, with the last
+// distance the loop computed where pos did not move after it (the step
+// neither reverted, nor diverged, nor advanced), else evaluated anew.
 GEN_HD Real march_relaxed(const Ray& r, const Real* pv, Real pos,
                           const March& m, bool* hit) {
   const Real w(m.w), back(m.back), zero(0.0f), tmax(m.t_max);
-  Real stp = zero;
+  Real stp = zero, d = zero;
+  bool moved = true;  // no distance at pos yet
+#pragma unroll 1
   for (int k = 0; k < m.n_steps; ++k) {
-    const Real d = dist_at(r, pv, pos);
+    d = dist_at(r, pv, pos);
     const Real back_stp = back * stp;
     const bool over = d.v < back_stp.v;
     const bool far = d.v >= m.eps;
@@ -155,58 +181,45 @@ GEN_HD Real march_relaxed(const Ray& r, const Real* pv, Real pos,
     // frozen lane adds 0
     Real new_pos = over ? pos - back_stp : pos + new_stp;
     if (diverged) new_pos = tmax;
+    moved = over | diverged | adv;
     pos = new_pos;
     stp = new_stp;
     if (!(alive | over)) break;
   }
-  *hit = dist_at(r, pv, pos).v < m.eps;
+  *hit = (moved ? dist_at(r, pv, pos) : d).v < m.eps;
   return pos;
 }
 
-// ambient + max(n . l / |n|, 0) * gain from the normal (gx, gy, gz), in a
-// float or in a dual; pv holds at least ambient, gain and the light
-// (_shade, render/generic.py).
-template <class T>
-GEN_HD T lambert_shade(const T& gx, const T& gy, const T& gz, const T* pv) {
-  const T inv = rsqrt_(gx * gx + gy * gy + gz * gz + T(1e-12f));
-  const T lam = (gx * pv[kLight] + gy * pv[kLight + 1] + gz * pv[kLight + 2])
-      * inv;
-  return pv[kAmbient] + max_(lam, T(0.0f)) * pv[kGain];
+// The shade of a hit at t: user_shade, the scene's normal at o + d t by a
+// reverse sweep and ambient + max(n . l / |n|, 0) * gain (_shade,
+// render/generic.py), in float.
+GEN_HD float shade_hit(const Ray& r, const float* pv, Real t) {
+  return user_shade<float>(r.o[0].v, r.o[1].v, r.o[2].v, r.d[0].v, r.d[1].v,
+                           r.d[2].v, t.v, pv);
 }
 
-// The shade of a hit at t: the normal is grad_p user_sdf at p = o + d t.
-GEN_HD float shade_hit(const Ray& r, const Real* pv, Real t) {
-  using D3 = Dual<float, 3>;
-  D3 pvd[kNP];
-  float pvf[kNP];
-#pragma unroll
-  for (int k = 0; k < kNP; ++k) {
-    pvd[k] = D3(pv[k].v);
-    pvf[k] = pv[k].v;
-  }
-  const D3 s = user_sdf<D3>(variable<float, 3>((r.o[0] + r.d[0] * t).v, 0),
-                            variable<float, 3>((r.o[1] + r.d[1] * t).v, 1),
-                            variable<float, 3>((r.o[2] + r.d[2] * t).v, 2),
-                            pvd);
-  return lambert_shade<float>(s.d[0], s.d[1], s.d[2], pvf);
-}
-
-// One pixel of generic_fwd: (img, ts) at (col, row).
+// One pixel of generic_fwd: (img, ts) at (col, row); kRelaxed takes the
+// (pos, stp) march.
+template <bool kRelaxed>
 GEN_HD void render_pixel(const float* params, float t0, int col, int row,
                          float step, float extent, const March& m,
                          float* img, float* ts) {
   Real pv[kNP];
+  float pvf[kNP];
 #pragma unroll
-  for (int k = 0; k < kNP; ++k) pv[k] = Real(params[k]);
+  for (int k = 0; k < kNP; ++k) {
+    pvf[k] = params[k];
+    pv[k] = Real(pvf[k]);
+  }
   Ray r;
   user_ray<Real>(Real(pixel_coord(col, step, extent)),
                  Real(pixel_coord(row, step, extent)), pv, r.o, r.d);
   bool hit;
-  const Real t = m.relaxed ? march_relaxed(r, pv, Real(t0), m, &hit)
-                           : march_plain(r, pv, Real(t0), m, &hit);
+  const Real t = kRelaxed ? march_relaxed(r, pv, Real(t0), m, &hit)
+                          : march_plain(r, pv, Real(t0), m, &hit);
   // a miss shades to exactly the ambient term and skips the shade; the
   // hit bit rides the sign of ts
-  *img = hit ? shade_hit(r, pv, t) : params[kAmbient];
+  *img = hit ? shade_hit(r, pvf, t) : pvf[kAmbient];
   *ts = hit ? t.v : -t.v - 1.0f;
 }
 
@@ -240,17 +253,32 @@ static_assert(gen::kNP <= kSumThreads,
 // common.cuh's 8 left a second wave of 116 blocks of 512
 constexpr int kBwdPixels = 4;
 
-__global__ void __launch_bounds__(256)
+// generic_fwd's footprint: a block takes kBlockCols x kBlockRows pixels,
+// and each of its warps a kWarpCols x kWarpRows tile of them. A warp
+// stores kWarpRows rows of kWarpCols floats: a whole 32-byte sector a row
+// at 8 columns (4 x 8 tiles ran as fast, with half sectors).
+constexpr int kWarpCols = 8, kBlockCols = 16, kBlockRows = 8;
+constexpr int kWarpRows = 32 / kWarpCols;
+constexpr int kFwdThreads = kBlockCols * kBlockRows;
+static_assert(kBlockCols % kWarpCols == 0 && kBlockRows % kWarpRows == 0,
+              "the warps' tiles fill the block");
+
+template <bool kRelaxed>
+__global__ void __launch_bounds__(kFwdThreads)
 generic_fwd_kernel(const float* __restrict__ params,
                    const float* __restrict__ t0_img, float* __restrict__ img,
                    float* __restrict__ ts, int n, float step, float extent,
                    gen::March m) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  constexpr int kAcross = kBlockCols / kWarpCols;
+  const int col = blockIdx.x * kBlockCols + warp % kAcross * kWarpCols +
+                  lane % kWarpCols;
+  const int row = blockIdx.y * kBlockRows + warp / kAcross * kWarpRows +
+                  lane / kWarpCols;
   if (col >= n || row >= n) return;
   const size_t i = static_cast<size_t>(row) * n + col;
-  gen::render_pixel(params, t0_img ? t0_img[i] : 0.0f, col, row, step, extent,
-                    m, img + i, ts + i);
+  gen::render_pixel<kRelaxed>(params, t0_img ? t0_img[i] : 0.0f, col, row,
+                              step, extent, m, img + i, ts + i);
 }
 
 __global__ void __launch_bounds__(kSumThreads)
@@ -297,11 +325,15 @@ int generic_fwd_launch(const float* params, const float* t0, float* img,
                        float extent, float eps, float t_max, float w,
                        float back, int relaxed, int unimodal,
                        cudaStream_t stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((n + 31) / 32, (n + 7) / 8);
-  const gen::March m{n_steps, eps, t_max, w, back, relaxed, unimodal};
-  generic_fwd_kernel<<<grid, block, 0, stream>>>(params, t0, img, ts, n, step,
-                                                 extent, m);
+  const dim3 grid((n + kBlockCols - 1) / kBlockCols,
+                  (n + kBlockRows - 1) / kBlockRows);
+  const gen::March m{n_steps, eps, t_max, w, back, unimodal};
+  if (relaxed)
+    generic_fwd_kernel<true><<<grid, kFwdThreads, 0, stream>>>(
+        params, t0, img, ts, n, step, extent, m);
+  else
+    generic_fwd_kernel<false><<<grid, kFwdThreads, 0, stream>>>(
+        params, t0, img, ts, n, step, extent, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -336,12 +368,17 @@ int generic_host_fwd(const float* params, const float* t0, float* img,
                      float* ts, int n, int n_steps, float step, float extent,
                      float eps, float t_max, float w, float back, int relaxed,
                      int unimodal) {
-  const gen::March m{n_steps, eps, t_max, w, back, relaxed, unimodal};
+  const gen::March m{n_steps, eps, t_max, w, back, unimodal};
   for (int row = 0; row < n; ++row)
     for (int col = 0; col < n; ++col) {
       const int64_t i = static_cast<int64_t>(row) * n + col;
-      gen::render_pixel(params, t0 ? t0[i] : 0.0f, col, row, step, extent, m,
-                        img + i, ts + i);
+      const float t0i = t0 ? t0[i] : 0.0f;
+      if (relaxed)
+        gen::render_pixel<true>(params, t0i, col, row, step, extent, m,
+                                img + i, ts + i);
+      else
+        gen::render_pixel<false>(params, t0i, col, row, step, extent, m,
+                                 img + i, ts + i);
     }
   return 0;
 }

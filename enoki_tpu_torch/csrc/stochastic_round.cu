@@ -20,7 +20,11 @@
 // costs ~25 integer operations per element, half the byte time at the
 // card's INT32 rate). One thread takes kGroups Philox blocks and the four
 // elements of each: a 16-byte load and an 8-byte store where the pointers
-// allow, scalar accesses otherwise and at the ragged end.
+// allow, scalar accesses otherwise and at the ragged end. The f16 rounding
+// divides by the gap between two neighbouring f16 values, a power of two:
+// the kernel multiplies by its reciprocal, read off the f16 pattern, which
+// gives the IEEE quotient bit for bit at a fraction of a division's
+// instructions (with the division, f16 took 1.66x bf16's time).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -35,9 +39,15 @@ namespace {
 constexpr int kThreads = 256;
 // Philox blocks (groups of four elements) per thread, kThreads apart, all
 // loads issued before the first block's arithmetic: with one group per
-// thread the kernel took 0.069 ms for 16M elements on an H100, with two
-// 0.037 ms, the time of a plain f32 -> 16-bit copy of this shape (PERF.md)
-constexpr int kGroups = 2;
+// thread the bf16 kernel took 0.069 ms for 16M elements on an H100, with
+// two 0.037 ms, the time of a plain f32 -> 16-bit copy of this shape
+// (PERF.md); kernel_variants.py times f16 with 2 and 4
+constexpr int kGroupsBf16 = 2;
+constexpr int kGroupsF16 = 2;
+
+__host__ __device__ constexpr int groups_of(bool half) {
+  return half ? kGroupsF16 : kGroupsBf16;
+}
 
 // bf16: add the low 16 bits of the word as dither below the target
 // mantissa and truncate. A finite x cannot carry past infinity's pattern,
@@ -50,32 +60,42 @@ __device__ __forceinline__ uint16_t round_bf16(float x, uint32_t word) {
   return static_cast<uint16_t>((bits + (word & 0xFFFFu)) >> 16);
 }
 
-// The f16 next to the pattern b toward +inf (up) or -inf: NaN and the
-// infinity in that direction stay, +-0 steps to the smallest subnormal of
-// the direction's sign (rounding._f16_neighbour).
-__device__ __forceinline__ uint16_t f16_neighbour(uint16_t b, bool up) {
-  const uint16_t mag = b & 0x7FFFu;
-  if (mag > 0x7C00u || b == (up ? 0x7C00u : 0xFC00u)) return b;
-  if (mag == 0u) return up ? 0x0001u : 0x8001u;
-  const bool negative = (b & 0x8000u) != 0u;
-  return negative != up ? b + 1u : b - 1u;
-}
-
 // f16: the nearest f16 `lo` and its neighbour `hi` on x's side; hi with
-// probability (x - lo) / (hi - lo), against u = the word's top 24 bits
-// * 2^-24. Each operation rounded on its own, the division IEEE, as
-// PyTorch's eager ops.
+// probability p = (x - lo) / (hi - lo), against u = the word's top 24 bits
+// * 2^-24 (rounding.stochastic_round_from_bits, each operation rounded on
+// its own as PyTorch's eager ops).
+//
+// Where lo and hi are finite, hi - lo is a power of two: lo's f16 ulp
+// (2^(e - 25) for the exponent field e >= 1, 2^-24 for e = 0), halved
+// where the step from a power of two >= 2^-13 goes toward zero. Its
+// magnitude's reciprocal 2^(25 - max(e, 1)) (times 2) is an exact f32, and
+// |x - lo| times it is the exact quotient rounded once, the IEEE
+// division's result. Where lo or hi is not finite (x is NaN, infinite or
+// beyond +-65520, or lo is +-65504 and x lies outside it), the division
+// gives NaN or 0 and lo stays: so does the kernel.
+// tests/test_torch_rounding.py holds this arithmetic against the division
+// for every f16 pattern.
 __device__ __forceinline__ uint16_t round_f16(float x, uint32_t word) {
   const __half lo_h = __float2half_rn(x);
-  const uint16_t lo_b = __half_as_ushort(lo_h);
+  const uint32_t lo_b = __half_as_ushort(lo_h);
   const float lo = __half2float(lo_h);
-  const uint16_t hi_b = f16_neighbour(lo_b, x >= lo);
-  const float hi = __half2float(__ushort_as_half(hi_b));
-  const float span = __fsub_rn(hi, lo);
-  const float p = span != 0.0f ? __fdiv_rn(__fsub_rn(x, lo), span) : 0.0f;
+  const uint32_t e = (lo_b >> 10) & 0x1Fu;
+  const bool up = x >= lo;
+  // away from zero is one pattern up, toward zero one down; +-0 steps to
+  // the smallest subnormal of the direction's sign
+  const bool away = ((lo_b & 0x8000u) != 0u) != up;
+  const uint32_t hi_b = (lo_b & 0x7FFFu) == 0u ? (up ? 0x0001u : 0x8001u)
+                        : away                 ? lo_b + 1u
+                                               : lo_b - 1u;
+  const bool finite = e != 0x1Fu && (hi_b & 0x7FFFu) != 0x7C00u;
+  const uint32_t halve = !away && (lo_b & 0x3FFu) == 0u && e >= 2u;
+  const float inv_span =
+      __uint_as_float((152u - max(e, 1u) + halve) << 23);
+  // x - lo and hi - lo share their sign: the quotient is |x - lo| / |span|
+  const float p = __fmul_rn(fabsf(__fsub_rn(x, lo)), inv_span);
   const float u =
       __fmul_rn(static_cast<float>(word >> 8), 5.9604644775390625e-08f);
-  return u < p ? hi_b : lo_b;
+  return static_cast<uint16_t>(finite && u < p ? hi_b : lo_b);
 }
 
 template <bool kHalf>
@@ -88,6 +108,7 @@ __global__ void __launch_bounds__(kThreads)
 stochastic_round_kernel(const float* __restrict__ x,
                         uint16_t* __restrict__ out, int64_t n,
                         uint64_t seed) {
+  constexpr int kGroups = groups_of(kHalf);
   const int64_t first =
       static_cast<int64_t>(blockIdx.x) * (kThreads * kGroups) + threadIdx.x;
   float v[kGroups][4];
@@ -130,7 +151,7 @@ template <bool kHalf>
 int launch_as(const float* x, uint16_t* out, int64_t n, uint64_t seed,
               cudaStream_t stream) {
   const int64_t groups = (n + 3) / 4;
-  const int64_t per_block = kThreads * kGroups;
+  const int64_t per_block = kThreads * groups_of(kHalf);
   const unsigned blocks =
       static_cast<unsigned>((groups + per_block - 1) / per_block);
   const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&

@@ -142,10 +142,10 @@ def generic_march_counts(sdf_fn, ray_fn, params, n: int, n_steps: int,
                          extent: float = 1.2, t0=None, eps: float = 1e-4,
                          t_max: float = 10.0):
     """The distance evaluations per pixel that a generic_fwd thread
-    executes in the plain march (relax = 1, not unimodal): its advances,
-    the evaluation that found the lane frozen unless it ran to the step
-    cap, and the final hit test. Nothing on a render's path calls this: it
-    replays the march to count it."""
+    executes in the plain march (relax = 1, not unimodal): one per advance
+    and one more, the evaluation that found the lane frozen, whose distance
+    is the hit test's, or at the step cap the hit test's own. Nothing on a
+    render's path calls this: it replays the march to count it."""
     with torch.no_grad():
         (o, d), px = _rays(ray_fn, params, n, extent)
         t = torch.zeros_like(px) if t0 is None else t0
@@ -155,7 +155,7 @@ def generic_march_counts(sdf_fn, ray_fn, params, n: int, n_steps: int,
             alive = (dist >= eps) & (t + dist <= t_max)
             t = torch.where(alive, t + dist, t)
             adv += alive
-    return torch.clamp_max(adv + 1, max(n_steps - 1, 0)) + 1
+    return adv + 1
 
 
 def generic_bwd_plain(sdf_fn, ray_fn, params, g, ts, n: int,

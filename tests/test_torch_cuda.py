@@ -13,7 +13,8 @@ import torch
 from enoki_tpu_torch import _build, ops as R
 from enoki_tpu_torch.ops import hist_kernels as H, rounding as RD
 from enoki_tpu_torch.render import (LAUNCHES, Vec3, generic as G,
-                                    reset_launch_counts, sdflib as sd)
+                                    reset_launch_counts, sdf_trace,
+                                    sdflib as sd)
 from enoki_tpu_torch.render.sdf_kernels import (
     SDFRender, _cone_t0, fwd_kernel_name, render_sdf_cuda, sdf_bwd,
     sdf_bwd_ad_plain, sdf_bwd_plain, sdf_fwd, sdf_fwd_plain, sdf_fwd_split,
@@ -248,7 +249,7 @@ GENERIC_MARCHES = {"plain": {}, "relax1.6": dict(relax=1.6),
 def test_generic_fwd_kernel_matches_plain(cuda, camera, march):
     # the march rounds each operation on its own, in the plain version's
     # order: ts is the plain version's up to a few grazing pixels; the
-    # normal comes from dual numbers there and from autograd here
+    # normal comes from a reverse sweep there and from autograd here
     ray_fn, kw = GENERIC_CAMERAS[camera], GENERIC_MARCHES[march]
     kernels = G.SceneKernels(composed, ray_fn, 12)
     p = torch.from_numpy(GENERIC_PARAMS).to(cuda)
@@ -261,6 +262,55 @@ def test_generic_fwd_kernel_matches_plain(cuda, camera, march):
     assert flips.float().mean().item() < 1e-3
     assert (img_k - img_p).abs()[~flips].max().item() < 1e-3
     assert (ts_k - ts_p).abs()[~flips].max().item() < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("march", ["plain", "unimodal"])
+@pytest.mark.parametrize("camera", list(GENERIC_CAMERAS))
+@pytest.mark.parametrize("n", [1000, 37])
+def test_generic_fwd_covers_an_image_the_warp_tiles_do_not_divide(
+        cuda, n, camera, march):
+    # a block takes 16 x 8 pixels, a warp an 8 x 4 tile of them: at n =
+    # 1000 and 37 the last blocks and tiles hang over the edge, and every
+    # pixel inside must still be written, with the plain version's ts bit
+    # for bit (the emitted march rounds where PyTorch's kernels round)
+    ray_fn, kw = GENERIC_CAMERAS[camera], GENERIC_MARCHES[march]
+    kernels = G.SceneKernels(composed, ray_fn, 12)
+    p = torch.from_numpy(GENERIC_PARAMS).to(cuda)
+    t0 = torch.from_numpy(np.random.default_rng(5).uniform(
+        0.0, 0.05, (n, n)).astype(np.float32)).to(cuda)
+    for start in (None, t0):
+        img_k, ts_k = G.generic_fwd(kernels, p, n, STEPS, t0=start, **kw)
+        img_p, ts_p = G.generic_fwd_plain(composed, ray_fn, p, n, STEPS,
+                                          t0=start, **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(img_k).all() and torch.isfinite(ts_k).all()
+        assert torch.equal(ts_k, ts_p)
+        assert (img_k - img_p).abs().max().item() < 1e-3
+
+
+def wide_sqrt(p, pv):
+    """A sphere-like distance whose square roots see arguments from 1e-12
+    to ~1e20, all of them in sqrt_pos_'s range (a sum of squares plus a
+    constant)."""
+    r2 = p.x * p.x * 1e20 + p.y * p.y * 1e-20 + (p.z - pv[5]) * (p.z - pv[5])
+    return sdf_trace.sqrt(sdf_trace.sqrt(r2 + 1e-12) + 1e-30) * 1e-5 \
+        + sdf_trace.sqrt((p.z - pv[5]) * (p.z - pv[5]) + 1e-12) - pv[6]
+
+
+@pytest.mark.cuda
+def test_sqrt_pos_is_the_ieee_square_root(cuda):
+    # generic_fwd's march takes these square roots by the fast path alone
+    # (no range check): ts is bit-equal to the plain version's only if
+    # every one of them is the correctly rounded root
+    kernels = G.SceneKernels(wide_sqrt, G.ortho_camera, 7)
+    assert kernels.traced.source.count("sqrt_pos_(") >= 3
+    p = torch.tensor([0.15, 40.0, -1.0, -1.0, 2.0, 0.3, 0.5], device=cuda)
+    _, ts_k = G.generic_fwd(kernels, p, N, STEPS)
+    _, ts_p = G.generic_fwd_plain(wide_sqrt, G.ortho_camera, p, N, STEPS)
+    torch.cuda.synchronize()
+    assert torch.equal(ts_k, ts_p)
+    assert 0.05 < (ts_k >= 0).float().mean().item() < 0.95
 
 
 @pytest.mark.cuda

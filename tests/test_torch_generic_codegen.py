@@ -9,9 +9,9 @@ without a card:
 * the generated source, built by the host's C++ compiler (g++ -O2
   -ffp-contract=off: the skeleton's per-pixel functions in two loops over
   the image), agrees with generic_fwd_plain / generic_bwd_plain at 64^2.
-  That holds the emitted code, the march, the dual normal and the
-  reverse-mode cotangent (user_cotangent) against the plain versions, and
-  the cotangent of a scene whose hits meet the ties of minimum, abs and
+  That holds the emitted code, the march, the reverse-mode shade
+  (user_shade) and cotangent (user_cotangent) against the plain versions,
+  and the cotangent of a scene whose hits meet the ties of minimum, abs and
   clip against the reference's gradient in JAX; the __global__ wrappers
   around the same functions are held on the card
   (tests/test_torch_cuda.py).
@@ -198,7 +198,7 @@ def test_bound_programs_compute_what_the_kernels_compute(scene):
     kernels, pv = scene
     fwd, bwd = T.generic_hit_programs(kernels.sdf_fn, kernels.ray_fn,
                                       kernels.n_params)
-    assert bwd == kernels.traced.cotangent
+    assert fwd == kernels.traced.shade and bwd == kernels.traced.cotangent
     assert kernels.traced.sdf.n_ops < fwd.n_ops < bwd.n_ops
     img, ts = G.generic_fwd_plain(kernels.sdf_fn, kernels.ray_fn, pv, N,
                                   STEPS)
@@ -228,7 +228,8 @@ def test_source_and_hash_repeat(scene):
     src = again.source
     assert f"#define GENERIC_N_PARAMS {kernels.n_params}\n" in src
     assert src.index('#include "generic_num.cuh"') < src.index("user_sdf") \
-        < src.index("user_ray") < src.index("user_cotangent") \
+        < src.index("user_ray") < src.index("user_shade") \
+        < src.index("user_cotangent") \
         < src.index('#include "generic_render.cuh"')
 
 
@@ -250,6 +251,81 @@ def test_emitted_cotangent_has_the_counted_operations(scene):
         "rsqrt", "abs", "min", "max"}
 
 
+def test_emitted_shade_has_the_counted_operations(scene):
+    """user_shade, which generic_fwd runs on a hit pixel, is the shade
+    program of the chip check's count: one statement per arithmetic node
+    and one return."""
+    kernels, _ = scene
+    body = kernels.traced.source.split(" user_shade(")[1].split("\n}\n")[0]
+    counted, _ = T.generic_hit_programs(kernels.sdf_fn, kernels.ray_fn,
+                                        kernels.n_params)
+    assert len(re.findall(r"^  const T v\d+ = ", body, re.M)) \
+        == counted.n_ops == kernels.traced.shade.n_ops
+    assert len(re.findall(r"^  return ", body, re.M)) == 1
+    assert counted.inputs == ("ox", "oy", "oz", "dx", "dy", "dz", "t")
+    # the normal is one reverse sweep over the distance: more than one
+    # evaluation, less than a 3-partial dual's four
+    assert kernels.traced.sdf.n_ops < counted.n_ops \
+        < 4 * kernels.traced.sdf.n_ops + 20
+
+
+SQRT_ARGS = {   # argument of sqrt -> whether sqrt_pos_ may take it
+    "x*x+1e-12": (lambda p, pv: p.x * p.x + 1e-12, True),
+    "dot+eps": (lambda p, pv: p.x * p.x + p.y * p.y + p.z * p.z + 1e-12,
+                True),
+    "1e-12+x*x": (lambda p, pv: 1e-12 + p.x * p.x, True),
+    "scaled": (lambda p, pv: p.x * p.x * 1e20 + 1e-12, True),
+    "clamped": (lambda p, pv: T.maximum(p.x, 0.0) * T.maximum(p.x, 0.0)
+                + 1e-12, True),
+    "nested": (lambda p, pv: T.sqrt(p.x * p.x + 1e-12) + 1e-30, True),
+    "abs+": (lambda p, pv: T.abs(p.x) + 1e-12, True),
+    "min of two": (lambda p, pv: T.minimum(p.x * p.x + 1e-12,
+                                           p.y * p.y + 1.0), True),
+    "x*x": (lambda p, pv: p.x * p.x, False),
+    "x+eps": (lambda p, pv: p.x + 1e-12, False),
+    "x*y+eps": (lambda p, pv: p.x * p.y + 1e-12, False),
+    "tiny eps": (lambda p, pv: p.x * p.x + 1e-31, False),
+    "pv*x*x+eps": (lambda p, pv: p.x * p.x * pv[0] + 1e-12, False),
+    "x*x-eps": (lambda p, pv: p.x * p.x - 1e-12, False),
+    "max with x": (lambda p, pv: T.maximum(p.x, p.x * p.x + 1e-12), False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SQRT_ARGS))
+def test_sqrt_in_range_takes_what_it_can_prove(name):
+    """A square root is written sqrt_pos_ (the IEEE root without its range
+    check, csrc/generic_num.cuh) only where the argument is >= 2^-100,
+    +inf or NaN for every input; the argument's own value decides nothing.
+    Where it is written, sampled arguments are in that range."""
+    arg, fast = SQRT_ARGS[name]
+    prog = T.trace_function(lambda p, pv: T.sqrt(arg(p, pv)),
+                            ("x", "y", "z"), 1, lambda s: (Vec3(*s),))
+    body = prog.emit_body(lambda e: f"  return {e[0]};")
+    sqrt_node = prog.nodes[prog.outputs[0]]
+    assert sqrt_node[0] == "sqrt"
+    assert (sqrt_node[1] in T.sqrt_in_range(prog.nodes)) == fast
+    assert (f"sqrt_pos_(v{sqrt_node[1]})" in body) == fast
+    if fast:
+        rng = np.random.default_rng(2)
+        xyz = [torch.from_numpy(rng.standard_normal(4096).astype(np.float32)
+                                * np.float32(10.0) ** rng.integers(-20, 20))
+               for _ in range(3)]
+        v = arg(Vec3(*xyz), torch.ones(1))
+        assert ((v >= T.SQRT_FAST_MIN) | v.isnan()).all()
+
+
+def test_sdflib_square_roots_take_the_fast_path(scene):
+    """Every square root of sdflib's primitives is a sum of squares plus
+    _EPS: the emitted scene functions take them all as sqrt_pos_."""
+    kernels, _ = scene
+    traced = kernels.traced
+    for prog in (traced.sdf, traced.shade, traced.cotangent):
+        roots = [i for i, n in enumerate(prog.nodes) if n[0] == "sqrt"]
+        assert roots and {prog.nodes[i][1] for i in roots} \
+            <= T.sqrt_in_range(prog.nodes)
+    assert "sqrt_(" not in kernels.traced.source.replace("rsqrt_(", "")
+
+
 def test_two_scenes_give_two_sources():
     sources = {T.trace_scene(s, r, len(p)).source
                for s, r, p in SCENES.values()}
@@ -258,10 +334,38 @@ def test_two_scenes_give_two_sources():
 
 def test_operation_count_of_the_composed_scene():
     traced = T.trace_scene(composed, G.ortho_camera, 12)
-    # what one distance evaluation costs: 3 square roots among 46
-    # arithmetic nodes; the orthographic camera only negates a constant
-    assert traced.sdf.n_ops == 46 and traced.ray.n_ops == 1
+    # what one distance evaluation costs: 3 square roots among 44
+    # arithmetic nodes (the torus's p - 0 twice is no operation, the
+    # plane's y * -1 a negation); the orthographic camera only negates a
+    # constant
+    assert traced.sdf.n_ops == 44 and traced.ray.n_ops == 1
     assert sum(n[0] == "sqrt" for n in traced.sdf.nodes) == 3
+    assert sum(n[0] == "neg" for n in traced.sdf.nodes) == 1
+
+
+@pytest.mark.parametrize("expr,kept", [
+    (lambda x: x - 0.0, "x"), (lambda x: x + -0.0, "x"),
+    (lambda x: -0.0 + x, "x"), (lambda x: x * 1.0, "x"),
+    (lambda x: 1.0 * x, "x"), (lambda x: x / 1.0, "x"),
+    (lambda x: x * -1.0, "neg"), (lambda x: -(-x), "x"),
+    (lambda x: x + 0.0, "add"), (lambda x: 0.0 - x, "sub"),
+    (lambda x: x * 0.0, "mul"), (lambda x: x - -0.0, "sub")])
+def test_exact_identities_are_not_recorded(expr, kept):
+    """x - 0, x + -0, x * 1, x / 1 and --x are x, and x * -1 is -x, bit
+    for bit for every f32 x (NaN and signed zeros included): the trace
+    keeps no operation for them. x + 0, 0 - x, x * 0 and x - -0 differ
+    from x at a signed zero or an infinity and stay."""
+    prog = T.trace_function(lambda p, pv: expr(p.x), ("x", "y", "z"), 1,
+                            lambda s: (Vec3(*s),))
+    out = prog.nodes[prog.outputs[0]]
+    assert (out == ("in", "x")) if kept == "x" else (out[0] == kept)
+    x = torch.tensor([0.0, -0.0, 1.5, -2.0, float("inf"), float("-inf"),
+                      float("nan"), 1e-45])
+    (got,) = evaluate(prog, (x,), torch.zeros(1))
+    want = expr(x)
+    assert torch.equal(got.view(torch.int32)[~want.isnan()],
+                       want.view(torch.int32)[~want.isnan()])
+    assert torch.equal(got.isnan(), want.isnan())
 
 
 def test_constants_are_f32_and_shared():
@@ -453,6 +557,54 @@ def test_host_march_is_bit_equal_where_nothing_divides_by_a_number(host_lib):
                                       STEPS, **kw)
         _, ts_h = host_fwd(lib, pv, N, STEPS, **kw)
         assert torch.equal(ts_h, ts_p), kw
+
+
+CAP_STEPS = 6
+
+
+@pytest.mark.parametrize("march", sorted(MARCHES))
+def test_host_march_is_bit_equal_at_the_step_cap(march, host_lib):
+    """At 6 steps many lanes of the sphere run to the step cap (the hit
+    test evaluates anew there, and where a relaxed march moved after its
+    last distance) while others freeze (the hit test takes the last
+    distance of the loop): ts is the plain version's bit for bit. The
+    plain march has both kinds of lane among its hits and its misses."""
+    lib = host_lib(G.SceneKernels(sphere_only, G.ortho_camera, 9))
+    pv = torch.from_numpy(PARAMS[:9])
+    kw = MARCHES[march]
+    _, ts_p = G.generic_fwd_plain(sphere_only, G.ortho_camera, pv, N,
+                                  CAP_STEPS, **kw)
+    _, ts_h = host_fwd(lib, pv, N, CAP_STEPS, **kw)
+    assert torch.equal(ts_h, ts_p)
+    if not kw:
+        counts = G.generic_march_counts(sphere_only, G.ortho_camera, pv, N,
+                                        CAP_STEPS)
+        capped = counts == CAP_STEPS
+        hit = ts_p >= 0
+        for lanes in (hit, ~hit):
+            assert capped[lanes].any() and (~capped)[lanes].any()
+
+
+def test_march_counts_save_one_evaluation_on_frozen_lanes():
+    """generic_march_counts counts what a thread executes: a frozen lane
+    takes its hit test from the evaluation that froze it, one evaluation
+    fewer than its advances, that evaluation and a hit test of its own;
+    a lane at the step cap evaluates once per step."""
+    pv = torch.from_numpy(PARAMS[:9])
+    (o, d), px = G._rays(G.ortho_camera, pv, N, 1.2)
+    t = torch.zeros_like(px)
+    adv = torch.zeros_like(px, dtype=torch.int32)
+    for _ in range(CAP_STEPS - 1):
+        dist = sphere_only(o + d * t, pv)
+        alive = (dist >= 1e-4) & (t + dist <= 10.0)
+        t = torch.where(alive, t + dist, t)
+        adv += alive
+    frozen = adv < CAP_STEPS - 1
+    counts = G.generic_march_counts(sphere_only, G.ortho_camera, pv, N,
+                                    CAP_STEPS)
+    assert torch.equal(counts[frozen], adv[frozen] + 1)
+    assert (counts[~frozen] == CAP_STEPS).all()
+    assert frozen.any() and (~frozen).any()
 
 
 def test_host_backward_matches_plain(scene, host_lib):

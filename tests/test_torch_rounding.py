@@ -163,6 +163,98 @@ def test_stochastic_round_on_the_reference_test_value():
         TR.stochastic_round(x, torch.Generator(), torch.float32)
 
 
+# -- the f16 route of the stochastic_round kernel --------------------------------
+
+
+def _kernel_f16_terms(x):
+    """What csrc/stochastic_round.cu's round_f16 computes before it draws,
+    in PyTorch: lo and its pattern, hi's pattern, whether both are finite,
+    and p = |x - lo| times the reciprocal of hi - lo built from lo's
+    exponent field (no division)."""
+    lo16 = x.to(torch.float16)
+    lo = lo16.to(torch.float32)
+    lo_b = lo16.view(torch.int16).to(torch.int32) & 0xFFFF
+    e = (lo_b >> 10) & 0x1F
+    up = x >= lo
+    away = (lo_b >= 0x8000) != up
+    hi_b = torch.where((lo_b & 0x7FFF) == 0,
+                       torch.where(up, 0x0001, 0x8001),
+                       torch.where(away, lo_b + 1, lo_b - 1))
+    finite = (e != 0x1F) & ((hi_b & 0x7FFF) != 0x7C00)
+    halve = (~away & ((lo_b & 0x3FF) == 0) & (e >= 2)).to(torch.int32)
+    inv_span = ((152 - torch.clamp_min(e, 1) + halve) << 23).view(
+        torch.float32)
+    p = (x - lo).abs() * inv_span
+    return lo, lo_b, hi_b, finite, inv_span, p
+
+
+def _every_f16_with_neighbours():
+    """Every finite f16 value as f32, with x at it, at its f32 neighbours on
+    both sides and at seeded points up to half a gap away, where x still
+    rounds to it: both directions of every pattern."""
+    pat = torch.arange(1 << 16, dtype=torch.int32)
+    h = ((pat ^ 0x8000) - 0x8000).to(torch.int16).view(torch.float16)
+    lo = h[torch.isfinite(h)].to(torch.float32)
+    inf = torch.full_like(lo, np.inf)
+    rng = np.random.default_rng(16)
+    with np.errstate(over="ignore"):   # past 65504 the gap is infinite
+        gap = torch.from_numpy(np.spacing(np.abs(lo.numpy()).astype(
+            np.float16)).astype(np.float32))
+    frac = torch.from_numpy(rng.uniform(-0.49, 0.49, lo.shape).astype(
+        np.float32))
+    x = torch.cat([lo, torch.nextafter(lo, inf), torch.nextafter(lo, -inf),
+                   lo + frac * gap])
+    keep = (x.to(torch.float16).view(torch.int16)
+            == lo.repeat(4).to(torch.float16).view(torch.int16))
+    return x[keep]
+
+
+def test_f16_span_is_a_power_of_two_and_the_scale_is_the_division():
+    """For every finite f16 pattern and both directions: where lo and hi
+    are finite, hi - lo is a power of two, x - lo is exact, the
+    reciprocal built from lo's exponent field is 1 / |hi - lo| exactly,
+    and |x - lo| times it equals (x - lo) / (hi - lo) bit for bit; where
+    one of them is not finite, the division leaves lo for every draw."""
+    x = _every_f16_with_neighbours()
+    assert x.numel() > 4 * 60000
+    lo, _, hi_b, finite, inv_span, p = _kernel_f16_terms(x)
+    up = x >= lo
+    assert up.any() and (~up).any()
+    hi = torch.where(up, TR._f16_neighbour(x.to(torch.float16), True),
+                     TR._f16_neighbour(x.to(torch.float16), False))
+    assert torch.equal(hi.view(torch.int16).to(torch.int32) & 0xFFFF, hi_b)
+    hi = hi.to(torch.float32)
+    span = hi - lo
+    f = finite
+    mant, _ = torch.frexp(span[f].abs())
+    assert (mant == 0.5).all()
+    assert torch.equal((x - lo)[f].double(), x[f].double() - lo[f].double())
+    assert torch.equal(inv_span[f], 1.0 / span[f].abs())
+    div = (x - lo) / torch.where(span == 0, 1.0, span)
+    assert torch.equal(p[f].view(torch.int32), div[f].view(torch.int32))
+    # where the kernel keeps lo without drawing, so does the division
+    off = div[~finite]
+    assert (torch.isnan(off) | (off == 0)).all() and (~finite).any()
+
+
+def test_f16_kernel_arithmetic_equals_the_plain_rounding():
+    """round_f16's arithmetic (``_kernel_f16_terms``: no division, lo
+    unless both neighbours are finite) gives stochastic_round_from_bits'
+    f16 bits on the awkward values of phase 18 and on every f16 pattern's
+    neighbours, with seeded words."""
+    x = torch.cat([_t(_values(50000, seed=8)), _every_f16_with_neighbours()])
+    words = TR.philox_words(x.numel(), 2024, "cpu")
+    want = TR.stochastic_round_from_bits(x, words, torch.float16)
+    lo, lo_b, hi_b, finite, _, p = _kernel_f16_terms(x)
+    u = (words >> 8).to(torch.float32) * (2.0 ** -24)
+    got_b = torch.where(finite & (u < p), hi_b, lo_b)
+    got = ((got_b ^ 0x8000) - 0x8000).to(torch.int16).view(torch.float16)
+    assert _same(got.float(), want.float())
+    # the upper neighbour is drawn (most of these x lie at an f16 value
+    # or next to it, where p is 0 or tiny)
+    assert (got_b != lo_b).float().mean().item() > 0.05
+
+
 # -- Philox ---------------------------------------------------------------------
 
 
