@@ -54,7 +54,10 @@ rounding.
            sdf_fwd_plain: bit-equality is the aim, a differing pixel count
            is printed and gated as phase 1 gates flips; bands=8 bit-equal
            to bands=1; the start map conservative against the closed-form
-           hit distance
+           hit distance; at 1000^2 and 257^2, sizes that the kernels'
+           warp tiles and blocks do not divide, the four instantiations
+           and the split render bit-equal (with and without the start map
+           where it divides)
   phase 10 the split render for (split, coarse) in (16,0), (32,0), (16,8):
            image and ts bit-equal to the one-pass kernel's, the survivors'
            share, pass 1 and the tail against their plain versions
@@ -64,7 +67,12 @@ rounding.
            steps on each scene against the plain twin under the
            head-start gates, then one fwd+bwd step for each other option
            at the reference scene, each counted; timing of
-           each new kernel alone with its bound and plain version, of the
+           each new kernel alone with its bound and plain version; the
+           issue floor of each sdf_fwd instantiation and of sdf_fwd_split
+           (the SASS instructions an iteration of its march loop issues
+           times its warps' iterations, as phase 16 derives it; held below
+           the measured time) with its busy-lane and block shares and
+           ptxas's registers and spills; timing of the
            cone prepass, and of the chained fwd+bwd step for the five
            candidate configurations of bench.py:233-235, interleaved
   phase 13 generic_fwd against generic_fwd_plain: the composed scene at
@@ -166,6 +174,7 @@ ISSUE_SLOTS_PER_SM = 4
 # compare, max and rsqrt counted once
 FWD_FLOPS_PER_EVAL = 7     # z*z, +rxy2, rsqrt, x*r; s >= s_hit, z+s, <= esc
 FWD_FLOPS_PER_ADVANCE = 2  # z + (s - rad)
+FWD_FLOPS_HIT_TEST = 2     # s - rad < eps, on the loop's last distance
 FWD_FLOPS_PER_PIXEL = 16   # pixel coordinates, rxy2, folded constants, ts
 FWD_FLOPS_PER_HIT = 28     # closed-form normal + lambert shade
 BWD_FLOPS_PER_HIT = 89     # closed-form cotangents (pallas_kernels.py:826)
@@ -182,7 +191,7 @@ SPHERE_BWD_FLOPS_PER_HIT = 52
 # the bf16 rate, the f32 shade's against the FP32 rate.
 RELAX_FLOPS_PER_STEP = 12      # z0+t, u*u, +rxy2, sqrt, -rad, back*stp,
 #                                d<, d>=eps, pos+d, <=tmax, w*d, pos+-
-UNIMODAL_FLOPS_PER_STEP = 3    # stp>0, d*w, >stp
+UNIMODAL_FLOPS_PER_STEP = 2    # stp>0, w*d>stp (w*d is new_stp's)
 RELAX_FLOPS_HIT_TEST = 6       # z0+t, u*u, +rxy2, sqrt, -rad, d<eps
 CONT_FLOPS_PER_PIXEL = 3       # pass 1's survivor test after the hit test
 # sdf_bwd_ad computes sdf_bwd's function, so its bound takes sdf_bwd's
@@ -451,25 +460,25 @@ def resources_text(lib_path, kernels):
     return "; ".join(out)
 
 
-def fwd_footprint():
-    """generic_fwd's footprint, read from its skeleton
-    (csrc/generic_render.cuh): (warp columns, block columns, block rows).
-    A warp takes a cols x (32 / cols) tile of pixels, a block a block
-    columns x block rows rectangle of them."""
+def fwd_footprint(source="generic_render.cuh"):
+    """A march kernel's footprint, read from its source in csrc/
+    (generic_fwd's skeleton, or sdf_render.cu for sdf_fwd): (warp
+    columns, block columns, block rows). A warp takes a cols x (32 /
+    cols) tile of pixels, a block a block columns x block rows rectangle
+    of them (common.cuh's tile_pixel)."""
     import re
 
     from enoki_tpu_torch import _build
-    text = (_build.CSRC_DIR / "generic_render.cuh").read_text()
+    text = (_build.CSRC_DIR / source).read_text()
     found = re.search(r"constexpr int kWarpCols = (\d+), kBlockCols = (\d+), "
                       r"kBlockRows = (\d+);", text)
-    check(found is not None, "generic_render.cuh names no footprint")
+    check(found is not None, f"{source} names no footprint")
     return tuple(int(v) for v in found.groups())
 
 
-def march_loop(lib_path, kernel):
-    """The march loop of the ``__global__`` function whose mangled name
-    holds ``kernel``, from ``cuobjdump -sass`` of the library (run anew,
-    its output written beside it as ``.sass``): see ``loop_counts``."""
+def sass_of(lib_path):
+    """``cuobjdump -sass`` of a built library, run anew, its output
+    written beside it as ``.sass``."""
     from pathlib import Path
 
     from enoki_tpu_torch import _build
@@ -478,7 +487,26 @@ def march_loop(lib_path, kernel):
                          capture_output=True, text=True, timeout=300)
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-500:]}")
     lib_path.with_suffix(".sass").write_text(out.stdout)
-    return loop_counts(out.stdout, kernel)
+    return out.stdout
+
+
+def march_loop(lib_path, kernel):
+    """The march loop of the ``__global__`` function whose mangled name
+    holds ``kernel``, from ``sass_of`` the library: see ``loop_counts``."""
+    return loop_counts(sass_of(lib_path), kernel)
+
+
+def issue_rate(torch):
+    """(warp instructions the card issues per second: its SMs x
+    ISSUE_SLOTS_PER_SM at the max SM clock, that product as a phrase).
+    A march kernel's issue floor (derived, not measured) is the SASS
+    instructions an iteration of its loop issues times the iterations its
+    warps run, over this rate."""
+    props = torch.cuda.get_device_properties(0)
+    sm_mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
+    return (props.multi_processor_count * ISSUE_SLOTS_PER_SM * sm_mhz * 1e6,
+            f"{props.multi_processor_count} SMs x {ISSUE_SLOTS_PER_SM} issue "
+            f"slots x {sm_mhz:.0f} MHz")
 
 
 def loop_counts(sass, kernel):
@@ -792,11 +820,13 @@ def run(torch, dev):
         * sm_mhz * 1e6
 
     # fwd reads the 16 params and writes img + ts; bwd reads params, g
-    # and ts and writes dp[16]
+    # and ts and writes dp[16]. A lane at the step cap skips the freeze
+    # test of its last evaluation; counted with it
     fwd_bound, fwd_by = bound(
         8 * rays + 64,
         FWD_FLOPS_PER_EVAL * evals + FWD_FLOPS_PER_ADVANCE * adv
-        + FWD_FLOPS_PER_PIXEL * rays + FWD_FLOPS_PER_HIT * hits)
+        + (FWD_FLOPS_PER_PIXEL + FWD_FLOPS_HIT_TEST) * rays
+        + FWD_FLOPS_PER_HIT * hits)
     bwd_bound, bwd_by = bound(8 * rays + 64 + 64,
                               BWD_FLOPS_PER_HIT * hits
                               + BWD_FLOPS_PER_PIXEL * rays)
@@ -1086,6 +1116,7 @@ def flip_gate(d, what):
 def run_sdf_options(torch, dev, timer, cuda_vec):
     """Phases 9-12: every option of the SDF render. Returns its kernels'
     entries of the kernels line."""
+    from enoki_tpu_torch import _build
     from enoki_tpu_torch.render import (LAUNCHES, reset_launch_counts,
                                         sdf_kernels as K)
     from enoki_tpu_torch.render.sdf import (SDFScene, march,
@@ -1163,6 +1194,39 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
         check(torch.equal(img1, img8), f"bands=8 differs from bands=1 "
               f"(scene {seed})")
         log(f"phase 9 scene={seed}: bands=8 bit-equal to bands=1: pass")
+
+    # the image edge: sizes that the kernels' warp tiles and blocks do not
+    # divide, every pixel still covered once and bit-equal
+    p = cuda_vec(None)
+    for n in (1000, 257):
+        starts = (None, K._cone_t0(p, n, STEPS, EXTENT, 8)) if n % 8 == 0 \
+            else (None,)
+        for start in starts:
+            for kw in (dict(), dict(dtype=bf16),
+                       dict(relax=1.6, unimodal=True),
+                       dict(dtype=bf16, relax=1.6, unimodal=True)):
+                name = K.fwd_kernel_name(kw.get("dtype", f32),
+                                         kw.get("relax", 1.0),
+                                         kw.get("unimodal", False))
+                got = K.sdf_fwd(p, n, STEPS, EXTENT, start, **kw)
+                want = K.sdf_fwd_plain(p, n, STEPS, EXTENT, start, **kw)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"{name} at n={n} (start map: {start is not None}) "
+                      f"differs from its plain version")
+            got = K.sdf_split(p, n, STEPS, EXTENT, 16, start)
+            one = K.sdf_fwd(p, n, STEPS, EXTENT, start)
+            want = K.sdf_fwd_split_plain(p, n, 16, EXTENT, start)
+            p1 = K.sdf_fwd_split(p, n, 16, EXTENT, start)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, one))
+                  and all(torch.equal(a, b) for a, b in zip(p1, want)),
+                  f"the split render at n={n} (start map: "
+                  f"{start is not None}) differs")
+        log(f"phase 9 n={n}: the four sdf_fwd instantiations "
+            f"{'with and without the start map ' if n % 8 == 0 else ''}"
+            f"bit-equal to plain, the split render to the one-pass render "
+            f"and its pass 1 to plain: pass")
 
     # -- phase 10: the split render -----------------------------------------
     shares = {}
@@ -1400,7 +1464,8 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
 
     def z_march_flops(n_steps=STEPS, **kw):
         evals, adv = counts(n_steps, **kw)
-        return FWD_FLOPS_PER_EVAL * evals + FWD_FLOPS_PER_ADVANCE * adv
+        return (FWD_FLOPS_PER_EVAL * evals + FWD_FLOPS_PER_ADVANCE * adv
+                + FWD_FLOPS_HIT_TEST * rays)
 
     def relax_march_flops(**kw):
         # every executed step in full, then the final hit test
@@ -1415,12 +1480,11 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
     tail_adv = (K.march_counts(p_ref, N, STEPS, EXTENT)[1]
                 - K.march_counts(p_ref, N, 16, EXTENT)[1]).view(-1)[idx]
     tail_adv_n = int(tail_adv.sum().item())
-    # a survivor's evaluations: one per advance, the one that found it
-    # frozen unless it ran to the cap, and the final hit test
-    tail_evals = int((torch.clamp_max(tail_adv + 1, STEPS - 16) + 1).sum()
-                     .item())
-    tail_hits = int((ts_ref.view(-1)[idx] >= 0).sum().item())
+    # a survivor's evaluations: one per advance (the replayed one's
+    # included) and one more, whose distance the hit test takes
     k = idx.numel()
+    tail_evals = tail_adv_n + k
+    tail_hits = int((ts_ref.view(-1)[idx] >= 0).sum().item())
 
     def tail_call():
         return K.sdf_tail(p_ref, idx, p1[2], p1[0], p1[1], N, STEPS, 16,
@@ -1457,7 +1521,8 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
                                      STEPS, 16, EXTENT),
             bound(20 * k + 64, FWD_FLOPS_PER_EVAL * tail_evals
                   + FWD_FLOPS_PER_ADVANCE * tail_adv_n
-                  + FWD_FLOPS_PER_PIXEL * k + FWD_FLOPS_PER_HIT * tail_hits)),
+                  + (FWD_FLOPS_PER_PIXEL + FWD_FLOPS_HIT_TEST) * k
+                  + FWD_FLOPS_PER_HIT * tail_hits)),
         # the function is sdf_bwd's, so the bound is sdf_bwd's
         "sdf_bwd_ad": (
             lambda: K.sdf_bwd(p_ref, g_mean, ts_ref, N, EXTENT, kernel="ad"),
@@ -1498,6 +1563,65 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
                     for (s, c), v in shares.items())
         + f"; relaxed march {counts(**relax_kw)[0] / rays:.3f} evaluations "
         f"per pixel, bf16 march {counts(dtype=bf16)[0] / rays:.3f}")
+
+    # the issue floors of the sdf_fwd family (derived, not measured): the
+    # SASS instructions an iteration of each kernel's march loop issues
+    # times the iterations its warps run (a lane's: the z-carry march's
+    # evaluations, the relaxed march's steps; the code around the loops is
+    # left out), over the card's issue rate
+    lib_path = _build.build("sdf_render")
+    sass = sass_of(lib_path)
+    rate, rate_text = issue_rate(torch)
+    cols, block_cols, block_rows = fwd_footprint("sdf_render.cu")
+    relax_least = RELAX_FLOPS_PER_STEP + UNIMODAL_FLOPS_PER_STEP
+
+    def relax_steps(**kw):
+        return K.march_counts(p_ref, N, STEPS, EXTENT, **relax_kw, **kw)[1]
+    floors = {  # name: (its __global__ function, iterations per pixel,
+        #               measured ms, bound, fewest instructions a step)
+        "sdf_fwd": ("sdf_fwd_kernelIfLb0ELb0EE",
+                    K.march_counts(p_ref, N, STEPS, EXTENT)[0], fwd0_ms,
+                    bound(8 * rays + 64, shade_flops() + z_march_flops()),
+                    FWD_FLOPS_PER_EVAL),
+        "sdf_fwd_bf16": ("sdf_fwd_kernelI13__nv_bfloat16Lb0ELb0EE",
+                         K.march_counts(p_ref, N, STEPS, EXTENT,
+                                        dtype=bf16)[0],
+                         ms["sdf_fwd_bf16"], work["sdf_fwd_bf16"][2],
+                         FWD_FLOPS_PER_EVAL),
+        "sdf_fwd_relax": ("sdf_fwd_kernelIfLb1ELb0EE", relax_steps(),
+                          ms["sdf_fwd_relax"], work["sdf_fwd_relax"][2],
+                          relax_least),
+        "sdf_fwd_relax_bf16": ("sdf_fwd_kernelI13__nv_bfloat16Lb1ELb0EE",
+                               relax_steps(dtype=bf16),
+                               ms["sdf_fwd_relax_bf16"],
+                               work["sdf_fwd_relax_bf16"][2], relax_least),
+        "sdf_fwd_split": ("sdf_fwd_kernelIfLb0ELb1EE",
+                          K.march_counts(p_ref, N, 16, EXTENT)[0],
+                          ms["sdf_fwd_split"], work["sdf_fwd_split"][2],
+                          FWD_FLOPS_PER_EVAL),
+    }
+    for name, (kernel, iters, t_ms, (b_ms, b_by), least) in floors.items():
+        first, last, laid_out, loop_ins = loop_counts(sass, kernel)
+        warp_iters = warp_evaluations(iters, cols)
+        floor_ms = 1e3 * loop_ins * warp_iters / rate
+        # an iteration evaluates the distance once and tests the lane, an
+        # instruction an operation at the least
+        check(loop_ins >= least, f"{name}: the loop found in its SASS "
+              f"issues {loop_ins} instructions, fewer than a step's {least} "
+              f"operations")
+        check(floor_ms <= t_ms, f"{name}'s issue floor {floor_ms:.5f} ms "
+              f"is above its time {t_ms:.5f} ms")
+        log(f"phase 12 {name} issue floor (derived, not measured): an "
+            f"iteration of its march loop issues {loop_ins} SASS "
+            f"instructions (the loop {first:#x}-{last:#x} lays out "
+            f"{laid_out}; cuobjdump) x {warp_iters} warp iterations (busy "
+            f"lanes {int(iters.sum().item()) / (32 * warp_iters):.4f}, "
+            f"{cols}x{32 // cols} warps keep "
+            f"{block_share(iters, cols, block_cols, block_rows):.4f} of "
+            f"their {block_cols}x{block_rows} blocks' warp slots busy) over "
+            f"{rate_text} = {floor_ms:.5f} ms, {floor_ms / t_ms:.4f} of the "
+            f"measured {t_ms:.5f} ms (bound {b_ms:.5f} ms by {b_by}); "
+            f"ptxas: " + resources_text(lib_path, (kernel,)))
 
     # the cone prepass: eager ops on a (N/8)^2 array, device and wall time
     cone_dev_ms = timer(lambda: K._cone_t0(p_ref, N, STEPS, EXTENT, 8), 5,
@@ -1869,10 +1993,8 @@ def run_generic(torch, dev, timer, scenes, first_use):
         f"march's counts, not measured")
     first, last, laid_out, loop_ins = march_loop(lib_path,
                                                  "generic_fwd_kernelILb0E")
-    props = torch.cuda.get_device_properties(0)
-    sm_mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
-    floor_ms = 1e3 * loop_ins * slots[cols] / (
-        props.multi_processor_count * ISSUE_SLOTS_PER_SM * sm_mhz * 1e6)
+    rate, rate_text = issue_rate(torch)
+    floor_ms = 1e3 * loop_ins * slots[cols] / rate
     # an iteration evaluates the scene once, an instruction an operation at
     # the least; a floor above the measured time would count what a step
     # does not run
@@ -1885,8 +2007,7 @@ def run_generic(torch, dev, timer, scenes, first_use):
         f"iteration of the plain march issues {loop_ins} SASS instructions "
         f"(the loop {first:#x}-{last:#x} lays out {laid_out}, its slow "
         f"paths included; cuobjdump); x {slots[cols]} warp evaluations over "
-        f"{props.multi_processor_count} SMs x {ISSUE_SLOTS_PER_SM} issue "
-        f"slots x {sm_mhz:.0f} MHz = {floor_ms:.5f} ms, "
+        f"{rate_text} = {floor_ms:.5f} ms, "
         f"{floor_ms / fwd_ms:.4f} of the measured {fwd_ms:.5f} ms")
     log(f"phase 16 generic_fwd {fwd_ms:.5f} ms (plain {fwd_plain_ms:.3f} ms,"
         f" bound {fwd_bound:.5f} ms by {fwd_by}: {fwd_flops} operations, "

@@ -46,7 +46,7 @@
 // relaxed, moved after it); the normal is one reverse sweep, not a
 // 3-partial dual over the scene; and a square root whose argument the
 // tracer bounds (sdflib's all) skips the range check of the IEEE one
-// (sqrt_pos_, generic_num.cuh). kernel_variants.py times each choice.
+// (sqrt_pos_, common.cuh). kernel_variants.py times each choice.
 // Each operation of the march is an IEEE operation of its own (the square
 // roots several instructions each), so the instructions a warp issues, not
 // the FP32 peak, are what is left: chip_smoke.py prints that floor.
@@ -253,15 +253,13 @@ static_assert(gen::kNP <= kSumThreads,
 // common.cuh's 8 left a second wave of 116 blocks of 512
 constexpr int kBwdPixels = 4;
 
-// generic_fwd's footprint: a block takes kBlockCols x kBlockRows pixels,
-// and each of its warps a kWarpCols x kWarpRows tile of them. A warp
-// stores kWarpRows rows of kWarpCols floats: a whole 32-byte sector a row
-// at 8 columns (4 x 8 tiles ran as fast, with half sectors).
+// generic_fwd's footprint (common.cuh's tile_pixel): a block takes
+// kBlockCols x kBlockRows pixels, and each of its warps a kWarpCols x
+// (32 / kWarpCols) tile of them. A warp stores 4 rows of 8 floats: a
+// whole 32-byte sector a row (4 x 8 tiles ran as fast, with half
+// sectors).
 constexpr int kWarpCols = 8, kBlockCols = 16, kBlockRows = 8;
-constexpr int kWarpRows = 32 / kWarpCols;
 constexpr int kFwdThreads = kBlockCols * kBlockRows;
-static_assert(kBlockCols % kWarpCols == 0 && kBlockRows % kWarpRows == 0,
-              "the warps' tiles fill the block");
 
 template <bool kRelaxed>
 __global__ void __launch_bounds__(kFwdThreads)
@@ -269,12 +267,8 @@ generic_fwd_kernel(const float* __restrict__ params,
                    const float* __restrict__ t0_img, float* __restrict__ img,
                    float* __restrict__ ts, int n, float step, float extent,
                    gen::March m) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  constexpr int kAcross = kBlockCols / kWarpCols;
-  const int col = blockIdx.x * kBlockCols + warp % kAcross * kWarpCols +
-                  lane % kWarpCols;
-  const int row = blockIdx.y * kBlockRows + warp / kAcross * kWarpRows +
-                  lane / kWarpCols;
+  int col, row;
+  tile_pixel<kWarpCols, kBlockCols, kBlockRows>(&col, &row);
   if (col >= n || row >= n) return;
   const size_t i = static_cast<size_t>(row) * n + col;
   gen::render_pixel<kRelaxed>(params, t0_img ? t0_img[i] : 0.0f, col, row,

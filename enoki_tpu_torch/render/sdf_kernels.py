@@ -285,18 +285,21 @@ def march_counts(params, n: int, n_steps: int, extent: float = 1.2,
                  t0=None, dtype=torch.float32, relax: float = 1.0,
                  unimodal: bool = False):
     """The work of an sdf_fwd kernel's march, per pixel, as two (n, n)
-    tensors: the distance evaluations a thread executes (its advances,
-    the evaluation that found the lane frozen unless it ran to the step
-    cap, and the final hit test), and the advances; for the relaxed march,
-    the evaluations and the steps, a thread's steps running up to and
-    including the first one that found its lane frozen. Nothing on a
-    render's path calls this: it replays the march to count it."""
+    tensors: the distance evaluations a thread executes, and the
+    advances; for the relaxed march, the evaluations and the steps, a
+    thread's steps running up to and including the first one that found
+    its lane frozen. The z-carry march evaluates once per advance and once
+    more (the evaluation that found the lane frozen, or at the step cap
+    the hit test's own): the hit test takes that last distance. The
+    relaxed march evaluates once a step and once more for the hit test.
+    Nothing on a render's path calls this: it replays the march to count
+    it."""
     px, py = tile_pixels(n, extent, params.device)
     if relax == 1.0 and not unimodal:
         rxy2, z0, rad = _march_parts(params, px, py, dtype)
         adv = _march_z(rxy2, z0, rad, n_steps, march_eps(dtype),
                        _march_t0(t0, dtype))[2]
-        return torch.clamp_max(adv + 1, max(n_steps - 1, 0)) + 1, adv
+        return adv + 1, adv
     dist_at, pos, eps = _relaxed_parts(params, px, py, t0, dtype)
     eps, t_max, w, back = _relax_consts(pos, eps, T_MAX, relax)
     stp = torch.zeros_like(pos)

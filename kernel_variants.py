@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Design variants of four kernels of the PyTorch/CUDA port, timed in
-turns on one CUDA card, and two of them of another checkout beside them.
+"""Design variants of the kernels of the PyTorch/CUDA port, timed in
+turns on one CUDA card, and some of them of another checkout beside them.
 
-  python kernel_variants.py [--ab OTHER_ROOT]
+  python kernel_variants.py [--sdf-only] [--ab OTHER_ROOT]
 
+The sdf_fwd family (csrc/sdf_render.cu: sdf_fwd, sdf_fwd_bf16,
+sdf_fwd_relax and sdf_fwd_relax_bf16 with relax 1.6 and unimodal,
+sdf_fwd_split at split 16) on the reference sphere at 1024^2, 64 steps;
 generic_fwd and generic_bwd (csrc/generic_render.cuh) on chip_smoke.py's
 composed scene at 1024^2, 64 steps (g = 1 / N^2 for the backward);
 stochastic_round (csrc/stochastic_round.cu) at 16M elements of phase 18's
@@ -11,11 +14,26 @@ data, f16 and bf16; hist (csrc/hist.cu) at 16M samples, 64 bins, on
 binned normal samples, counting and weighted. A variant is the shipped
 source with one constant or one piece of text replaced, built by nvcc
 through enoki_tpu_torch._build; each is checked against its plain
-version (generic_fwd: ts bit-equal, image within 1e-3; generic_bwd within
-rtol 2e-4 / atol 2e-4 * scale; stochastic_round bit-equal; hist counts
-exactly) before it is timed, and the variants are timed twice, in one
-order and then in the other. The variants:
+version (the sdf_fwd family: every output bit-equal; generic_fwd: ts
+bit-equal, image within 1e-3; generic_bwd within rtol 2e-4 / atol 2e-4 *
+scale; stochastic_round bit-equal; hist counts exactly) before it is
+timed, and the variants are timed twice, in one order and then in the
+other. The variants:
 
+  sdf_fwd      a warp on an 8 x 4 tile of pixels in blocks of 16 x 8
+               (shipped), of 8 x 8 or 32 x 8; 4 x 8 tiles in the same
+               three; 32 x 1 in 32 x 8 (the earlier geometry); and with
+               the shipped geometry each step of the march's redesign
+               reverted alone: the z-carry hit test evaluated anew after
+               the loop, its rsqrt with the subnormal scaling (no
+               rsqrt_pos), the relaxed hit test on the loop's last
+               distance (the first design), its root range-checked (no
+               sqrt_pos), bf16 compares through f32, w * d taken twice;
+               and, tried and dropped, unimodal a compile-time constant
+               and the relaxed march's last step peeled off its loop; with
+               each variant's busy-lane and block shares (the
+               plain march's counts) and the SASS instructions of each
+               kernel's march loop, laid out and issued an iteration
   generic_fwd  a warp on an 8 x 4 tile of pixels in blocks of 16 x 8
                (shipped), of 8 x 8 or 32 x 8; 4 x 8 tiles in the same
                three; 16 x 2 in 16 x 4, 32 x 1 in 32 x 2 and in 32 x 8
@@ -40,10 +58,12 @@ order and then in the other. The variants:
                pipelined, and a row per warp for every bins (the earlier
                design)
 
---ab OTHER_ROOT times generic_fwd and stochastic_round (f16 and bf16) of
-the enoki_tpu_torch under OTHER_ROOT (a checkout of another commit, with
-its own chip_smoke.py) in child processes, interleaved: other, this,
-this, other, each with its kernels' ptxas registers and spills.
+--sdf-only times the sdf_fwd family's variants alone. --ab OTHER_ROOT
+times the sdf_fwd family, generic_fwd and stochastic_round (f16 and
+bf16) of the enoki_tpu_torch under OTHER_ROOT (a checkout of another
+commit, with its own chip_smoke.py) in child processes, interleaved:
+other, this, this, other, each with its kernels' ptxas registers and
+spills.
 
 Needs a CUDA card; prints one line per variant (the card's name and power
 limit first), and its ptxas registers and spills.
@@ -95,22 +115,25 @@ def first_resources(C, lib_path, names):
 
 
 def time_root(root):
-    """generic_fwd and stochastic_round of the enoki_tpu_torch under
-    ``root``, through that package's wrappers and that checkout's
-    chip_smoke.py (one JSON line)."""
+    """The sdf_fwd family (SDF_KERNELS), generic_fwd and stochastic_round
+    of the enoki_tpu_torch under ``root``, through that package's
+    wrappers and that checkout's chip_smoke.py (one JSON line)."""
     sys.path.insert(0, root)
     import torch
 
     import chip_smoke as C
     from enoki_tpu_torch import _build
     from enoki_tpu_torch.ops import rounding as RD
-    from enoki_tpu_torch.render import generic as G
+    from enoki_tpu_torch.render import generic as G, sdf_kernels as K
     dev = torch.device("cuda")
     kern = C.generic_scenes()["composed"][0].kernels
     p = torch.tensor(C.GENERIC_PARAMS, dtype=torch.float32, device=dev)
+    p_sdf = torch.from_numpy(C.scene_vec(None)).to(dev)
     x = round_inputs(torch, dev)
     timer = C.DeviceTimer(torch)
     out = {"root": root}
+    for name in SDF_KERNELS:
+        out[f"{name}_ms"] = timer(sdf_call(torch, K, p_sdf, name), 200)
     for name, fn in (
             ("generic_fwd_ms", lambda: G.generic_fwd(kern, p, N, STEPS)),
             ("stochastic_round_f16_ms",
@@ -118,13 +141,15 @@ def time_root(root):
             ("stochastic_round_bf16_ms",
              lambda: RD.stochastic_round_cuda(x, SEED))):
         out[name] = timer(fn, 200, hold_ms=400.0)
-    out["ptxas"] = "; ".join((
+    out["ptxas"] = "; ".join([
+        C.resources_text(_build.build("sdf_render"),
+                         [kernel for _, kernel in SDF_KERNELS.values()]),
         first_resources(C, _build.build_generated(
             "generic_render", kern.traced.source),
             ("generic_fwd_kernelILb0E", "generic_fwd_kernel")),
         C.resources_text(_build.build("stochastic_round"), (
             "stochastic_round_kernelILb1ELb1E",
-            "stochastic_round_kernelILb0ELb1E"))))
+            "stochastic_round_kernelILb0ELb1E"))])
     print(json.dumps(out))
 
 
@@ -373,6 +398,184 @@ HIST_VARIANTS = {
 }
 
 
+SDF_GEOMETRY = ("constexpr int kWarpCols = {}, kBlockCols = {}, "
+                "kBlockRows = {};")
+Z_LOOP = """  for (int k = 0;; ++k) {
+    s = dist_len<O>(m.rxy2, z);
+    if (k >= n_steps - 1) break;          // the cap: no advance
+    if (!march_alive<T>(m, z, s)) break;  // frozen: converged or escaped
+    z = O::add(z, O::sub(s, m.rad));
+  }"""
+# the z-carry loop as it was before the hit test took its last distance
+Z_LOOP_ANEW = """  for (int k = 0; k < n_steps - 1; ++k) {
+    s = dist_len<O>(m.rxy2, z);
+    if (!march_alive<T>(m, z, s)) break;
+    z = O::add(z, O::sub(s, m.rad));
+  }
+  s = dist_len<O>(m.rxy2, z);"""
+# the relaxed march's hit test on the loop's last distance where the last
+# step did not move the lane (the first design of the redesign)
+RELAXED_REUSE = [
+    ("  V stp = zero;\n  // one step;",
+     "  V stp = zero, d = zero;\n  bool moved = true;\n  // one step;"),
+    ("    const V d = dist_at(pos);\n    const V back_stp",
+     "    d = dist_at(pos);\n    const V back_stp"),
+    ("    pos = new_pos;\n    stp = new_stp;\n    return alive | over;",
+     "    moved = over | diverged | adv;\n    pos = new_pos;\n"
+     "    stp = new_stp;\n    return alive | over;"),
+    ("  *hit = O::lt(dist_at(pos), m.eps);",
+     "  if (moved) d = dist_at(pos);\n  *hit = O::lt(d, m.eps);"),
+]
+# the relaxed march's last step peeled off its loop, which then tests the
+# step count once an iteration
+PEELED = [("""#pragma unroll 1
+  for (int k = 0; k < n_steps; ++k) {
+    if (!step(k == n_steps - 1)) break;
+  }""", """  int k = 0;
+#pragma unroll 1
+  for (; k < n_steps - 1; ++k) {
+    if (!step(false)) break;
+  }
+  if (k == n_steps - 1) step(true);""")]
+# unimodal a compile-time constant, as a template parameter would make it
+# (true: the configuration timed here)
+CONSTANT_UNIMODAL = [("unimodal != 0, &hit", "true, &hit")]
+F32_COMPARES = [
+    ("{ return __hlt(a, b); }",
+     "{ return __bfloat162float(a) < __bfloat162float(b); }"),
+    ("{ return __hle(a, b); }",
+     "{ return __bfloat162float(a) <= __bfloat162float(b); }"),
+    ("{ return __hge(a, b); }",
+     "{ return __bfloat162float(a) >= __bfloat162float(b); }"),
+]
+WD_TWICE = [("O::lt(stp, wd)", "O::lt(stp, O::mul(d, w))"),
+            ("adv ? wd : zero", "adv ? O::mul(w, d) : zero")]
+SDF_SHIPPED = "8x4 warps, 16x8 blocks (shipped)"
+SDF_VARIANTS = {  # name: (warp columns, block columns and rows), text
+    SDF_SHIPPED: ((8, 16, 8), []),
+    "8x4 warps, 8x8 blocks": ((8, 8, 8), []),
+    "8x4 warps, 32x8 blocks": ((8, 32, 8), []),
+    "4x8 warps, 8x8 blocks": ((4, 8, 8), []),
+    "4x8 warps, 16x8 blocks": ((4, 16, 8), []),
+    "4x8 warps, 32x8 blocks": ((4, 32, 8), []),
+    "32x1 warps, 32x8 blocks (the earlier geometry)": ((32, 32, 8), []),
+    "z-carry hit test evaluated anew": ((8, 16, 8), [(Z_LOOP, Z_LOOP_ANEW)]),
+    "z-carry rsqrt with its subnormal scaling": ((8, 16, 8), [
+        ("O::mul(x, O::rsqrt_pos(x))",
+         "O::mul(x, O::of(rsqrtf(O::f32(x))))")]),
+    "relaxed hit test on the loop's last distance": ((8, 16, 8),
+                                                     RELAXED_REUSE),
+    "relaxed last step peeled off the loop": ((8, 16, 8), PEELED),
+    "range-checked root": ((8, 16, 8), [
+        ("O::sqrt_pos(O::add(m.rxy2, O::mul(u, u)))",
+         "O::of(__fsqrt_rn(O::f32(O::add(m.rxy2, O::mul(u, u)))))")]),
+    "unimodal a compile-time constant": ((8, 16, 8), CONSTANT_UNIMODAL),
+    "bf16 compares through f32": ((8, 16, 8), F32_COMPARES),
+    "w * d taken twice": ((8, 16, 8), WD_TWICE),
+}
+# name: (the kernel's options, its __global__ function); every one at
+# 1024^2, 64 steps, split 16, the reference scene, as chip_smoke.py
+# phase 12 times it
+SDF_KERNELS = {
+    "sdf_fwd": (dict(), "sdf_fwd_kernelIfLb0ELb0EE"),
+    "sdf_fwd_bf16": (dict(dtype="bf16"),
+                     "sdf_fwd_kernelI13__nv_bfloat16Lb0ELb0EE"),
+    "sdf_fwd_relax": (dict(relax=1.6, unimodal=True),
+                      "sdf_fwd_kernelIfLb1ELb0EE"),
+    "sdf_fwd_relax_bf16": (dict(dtype="bf16", relax=1.6, unimodal=True),
+                           "sdf_fwd_kernelI13__nv_bfloat16Lb1ELb0EE"),
+    "sdf_fwd_split": (None, "sdf_fwd_kernelIfLb0ELb1EE"),
+}
+
+
+def sdf_options(torch, name):
+    """The keyword arguments of the sdf_fwd family's kernel ``name``
+    (None for sdf_fwd_split), with its march dtype."""
+    opts = SDF_KERNELS[name][0]
+    if opts is None:
+        return None
+    return dict(opts, dtype=torch.bfloat16 if opts.get("dtype") == "bf16"
+                else torch.float32)
+
+
+def sdf_call(torch, K, p, name):
+    """A call of the sdf_fwd family's kernel ``name`` through its wrapper,
+    at the shapes chip_smoke.py times it."""
+    kw = sdf_options(torch, name)
+    if kw is None:
+        return lambda: K.sdf_fwd_split(p, N, 16)
+    return lambda: K.sdf_fwd(p, N, STEPS, 1.2, None, **kw)
+
+
+def sdf_plain(torch, K, p, name):
+    """``sdf_call``'s plain version."""
+    kw = sdf_options(torch, name)
+    if kw is None:
+        return K.sdf_fwd_split_plain(p, N, 16)
+    return K.sdf_fwd_plain(p, N, STEPS, 1.2, None, **kw)
+
+
+def run_sdf_variants(torch, dev, timer, C):
+    """The sdf_fwd family's design variants: each built, held bit-equal to
+    the plain versions, timed in two passes, one order then the other,
+    and its march loops' SASS and ptxas's report printed."""
+    from concurrent.futures import ThreadPoolExecutor
+    from unittest import mock
+
+    from enoki_tpu_torch import _build
+    from enoki_tpu_torch.render import sdf_kernels as K
+
+    common = (_build.CSRC_DIR / "common.cuh").read_text()
+    source = (_build.CSRC_DIR / "sdf_render.cu").read_text().replace(
+        '#include "common.cuh"', common.replace("#pragma once", ""))
+    texts = {name: substitute(source, [(
+        SDF_GEOMETRY.format(8, 16, 8), SDF_GEOMETRY.format(*dims))] + pairs)
+        for name, (dims, pairs) in SDF_VARIANTS.items()}
+    with ThreadPoolExecutor(len(texts)) as ex:
+        libs = dict(zip(texts, ex.map(
+            lambda t: _build.load_generated("sdf_render", t),
+            texts.values())))
+    p = torch.from_numpy(C.scene_vec(None)).to(dev)
+    plain = {k: sdf_plain(torch, K, p, k) for k in SDF_KERNELS}
+    times = {}
+    for order in (1, -1):
+        for name, lib in list(libs.items())[::order]:
+            # the wrappers load sdf_render alone: they launch the variant's
+            with mock.patch.object(_build, "load", lambda _, lib=lib: lib):
+                for k in SDF_KERNELS:
+                    call = sdf_call(torch, K, p, k)
+                    if not all(torch.equal(a, b)
+                               for a, b in zip(call(), plain[k])):
+                        raise RuntimeError(f"{k} {name}: differs from its "
+                                           f"plain version")
+                    times.setdefault((k, name), []).append(
+                        timer(call, 200))
+    for (k, name), t in times.items():
+        print(f"{k} {name}: {' / '.join(f'{v:.5f}' for v in t)} ms")
+    iters = {}  # a lane's loop iterations, as chip_smoke.py phase 12
+    for k in SDF_KERNELS:
+        kw = sdf_options(torch, k)
+        evals, steps = K.march_counts(p, N, 16 if kw is None else STEPS,
+                                      1.2, **(kw or {}))
+        iters[k] = steps if kw and "relax" in kw else evals
+    for name, (dims, _) in SDF_VARIANTS.items():
+        shares = []
+        for k, c in iters.items():
+            lanes = c.sum().item() / (32 * C.warp_evaluations(c, dims[0]))
+            shares.append(f"{k} {lanes:.4f} / {C.block_share(c, *dims):.4f}")
+        print(f"sdf_fwd family {name}: busy lanes / blocks' warp slots busy "
+              + ", ".join(shares))
+    for name, text in texts.items():
+        path = _build.build_generated("sdf_render", text)
+        sass = C.sass_of(path)
+        for k, (_, kernel) in SDF_KERNELS.items():
+            _, _, laid_out, issued = C.loop_counts(sass, kernel)
+            print(f"ptxas {k} {name} ({path.name}): "
+                  + C.resources_text(path, (kernel,))
+                  + f"; its march loop lays out {laid_out} SASS "
+                  f"instructions and issues {issued} an iteration")
+
+
 def traced_with_identities(kern):
     """The scene's source traced with every operation recorded, the exact
     identities that the tracer leaves out (sdf_trace.Trace._identity)
@@ -541,6 +744,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ab", metavar="OTHER_ROOT",
                     help="also time the kernels of the checkout there")
+    ap.add_argument("--sdf-only", action="store_true",
+                    help="time the sdf_fwd family's variants alone")
     ap.add_argument("--time-root", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time_root:
@@ -552,7 +757,9 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("kernel_variants: needs a CUDA card")
     print(C.nvidia_smi("name,power.limit"))
-    run_variants(torch, torch.device("cuda"), C.DeviceTimer(torch), C)
+    run_sdf_variants(torch, torch.device("cuda"), C.DeviceTimer(torch), C)
+    if not args.sdf_only:
+        run_variants(torch, torch.device("cuda"), C.DeviceTimer(torch), C)
     if args.ab:
         for root in (args.ab, HERE, HERE, args.ab):
             out = subprocess.run(

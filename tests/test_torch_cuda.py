@@ -6,6 +6,8 @@ Every test here skips where torch.cuda.is_available() is false. The scene
 recipe is shared with the CPU parity tests.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -102,16 +104,23 @@ FWD_OPTIONS = {
 }
 
 
+# image sizes: one the kernels' warp tiles and blocks divide, and two they
+# do not (the start map needs a multiple of its block, 8)
+EDGE_SIZES = (N, 1000, 257)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(FWD_OPTIONS))
-def test_sdf_fwd_variants_are_bit_equal_to_plain(params, name):
+@pytest.mark.parametrize("name,n", [
+    (name, n) for name in FWD_OPTIONS for n in EDGE_SIZES
+    if n % 8 == 0 or "coarse" not in FWD_OPTIONS[name]])
+def test_sdf_fwd_variants_are_bit_equal_to_plain(params, name, n):
     # every march rounds each op on its own, in the plain version's order
     kw = dict(FWD_OPTIONS[name])
     coarse = kw.pop("coarse", 0)
-    t0 = _cone_t0(params, N, STEPS, 1.2, coarse) if coarse else None
+    t0 = _cone_t0(params, n, STEPS, 1.2, coarse) if coarse else None
     reset_launch_counts()
-    img_k, ts_k = sdf_fwd(params, N, STEPS, 1.2, t0, **kw)
-    img_p, ts_p = sdf_fwd_plain(params, N, STEPS, 1.2, t0, **kw)
+    img_k, ts_k = sdf_fwd(params, n, STEPS, 1.2, t0, **kw)
+    img_p, ts_p = sdf_fwd_plain(params, n, STEPS, 1.2, t0, **kw)
     torch.cuda.synchronize()
     assert LAUNCHES == {fwd_kernel_name(
         kw.get("dtype", torch.float32), kw.get("relax", 1.0),
@@ -120,20 +129,22 @@ def test_sdf_fwd_variants_are_bit_equal_to_plain(params, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("split,coarse", [(16, 0), (32, 0), (16, 8)])
+@pytest.mark.parametrize("split,coarse,n", [
+    (split, coarse, n) for split, coarse in [(16, 0), (32, 0), (16, 8)]
+    for n in EDGE_SIZES if n % 8 == 0 or not coarse])
 def test_split_kernels_are_bit_equal_to_one_pass_and_plain(params, split,
-                                                           coarse):
-    t0 = _cone_t0(params, N, STEPS, 1.2, coarse) if coarse else None
-    one = sdf_fwd(params, N, STEPS, 1.2, t0)
+                                                           coarse, n):
+    t0 = _cone_t0(params, n, STEPS, 1.2, coarse) if coarse else None
+    one = sdf_fwd(params, n, STEPS, 1.2, t0)
     reset_launch_counts()
-    two = sdf_split(params, N, STEPS, 1.2, split, t0)
+    two = sdf_split(params, n, STEPS, 1.2, split, t0)
     torch.cuda.synchronize()
     assert LAUNCHES == {"sdf_fwd_split": 1, "sdf_tail": 1}
-    plain = sdf_split_plain(params, N, STEPS, 1.2, split, t0)
+    plain = sdf_split_plain(params, n, STEPS, 1.2, split, t0)
     for a, b, c in zip(one, two, plain):
         assert torch.equal(a, b) and torch.equal(b, c)
-    for a, b in zip(sdf_fwd_split(params, N, split, 1.2, t0),
-                    sdf_fwd_split_plain(params, N, split, 1.2, t0)):
+    for a, b in zip(sdf_fwd_split(params, n, split, 1.2, t0),
+                    sdf_fwd_split_plain(params, n, split, 1.2, t0)):
         assert torch.equal(a, b)
 
 
@@ -298,6 +309,46 @@ def wide_sqrt(p, pv):
         + sdf_trace.sqrt((p.z - pv[5]) * (p.z - pv[5]) + 1e-12) - pv[6]
 
 
+# Ops<T>::sqrt_pos of common.cuh over an array, for T = float or bf16: a
+# kernel appended to sdf_render.cu's source for the test alone
+SQRT_POS_CHECK = """
+namespace {
+template <typename T>
+__global__ void sqrt_pos_check_kernel(const float* x, float* out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = Ops<T>::f32(Ops<T>::sqrt_pos(Ops<T>::of(x[i])));
+}
+}  // namespace
+
+extern "C" int sqrt_pos_check_launch(const float* x, float* out, int n,
+                                     int bf16, cudaStream_t stream) {
+  const int blocks = (n + 255) / 256;
+  if (bf16)
+    sqrt_pos_check_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(x, out,
+                                                                      n);
+  else
+    sqrt_pos_check_kernel<float><<<blocks, 256, 0, stream>>>(x, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def _sqrt_pos_inputs(bf16):
+    """Every positive bf16 from 2^-100 up, or 512 f32s of each binade
+    from 2^-100 up (its ends and random mantissas), with +inf and NaN."""
+    e = np.arange(27, 255, dtype=np.uint32)[:, None]
+    if bf16:
+        m = np.arange(128, dtype=np.uint32)[None, :]
+        bits = (e << 23) | (m << 16)
+    else:
+        m = np.random.default_rng(5).integers(0, 1 << 23, (1, 512),
+                                              dtype=np.uint32)
+        m[0, :2] = (0, (1 << 23) - 1)
+        bits = (e << 23) | m
+    x = bits.reshape(-1).view(np.float32)
+    return np.concatenate([x, np.float32([np.inf, np.nan])])
+
+
 @pytest.mark.cuda
 def test_sqrt_pos_is_the_ieee_square_root(cuda):
     # generic_fwd's march takes these square roots by the fast path alone
@@ -311,6 +362,30 @@ def test_sqrt_pos_is_the_ieee_square_root(cuda):
     torch.cuda.synchronize()
     assert torch.equal(ts_k, ts_p)
     assert 0.05 < (ts_k >= 0).float().mean().item() < 0.95
+    # ... and Ops<T>::sqrt_pos, the relaxed sdf_fwd march's root, in f32
+    # and in bf16 (the root taken in f32 and rounded once) against the
+    # correctly rounded root (float64's, rounded to f32: exact for sqrt)
+    lib = _build.load_generated(
+        "sdf_render", (_build.CSRC_DIR / "sdf_render.cu").read_text()
+        + SQRT_POS_CHECK)
+    launch = lib.sqrt_pos_check_launch
+    launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+    for bf16 in (False, True):
+        x = _sqrt_pos_inputs(bf16)
+        want = torch.from_numpy(np.sqrt(x.astype(np.float64))
+                                .astype(np.float32))
+        if bf16:
+            want = want.to(torch.bfloat16).float()
+        xd = torch.from_numpy(x).to(cuda)
+        out = torch.empty_like(xd)
+        assert launch(xd.data_ptr(), out.data_ptr(), x.size, int(bf16),
+                      torch.cuda.current_stream().cuda_stream) == 0
+        torch.cuda.synchronize()
+        got = out.cpu()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        fine = ~torch.isnan(want)
+        assert torch.equal(got[fine], want[fine])
 
 
 @pytest.mark.cuda

@@ -145,7 +145,8 @@ def test_cpu_path_launches_no_kernel():
 
 
 def test_march_counts_count_the_kernel_loop():
-    # a per-lane scalar replay of the kernel's loop, at a few pixels
+    # a per-lane scalar replay of the kernel's loop, at a few pixels: an
+    # evaluation at the top of every iteration, the hit test on the last
     v = _scene_vec(2)
     n = 32
     p = torch.from_numpy(v)
@@ -157,20 +158,111 @@ def test_march_counts_count_the_kernel_loop():
             dx, dy = f(px[r, c]) - f(v[0]), f(py[r, c]) - f(v[1])
             rxy2 = dx * dx + dy * dy + f(1e-12)
             z0 = f(-1.0) - f(v[2])
-            z, evals = z0, 0
-            for _ in range(STEPS - 1):
+            z, k = z0, 0
+            while True:
                 x = rxy2 + z * z
                 s = x * (f(1) / np.sqrt(x))
-                evals += 1
+                total += 1
+                if k >= STEPS - 1:
+                    break
                 if not (s >= v[3] + f(1e-4) and z + s <= f(10) + z0 + v[3]):
                     break
                 z = z + (s - v[3])
-            total += evals + 1
+                k += 1
     # the scalar replay rounds 1/sqrt differently from torch.rsqrt; a lane
     # may take a step more or less
     evals, adv = march_counts(p, n, STEPS)
     assert abs(evals.sum().item() - total) <= 0.01 * total
-    assert ((evals - adv >= 1) & (evals - adv <= 2)).all()
+    assert (evals - adv == 1).all()
+
+
+def _relaxed_replay(v, n, n_steps, relax=1.6):
+    """A per-lane scalar replay of the kernel's unimodal relaxed march in
+    f32 -> (evaluations, how the lane left), each (n, n): "converged"
+    (frozen, not diverged), "diverged", "cap" (ran every step, the last
+    one not moving it) or "cap_reverting" (its last step reverted)."""
+    f = np.float32
+    px, py = (c.numpy() for c in tile_pixels(n, 1.2, "cpu"))
+    w, back = f(relax), f(1.0 - 1.0 / relax)
+    z0, rad = f(-1.0) - f(v[2]), f(v[3])
+    evals = np.zeros((n, n), np.int64)
+    how = np.full((n, n), "converged", dtype=object)
+    for r in range(n):
+        for c in range(n):
+            dx, dy = f(px[r, c]) - f(v[0]), f(py[r, c]) - f(v[1])
+            rxy2 = dx * dx + dy * dy + f(1e-12)
+
+            def dist(t):
+                return np.sqrt(rxy2 + (z0 + t) * (z0 + t)) - rad
+
+            pos, stp = f(0), f(0)
+            for k in range(n_steps):
+                d = dist(pos)
+                evals[r, c] += 1
+                back_stp = back * stp
+                over = d < back_stp
+                far = d >= f(1e-4)
+                diverged = not over and stp > 0 and far and d * w > stp
+                alive = far and pos + d <= f(10) and not diverged
+                adv = alive and not over and k < n_steps - 1
+                new_stp = w * d if adv else f(0)
+                pos = f(10) if diverged else (
+                    pos - back_stp if over else pos + new_stp)
+                stp = new_stp
+                if diverged:
+                    how[r, c] = "diverged"
+                elif k == n_steps - 1:
+                    how[r, c] = "cap_reverting" if over else "cap"
+                if not (alive or over):
+                    break
+            evals[r, c] += 1  # the hit test's
+    return evals, how
+
+
+@pytest.mark.parametrize("case", ["converged", "diverged", "cap",
+                                  "cap_reverting", "no_step"])
+def test_relaxed_march_counts_count_the_kernel_loop(case):
+    # the relaxed march runs its steps up to the one that freezes the lane
+    # or to the cap, and its hit test evaluates anew, however it left
+    v = _scene_vec(None)
+    n, n_steps = 32, 0 if case == "no_step" else 8
+    evals, steps = march_counts(torch.from_numpy(v), n, n_steps, relax=1.6,
+                                unimodal=True)
+    if case == "no_step":
+        assert (evals == 1).all() and (steps == 0).all()
+        return
+    want, how = _relaxed_replay(v, n, n_steps)
+    lanes = torch.from_numpy(how == case)
+    assert lanes.sum() >= 8
+    assert torch.equal(evals[lanes], torch.from_numpy(want)[lanes])
+    assert (evals[lanes] - steps[lanes] == 1).all()
+    if case.startswith("cap"):
+        assert (steps[lanes] == n_steps).all()
+    elif case == "converged":
+        assert (steps[lanes] < n_steps).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_relaxed_root_argument_is_in_the_fast_roots_range(scene_vec, dtype,
+                                                          monkeypatch):
+    # the kernel takes the relaxed march's root without the IEEE range
+    # check (sqrt_pos_), exact for arguments of at least 2^-100: the
+    # plain version's arguments, with and without the start map
+    from enoki_tpu_torch.render import sdf_kernels as K
+    seen = []
+    root = K._sqrt
+
+    def recording(x):
+        seen.append(x.float().min().item())
+        return root(x)
+
+    monkeypatch.setattr(K, "_sqrt", recording)
+    p = torch.from_numpy(scene_vec)
+    for t0 in (None, K._cone_t0(p, 64, STEPS, 1.2, 8)):
+        sdf_fwd_plain(p, 64, STEPS, 1.2, t0, dtype, 1.6, True)
+    assert len(seen) >= 2 * STEPS
+    assert min(seen) >= 2.0 ** -100
 
 
 def test_cuda_sources_match_their_ctypes_signatures():
