@@ -24,13 +24,16 @@ rounding.
            generated sources of the generic renderer's scenes, one process
            per source, all at once
   phase 1  sdf_fwd against sdf_fwd_plain, reference + two seeded scenes
-  phase 2  sdf_bwd against sdf_bwd_plain on the same ts and a seeded g;
-           two runs must be bitwise equal
+  phase 2  sdf_bwd against sdf_bwd_plain on the same ts, at 1024^2,
+           1000^2 and 257^2 (float4 loads at the first two, single
+           floats at 257), on the mixed and the all-miss scene of each
+           seed, for a seeded g and for g = 1/N^2; two runs must be
+           bitwise equal
   phase 3  the main path: SDFRender trained for a few SGD steps, each
            step's loss and gradient against the plain PyTorch render
            (render.sdf, the twin of the reference's jnp path); the launch
-           counters must show one sdf_fwd and one sdf_bwd (+ reduce) per
-           step
+           counters must show one sdf_fwd and one sdf_bwd per step (the
+           backward sums its blocks' rows in its own last block)
   phase 4  timing with CUDA events: a data-chained fwd+bwd loop (as
            bench.py chains its steps) against the same loop through the
            twin, each kernel alone, the plain versions, and each kernel's
@@ -61,8 +64,9 @@ rounding.
   phase 10 the split render for (split, coarse) in (16,0), (32,0), (16,8):
            image and ts bit-equal to the one-pass kernel's, the survivors'
            share, pass 1 and the tail against their plain versions
-  phase 11 sdf_bwd_ad against sdf_bwd_ad_plain and against sdf_bwd, mixed
-           and all-miss scene; two runs must be bitwise equal
+  phase 11 sdf_bwd_ad against sdf_bwd_ad_plain and against sdf_bwd, at
+           the sizes, scenes and g of phase 2; two runs must be bitwise
+           equal
   phase 12 the options' path: SDFRender(coarse=8) trained for a few SGD
            steps on each scene against the plain twin under the
            head-start gates, then one fwd+bwd step for each other option
@@ -147,6 +151,10 @@ N = 1024
 STEPS = 64
 EXTENT = 1.2
 SEEDS = (None, 1, 2)          # reference scene + two seeded ones
+# the backward's sizes: float4 loads at N and 1000 (a row is whole
+# float4s), single floats at 257; the last segment of a row is partly
+# past its end at 1000 and 257
+BWD_SIZES = (N, 1000, 257)
 TRAIN_STEPS = 3
 LR = 1e-3
 
@@ -195,11 +203,10 @@ UNIMODAL_FLOPS_PER_STEP = 2    # stp>0, w*d>stp (w*d is new_stp's)
 RELAX_FLOPS_HIT_TEST = 6       # z0+t, u*u, +rxy2, sqrt, -rad, d<eps
 CONT_FLOPS_PER_PIXEL = 3       # pass 1's survivor test after the hit test
 # sdf_bwd_ad computes sdf_bwd's function, so its bound takes sdf_bwd's
-# count. For the record only: the duals' arithmetic as written (15
-# products of 31, 14 sums of 11, 2 rsqrt of 14, the relu, the
-# contraction), before the compiler drops the derivative slots that are
-# structurally zero
-BWD_AD_FLOPS_AS_WRITTEN_PER_HIT = 693
+# count. For the record only: its reverse mode as written per hit pixel
+# (csrc/sdf_bwd_ad.cu): the hit test 1, the forward sweep 32, the shade's
+# adjoint sweep 41, the SDF's 11, the implicit term 6, the sums 23
+BWD_AD_FLOPS_AS_WRITTEN_PER_HIT = 114
 # ... and of the generated kernels (csrc/generic_render.cuh): what a
 # distance evaluation costs is the traced scene function's own count of
 # arithmetic nodes (Program.n_ops), to which come
@@ -624,6 +631,70 @@ def block_share(counts, cols, block_cols, block_rows):
     return warps.sum().item() / (across * down * slowest.sum().item())
 
 
+def bwd_cases(torch, dev, phase, run, cuda_vec):
+    """Phases 2 and 11: a backward kernel at each of BWD_SIZES, on each
+    seed's mixed and all-miss scene, for a seeded g and for g = 1/n^2.
+    ``run(p, g, ts, n)`` returns two runs of the kernel and its references
+    by name: the runs must be bitwise equal, and each reference within
+    rtol 2e-4, atol 2e-4 * scale. The load route must be float4 where a
+    row is whole float4s. Returns the largest |kernel - plain|."""
+    from enoki_tpu_torch.render import sdf_kernels as K
+    worst = 0.0
+    for n in BWD_SIZES:
+        gs = {"seeded": torch.from_numpy(np.random.default_rng(7)
+                                         .standard_normal((n, n))
+                                         .astype(np.float32)).to(dev),
+              "1/N^2": torch.full((n, n), 1.0 / (n * n), device=dev)}
+        for seed in SEEDS:
+            for shift in (0.0, 10.0):  # mixed scene / all-miss scene
+                p = cuda_vec(seed)
+                p[0] += shift
+                _, ts = K.sdf_fwd(p, n, STEPS, EXTENT)
+                vec = {K.bwd_vector_loads(g, ts, n) for g in gs.values()}
+                what = f"{phase} n={n} scene={seed} shift={shift}"
+                check(vec == {n % 4 == 0}, f"{what}: float4 loads {vec}, "
+                      f"expected {n % 4 == 0}")
+                parts = []
+                for g_name, g in gs.items():
+                    dp1, dp2, refs = run(p, g, ts, n)
+                    torch.cuda.synchronize()
+                    check(torch.equal(dp1, dp2),
+                          f"{what} g {g_name}: two runs differ")
+                    for which, ref in refs.items():
+                        scale = max(1.0, ref.abs().max().item())
+                        e = (dp1 - ref).abs()
+                        if which == "plain":
+                            worst = max(worst, e.max().item())
+                        parts.append(f"g {g_name} vs {which} "
+                                     f"{e.max().item():.3e} (scale "
+                                     f"{scale:.3e})")
+                        check(bool((e <= 2e-4 * scale + 2e-4 * ref.abs())
+                                   .all().item()),
+                              f"{what} g {g_name} vs {which}: {e.tolist()}")
+                log(f"{what} ({'float4' if n % 4 == 0 else 'single-float'} "
+                    f"loads): max|dp - ref| " + ", ".join(parts)
+                    + "; two runs bitwise equal; gate rtol 2e-4 atol "
+                    "2e-4*scale: pass")
+    return worst
+
+
+def timed_bwd(torch, timer, name, call, vec):
+    """A backward kernel's device time over 200 back-to-back launches of
+    ``call`` at the main path's tensors, which must take float4 loads
+    (``vec``). Each launch's last block sets the ticket counter back to
+    0, so one more call after the 200 must be bit-equal to one before."""
+    check(vec, f"{name}: the timed g and ts take single-float loads")
+    first = call()
+    ms = timer(call, 200)
+    last = call()
+    torch.cuda.synchronize()
+    check(torch.equal(first, last), f"{name}: the call after the 200 timed "
+          "ones differs from the one before (the counter did not reset)")
+    log(f"{name} timed with float4 loads; the call after the 200 timed ones"
+        f" is bit-equal to the one before: pass")
+    return ms
+
+
 def main():
     import torch
 
@@ -709,26 +780,9 @@ def run(torch, dev):
         check(ok, f"sdf_fwd vs plain (scene {seed}): {gate}")
 
     # -- phase 2: sdf_bwd against its plain version, determinism ----------
-    bwd_err = 0.0
-    for seed in SEEDS:
-        p = cuda_vec(seed)
-        _, ts = K.sdf_fwd(p, N, STEPS, EXTENT)
-        g = torch.from_numpy(np.random.default_rng(7).standard_normal(
-            (N, N)).astype(np.float32)).to(dev)
-        dp1 = K.sdf_bwd(p, g, ts, N, EXTENT)
-        dp2 = K.sdf_bwd(p, g, ts, N, EXTENT)
-        ref = K.sdf_bwd_plain(p, g, ts, N, EXTENT)
-        torch.cuda.synchronize()
-        check(torch.equal(dp1, dp2), "sdf_bwd: two runs differ")
-        scale = max(1.0, ref.abs().max().item())
-        err = (dp1 - ref).abs()
-        bwd_err = max(bwd_err, err.max().item())
-        ok = bool((err <= 2e-4 * scale + 2e-4 * ref.abs()).all().item())
-        log(f"phase 2 sdf_bwd scene={seed}: max|dp-plain| "
-            f"{err.max().item():.3e} (scale {scale:.3e}), bitwise "
-            f"deterministic: yes; gate rtol 2e-4 atol 2e-4*scale: "
-            f"{'pass' if ok else 'FAIL'}")
-        check(ok, f"sdf_bwd vs plain (scene {seed}): {err.tolist()}")
+    bwd_err = bwd_cases(torch, dev, "phase 2", lambda p, g, ts, n: (
+        K.sdf_bwd(p, g, ts, n, EXTENT), K.sdf_bwd(p, g, ts, n, EXTENT),
+        {"plain": K.sdf_bwd_plain(p, g, ts, n, EXTENT)}), cuda_vec)
 
     # -- phase 3: the main path, counted -----------------------------------
     model = K.SDFRender(cuda_vec(None), n=N, n_steps=STEPS, extent=EXTENT)
@@ -759,8 +813,7 @@ def run(torch, dev):
         opt.step()
     launches = dict(LAUNCHES)
     log(f"phase 3 launches over {TRAIN_STEPS} steps: {launches}")
-    check(launches == {k: TRAIN_STEPS for k in
-                       ("sdf_fwd", "sdf_bwd", "sdf_bwd_reduce")},
+    check(launches == {k: TRAIN_STEPS for k in ("sdf_fwd", "sdf_bwd")},
           f"expected one launch of each kernel per step, got {launches}")
 
     # -- phase 4: timing ----------------------------------------------------
@@ -803,7 +856,8 @@ def run(torch, dev):
     _, ts_ref = K.sdf_fwd(p_ref, N, STEPS, EXTENT)
     g_ref = torch.full((N, N), 1.0 / rays, device=dev)
     fwd_ms = timer(lambda: K.sdf_fwd(p_ref, N, STEPS, EXTENT), 200)
-    bwd_ms = timer(lambda: K.sdf_bwd(p_ref, g_ref, ts_ref, N, EXTENT), 200)
+    bwd_ms = timed_bwd(torch, timer, "sdf_bwd", lambda: K.sdf_bwd(
+        p_ref, g_ref, ts_ref, N, EXTENT), K.bwd_vector_loads(g_ref, ts_ref, N))
     fwd_plain_ms = timer(lambda: K.sdf_fwd_plain(p_ref, N, STEPS, EXTENT),
                          5, hold_ms=1000.0, plain=True)
     bwd_plain_ms = timer(lambda: K.sdf_bwd_plain(p_ref, g_ref, ts_ref, N,
@@ -1268,29 +1322,11 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
                 flip_gate((tail[0] - tail_plain[0]).abs(), "phase 10 tail")
 
     # -- phase 11: sdf_bwd_ad against both routes, determinism -------------
-    for seed in SEEDS:
-        for shift in (0.0, 10.0):  # mixed scene / all-miss scene
-            p = cuda_vec(seed)
-            p[0] += shift
-            _, ts = K.sdf_fwd(p, N, STEPS, EXTENT)
-            dp1 = K.sdf_bwd(p, g_rand, ts, N, EXTENT, kernel="ad")
-            dp2 = K.sdf_bwd(p, g_rand, ts, N, EXTENT, kernel="ad")
-            refs = {"sdf_bwd": K.sdf_bwd(p, g_rand, ts, N, EXTENT),
-                    "plain": K.sdf_bwd_ad_plain(p, g_rand, ts, N, EXTENT)}
-            torch.cuda.synchronize()
-            check(torch.equal(dp1, dp2), "sdf_bwd_ad: two runs differ")
-            for which, ref in refs.items():
-                scale = max(1.0, ref.abs().max().item())
-                e = (dp1 - ref).abs()
-                if which == "plain":
-                    worst("sdf_bwd_ad", e.max().item())
-                ok = bool((e <= 2e-4 * scale + 2e-4 * ref.abs()).all().item())
-                log(f"phase 11 sdf_bwd_ad scene={seed} shift={shift}: "
-                    f"max|dp-{which}| {e.max().item():.3e} (scale "
-                    f"{scale:.3e}), bitwise deterministic: yes; gate rtol "
-                    f"2e-4 atol 2e-4*scale: {'pass' if ok else 'FAIL'}")
-                check(ok, f"sdf_bwd_ad vs {which} (scene {seed}, shift "
-                      f"{shift}): {e.tolist()}")
+    err["sdf_bwd_ad"] = bwd_cases(torch, dev, "phase 11", lambda p, g, ts, n: (
+        K.sdf_bwd(p, g, ts, n, EXTENT, kernel="ad"),
+        K.sdf_bwd(p, g, ts, n, EXTENT, kernel="ad"),
+        {"plain": K.sdf_bwd_ad_plain(p, g, ts, n, EXTENT),
+         "sdf_bwd": K.sdf_bwd(p, g, ts, n, EXTENT)}), cuda_vec)
 
     # -- phase 12: the options' path, counted -------------------------------
     launches = {}
@@ -1377,8 +1413,7 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
     steps_run = TRAIN_STEPS * len(SEEDS)
     log(f"phase 12 SDFRender(coarse=8) launches over {steps_run} steps: "
         f"{got}")
-    check(got == {k: steps_run for k in
-                  ("sdf_fwd", "sdf_bwd", "sdf_bwd_reduce")},
+    check(got == {k: steps_run for k in ("sdf_fwd", "sdf_bwd")},
           f"expected one launch of each kernel per step, got {got}")
 
     # one fwd+bwd step of each other option at the reference scene, against
@@ -1413,8 +1448,7 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
         g = m.params.grad[:9]
         check(torch.isfinite(img).all().item()
               and torch.isfinite(g).all().item(), f"{label}: non-finite")
-        check(got == {**want, "sdf_bwd_reduce": 1},
-              f"{label}: expected {want} + the reduce, got {got}")
+        check(got == want, f"{label}: expected {want}, got {got}")
         d = (img.detach() - img0).abs()
         band = d > 1.0
         share = band.float().mean().item()
@@ -1530,7 +1564,11 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
             bound(8 * rays + 64 + 64, BWD_FLOPS_PER_HIT * hits
                   + BWD_FLOPS_PER_PIXEL * rays)),
     }
-    ms = {name: timer(fn, 200) for name, (fn, _, _) in work.items()}
+    ms = {name: timer(fn, 200) for name, (fn, _, _) in work.items()
+          if name != "sdf_bwd_ad"}
+    ms["sdf_bwd_ad"] = timed_bwd(torch, timer, "phase 12 sdf_bwd_ad",
+                                 work["sdf_bwd_ad"][0],
+                                 K.bwd_vector_loads(g_mean, ts_ref, N))
     # the plain versions as phases 4 and 8 time theirs: device time, the
     # stream held while the host enqueues. One call at a time: the
     # relaxed march is ~1600 eager launches, and a few calls of it fill
@@ -1542,10 +1580,18 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
             f"{plain_ms[name]:.4f} ms, bound {b_ms:.5f} ms by {b_by}); "
             f"library call: none computes this function")
     ad_ops_ms = 1e3 * BWD_AD_FLOPS_AS_WRITTEN_PER_HIT * hits / FP32_FLOPS_PER_S
-    log(f"phase 12 sdf_bwd_ad, for the record: the duals' arithmetic as "
-        f"written is {BWD_AD_FLOPS_AS_WRITTEN_PER_HIT} operations per hit "
-        f"pixel, {ad_ops_ms:.5f} ms at the FP32 peak, against the "
+    log(f"phase 12 sdf_bwd_ad, for the record: its two sweeps as written "
+        f"are {BWD_AD_FLOPS_AS_WRITTEN_PER_HIT} operations per hit pixel, "
+        f"{ad_ops_ms:.5f} ms at the FP32 peak, against the "
         f"{BWD_FLOPS_PER_HIT} the function needs")
+    log("phase 12 the backward pair, one launch each (csrc/pixel_sum.cuh), "
+        "at the main path's tensors with "
+        + ("float4" if K.bwd_vector_loads(g_mean, ts_ref, N) else
+           "single-float") + " loads; ptxas: " + "; ".join(
+            f"{name} " + resources_text(_build.build(lib), (fn,))
+            for name, lib, fn in (("sdf_bwd", "sdf_render", "AnalyticPixel"),
+                                  ("sdf_bwd_ad", "sdf_bwd_ad",
+                                   "ReversePixel"))))
     # the main kernel again with the start map, beside its plain march
     ev0, adv0 = counts()
     ev8, adv8 = counts(t0=t0)

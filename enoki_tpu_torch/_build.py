@@ -146,11 +146,11 @@ SIGNATURES = {
         "sdf_fwd_split_launch": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
         "sdf_tail_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _P),
         "sdf_bwd_num_blocks": (_I,),
-        "sdf_bwd_partial_launch": (_P, _P, _P, _P, _I, _F, _F, _P),
-        "sdf_bwd_reduce_launch": (_P, _I, _P, _P),
+        "sdf_bwd_launch": (_P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _P),
     },
     "sdf_bwd_ad": {
-        "sdf_bwd_ad_partial_launch": (_P, _P, _P, _P, _I, _F, _F, _P),
+        "sdf_bwd_ad_num_blocks": (_I,),
+        "sdf_bwd_ad_launch": (_P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _P),
     },
     # one library per scene of render.generic.make_sdf_renderer
     "generic_render": {
@@ -223,6 +223,21 @@ def launched(err: int, kernel: str):
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
     LAUNCHES[kernel] += 1
+
+
+# the counters of the kernels whose last block sums the others' rows
+# (csrc/pixel_sum.cuh), one per (device, stream): zeroed once here, set
+# back to 0 by every launch that used them
+_TICKETS: dict = {}
+
+
+def ticket(device, stream: int) -> torch.Tensor:
+    """The int32 counter of ``stream`` (a cudaStream_t) on ``device``, 0
+    between launches."""
+    key = (device.index, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _TICKETS[key]
 
 
 def is_cuda(x) -> bool:

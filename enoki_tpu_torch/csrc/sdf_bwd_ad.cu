@@ -10,179 +10,121 @@
 //
 // The TPU kernel takes jax.vjp of the shade (_sdf_shade_tile :432-446,
 // whose normal is itself a jax.grad of the SDF) and adds implicit_t_vjp of
-// the SDF at the frozen root. CUDA has no in-kernel autodiff, and the
-// closed form is sdf_bwd's route, so this kernel reaches the same
-// cotangents by a third one: forward-mode dual numbers. Each hit pixel
-// pushes a value with its 10 partial derivatives (the 9 live parameters
-// and t) through the shade, written as the forward writes it; the image's
-// derivatives contracted with g are the direct term and t_bar. The SDF
-// itself goes through the same duals for d sdf/dp and d sdf/dt, and the
-// implicit term follows implicit_t_vjp (render/implicit.py): guard 1e-6
-// on the slope, sign-preserving, an exact zero taken as negative. Nothing
-// of sdf_bwd's algebra is shared, so the two kernels check each other.
+// the SDF at the frozen root. This kernel does the same in reverse mode,
+// by hand, per hit pixel and in registers: a forward sweep of the shade as
+// _sdf_shade_tile writes it (the SDF sqrt(|p - c|^2 + 1e-12) - radius as
+// x * rsqrt(x), its gradient, the normal, as d * rsqrt(x)), an adjoint
+// sweep seeded with g that takes each operation's adjoint in reverse order
+// (g * d img / d params and t_bar), an adjoint sweep of the SDF seeded
+// with 1 (d sdf / d params and d sdf / dt), and the implicit term of
+// implicit_t_vjp (render/implicit.py): w = -t_bar / (d sdf / dt), the
+// slope guarded at 1e-6, sign-preserving, an exact zero taken as negative.
+// None of sdf_bwd's projected closed form is shared, so the two kernels
+// still check each other.
 //
-// As in sdf_bwd, each thread takes kSumPixels pixels, a block writes its 9
-// sums as one row of partial[num_blocks][9] in a fixed order, and the
-// shared reduce (sdf_bwd_reduce_launch of sdf_render.cu) sums the rows:
-// no float atomics, bitwise identical gradients from run to run.
+// The pixel layout, the loads and the cross-block sum are the pixel-sum
+// skeleton's (pixel_sum.cuh), as sdf_bwd's: one launch, whose last block
+// sums the blocks' rows in row order; no float atomics, bitwise identical
+// gradients from run to run.
 //
 // Bound on this card: bytes (8 B/pixel read: g and ts). The function is
 // sdf_bwd's, dp[16] from (params, g, ts), so it needs no more operations
-// than the closed form's ~89 per hit pixel, which stay far under the byte
-// time. What this kernel executes is more: ~40 dual operations of ~2 x 10
-// FP32 operations each as written, about 8x the closed form, less the
-// derivative slots that are structurally zero, which the compiler drops.
-// It is an oracle, not the path's backward, so nothing more is done about
-// the distance to the bound.
+// than the closed form's 89 per hit pixel; the two sweeps take 114 as
+// written, which stay under the byte time at the reference scene's 54.5%
+// hits. As sdf_bwd's, the time is the skeleton's more than the bytes'
+// (PERF.md §6); the forward-mode duals took 1.55 times as long on it.
 
 #include "common.cuh"
+#include "pixel_sum.cuh"
 
 namespace {
 
-constexpr int kNVar = 10;  // the 9 live parameters, then t
-constexpr int kVarT = 9;
+struct ReversePixel {
+  struct Scene {
+    float cx, cy, cz, gain, lx, ly, lz;
+  };
 
-// A value and its partial derivatives with respect to the kNVar inputs.
-struct Dual {
-  float v;
-  float d[kNVar];
+  __device__ __forceinline__ static Scene scene(const float* params) {
+    return Scene{params[0], params[1], params[2], params[5],
+                 params[6], params[7], params[8]};
+  }
+
+  // The cotangent terms d of the hit pixel (col, row) at t; py is the
+  // row's coordinate. (A miss shades to ambient + 0: d img / d ambient =
+  // 1 and nothing else, :907-912 and the where(hit, ...) arm of the
+  // shade; the skeleton adds its g.)
+  __device__ __forceinline__ static void hit(const Scene& sc, float g,
+                                             float t, int col, float py,
+                                             float step, float extent,
+                                             float (&d)[kNGrad]) {
+    // forward sweep, at p = (px, py, -1 + t)
+    const float dx = pixel_coord(col, step, extent) - sc.cx;
+    const float dy = py - sc.cy;
+    const float dz = (-1.0f + t) - sc.cz;
+    const float x = dx * dx + dy * dy + dz * dz + 1e-12f;
+    const float q = rsqrt_pos_(x);  // x >= 1e-12 is normal
+    const float nx = dx * q, ny = dy * q, nz = dz * q;
+    const float m = nx * nx + ny * ny + nz * nz + 1e-12f;
+    const float inv = rsqrt_pos_(m);
+    const float s = nx * sc.lx + ny * sc.ly + nz * sc.lz;
+    const float y = s * inv;
+    const float r = fmaxf(y, 0.0f);
+    // max(y, 0)'s subgradient splits a tie 0.5/0.5, as jnp.maximum's
+    const float r_slope = y > 0.0f ? 1.0f : (y == 0.0f ? 0.5f : 0.0f);
+
+    // adjoint sweep of img = amb + r * gain, seeded with g
+    const float y_bar = g * sc.gain * r_slope;
+    const float s_bar = y_bar * inv;
+    const float inv_bar = y_bar * s;
+    const float m_bar = inv_bar * (-0.5f * inv * inv * inv);
+    const float nx_bar = s_bar * sc.lx + 2.0f * m_bar * nx;
+    const float ny_bar = s_bar * sc.ly + 2.0f * m_bar * ny;
+    const float nz_bar = s_bar * sc.lz + 2.0f * m_bar * nz;
+    const float q_bar = nx_bar * dx + ny_bar * dy + nz_bar * dz;
+    const float x_bar = q_bar * (-0.5f * q * q * q);
+    const float dx_bar = nx_bar * q + 2.0f * x_bar * dx;
+    const float dy_bar = ny_bar * q + 2.0f * x_bar * dy;
+    const float dz_bar = nz_bar * q + 2.0f * x_bar * dz;  // also t_bar
+
+    // adjoint sweep of sdf = x * q - radius, seeded with 1
+    const float xs_bar = q + x * (-0.5f * q * q * q);
+    const float dxs = 2.0f * xs_bar * dx;
+    const float dys = 2.0f * xs_bar * dy;
+    const float dzs = 2.0f * xs_bar * dz;  // d sdf / dt
+
+    // the implicit root sdf(ray(t*), theta) = eps
+    const float sgn = dzs == 0.0f ? -1.0f : (dzs > 0.0f ? 1.0f : -1.0f);
+    const float slope = fabsf(dzs) > 1e-6f ? dzs : sgn;
+    const float w = -dz_bar / slope;
+    // d / dc = -d / dd; d sdf / d radius = -1
+    d[0] = -dx_bar - w * dxs;
+    d[1] = -dy_bar - w * dys;
+    d[2] = -dz_bar - w * dzs;
+    d[3] = -w;
+    d[4] = g;
+    d[5] = g * r;
+    d[6] = s_bar * nx;
+    d[7] = s_bar * ny;
+    d[8] = s_bar * nz;
+  }
 };
-
-__device__ __forceinline__ Dual constant(float v) {
-  Dual r;
-  r.v = v;
-#pragma unroll
-  for (int k = 0; k < kNVar; ++k) r.d[k] = 0.0f;
-  return r;
-}
-
-__device__ __forceinline__ Dual variable(float v, int index) {
-  Dual r = constant(v);
-  r.d[index] = 1.0f;
-  return r;
-}
-
-__device__ __forceinline__ Dual operator+(const Dual& a, const Dual& b) {
-  Dual r;
-  r.v = a.v + b.v;
-#pragma unroll
-  for (int k = 0; k < kNVar; ++k) r.d[k] = a.d[k] + b.d[k];
-  return r;
-}
-
-__device__ __forceinline__ Dual operator-(const Dual& a, const Dual& b) {
-  Dual r;
-  r.v = a.v - b.v;
-#pragma unroll
-  for (int k = 0; k < kNVar; ++k) r.d[k] = a.d[k] - b.d[k];
-  return r;
-}
-
-__device__ __forceinline__ Dual operator*(const Dual& a, const Dual& b) {
-  Dual r;
-  r.v = a.v * b.v;
-#pragma unroll
-  for (int k = 0; k < kNVar; ++k) r.d[k] = a.d[k] * b.v + a.v * b.d[k];
-  return r;
-}
-
-// d rsqrt(x) = -x^(-3/2) / 2
-__device__ __forceinline__ Dual rsqrt(const Dual& a) {
-  Dual r;
-  r.v = rsqrtf(a.v);
-  const float slope = -0.5f * r.v * r.v * r.v;
-#pragma unroll
-  for (int k = 0; k < kNVar; ++k) r.d[k] = slope * a.d[k];
-  return r;
-}
-
-// max(a, 0) with the subgradient 0.5 at a tie, as jnp.maximum's
-__device__ __forceinline__ Dual relu(const Dual& a) {
-  Dual r;
-  r.v = fmaxf(a.v, 0.0f);
-  const float slope = a.v > 0.0f ? 1.0f : (a.v == 0.0f ? 0.5f : 0.0f);
-#pragma unroll
-  for (int k = 0; k < kNVar; ++k) r.d[k] = slope * a.d[k];
-  return r;
-}
-
-// Add pixel i's cotangent terms to acc.
-__device__ __forceinline__ void add_pixel_cotangent_ad(
-    float (&acc)[kNGrad], const float* __restrict__ params, float g,
-    float tsv, int64_t i, int n, float step, float extent) {
-  if (!(tsv >= 0.0f)) {
-    // a miss shades to ambient + 0: d img / d ambient = 1, nothing else
-    // (:907-912 and the where(hit, ...) arm of the shade)
-    acc[4] += g;
-    return;
-  }
-  const int row = static_cast<int>(i / n);
-  const int col = static_cast<int>(i - static_cast<int64_t>(row) * n);
-  const Dual px = constant(pixel_coord(col, step, extent));
-  const Dual py = constant(pixel_coord(row, step, extent));
-  const Dual cx = variable(params[0], 0), cy = variable(params[1], 1);
-  const Dual cz = variable(params[2], 2), rad = variable(params[3], 3);
-  const Dual amb = variable(params[4], 4), gain = variable(params[5], 5);
-  const Dual lx = variable(params[6], 6), ly = variable(params[7], 7);
-  const Dual lz = variable(params[8], 8);
-  const Dual t = variable(tsv, kVarT);  // a hit stores t itself
-
-  // sdf(p, scene) = sqrt(|p - c|^2 + 1e-12) - radius at p = (px, py, -1+t)
-  const Dual dx = px - cx, dy = py - cy;
-  const Dual dz = (constant(-1.0f) + t) - cz;
-  const Dual x = dx * dx + dy * dy + dz * dz + constant(1e-12f);
-  const Dual q = rsqrt(x);
-  const Dual sdf = x * q - rad;
-  // the shade: the normal is grad_p sdf = d * rsqrt(x)
-  const Dual gx = dx * q, gy = dy * q, gz = dz * q;
-  const Dual inv = rsqrt(gx * gx + gy * gy + gz * gz + constant(1e-12f));
-  const Dual lambert = relu((gx * lx + gy * ly + gz * lz) * inv);
-  const Dual img = amb + lambert * gain;
-
-  // the implicit root sdf(ray(t*), theta) = eps: dt*/dtheta . t_bar
-  const float t_bar = g * img.d[kVarT];
-  const float df_dt = sdf.d[kVarT];
-  const float sgn = df_dt == 0.0f ? -1.0f : (df_dt > 0.0f ? 1.0f : -1.0f);
-  const float slope = fabsf(df_dt) > 1e-6f ? df_dt : sgn;
-  const float w = -t_bar / slope;
-#pragma unroll
-  for (int k = 0; k < kNGrad; ++k) acc[k] += g * img.d[k] + w * sdf.d[k];
-}
-
-__global__ void __launch_bounds__(kSumThreads)
-sdf_bwd_ad_partial_kernel(const float* __restrict__ params,
-                          const float* __restrict__ g_img,
-                          const float* __restrict__ ts_img,
-                          float* __restrict__ partial, int n, float step,
-                          float extent) {
-  const int64_t npix = static_cast<int64_t>(n) * n;
-  const int64_t base =
-      static_cast<int64_t>(blockIdx.x) * (kSumThreads * kSumPixels) +
-      threadIdx.x;
-  float acc[kNGrad] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  // one pixel at a time: the duals of one pixel fill the registers
-#pragma unroll 1
-  for (int j = 0; j < kSumPixels; ++j) {
-    const int64_t i = base + static_cast<int64_t>(j) * kSumThreads;
-    if (i < npix)
-      add_pixel_cotangent_ad(acc, params, g_img[i], ts_img[i], i, n, step,
-                             extent);
-  }
-  block_sum<kNGrad>(acc, partial + static_cast<int64_t>(blockIdx.x) * kNGrad);
-}
 
 }  // namespace
 
 extern "C" {
 
-// partial has sdf_bwd_num_blocks(n) rows of 9 (sdf_render.cu).
-int sdf_bwd_ad_partial_launch(const float* params, const float* g,
-                              const float* ts, float* partial, int n,
-                              float step, float extent,
-                              cudaStream_t stream) {
-  sdf_bwd_ad_partial_kernel<<<sum_num_blocks(n), kSumThreads, 0, stream>>>(
-      params, g, ts, partial, n, step, extent);
-  return static_cast<int>(cudaGetLastError());
+int sdf_bwd_ad_num_blocks(int n) {
+  return pixel_sum_num_blocks<kPixelSumThreads, kPixelSumPixels>(n);
+}
+
+// partial has sdf_bwd_ad_num_blocks(n) rows of 9, ticket is 0 (and is 0
+// again when the launch ends); vec: see pixel_sum.cuh.
+int sdf_bwd_ad_launch(const float* params, const float* g, const float* ts,
+                      float* partial, unsigned* ticket, float* dp, int n,
+                      float step, float extent, int vec,
+                      cudaStream_t stream) {
+  return pixel_sum_launch<ReversePixel, kPixelSumThreads, kPixelSumPixels>(
+      params, g, ts, partial, ticket, dp, n, step, extent, vec, stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 """SDF render kernels for the GPU: the forward march in every option of
 the reference (a cone-prepass start map, an f32 or bf16 march, the plain
 or the over-relaxed march, the two-pass split march) and the backward by
-two routes (closed form, and forward-mode dual numbers).
+two routes (closed form, and reverse mode written out per pixel).
 
 Counterpart of the SDF half of enoki_tpu/render/pallas_kernels.py
 (``_march_tile``, ``_march_sphere_tile``, ``cone_t0``, ``_sdf_fwd_kernel``,
@@ -18,8 +18,8 @@ Each kernel has a plain PyTorch version beside it (``sdf_fwd_plain``,
 plain version only for a tensor on the CPU; for a CUDA tensor it launches
 the kernel or raises. ``_build.LAUNCHES`` counts the kernel launches, by
 kernel: ``sdf_fwd``, ``sdf_fwd_bf16``, ``sdf_fwd_relax``,
-``sdf_fwd_relax_bf16``, ``sdf_fwd_split``, ``sdf_tail``, ``sdf_bwd``,
-``sdf_bwd_ad`` and ``sdf_bwd_reduce``.
+``sdf_fwd_relax_bf16``, ``sdf_fwd_split``, ``sdf_tail``, ``sdf_bwd`` and
+``sdf_bwd_ad`` (each backward is one launch).
 
 The cone prepass (``cone_t0``) and the generic march engine
 (``march_tile``) are plain PyTorch, as they are plain jnp in the
@@ -606,12 +606,20 @@ def sdf_split_plain(params, n: int, n_steps: int, extent: float = 1.2,
                          n_steps, extent, split, t0)
 
 
+def bwd_vector_loads(g, ts, n: int) -> bool:
+    """Whether the backward kernels load ``g`` and ``ts`` as float4: a row
+    is whole float4s (n % 4 == 0) and both start on 16 bytes. Otherwise
+    they load every pixel on its own."""
+    return n % 4 == 0 and g.data_ptr() % 16 == 0 and ts.data_ptr() % 16 == 0
+
+
 def sdf_bwd(params, g, ts, n: int, extent: float = 1.2,
             kernel: str = "analytic"):
-    """Parameter cotangent dp[16]: per-block partial sums by the sdf_bwd
-    kernel (``kernel="analytic"``, the closed form) or the sdf_bwd_ad
-    kernel (``"ad"``, dual numbers), then one fixed-order reduce, for CUDA
-    tensors; the kernel's plain version for CPU ones."""
+    """Parameter cotangent dp[16] in one launch of the sdf_bwd kernel
+    (``kernel="analytic"``, the closed form) or of the sdf_bwd_ad kernel
+    (``"ad"``, reverse mode), whose blocks write per-block sums and whose
+    last block sums them in a fixed order, for CUDA tensors; the kernel's
+    plain version for CPU ones."""
     if kernel not in BWD_KERNELS:
         raise ValueError(f"kernel must be one of {BWD_KERNELS}, got "
                          f"{kernel!r}")
@@ -622,24 +630,21 @@ def sdf_bwd(params, g, ts, n: int, extent: float = 1.2,
     _build.check(params, "params", (N_PARAMS,), dev)
     _build.check(g, "g", (n, n), dev)
     _build.check(ts, "ts", (n, n), dev)
-    lib = _build.load("sdf_render")
     if kernel == "analytic":
-        partial_launch, name = lib.sdf_bwd_partial_launch, "sdf_bwd"
+        lib, name = _build.load("sdf_render"), "sdf_bwd"
     else:
-        partial_launch = _build.load("sdf_bwd_ad").sdf_bwd_ad_partial_launch
-        name = "sdf_bwd_ad"
-    rows = lib.sdf_bwd_num_blocks(n)
+        lib, name = _build.load("sdf_bwd_ad"), "sdf_bwd_ad"
+    rows = getattr(lib, f"{name}_num_blocks")(n)
     partial = torch.empty((rows, 9), dtype=torch.float32, device=dev)
     dp = torch.empty(N_PARAMS, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = partial_launch(
+        err = getattr(lib, f"{name}_launch")(
             params.data_ptr(), g.data_ptr(), ts.data_ptr(),
-            partial.data_ptr(), n, pixel_step(n, extent), extent, stream)
+            partial.data_ptr(), _build.ticket(dev, stream).data_ptr(),
+            dp.data_ptr(), n, pixel_step(n, extent), extent,
+            int(bwd_vector_loads(g, ts, n)), stream)
         _build.launched(err, name)
-        err = lib.sdf_bwd_reduce_launch(partial.data_ptr(), rows,
-                                        dp.data_ptr(), stream)
-        _build.launched(err, "sdf_bwd_reduce")
     return dp
 
 

@@ -2,9 +2,11 @@
 """Design variants of the kernels of the PyTorch/CUDA port, timed in
 turns on one CUDA card, and some of them of another checkout beside them.
 
-  python kernel_variants.py [--sdf-only] [--ab OTHER_ROOT]
+  python kernel_variants.py [--sdf-only | --bwd-only] [--ab OTHER_ROOT]
 
-The sdf_fwd family (csrc/sdf_render.cu: sdf_fwd, sdf_fwd_bf16,
+The SDF backward pair (sdf_bwd in csrc/sdf_render.cu, sdf_bwd_ad in
+csrc/sdf_bwd_ad.cu, both on csrc/pixel_sum.cuh) on the reference sphere at
+1024^2 with g = 1 / N^2; the sdf_fwd family (csrc/sdf_render.cu: sdf_fwd, sdf_fwd_bf16,
 sdf_fwd_relax and sdf_fwd_relax_bf16 with relax 1.6 and unimodal,
 sdf_fwd_split at split 16) on the reference sphere at 1024^2, 64 steps;
 generic_fwd and generic_bwd (csrc/generic_render.cuh) on chip_smoke.py's
@@ -14,12 +16,33 @@ data, f16 and bf16; hist (csrc/hist.cu) at 16M samples, 64 bins, on
 binned normal samples, counting and weighted. A variant is the shipped
 source with one constant or one piece of text replaced, built by nvcc
 through enoki_tpu_torch._build; each is checked against its plain
-version (the sdf_fwd family: every output bit-equal; generic_fwd: ts
+version (the backward pair: within rtol 2e-4 / atol 2e-4 * scale at
+1024^2 and 257^2, two runs bit-equal; the sdf_fwd family: every output
+bit-equal; generic_fwd: ts
 bit-equal, image within 1e-3; generic_bwd within rtol 2e-4 / atol 2e-4 *
 scale; stochastic_round bit-equal; hist counts exactly) before it is
 timed, and the variants are timed twice, in one order and then in the
 other. The variants:
 
+  sdf_bwd, sdf_bwd_ad
+               256 threads x 4 pixels a thread (shipped), 128 x 2, 4 or 8,
+               256 x 2 or 8, 512 x 2 or 4, 1024 x 1 or 4; registers
+               capped for 6, 7 or 8 blocks an SM; and with the shipped
+               geometry each step of the redesign reverted alone: the
+               blocks' rows summed by reduce_rows_kernel in a second
+               launch, single-float loads where float4 loads are taken,
+               each pixel's row and column from its 64-bit flat index,
+               rsqrtf with its subnormal scaling, a fence in every thread
+               before the ticket; sdf_bwd_ad's per-pixel function in
+               forward-mode duals (the earlier kernel's, on the
+               skeleton); and, tried and dropped, a thread's pixels in
+               straight-line code under a warp vote, the last block's
+               rows loaded four at a time before they are added or
+               staged through shared memory (1024 or 256 rows at a
+               time), a resident grid striding over the image (128 or
+               256 threads, float4 or single floats); then the probes,
+               timed and not gated: g summed alone, the rows alone, the
+               ticket without the last block's sum, no fence
   sdf_fwd      a warp on an 8 x 4 tile of pixels in blocks of 16 x 8
                (shipped), of 8 x 8 or 32 x 8; 4 x 8 tiles in the same
                three; 32 x 1 in 32 x 8 (the earlier geometry); and with
@@ -58,9 +81,10 @@ other. The variants:
                pipelined, and a row per warp for every bins (the earlier
                design)
 
---sdf-only times the sdf_fwd family's variants alone. --ab OTHER_ROOT
-times the sdf_fwd family, generic_fwd and stochastic_round (f16 and
-bf16) of the enoki_tpu_torch under OTHER_ROOT (a checkout of another
+--sdf-only times the sdf_fwd family's variants alone, --bwd-only the
+backward pair's. --ab OTHER_ROOT times the sdf_fwd family, the backward
+kernels (sdf_bwd, sdf_bwd_ad, sphere_bwd, generic_bwd), generic_fwd and
+stochastic_round (f16 and bf16) of the enoki_tpu_torch under OTHER_ROOT (a checkout of another
 commit, with its own chip_smoke.py) in child processes, interleaved:
 other, this, this, other, each with its kernels' ptxas registers and
 spills.
@@ -115,25 +139,38 @@ def first_resources(C, lib_path, names):
 
 
 def time_root(root):
-    """The sdf_fwd family (SDF_KERNELS), generic_fwd and stochastic_round
-    of the enoki_tpu_torch under ``root``, through that package's
-    wrappers and that checkout's chip_smoke.py (one JSON line)."""
+    """The sdf_fwd family (SDF_KERNELS), the backward kernels (sdf_bwd,
+    sdf_bwd_ad, sphere_bwd, generic_bwd: g = 1 / N^2, the reference
+    scenes), generic_fwd and stochastic_round of the enoki_tpu_torch under
+    ``root``, through that package's wrappers and that checkout's
+    chip_smoke.py (one JSON line)."""
     sys.path.insert(0, root)
     import torch
 
     import chip_smoke as C
     from enoki_tpu_torch import _build
     from enoki_tpu_torch.ops import rounding as RD
-    from enoki_tpu_torch.render import generic as G, sdf_kernels as K
+    from enoki_tpu_torch.render import (generic as G, sdf_kernels as K,
+                                        sphere_kernels as S)
     dev = torch.device("cuda")
     kern = C.generic_scenes()["composed"][0].kernels
     p = torch.tensor(C.GENERIC_PARAMS, dtype=torch.float32, device=dev)
     p_sdf = torch.from_numpy(C.scene_vec(None)).to(dev)
     x = round_inputs(torch, dev)
+    g = torch.full((N, N), 1.0 / (N * N), device=dev)
+    ts = K.sdf_fwd(p_sdf, N, STEPS)[1]
+    ts_generic = G.generic_fwd(kern, p, N, STEPS)[1]
     timer = C.DeviceTimer(torch)
     out = {"root": root}
     for name in SDF_KERNELS:
         out[f"{name}_ms"] = timer(sdf_call(torch, K, p_sdf, name), 200)
+    for name, fn in (
+            ("sdf_bwd_ms", lambda: K.sdf_bwd(p_sdf, g, ts, N)),
+            ("sdf_bwd_ad_ms", lambda: K.sdf_bwd(p_sdf, g, ts, N, 1.2, "ad")),
+            ("sphere_bwd_ms", lambda: S.sphere_bwd(p_sdf, g, N)),
+            ("generic_bwd_ms",
+             lambda: G.generic_bwd(kern, p, g, ts_generic, N))):
+        out[name] = timer(fn, 200)
     for name, fn in (
             ("generic_fwd_ms", lambda: G.generic_fwd(kern, p, N, STEPS)),
             ("stochastic_round_f16_ms",
@@ -144,6 +181,10 @@ def time_root(root):
     out["ptxas"] = "; ".join([
         C.resources_text(_build.build("sdf_render"),
                          [kernel for _, kernel in SDF_KERNELS.values()]),
+        first_resources(C, _build.build("sdf_render"),
+                        ("AnalyticPixel", "sdf_bwd_partial_kernel")),
+        first_resources(C, _build.build("sdf_bwd_ad"),
+                        ("ReversePixel", "sdf_bwd_ad_partial_kernel")),
         first_resources(C, _build.build_generated(
             "generic_render", kern.traced.source),
             ("generic_fwd_kernelILb0E", "generic_fwd_kernel")),
@@ -576,6 +617,499 @@ def run_sdf_variants(torch, dev, timer, C):
                   f"instructions and issues {issued} an iteration")
 
 
+# the backward pair on the pixel-sum skeleton (csrc/pixel_sum.cuh)
+PIXEL_SUM_GEOMETRY = ("constexpr int kPixelSumThreads = {}, "
+                      "kPixelSumPixels = {};")
+# the blocks' rows summed by reduce_rows_kernel in a second launch
+TWO_LAUNCHES = [
+    ("  last_block_sum<kThreads>(partial, num_rows, ticket, dp);\n", ""),
+    ("""      params, g, ts, partial, ticket, dp, n, step, extent, vec);
+  return static_cast<int>(cudaGetLastError());""",
+     """      params, g, ts, partial, ticket, dp, n, step, extent, vec);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  return reduce_rows_launch<kNGrad, 16>(partial, grid.x * grid.y, dp,
+                                        stream);"""),
+]
+# each pixel's row and column from its flat 64-bit index, as before
+INDEX64 = [("""        F::hit(sc, g, t, col, py, step, extent, d);""",
+            """        const int64_t i = static_cast<int64_t>(row) * n + col;
+        const int r64 = static_cast<int>(i / n);
+        F::hit(sc, g, t, static_cast<int>(i - static_cast<int64_t>(r64) * n),
+               pixel_coord(r64, step, extent), step, extent, d);""")]
+# a thread's pixels in straight-line code, a miss's terms dropped by a
+# select, under one vote of the warp (a warp without a hit adds g alone)
+PIXEL_LOOP = """#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      const int col = seg + (j * kThreads + threadIdx.x) * kVec + e;
+      const float g = gv[j * kVec + e], t = tv[j * kVec + e];
+      if (t >= 0.0f) {  // a hit stores t itself
+        float d[kNGrad];
+        F::hit(sc, g, t, col, py, step, extent, d);
+#pragma unroll
+        for (int k = 0; k < kNGrad; ++k) acc[k] += d[k];
+      } else {
+        acc[4] += g;
+      }
+    }
+  }"""
+WARP_VOTE = [(PIXEL_LOOP, """  bool any_hit = false;
+#pragma unroll
+  for (int k = 0; k < kPixels; ++k) any_hit |= tv[k] >= 0.0f;
+  if (__any_sync(0xffffffffu, any_hit)) {
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const int col = seg + (j * kThreads + threadIdx.x) * kVec + e;
+        const float g = gv[j * kVec + e], t = tv[j * kVec + e];
+        float d[kNGrad];
+        F::hit(sc, g, t, col, py, step, extent, d);
+#pragma unroll
+        for (int k = 0; k < kNGrad; ++k)
+          acc[k] += t >= 0.0f ? d[k] : (k == 4 ? g : 0.0f);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPixels; ++k) acc[4] += gv[k];
+  }""")]
+# the forward-mode duals of the earlier sdf_bwd_ad, as its per-pixel
+# function on the skeleton (the Dual type defined here)
+REVERSE_PIXEL = ("struct ReversePixel {", "};\n\n}  // namespace")
+DUAL_PIXEL = """constexpr int kNVar = 10;  // the 9 live parameters, then t
+constexpr int kVarT = 9;
+
+struct Dual {
+  float v;
+  float d[kNVar];
+};
+
+__device__ __forceinline__ Dual constant(float v) {
+  Dual r;
+  r.v = v;
+#pragma unroll
+  for (int k = 0; k < kNVar; ++k) r.d[k] = 0.0f;
+  return r;
+}
+
+__device__ __forceinline__ Dual variable(float v, int index) {
+  Dual r = constant(v);
+  r.d[index] = 1.0f;
+  return r;
+}
+
+__device__ __forceinline__ Dual operator+(const Dual& a, const Dual& b) {
+  Dual r;
+  r.v = a.v + b.v;
+#pragma unroll
+  for (int k = 0; k < kNVar; ++k) r.d[k] = a.d[k] + b.d[k];
+  return r;
+}
+
+__device__ __forceinline__ Dual operator-(const Dual& a, const Dual& b) {
+  Dual r;
+  r.v = a.v - b.v;
+#pragma unroll
+  for (int k = 0; k < kNVar; ++k) r.d[k] = a.d[k] - b.d[k];
+  return r;
+}
+
+__device__ __forceinline__ Dual operator*(const Dual& a, const Dual& b) {
+  Dual r;
+  r.v = a.v * b.v;
+#pragma unroll
+  for (int k = 0; k < kNVar; ++k) r.d[k] = a.d[k] * b.v + a.v * b.d[k];
+  return r;
+}
+
+__device__ __forceinline__ Dual rsqrt(const Dual& a) {
+  Dual r;
+  r.v = rsqrtf(a.v);
+  const float slope = -0.5f * r.v * r.v * r.v;
+#pragma unroll
+  for (int k = 0; k < kNVar; ++k) r.d[k] = slope * a.d[k];
+  return r;
+}
+
+__device__ __forceinline__ Dual relu(const Dual& a) {
+  Dual r;
+  r.v = fmaxf(a.v, 0.0f);
+  const float slope = a.v > 0.0f ? 1.0f : (a.v == 0.0f ? 0.5f : 0.0f);
+#pragma unroll
+  for (int k = 0; k < kNVar; ++k) r.d[k] = slope * a.d[k];
+  return r;
+}
+
+struct ReversePixel {
+  struct Scene {
+    const float* params;
+  };
+
+  __device__ __forceinline__ static Scene scene(const float* params) {
+    return Scene{params};
+  }
+
+  __device__ __forceinline__ static void hit(const Scene& sc, float g,
+                                             float tsv, int col, float py_,
+                                             float step, float extent,
+                                             float (&d)[kNGrad]) {
+    const float* params = sc.params;
+    const Dual px = constant(pixel_coord(col, step, extent));
+    const Dual py = constant(py_);
+    const Dual cx = variable(params[0], 0), cy = variable(params[1], 1);
+    const Dual cz = variable(params[2], 2), rad = variable(params[3], 3);
+    const Dual amb = variable(params[4], 4), gain = variable(params[5], 5);
+    const Dual lx = variable(params[6], 6), ly = variable(params[7], 7);
+    const Dual lz = variable(params[8], 8);
+    const Dual t = variable(tsv, kVarT);
+    const Dual dx = px - cx, dy = py - cy;
+    const Dual dz = (constant(-1.0f) + t) - cz;
+    const Dual x = dx * dx + dy * dy + dz * dz + constant(1e-12f);
+    const Dual q = rsqrt(x);
+    const Dual sdf = x * q - rad;
+    const Dual gx = dx * q, gy = dy * q, gz = dz * q;
+    const Dual inv = rsqrt(gx * gx + gy * gy + gz * gz + constant(1e-12f));
+    const Dual lambert = relu((gx * lx + gy * ly + gz * lz) * inv);
+    const Dual img = amb + lambert * gain;
+    const float t_bar = g * img.d[kVarT];
+    const float df_dt = sdf.d[kVarT];
+    const float sgn = df_dt == 0.0f ? -1.0f : (df_dt > 0.0f ? 1.0f : -1.0f);
+    const float slope = fabsf(df_dt) > 1e-6f ? df_dt : sgn;
+    const float w = -t_bar / slope;
+#pragma unroll
+    for (int k = 0; k < kNGrad; ++k) d[k] = g * img.d[k] + w * sdf.d[k];
+  }
+"""
+# the last block's rows read as one coalesced run into shared memory,
+# ``rows`` at a time, each thread then adding its own rows in order
+STRIDED_SUM = """#pragma unroll 4
+  for (int r = threadIdx.x; r < num_rows; r += kThreads) {
+#pragma unroll
+    for (int k = 0; k < kNGrad; ++k)
+      acc[k] += __ldcg(partial + r * kNGrad + k);
+  }"""
+STAGED_SUM = """  for (int r0 = 0; r0 < num_rows; r0 += {rows}) {{
+    const int rows = num_rows - r0 < {rows} ? num_rows - r0 : {rows};
+#pragma unroll 12
+    for (int e = threadIdx.x; e < rows * kNGrad; e += kThreads)
+      stage[e] = __ldcg(partial + r0 * kNGrad + e);
+    __syncthreads();
+    for (int r = threadIdx.x; r < rows; r += kThreads) {{
+#pragma unroll
+      for (int k = 0; k < kNGrad; ++k) acc[k] += stage[r * kNGrad + k];
+    }}
+    __syncthreads();
+  }}"""
+# a chunk of two floats in one load, for 2 pixels a thread
+VEC_LOAD_2 = [("template <int kVec>\nstruct VecLoad;\n",
+               "template <int kVec>\nstruct VecLoad;\n\ntemplate <>\n"
+               "struct VecLoad<2> {\n  __device__ __forceinline__ static "
+               "void load(const float* p, float* v) {\n    const float2 x = "
+               "*reinterpret_cast<const float2*>(p);\n    v[0] = x.x;\n"
+               "    v[1] = x.y;\n  }\n};\n")]
+FOUR_AT_A_TIME = """  for (int r0 = threadIdx.x; r0 < num_rows; r0 += 4 * kThreads) {
+    float v[4][kNGrad];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int r = r0 + b * kThreads;
+#pragma unroll
+      for (int k = 0; k < kNGrad; ++k)
+        v[b][k] = r < num_rows ? __ldcg(partial + r * kNGrad + k) : 0.0f;
+    }
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      if (r0 + b * kThreads < num_rows) {
+#pragma unroll
+        for (int k = 0; k < kNGrad; ++k) acc[k] += v[b][k];
+      }
+    }
+  }"""
+BWD_SHIPPED = "256 threads x 4 pixels (shipped)"
+BWD_VARIANTS = {  # name: {kernel: substitutions}
+    BWD_SHIPPED: {"sdf_bwd": [], "sdf_bwd_ad": []},
+    **{f"{t} threads x {px} pixels": {
+        k: [(PIXEL_SUM_GEOMETRY.format(256, 4),
+             PIXEL_SUM_GEOMETRY.format(t, px))] + (VEC_LOAD_2 if px == 2
+                                                   else [])
+        for k in ("sdf_bwd", "sdf_bwd_ad")}
+       for t, px in ((128, 2), (128, 4), (128, 8), (256, 2), (256, 8),
+                     (512, 2), (512, 4), (1024, 4))},
+    "1024 threads x 1 pixel": {k: [
+        (PIXEL_SUM_GEOMETRY.format(256, 4), PIXEL_SUM_GEOMETRY.format(1024, 1)),
+        ("template <int kVec>\nstruct VecLoad;\n",
+         "template <int kVec>\nstruct VecLoad;\n\ntemplate <>\nstruct VecLoad<1> "
+         "{\n  __device__ __forceinline__ static void load(const float* p, "
+         "float* v) {\n    v[0] = *p;\n  }\n};\n")]
+        for k in ("sdf_bwd", "sdf_bwd_ad")},
+    **{f"at most {65536 // (256 * b)} registers ({b} blocks an SM)": {
+        k: [("__launch_bounds__(kThreads)\npixel_sum_kernel",
+             f"__launch_bounds__(kThreads, {b})\npixel_sum_kernel")]
+        for k in ("sdf_bwd", "sdf_bwd_ad")} for b in (6, 7)},
+    "two launches (reduce_rows_kernel)": {
+        "sdf_bwd": TWO_LAUNCHES, "sdf_bwd_ad": TWO_LAUNCHES},
+    "single-float loads": {k: [("  if (vec) {", "  if (false) {")]
+                           for k in ("sdf_bwd", "sdf_bwd_ad")},
+    "64-bit index": {"sdf_bwd": INDEX64, "sdf_bwd_ad": INDEX64},
+    "rsqrtf with its subnormal scaling": {
+        "sdf_bwd": [("rsqrt_pos_(dx * dx", "rsqrtf(dx * dx"),
+                    ("rsqrt_pos_(ux * ux", "rsqrtf(ux * ux")],
+        "sdf_bwd_ad": [("q = rsqrt_pos_(x);", "q = rsqrtf(x);"),
+                       ("inv = rsqrt_pos_(m);", "inv = rsqrtf(m);")]},
+    "at most 32 registers (full occupancy)": {
+        k: [("__launch_bounds__(kThreads)\npixel_sum_kernel",
+             "__launch_bounds__(kThreads, 2048 / kThreads)\n"
+             "pixel_sum_kernel")] for k in ("sdf_bwd", "sdf_bwd_ad")},
+    "forward-mode duals (the earlier sdf_bwd_ad)": {"sdf_bwd_ad": "duals"},
+    "a fence in every thread before the ticket": {k: [
+        ("  if (threadIdx.x < kNGrad) __threadfence();",
+         "  __threadfence();")] for k in ("sdf_bwd", "sdf_bwd_ad")},
+    "the last block's rows loaded four at a time, then added": {k: [
+        (STRIDED_SUM, FOUR_AT_A_TIME)] for k in ("sdf_bwd", "sdf_bwd_ad")},
+    **{f"the last block's rows staged {rows} at a time in shared memory": {
+        k: [(STRIDED_SUM, STAGED_SUM.format(rows=rows)),
+            ("  __shared__ bool last;\n", "  __shared__ bool last;\n"
+             f"  __shared__ float stage[{rows} * kNGrad];\n")]
+        for k in ("sdf_bwd", "sdf_bwd_ad")} for rows in (1024, 256)},
+    "straight-line pixels under a warp vote": {
+        "sdf_bwd": WARP_VOTE, "sdf_bwd_ad": WARP_VOTE},
+    **{f"strided over a resident grid, {t} threads, {what}": {
+        k: ("stride", t, what == "single floats")
+        for k in ("sdf_bwd", "sdf_bwd_ad")}
+       for t in (256, 128) for what in ("float4", "single floats")},
+}
+# a grid of the blocks the card holds at once, each thread striding over
+# the image a chunk at a time (float4 where the wrapper says so, else one
+# pixel) with the next chunk's loads in flight while it adds the current
+# one; row and column carried from chunk to chunk. The blocks' rows are
+# the grid's blocks. kStrideThreads: threads per block
+STRIDE_KERNEL = """template <class F, int kThreads, int kVec>
+__global__ void __launch_bounds__(kThreads)
+stride_kernel(const float* __restrict__ params,
+              const float* __restrict__ g_img,
+              const float* __restrict__ ts_img, float* __restrict__ partial,
+              unsigned* __restrict__ ticket, float* __restrict__ dp, int n,
+              float step, float extent) {
+  const typename F::Scene sc = F::scene(params);
+  const int per_row = n / kVec;
+  const long long total = static_cast<long long>(per_row) * n;
+  const int stride = gridDim.x * kThreads;
+  const int c0 = blockIdx.x * kThreads + threadIdx.x;
+  int row = c0 / per_row;
+  int col = (c0 - row * per_row) * kVec;
+  const int drow = stride / per_row;
+  const int dcol = (stride - drow * per_row) * kVec;
+  float acc[kNGrad];
+#pragma unroll
+  for (int k = 0; k < kNGrad; ++k) acc[k] = 0.0f;
+  long long c = c0;
+  float gv[kVec], tv[kVec];
+  auto load = [&](long long ci, float* gq, float* tq) {
+    if (ci < total) {
+      if constexpr (kVec == 4) {
+        VecLoad<4>::load(g_img + ci * 4, gq);
+        VecLoad<4>::load(ts_img + ci * 4, tq);
+      } else {
+        gq[0] = g_img[ci];
+        tq[0] = ts_img[ci];
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        gq[e] = 0.0f;
+        tq[e] = -1.0f;
+      }
+    }
+  };
+  load(c, gv, tv);
+  while (c < total) {
+    float gn[kVec], tn[kVec];
+    load(c + stride, gn, tn);
+    const float py = pixel_coord(row, step, extent);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      const float g = gv[e], t = tv[e];
+      if (t >= 0.0f) {
+        float d[kNGrad];
+        F::hit(sc, g, t, col + e, py, step, extent, d);
+#pragma unroll
+        for (int k = 0; k < kNGrad; ++k) acc[k] += d[k];
+      } else {
+        acc[4] += g;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      gv[e] = gn[e];
+      tv[e] = tn[e];
+    }
+    c += stride;
+    col += dcol;
+    row += drow;
+    if (col >= n) {
+      col -= n;
+      ++row;
+    }
+  }
+  block_sum<kNGrad, kThreads>(acc, partial + blockIdx.x * kNGrad);
+  last_block_sum<kThreads>(partial, gridDim.x, ticket, dp);
+}
+
+template <class F, int kThreads>
+int stride_num_blocks(int n) {
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, stride_kernel<F, kThreads, 1>, kThreads, 0);
+    resident = sms * per_sm;
+  }
+  const long long need = (static_cast<long long>(n) * n + kThreads - 1)
+                         / kThreads;
+  return static_cast<int>(need < resident ? need : resident);
+}
+
+template <class F, int kThreads, int kPixels>
+int pixel_sum_launch(const float* params, const float* g, const float* ts,
+                     float* partial, unsigned* ticket, float* dp, int n,
+                     float step, float extent, int vec, cudaStream_t stream) {
+  const int grid = stride_num_blocks<F, kThreads>(n);
+  if (vec)
+    stride_kernel<F, kThreads, 4><<<grid, kThreads, 0, stream>>>(
+        params, g, ts, partial, ticket, dp, n, step, extent);
+  else
+    stride_kernel<F, kThreads, 1><<<grid, kThreads, 0, stream>>>(
+        params, g, ts, partial, ticket, dp, n, step, extent);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+"""
+STRIDE_START = "template <class F, int kThreads, int kPixels>\n__global__"
+
+
+def stride_text(source, kernel, threads, scalar=False):
+    """``source`` with the strided kernel in place of pixel_sum_kernel."""
+    a = source.index(STRIDE_START)
+    b = source.index("}  // namespace", source.index("int pixel_sum_launch(",
+                                                     a)) + len(
+        "}  // namespace")
+    fn = BWD_PAIR[kernel][2]
+    text = source[:a] + STRIDE_KERNEL.replace("} // namespace", "") + source[b:]
+    text = substitute(text, [
+        ("pixel_sum_num_blocks<kPixelSumThreads, kPixelSumPixels>(n)",
+         f"stride_num_blocks<{fn}, {threads}>(n)"),
+        (f"pixel_sum_launch<{fn}, kPixelSumThreads, kPixelSumPixels>",
+         f"pixel_sum_launch<{fn}, {threads}, 1>")])
+    if scalar:
+        text = substitute(text, [("  if (vec)\n    stride_kernel",
+                                  "  if (false)\n    stride_kernel")])
+    return text
+
+
+# parts of the shipped kernel left out, timed and not gated (they compute
+# something else): what the rest costs
+BWD_PROBES = {
+    "probe: g summed alone (no pixel's terms)": [
+        ("      if (t >= 0.0f) {  // a hit stores t itself",
+         "      if (false) {")],
+    "probe: the rows alone (no ticket, no last block)": TWO_LAUNCHES[:1],
+    "probe: the ticket, no last block's sum": [
+        ("  if (!last) return;\n",
+         "  if (!last || threadIdx.x == 0) {\n    if (last) *ticket = 0u;\n"
+         "    return;\n  }\n  if (num_rows > 0) return;\n")],
+    "probe: no fence before the ticket": [
+        ("  if (threadIdx.x < kNGrad) __threadfence();\n", "")],
+}
+# kernel: (its library, the wrapper's kernel=, its per-pixel function)
+BWD_PAIR = {"sdf_bwd": ("sdf_render", "analytic", "AnalyticPixel"),
+            "sdf_bwd_ad": ("sdf_bwd_ad", "ad", "ReversePixel")}
+
+
+def inlined(name):
+    """csrc/<name>.cu with common.cuh and pixel_sum.cuh written into it,
+    so that a variant's substitutions reach the skeleton."""
+    from enoki_tpu_torch import _build
+    common = (_build.CSRC_DIR / "common.cuh").read_text().replace(
+        "#pragma once", "")
+    pixel_sum = (_build.CSRC_DIR / "pixel_sum.cuh").read_text().replace(
+        "#pragma once", "").replace('#include "common.cuh"\n', "")
+    return (_build.CSRC_DIR / f"{name}.cu").read_text().replace(
+        '#include "common.cuh"\n', common).replace(
+        '#include "pixel_sum.cuh"\n', pixel_sum)
+
+
+def bwd_variant_text(source, pairs, kernel=None):
+    if isinstance(pairs, tuple):  # ("stride", threads, scalar)
+        return stride_text(source, kernel, pairs[1], pairs[2])
+    if pairs == "duals":
+        a = source.index(REVERSE_PIXEL[0])
+        b = source.index(REVERSE_PIXEL[1], a)
+        return source[:a] + DUAL_PIXEL + source[b:]
+    return substitute(source, pairs)
+
+
+def run_bwd_variants(torch, dev, timer, C):
+    """The backward pair's design variants: each built, held to its plain
+    version under chip_smoke.py's phase 2 / 11 gate at 1024^2 and 257^2
+    and bitwise equal from run to run, timed in two passes (one order,
+    then the other) at 1024^2 with g = 1 / N^2, and ptxas's report
+    printed; and the probes (BWD_PROBES), timed alone."""
+    from concurrent.futures import ThreadPoolExecutor
+    from unittest import mock
+
+    from enoki_tpu_torch import _build
+    from enoki_tpu_torch.render import sdf_kernels as K
+
+    texts = {(k, name): bwd_variant_text(inlined(BWD_PAIR[k][0]), pairs[k],
+                                         k)
+             for name, pairs in BWD_VARIANTS.items() for k in pairs}
+    texts.update({(k, name): substitute(inlined(BWD_PAIR[k][0]), pairs)
+                  for name, pairs in BWD_PROBES.items() for k in BWD_PAIR})
+    with ThreadPoolExecutor(len(texts)) as ex:
+        libs = dict(zip(texts, ex.map(
+            lambda key: _build.load_generated(BWD_PAIR[key[0]][0],
+                                              texts[key]), texts)))
+    p = torch.from_numpy(C.scene_vec(None)).to(dev)
+    plain = {"sdf_bwd": K.sdf_bwd_plain, "sdf_bwd_ad": K.sdf_bwd_ad_plain}
+    cases = {}
+    for n in (N, 257):
+        ts = K.sdf_fwd(p, n, STEPS)[1]
+        cases[n] = (ts, torch.from_numpy(np.random.default_rng(7)
+                                         .standard_normal((n, n))
+                                         .astype(np.float32)).to(dev))
+    g_mean = torch.full((N, N), 1.0 / (N * N), device=dev)
+    times = {}
+    for order in (1, -1):
+        for (k, name), lib in list(libs.items())[::order]:
+            kernel = BWD_PAIR[k][1]
+            # the wrapper loads the library of its kernel: the variant's
+            with mock.patch.object(_build, "load", lambda _, lib=lib: lib):
+                for n, (ts, g) in (() if name in BWD_PROBES
+                                   else cases.items()):
+                    dp = K.sdf_bwd(p, g, ts, n, 1.2, kernel)
+                    ref = plain[k](p, g, ts, n, 1.2)
+                    scale = max(1.0, ref.abs().max().item())
+                    if not (torch.equal(dp, K.sdf_bwd(p, g, ts, n, 1.2,
+                                                      kernel))
+                            and bool(((dp - ref).abs() <= 2e-4 * scale
+                                      + 2e-4 * ref.abs()).all().item())):
+                        raise RuntimeError(f"{k} {name} n={n}: off its gate")
+                ts = cases[N][0]
+                times.setdefault((k, name), []).append(timer(
+                    lambda: K.sdf_bwd(p, g_mean, ts, N, 1.2, kernel), 200))
+    for (k, name), t in times.items():
+        print(f"{k} {name}: {' / '.join(f'{v:.5f}' for v in t)} ms")
+    for (k, name), text in texts.items():
+        path = _build.build_generated(BWD_PAIR[k][0], text)
+        print(f"ptxas {k} {name}: "
+              + C.resources_text(path, (BWD_PAIR[k][2],)))
+
+
 def traced_with_identities(kern):
     """The scene's source traced with every operation recorded, the exact
     identities that the tracer leaves out (sdf_trace.Trace._identity)
@@ -746,6 +1280,8 @@ def main():
                     help="also time the kernels of the checkout there")
     ap.add_argument("--sdf-only", action="store_true",
                     help="time the sdf_fwd family's variants alone")
+    ap.add_argument("--bwd-only", action="store_true",
+                    help="time the SDF backward pair's variants alone")
     ap.add_argument("--time-root", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time_root:
@@ -757,9 +1293,13 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("kernel_variants: needs a CUDA card")
     print(C.nvidia_smi("name,power.limit"))
-    run_sdf_variants(torch, torch.device("cuda"), C.DeviceTimer(torch), C)
+    dev, timer = torch.device("cuda"), C.DeviceTimer(torch)
     if not args.sdf_only:
-        run_variants(torch, torch.device("cuda"), C.DeviceTimer(torch), C)
+        run_bwd_variants(torch, dev, timer, C)
+    if not args.bwd_only:
+        run_sdf_variants(torch, dev, timer, C)
+    if not (args.sdf_only or args.bwd_only):
+        run_variants(torch, dev, timer, C)
     if args.ab:
         for root in (args.ab, HERE, HERE, args.ab):
             out = subprocess.run(

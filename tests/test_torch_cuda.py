@@ -18,9 +18,9 @@ from enoki_tpu_torch.render import (LAUNCHES, Vec3, generic as G,
                                     reset_launch_counts, sdf_trace,
                                     sdflib as sd)
 from enoki_tpu_torch.render.sdf_kernels import (
-    SDFRender, _cone_t0, fwd_kernel_name, render_sdf_cuda, sdf_bwd,
-    sdf_bwd_ad_plain, sdf_bwd_plain, sdf_fwd, sdf_fwd_plain, sdf_fwd_split,
-    sdf_fwd_split_plain, sdf_split, sdf_split_plain)
+    SDFRender, _cone_t0, bwd_vector_loads, fwd_kernel_name, render_sdf_cuda,
+    sdf_bwd, sdf_bwd_ad_plain, sdf_bwd_plain, sdf_fwd, sdf_fwd_plain,
+    sdf_fwd_split, sdf_fwd_split_plain, sdf_split, sdf_split_plain)
 from enoki_tpu_torch.render.sphere_kernels import (
     render_sphere_cuda, sphere_bwd, sphere_bwd_plain, sphere_fwd,
     sphere_fwd_plain)
@@ -68,18 +68,67 @@ def test_sdf_fwd_kernel_matches_plain(params):
     assert (ts_k - ts_p).abs().max().item() <= 2e-4
 
 
-@pytest.mark.cuda
-def test_sdf_bwd_kernel_matches_plain_and_is_deterministic(params):
-    _, ts = sdf_fwd(params, N, STEPS, 1.2)
+# image sizes: one the kernels' warp tiles and blocks divide, and two they
+# do not (the start map needs a multiple of its block, 8); the backward
+# loads float4s at 256 and 1000 and single floats at 257
+EDGE_SIZES = (N, 1000, 257)
+
+
+def _bwd_inputs(params, n, shift=0.0):
+    p = params.clone()
+    p[0] += shift
+    _, ts = sdf_fwd(p, n, STEPS, 1.2)
     g = torch.from_numpy(np.random.default_rng(7).standard_normal(
-        (N, N)).astype(np.float32)).to(params.device)
-    dp1 = sdf_bwd(params, g, ts, N, 1.2)
-    dp2 = sdf_bwd(params, g, ts, N, 1.2)
-    ref = sdf_bwd_plain(params, g, ts, N, 1.2)
+        (n, n)).astype(np.float32)).to(p.device)
+    return p, g, ts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_SIZES)
+@pytest.mark.parametrize("shift", [0.0, 10.0], ids=["mixed", "all_miss"])
+def test_sdf_bwd_kernel_matches_plain_and_is_deterministic(params, n, shift):
+    p, g, ts = _bwd_inputs(params, n, shift)
+    assert bwd_vector_loads(g, ts, n) == (n % 4 == 0)
+    reset_launch_counts()
+    dp1 = sdf_bwd(p, g, ts, n, 1.2)
+    assert LAUNCHES == {"sdf_bwd": 1}
+    dp2 = sdf_bwd(p, g, ts, n, 1.2)
+    ref = sdf_bwd_plain(p, g, ts, n, 1.2)
     torch.cuda.synchronize()
     assert torch.equal(dp1, dp2)
     scale = max(1.0, ref.abs().max().item())
     torch.testing.assert_close(dp1, ref, rtol=2e-4, atol=2e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["analytic", "ad"])
+def test_sdf_bwd_counter_is_reset_by_every_launch(params, kernel):
+    # the last block sets its ticket counter back to 0: after many calls,
+    # one more sums as the first did
+    p, g, ts = _bwd_inputs(params, 1000)
+    first = sdf_bwd(p, g, ts, 1000, 1.2, kernel)
+    for _ in range(300):
+        sdf_bwd(p, g, ts, 1000, 1.2, kernel)
+    last = sdf_bwd(p, g, ts, 1000, 1.2, kernel)
+    torch.cuda.synchronize()
+    assert torch.equal(first, last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["analytic", "ad"])
+def test_sdf_bwd_takes_single_loads_from_a_misaligned_view(params, kernel):
+    p, g, ts = _bwd_inputs(params, N)
+    buf = torch.empty(N * N + 1, device=p.device)
+    g_off = buf[1:].view(N, N)  # 4 bytes past a 16-byte boundary
+    g_off.copy_(g)
+    assert bwd_vector_loads(g, ts, N) and not bwd_vector_loads(g_off, ts, N)
+    dp = sdf_bwd(p, g_off, ts, N, 1.2, kernel)
+    plain = sdf_bwd_plain if kernel == "analytic" else sdf_bwd_ad_plain
+    ref = plain(p, g, ts, N, 1.2)
+    scale = max(1.0, ref.abs().max().item())
+    torch.testing.assert_close(dp, ref, rtol=2e-4, atol=2e-4 * scale)
+    # a thread adds the same pixels in the same order on both routes
+    assert torch.equal(dp, sdf_bwd(p, g, ts, N, 1.2, kernel))
 
 
 @pytest.mark.cuda
@@ -88,7 +137,7 @@ def test_render_sdf_cuda_launches_one_of_each(cuda):
     reset_launch_counts()
     render_sdf_cuda(p, N, STEPS, coarse=0).mean().backward()
     torch.cuda.synchronize()
-    assert LAUNCHES == {"sdf_fwd": 1, "sdf_bwd": 1, "sdf_bwd_reduce": 1}
+    assert LAUNCHES == {"sdf_fwd": 1, "sdf_bwd": 1}
     assert torch.isfinite(p.grad).all()
 
 
@@ -102,11 +151,6 @@ FWD_OPTIONS = {
     "relax1.6_unimodal_bf16": dict(relax=1.6, unimodal=True,
                                    dtype=torch.bfloat16),
 }
-
-
-# image sizes: one the kernels' warp tiles and blocks divide, and two they
-# do not (the start map needs a multiple of its block, 8)
-EDGE_SIZES = (N, 1000, 257)
 
 
 @pytest.mark.cuda
@@ -149,21 +193,18 @@ def test_split_kernels_are_bit_equal_to_one_pass_and_plain(params, split,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_SIZES)
 @pytest.mark.parametrize("shift", [0.0, 10.0], ids=["mixed", "all_miss"])
 def test_sdf_bwd_ad_kernel_matches_both_routes_and_is_deterministic(params,
-                                                                    shift):
-    p = params.clone()
-    p[0] += shift
-    _, ts = sdf_fwd(p, N, STEPS, 1.2)
-    g = torch.from_numpy(np.random.default_rng(7).standard_normal(
-        (N, N)).astype(np.float32)).to(p.device)
+                                                                    shift, n):
+    p, g, ts = _bwd_inputs(params, n, shift)
     reset_launch_counts()
-    dp1 = sdf_bwd(p, g, ts, N, 1.2, kernel="ad")
-    assert LAUNCHES == {"sdf_bwd_ad": 1, "sdf_bwd_reduce": 1}
-    dp2 = sdf_bwd(p, g, ts, N, 1.2, kernel="ad")
+    dp1 = sdf_bwd(p, g, ts, n, 1.2, kernel="ad")
+    assert LAUNCHES == {"sdf_bwd_ad": 1}
+    dp2 = sdf_bwd(p, g, ts, n, 1.2, kernel="ad")
     torch.cuda.synchronize()
     assert torch.equal(dp1, dp2)
-    for ref in (sdf_bwd(p, g, ts, N, 1.2), sdf_bwd_ad_plain(p, g, ts, N, 1.2)):
+    for ref in (sdf_bwd(p, g, ts, n, 1.2), sdf_bwd_ad_plain(p, g, ts, n, 1.2)):
         scale = max(1.0, ref.abs().max().item())
         torch.testing.assert_close(dp1, ref, rtol=2e-4, atol=2e-4 * scale)
 
@@ -183,7 +224,7 @@ def test_sdf_render_options_reach_their_kernels(cuda):
         reset_launch_counts()
         model().mean().backward()
         torch.cuda.synchronize()
-        assert LAUNCHES == {**want, "sdf_bwd_reduce": 1}, kw
+        assert LAUNCHES == want, kw
         assert torch.isfinite(model.params.grad).all()
 
 

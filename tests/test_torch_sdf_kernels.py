@@ -10,6 +10,7 @@ Tolerances are the reference's own: image atol 1e-3
 1e-3 * max(1, |g|max) (bench.py:193-194).
 """
 
+import ctypes
 import re
 
 import numpy as np
@@ -21,13 +22,13 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from enoki_tpu.render.pallas_kernels import (
-    _sdf_fwd_call, _sdf_vjp_bwd, render_sdf_pallas)
+    _sdf_bwd_kernel_ad, _sdf_fwd_call, _sdf_vjp_bwd, render_sdf_pallas)
 
 from enoki_tpu_torch import _build
 from enoki_tpu_torch.render import LAUNCHES, reset_launch_counts
 from enoki_tpu_torch.render.sdf_kernels import (
-    SDFRender, march_counts, render_sdf_cuda, sdf_bwd_plain, sdf_fwd,
-    sdf_fwd_plain, tile_pixels)
+    SDFRender, march_counts, render_sdf_cuda, sdf_bwd_ad_plain,
+    sdf_bwd_plain, sdf_fwd, sdf_fwd_plain, tile_pixels)
 from enoki_tpu_torch.ops.router import linspace
 
 from test_torch_cuda import SCENES, scene_vec as _scene_vec
@@ -265,6 +266,11 @@ def test_relaxed_root_argument_is_in_the_fast_roots_range(scene_vec, dtype,
     assert min(seen) >= 2.0 ** -100
 
 
+_CTYPES = {"*": ctypes.c_void_p, "cudaStream_t": ctypes.c_void_p,
+           "int": ctypes.c_int, "int64_t": ctypes.c_int64,
+           "uint64_t": ctypes.c_uint64, "float": ctypes.c_float}
+
+
 def test_cuda_sources_match_their_ctypes_signatures():
     # the argtypes ctypes declares must have the arity of the C function,
     # for every library; the generic renderer's entry points are in its
@@ -283,5 +289,182 @@ def test_cuda_sources_match_their_ctypes_signatures():
             assert m, name
             args = [a for a in m.group(1).split(",") if a.strip()]
             assert len(args) == len(argtypes), name
+            # and each argument the type ctypes passes: a pointer or the
+            # stream as c_void_p, never cut to an int
+            for arg, argtype in zip(args, argtypes):
+                ctype = "*" if "*" in arg else " ".join(arg.split()[:-1])
+                assert _CTYPES[ctype] is argtype, (name, arg)
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+# -- sdf_bwd_ad's reverse mode and the backward's pixel layout --------------
+
+
+def reverse_sweep(params, g, ts, n, extent=1.2, tie_slope=0.5):
+    """sdf_bwd_ad's per-pixel reverse mode (csrc/sdf_bwd_ad.cu), written
+    op for op in the kernel's order over the whole image, each term summed
+    over the pixels: the forward sweep of the shade, its adjoint sweep
+    seeded with g, the SDF's adjoint sweep seeded with 1, the implicit
+    term. Returns dp[16]. ``tie_slope``: max(y, 0)'s subgradient at y = 0
+    (the kernel's is 0.5)."""
+    cx, cy, cz, gain, lx, ly, lz = (params[k] for k in (0, 1, 2, 5, 6, 7, 8))
+    px, py = tile_pixels(n, extent, params.device)
+    hit = ts >= 0.0
+    # forward sweep
+    dx = px - cx
+    dy = py - cy
+    dz = (-1.0 + ts) - cz
+    x = dx * dx + dy * dy + dz * dz + 1e-12
+    q = torch.rsqrt(x)
+    nx, ny, nz = dx * q, dy * q, dz * q
+    m = nx * nx + ny * ny + nz * nz + 1e-12
+    inv = torch.rsqrt(m)
+    s = nx * lx + ny * ly + nz * lz
+    y = s * inv
+    r = torch.clamp_min(y, 0.0)
+    r_slope = torch.where(y > 0.0, 1.0,
+                          torch.where(y == 0.0, tie_slope, 0.0))
+    # adjoint sweep of img = amb + r * gain, seeded with g
+    y_bar = g * gain * r_slope
+    s_bar = y_bar * inv
+    inv_bar = y_bar * s
+    m_bar = inv_bar * (-0.5 * inv * inv * inv)
+    nx_bar = s_bar * lx + 2.0 * m_bar * nx
+    ny_bar = s_bar * ly + 2.0 * m_bar * ny
+    nz_bar = s_bar * lz + 2.0 * m_bar * nz
+    q_bar = nx_bar * dx + ny_bar * dy + nz_bar * dz
+    x_bar = q_bar * (-0.5 * q * q * q)
+    dx_bar = nx_bar * q + 2.0 * x_bar * dx
+    dy_bar = ny_bar * q + 2.0 * x_bar * dy
+    dz_bar = nz_bar * q + 2.0 * x_bar * dz
+    # adjoint sweep of sdf = x * q - radius, seeded with 1
+    xs_bar = q + x * (-0.5 * q * q * q)
+    dxs, dys, dzs = 2.0 * xs_bar * dx, 2.0 * xs_bar * dy, 2.0 * xs_bar * dz
+    # the implicit term
+    sgn = torch.where(dzs == 0.0, -1.0, torch.where(dzs > 0.0, 1.0, -1.0))
+    slope = torch.where(torch.abs(dzs) > 1e-6, dzs, sgn)
+    w = -dz_bar / slope
+    terms = (-dx_bar - w * dxs, -dy_bar - w * dys, -dz_bar - w * dzs, -w,
+             None, g * r, s_bar * nx, s_bar * ny, s_bar * nz)
+    dp = torch.zeros(16, dtype=torch.float32)
+    for k, term in enumerate(terms):
+        dp[k] = g.sum() if term is None else torch.where(hit, term, 0.0).sum()
+    return dp
+
+
+def _jax_bwd_ad(v, ts, g, n):
+    """The reference's _sdf_bwd_kernel_ad over the whole image in one
+    tile, in interpret mode."""
+    nd = (n, STEPS, 1.2, n, None, 0, 16, jnp.float32, 1, 1.0, False, 0)
+    (dp,) = _sdf_vjp_bwd(*nd, (jnp.asarray(v), jnp.asarray(ts)),
+                         jnp.asarray(g), kernel=_sdf_bwd_kernel_ad)
+    return np.asarray(dp)
+
+
+def _assert_three_routes_agree(v, ts, g, n):
+    # the reference's gate for the two backward routes
+    # (tests/test_pallas.py:376-377): rtol 2e-4, atol 2e-4 * scale
+    dp_j = _jax_bwd_ad(v, ts, g, n)
+    args = (torch.from_numpy(v), torch.from_numpy(g), torch.from_numpy(ts), n)
+    dp_r = reverse_sweep(*args).numpy()
+    dp_p = sdf_bwd_ad_plain(*args).numpy()
+    scale = max(1.0, np.abs(dp_j).max())
+    np.testing.assert_allclose(dp_r, dp_j, rtol=2e-4, atol=2e-4 * scale)
+    np.testing.assert_allclose(dp_r, dp_p, rtol=2e-4, atol=2e-4 * scale)
+    assert (dp_r[9:] == 0).all()
+    return dp_r
+
+
+@pytest.mark.parametrize("n", [64, 65])
+@pytest.mark.parametrize("shift", [0.0, 10.0], ids=["mixed", "all_miss"])
+def test_reverse_sweep_matches_jax_kernel_and_plain(scene_vec, shift, n):
+    v = scene_vec.copy()
+    v[0] += shift
+    ts = sdf_fwd_plain(torch.from_numpy(v), n, STEPS, 1.2)[1].numpy()
+    assert shift == 0.0 or (ts < 0).all()
+    dp = _assert_three_routes_agree(v, ts, _g(n), n)
+    if shift:
+        # every pixel a miss: only d ambient, the sum of g
+        assert (dp[:4] == 0).all() and (dp[5:] == 0).all()
+
+
+def _special_pixels(case, v, n):
+    """(params, ts, g) where g is 1 on a few hit pixels and 0 elsewhere:
+    "grazing" pixels at which d sdf / dt is exactly 0 (dz = 0), or a few
+    1e-7 either side of it, so that the implicit term's guard decides the
+    slope; a "tie" pixel at which the lambert term is exactly 0, max(y,
+    0)'s subgradient 0.5 (the light along x and px == cx exactly)."""
+    v = v.copy()
+    px = tile_pixels(n, 1.2, "cpu")[0][0].numpy()
+    ts = np.full((n, n), -1.5, np.float32)
+    g = np.zeros((n, n), np.float32)
+    col, row = (3 * n) // 4, (2 * n) // 3
+    if case == "grazing":
+        one = np.float32(1.0) + np.float32(v[2])  # -1 + t - cz == 0
+        for k, t in enumerate((one, one + np.float32(2.0 ** -22),
+                               one - np.float32(2.0 ** -22))):
+            ts[row, col + k] = t
+            g[row, col + k] = 1.0
+    else:
+        # a power-of-two column: col * step is exact, so the reference,
+        # whose compiler may fuse col * step - extent, has the same px
+        col = 32
+        v[0] = px[col]
+        v[6:9] = [1.0, 0.0, 0.0]
+        ts[row, col] = 0.5
+        g[row, col] = 1.0
+    return v, ts, g
+
+
+@pytest.mark.parametrize("n", [64, 65])
+@pytest.mark.parametrize("case", ["grazing", "tie"])
+def test_reverse_sweep_at_the_guard_and_the_relu_tie(scene_vec, case, n):
+    v, ts, g = _special_pixels(case, scene_vec, n)
+    args = (torch.from_numpy(v), torch.from_numpy(g), torch.from_numpy(ts), n)
+    dp = _assert_three_routes_agree(v, ts, g, n)
+    if case == "tie":
+        # the 0.5 subgradient itself: either side of it is far off
+        for slope in (0.0, 1.0):
+            other = reverse_sweep(*args, tie_slope=slope).numpy()
+            assert not np.allclose(other, dp, rtol=2e-4, atol=2e-4)
+    else:
+        # the three pixels' slopes are all inside the guard
+        pv = args[0]
+        dz = (-1.0 + args[2]) - pv[2]
+        assert (dz[g > 0].abs() < 1e-6).all()
+
+
+def _header_constant(name):
+    text = (_build.CSRC_DIR / "pixel_sum.cuh").read_text()
+    return int(re.search(rf"{name} = (\d+)", text).group(1))
+
+
+@pytest.mark.parametrize("n", [1, 64, 257, 1000, 1024])
+@pytest.mark.parametrize("threads,pixels", [
+    ("shipped", "shipped"), (128, 2), (128, 4), (128, 8), (256, 2),
+    (256, 8)])
+def test_pixel_sum_layout_covers_the_image_once(n, threads, pixels):
+    # pixel_sum.cuh's map from (row, segment, thread, chunk, element) to a
+    # column, with the shipped geometry and those kernel_variants.py builds
+    if threads == "shipped":
+        threads = _header_constant("kPixelSumThreads")
+        pixels = _header_constant("kPixelSumPixels")
+    vec = min(pixels, 4)
+    segment = threads * pixels
+    segments = (n + segment - 1) // segment
+    seg, t, j, e = np.meshgrid(np.arange(segments), np.arange(threads),
+                               np.arange(pixels // vec), np.arange(vec),
+                               indexing="ij")
+    chunk0 = seg * segment + (j * threads + t) * vec
+    col = chunk0 + e
+    # the scalar route: every column < n once in each row
+    np.testing.assert_array_equal(np.bincount(col[col < n], minlength=n),
+                                  np.ones(n, np.int64))
+    if n % 4 == 0:
+        # the vector route: a chunk is wholly inside the row or past it
+        inside = chunk0 < n
+        assert (col[inside] < n).all() and (col[~inside] >= n).all()
+        assert (chunk0 % vec == 0).all()
+    # the blocks' rows are one per (row, segment); the grid is n x segments
+    assert segments * n == n * (-(-n // segment))
