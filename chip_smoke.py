@@ -38,19 +38,27 @@ rounding.
            bench.py chains its steps) against the same loop through the
            twin, each kernel alone, the plain versions, and each kernel's
            bound
-  phase 5  sphere_fwd (f32 and bf16) against sphere_fwd_plain, reference +
-           two seeded scenes
-  phase 6  sphere_bwd against sphere_bwd_plain for a seeded g; two runs
-           must be bitwise equal
+  phase 5  sphere_fwd (f32 and bf16) bit-equal to sphere_fwd_plain at
+           1024^2, 1000^2 and 257^2 (one vector store a thread at the
+           first two, single stores at 257), reference + two seeded
+           scenes + an all-miss scene
+  phase 6  sphere_bwd against sphere_bwd_plain at the sizes, scenes and g
+           of phase 2 (float4 loads of g at 1024 and 1000); two runs must
+           be bitwise equal
   phase 7  the sphere path: SphereRender trained for a few SGD steps in
            f32, each step's loss and gradient against the plain twin
            (render.sphere, autograd through combined), then one bf16 step,
            whose gradient must equal the f32 step's at the same
-           parameters; one sphere_fwd and one sphere_bwd (+ reduce) per
-           step
+           parameters; one sphere_fwd and one sphere_bwd per step (the
+           backward sums its blocks' rows in its own last block)
   phase 8  timing: each sphere kernel alone with its bound and its plain
-           version, the chained fwd+bwd loop through SphereRender against
-           the twin's, and the mini-app's contrast, render_staged
+           version (the call after sphere_bwd's 200 timed ones bit-equal
+           to the one before), the routes, ptxas's registers and spills and
+           an issue floor of each (the fewest SASS instructions a warp of
+           these straight-line kernels issues, from cuobjdump, times the
+           warps, over the SMs' issue slots at the max SM clock; derived,
+           for the record), the chained fwd+bwd loop through SphereRender
+           against the twin's, and the mini-app's contrast, render_staged
            (separate kernels) against one sphere_fwd launch
   phase 9  each further sdf_fwd instantiation (start map, bf16 march,
            over-relaxed march, and their combinations) against
@@ -72,10 +80,11 @@ rounding.
            head-start gates, then one fwd+bwd step for each other option
            at the reference scene, each counted; timing of
            each new kernel alone with its bound and plain version; the
-           issue floor of each sdf_fwd instantiation and of sdf_fwd_split
-           (the SASS instructions an iteration of its march loop issues
-           times its warps' iterations, as phase 16 derives it; held below
-           the measured time) with its busy-lane and block shares and
+           issue floor of each sdf_fwd instantiation, of sdf_fwd_split
+           and of sdf_tail (the SASS instructions an iteration of its
+           march loop issues times its warps' iterations, as phase 16
+           derives it; a tail warp takes 32 consecutive survivors; held
+           below the measured time) with its busy-lane and block shares and
            ptxas's registers and spills; timing of the
            cone prepass, and of the chained fwd+bwd step for the five
            candidate configurations of bench.py:233-235, interleaved
@@ -483,6 +492,21 @@ def fwd_footprint(source="generic_render.cuh"):
     return tuple(int(v) for v in found.groups())
 
 
+def source_constants(source, *names):
+    """The integer constants ``names`` of csrc/``source``, read from their
+    ``name = value`` definitions."""
+    import re
+
+    from enoki_tpu_torch import _build
+    text = (_build.CSRC_DIR / source).read_text()
+    out = {}
+    for name in names:
+        found = re.search(rf"\b{name} = (\d+)", text)
+        check(found is not None, f"{source} defines no {name}")
+        out[name] = int(found.group(1))
+    return out
+
+
 def sass_of(lib_path):
     """``cuobjdump -sass`` of a built library, run anew, its output
     written beside it as ``.sass``."""
@@ -516,26 +540,21 @@ def issue_rate(torch):
             f"slots x {sm_mhz:.0f} MHz")
 
 
-def loop_counts(sass, kernel):
-    """(first address, back branch's address, instructions laid out
-    between them, instructions an iteration issues) of the largest loop
-    of the function whose mangled name holds ``kernel`` in ``sass``
-    (cuobjdump -sass text). An iteration's instructions are those of the
-    walk from the loop's head to its back branch that follows every
-    unconditional branch and takes a conditional one only where the
-    instructions it would fall into call a subroutine (the slow paths of
-    the IEEE square root and division, which ptxas lays out inside the
-    loop or past the kernel's end): cold code is not counted, a
-    predicated instruction is (it takes its issue slot)."""
+# a SASS branch names its target by label (`(.L_x_12)) or by address and
+# is conditional with a guard, a predicate operand or .DIV
+BRA_RE = (r"^(@!?U?P\w+\s+)?BRA((?:\.\w+)*)\s+(!?\w+,\s*)?"
+          r"(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))")
+
+
+def sass_function(sass, kernel):
+    """(instructions as (address, text), label -> address, the addresses
+    a label names) of the one function whose mangled name holds
+    ``kernel`` in ``sass`` (cuobjdump -sass text)."""
     import re
     parts = [part for part in sass.split("Function : ")[1:]
              if kernel in part.split("\n", 1)[0]]
     check(len(parts) == 1, f"{len(parts)} functions named like {kernel} in "
           f"the SASS")
-    # a branch names its target by label (`(.L_x_12)) or by address
-    # and is conditional with a guard, a predicate operand or .DIV
-    bra_re = re.compile(r"^(@!?U?P\w+\s+)?BRA((?:\.\w+)*)\s+(!?\w+,\s*)?"
-                        r"(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))")
     ins, labels, starts, pending = [], {}, set(), []
     for line in parts[0].splitlines():
         label = re.match(r"\s*(\.L_x_\d+):", line)
@@ -551,15 +570,82 @@ def loop_counts(sass, kernel):
             starts.add(addr)
         pending = []
         ins.append((addr, m.group(2)))
+    return ins, labels, starts
+
+
+def sass_branch(text, labels):
+    """(target address, conditional) of a SASS branch, else None."""
+    import re
+    b = re.match(BRA_RE, text)
+    if not b:
+        return None
+    target = labels.get(b.group(4)) if b.group(4) else int(b.group(5), 16)
+    return target, bool(b.group(1) or b.group(3)) or ".DIV" in b.group(2)
+
+
+def path_counts(sass, kernel):
+    """(instructions laid out, fewest issued) of the function whose
+    mangled name holds ``kernel`` in ``sass``: the fewest instructions on
+    a path from its first instruction to an EXIT that takes no backward
+    branch (no loop repeats), each instruction on it counted once, a
+    predicated one too (it takes its issue slot), a called slow path not
+    followed. An EXIT under a predicate ends a path only after the path
+    has passed a store or atomic to global memory: the early return of
+    threads past the image's edge does not end it, the return of the
+    blocks that did not draw the last ticket does. For a straight-line
+    kernel this is what a warp issues at the least."""
+    import re
+    ins, labels, _ = sass_function(sass, kernel)
+    index = {addr: i for i, (addr, _) in enumerate(ins)}
+    inf = float("inf")
+    # cost[i][stored]: the fewest instructions from i to the path's end
+    cost = [[inf, inf] for _ in range(len(ins) + 1)]
+    for i in range(len(ins) - 1, -1, -1):
+        addr, text = ins[i]
+        op = re.sub(r"^@!?U?P\w+\s+", "", text)
+        guarded = op != text
+        for stored in (0, 1):
+            after = int(stored or bool(re.match(r"(STG|ATOMG|RED|ATOM)\b",
+                                                op)))
+            if op.startswith("EXIT"):
+                c = 1 if (not guarded or stored) else 1 + cost[i + 1][0]
+            elif op.startswith(("RET", "BPT")):
+                c = inf
+            else:
+                b = sass_branch(text, labels)
+                nxt = cost[i + 1][after]
+                if b is None:
+                    c = 1 + nxt
+                else:
+                    target, conditional = b
+                    jump = (cost[index[target]][after]
+                            if target is not None and target > addr
+                            and target in index else inf)
+                    c = 1 + (min(nxt, jump) if conditional else jump)
+            cost[i][stored] = c
+    fewest = cost[0][0]
+    check(fewest < inf, f"{kernel}: no path to an EXIT in its SASS")
+    return sum(not t.startswith("NOP") for _, t in ins), int(fewest)
+
+
+def loop_counts(sass, kernel):
+    """(first address, back branch's address, instructions laid out
+    between them, instructions an iteration issues) of the largest loop
+    of the function whose mangled name holds ``kernel`` in ``sass``
+    (cuobjdump -sass text). An iteration's instructions are those of the
+    walk from the loop's head to its back branch that follows every
+    unconditional branch and takes a conditional one only where the
+    instructions it would fall into call a subroutine (the slow paths of
+    the IEEE square root and division, which ptxas lays out inside the
+    loop or past the kernel's end): cold code is not counted, a
+    predicated instruction is (it takes its issue slot)."""
+    import re
+    ins, labels, starts = sass_function(sass, kernel)
     index = {addr: i for i, (addr, _) in enumerate(ins)}
 
     def branch(i):
         # (target address, conditional) of a branch, else None
-        b = bra_re.match(ins[i][1])
-        if not b:
-            return None
-        target = labels.get(b.group(4)) if b.group(4) else int(b.group(5), 16)
-        return target, bool(b.group(1) or b.group(3)) or ".DIV" in b.group(2)
+        return sass_branch(ins[i][1], labels)
 
     def calls(i):
         # whether the straight-line code from i calls a subroutine
@@ -631,14 +717,16 @@ def block_share(counts, cols, block_cols, block_rows):
     return warps.sum().item() / (across * down * slowest.sum().item())
 
 
-def bwd_cases(torch, dev, phase, run, cuda_vec):
-    """Phases 2 and 11: a backward kernel at each of BWD_SIZES, on each
+def bwd_cases(torch, dev, phase, run, cuda_vec, vector_loads=None):
+    """Phases 2, 6 and 11: a backward kernel at each of BWD_SIZES, on each
     seed's mixed and all-miss scene, for a seeded g and for g = 1/n^2.
     ``run(p, g, ts, n)`` returns two runs of the kernel and its references
     by name: the runs must be bitwise equal, and each reference within
-    rtol 2e-4, atol 2e-4 * scale. The load route must be float4 where a
-    row is whole float4s. Returns the largest |kernel - plain|."""
+    rtol 2e-4, atol 2e-4 * scale. The load route (``vector_loads(g, ts,
+    n)``, the SDF pair's by default) must be float4 where a row is whole
+    float4s. Returns the largest |kernel - plain|."""
     from enoki_tpu_torch.render import sdf_kernels as K
+    vector_loads = vector_loads or K.bwd_vector_loads
     worst = 0.0
     for n in BWD_SIZES:
         gs = {"seeded": torch.from_numpy(np.random.default_rng(7)
@@ -650,7 +738,7 @@ def bwd_cases(torch, dev, phase, run, cuda_vec):
                 p = cuda_vec(seed)
                 p[0] += shift
                 _, ts = K.sdf_fwd(p, n, STEPS, EXTENT)
-                vec = {K.bwd_vector_loads(g, ts, n) for g in gs.values()}
+                vec = {vector_loads(g, ts, n) for g in gs.values()}
                 what = f"{phase} n={n} scene={seed} shift={shift}"
                 check(vec == {n % 4 == 0}, f"{what}: float4 loads {vec}, "
                       f"expected {n % 4 == 0}")
@@ -937,6 +1025,7 @@ def run(torch, dev):
 def run_sphere(torch, dev, timer, cuda_vec):
     """Phases 5-8: the closed-form sphere path. Returns its kernels'
     entries of the kernels line."""
+    from enoki_tpu_torch import _build
     from enoki_tpu_torch.render import (LAUNCHES, reset_launch_counts,
                                         sphere as TS, sphere_kernels as S)
     from enoki_tpu_torch.render.sdf_kernels import (scene_to_vec,
@@ -947,59 +1036,42 @@ def run_sphere(torch, dev, timer, cuda_vec):
     f32, bf16 = torch.float32, torch.bfloat16
 
     # -- phase 5: sphere_fwd (f32, bf16) against its plain version ---------
+    # at the backward's sizes: one vector store a thread at N and 1000 (a
+    # row is whole vectors in both dtypes), single stores at 257
     fwd_err = {f32: 0.0, bf16: 0.0}
-    for seed in SEEDS:
-        p = cuda_vec(seed)
-        for dtype in (f32, bf16):
-            img_k = S.sphere_fwd(p, N, EXTENT, dtype)
-            img_p = S.sphere_fwd_plain(p, N, EXTENT, dtype)
-            torch.cuda.synchronize()
-            check(img_k.shape == (N, N) and img_k.dtype == dtype
-                  and torch.isfinite(img_k).all().item(),
-                  f"sphere_fwd {dtype}: bad output")
-            d = (img_k.float() - img_p.float()).abs()
-            dmax = d.max().item()
-            fwd_err[dtype] = max(fwd_err[dtype], dmax)
-            flips = d > 1.0  # a hit/miss flip jumps by ~gain
-            share = flips.float().mean().item()
-            if dmax == 0.0:
-                gate, ok = "bit-equal", True
-            elif dtype == f32:
-                off = d[~flips].max().item()
-                gate = (f"flip share {share:.3e} < 1.5e-3, off-flip max "
-                        f"{off:.3e} < 0.05")
-                ok = share < 1.5e-3 and off < 0.05
-            else:  # off the flips, within one bf16 ulp (2^-7 relative)
-                rel = (d / img_p.float().abs())[~flips].max().item()
-                gate = (f"flip share {share:.3e} < 1.5e-3, off-flip max "
-                        f"relative {rel:.3e} <= 2^-7")
-                ok = share < 1.5e-3 and rel <= 2.0 ** -7
-            log(f"phase 5 sphere_fwd {str(dtype)[6:]} scene={seed}: "
-                f"max|img-plain| {dmax:.3e}, flip share {share:.3e}, "
-                f"pixels differing {(d > 0).sum().item()}; gate: {gate}: "
-                f"{'pass' if ok else 'FAIL'}")
-            check(ok, f"sphere_fwd {dtype} vs plain (scene {seed}): {gate}")
+    for n in BWD_SIZES:
+        for seed in SEEDS + ("all-miss",):
+            p = cuda_vec(1 if seed == "all-miss" else seed)
+            if seed == "all-miss":
+                p[0] += 10.0  # the sphere leaves the frame
+            for dtype in (f32, bf16):
+                img_k = S.sphere_fwd(p, n, EXTENT, dtype)
+                img_p = S.sphere_fwd_plain(p, n, EXTENT, dtype)
+                torch.cuda.synchronize()
+                what = (f"phase 5 sphere_fwd {str(dtype)[6:]} n={n} "
+                        f"scene={seed}")
+                check(img_k.shape == (n, n) and img_k.dtype == dtype
+                      and torch.isfinite(img_k).all().item(),
+                      f"{what}: bad output")
+                vec = S.fwd_vector_stores(img_k, n)
+                check(vec == (n != 257), f"{what}: vector stores {vec}, "
+                      f"expected {n != 257}")
+                d = (img_k.float() - img_p.float()).abs()
+                fwd_err[dtype] = max(fwd_err[dtype], d.max().item())
+                ok = torch.equal(img_k, img_p)
+                log(f"{what} ({'vector' if vec else 'single'} stores): "
+                    f"max|img-plain| {d.max().item():.3e}, pixels differing "
+                    f"{(d > 0).sum().item()}; gate: bit-equal: "
+                    f"{'pass' if ok else 'FAIL'}")
+                check(ok, f"{what}: not bit-equal to the plain version")
 
     # -- phase 6: sphere_bwd against its plain version, determinism --------
-    bwd_err = 0.0
-    g_rand = torch.from_numpy(np.random.default_rng(7).standard_normal(
-        (N, N)).astype(np.float32)).to(dev)
-    for seed in SEEDS:
-        p = cuda_vec(seed)
-        dp1 = S.sphere_bwd(p, g_rand, N, EXTENT)
-        dp2 = S.sphere_bwd(p, g_rand, N, EXTENT)
-        ref = S.sphere_bwd_plain(p, g_rand, N, EXTENT)
-        torch.cuda.synchronize()
-        check(torch.equal(dp1, dp2), "sphere_bwd: two runs differ")
-        scale = max(1.0, ref.abs().max().item())
-        err = (dp1 - ref).abs()
-        bwd_err = max(bwd_err, err.max().item())
-        ok = bool((err <= 2e-4 * scale + 2e-4 * ref.abs()).all().item())
-        log(f"phase 6 sphere_bwd scene={seed}: max|dp-plain| "
-            f"{err.max().item():.3e} (scale {scale:.3e}), bitwise "
-            f"deterministic: yes; gate rtol 2e-4 atol 2e-4*scale: "
-            f"{'pass' if ok else 'FAIL'}")
-        check(ok, f"sphere_bwd vs plain (scene {seed}): {err.tolist()}")
+    bwd_err = bwd_cases(torch, dev, "phase 6 sphere_bwd",
+                        lambda p, g, ts, n: (
+                            S.sphere_bwd(p, g, n, EXTENT),
+                            S.sphere_bwd(p, g, n, EXTENT),
+                            {"plain": S.sphere_bwd_plain(p, g, n, EXTENT)}),
+                        cuda_vec, lambda g, ts, n: S.bwd_vector_loads(g, n))
 
     # -- phase 7: the sphere path, counted ---------------------------------
     model = S.SphereRender(cuda_vec(None), n=N, extent=EXTENT)
@@ -1046,8 +1118,7 @@ def run_sphere(torch, dev, timer, cuda_vec):
         opt.step()
     launches = dict(LAUNCHES)
     want = {"sphere_fwd": TRAIN_STEPS, "sphere_fwd_bf16": 1,
-            "sphere_bwd": TRAIN_STEPS + 1,
-            "sphere_bwd_reduce": TRAIN_STEPS + 1}
+            "sphere_bwd": TRAIN_STEPS + 1}
     log(f"phase 7 launches over {TRAIN_STEPS} f32 steps and 1 bf16 step: "
         f"{launches}")
     check(launches == want, f"expected {want}, got {launches}")
@@ -1058,8 +1129,11 @@ def run_sphere(torch, dev, timer, cuda_vec):
     g_mean = torch.full((N, N), 1.0 / rays, device=dev)
     ms = {k: timer(fn, 200) for k, fn in (
         ("sphere_fwd", lambda: S.sphere_fwd(p_ref, N, EXTENT, f32)),
-        ("sphere_fwd_bf16", lambda: S.sphere_fwd(p_ref, N, EXTENT, bf16)),
-        ("sphere_bwd", lambda: S.sphere_bwd(p_ref, g_mean, N, EXTENT)))}
+        ("sphere_fwd_bf16", lambda: S.sphere_fwd(p_ref, N, EXTENT, bf16)))}
+    ms["sphere_bwd"] = timed_bwd(
+        torch, timer, "phase 8 sphere_bwd",
+        lambda: S.sphere_bwd(p_ref, g_mean, N, EXTENT),
+        S.bwd_vector_loads(g_mean, N))
     plain_ms = {k: timer(fn, 20, hold_ms=1000.0, plain=True) for k, fn in (
         ("sphere_fwd", lambda: S.sphere_fwd_plain(p_ref, N, EXTENT, f32)),
         ("sphere_fwd_bf16",
@@ -1089,6 +1163,44 @@ def run_sphere(torch, dev, timer, cuda_vec):
             f"bound {bounds[k][0]:.5f} ms by {bounds[k][1]})")
     log(f"phase 8 work: {hits} hit pixels of {rays}; library call: none "
         f"computes any of these functions")
+    # the routes, registers and whole-kernel issue floors (derived, for
+    # the record): the fewest SASS instructions a warp of these
+    # straight-line kernels issues (path_counts) x their warps, over the
+    # card's issue rate
+    lib_path = _build.build("sphere_render")
+    sass = sass_of(lib_path)
+    rate, rate_text = issue_rate(torch)
+    geometry = source_constants("sphere_render.cu", "kFwdThreads",
+                                "kFwdPixels", "kSphereSumThreads",
+                                "kSphereSumPixels")
+    fwd_geometry = (geometry["kFwdThreads"], geometry["kFwdPixels"])
+    img_f = S.sphere_fwd(p_ref, N, EXTENT, f32)
+    img_b = S.sphere_fwd(p_ref, N, EXTENT, bf16)
+    log(f"phase 8 routes at {N}^2: sphere_fwd "
+        + ("one 16-byte store a thread" if S.fwd_vector_stores(img_f, N)
+           else "single stores")
+        + ", sphere_fwd_bf16 "
+        + ("one 8-byte store a thread" if S.fwd_vector_stores(img_b, N)
+           else "single stores")
+        + ", sphere_bwd "
+        + ("float4" if S.bwd_vector_loads(g_mean, N) else "single-float")
+        + " loads of g")
+    for name, fn, (threads, pixels) in (
+            ("sphere_fwd", "sphere_fwd_kernelIf", fwd_geometry),
+            ("sphere_fwd_bf16", "sphere_fwd_kernelI13__nv_bfloat16",
+             fwd_geometry),
+            ("sphere_bwd", "SpherePixel",
+             (geometry["kSphereSumThreads"], geometry["kSphereSumPixels"]))):
+        laid_out, fewest = path_counts(sass, fn)
+        warps = N * -(-N // (threads * pixels)) * -(-threads // 32)
+        floor_ms = 1e3 * fewest * warps / rate
+        log(f"phase 8 {name} issue floor (derived, not measured): "
+            f"blocks of {threads} threads x {pixels} pixels a thread, "
+            f"{warps} warps x {fewest} SASS instructions on its shortest "
+            f"path ({laid_out} laid out; cuobjdump) over {rate_text} = "
+            f"{floor_ms:.5f} ms, {floor_ms / ms[name]:.4f} of the measured "
+            f"{ms[name]:.5f} ms (bound {bounds[name][0]:.5f} ms by "
+            f"{bounds[name][1]}); ptxas: " + resources_text(lib_path, (fn,)))
     log(f"phase 8 mini-app contrast (device time per frame): "
         f"render_staged (separate kernels) {staged_ms:.4f} ms, one "
         f"sphere_fwd launch {ms['sphere_fwd']:.5f} ms, "
@@ -1623,30 +1735,42 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
 
     def relax_steps(**kw):
         return K.march_counts(p_ref, N, STEPS, EXTENT, **relax_kw, **kw)[1]
+    # sdf_tail: thread j of a block of 256 takes survivor j, so a warp
+    # takes 32 consecutive survivors; a survivor's loop iterations are its
+    # tail advances (one evaluation each, the last one's the hit test's;
+    # the replayed advance's distance is evaluated before the loop)
+    tail_iters = tail_adv.new_zeros(-(-k // 32) * 32)
+    tail_iters[:k] = tail_adv
+    tail_iters = tail_iters.view(-1, 32)
     floors = {  # name: (its __global__ function, iterations per pixel,
-        #               measured ms, bound, fewest instructions a step)
+        #               measured ms, bound, fewest instructions a step,
+        #               warp columns, block columns and rows)
         "sdf_fwd": ("sdf_fwd_kernelIfLb0ELb0EE",
                     K.march_counts(p_ref, N, STEPS, EXTENT)[0], fwd0_ms,
                     bound(8 * rays + 64, shade_flops() + z_march_flops()),
-                    FWD_FLOPS_PER_EVAL),
+                    FWD_FLOPS_PER_EVAL, cols, block_cols, block_rows),
         "sdf_fwd_bf16": ("sdf_fwd_kernelI13__nv_bfloat16Lb0ELb0EE",
                          K.march_counts(p_ref, N, STEPS, EXTENT,
                                         dtype=bf16)[0],
                          ms["sdf_fwd_bf16"], work["sdf_fwd_bf16"][2],
-                         FWD_FLOPS_PER_EVAL),
+                         FWD_FLOPS_PER_EVAL, cols, block_cols, block_rows),
         "sdf_fwd_relax": ("sdf_fwd_kernelIfLb1ELb0EE", relax_steps(),
                           ms["sdf_fwd_relax"], work["sdf_fwd_relax"][2],
-                          relax_least),
+                          relax_least, cols, block_cols, block_rows),
         "sdf_fwd_relax_bf16": ("sdf_fwd_kernelI13__nv_bfloat16Lb1ELb0EE",
                                relax_steps(dtype=bf16),
                                ms["sdf_fwd_relax_bf16"],
-                               work["sdf_fwd_relax_bf16"][2], relax_least),
+                               work["sdf_fwd_relax_bf16"][2], relax_least,
+                               cols, block_cols, block_rows),
         "sdf_fwd_split": ("sdf_fwd_kernelIfLb0ELb1EE",
                           K.march_counts(p_ref, N, 16, EXTENT)[0],
                           ms["sdf_fwd_split"], work["sdf_fwd_split"][2],
-                          FWD_FLOPS_PER_EVAL),
+                          FWD_FLOPS_PER_EVAL, cols, block_cols, block_rows),
+        "sdf_tail": ("sdf_tail_kernel", tail_iters, ms["sdf_tail"],
+                     work["sdf_tail"][2], FWD_FLOPS_PER_EVAL, 32, 32, 8),
     }
-    for name, (kernel, iters, t_ms, (b_ms, b_by), least) in floors.items():
+    for name, (kernel, iters, t_ms, (b_ms, b_by), least, cols,
+               block_cols, block_rows) in floors.items():
         first, last, laid_out, loop_ins = loop_counts(sass, kernel)
         warp_iters = warp_evaluations(iters, cols)
         floor_ms = 1e3 * loop_ins * warp_iters / rate

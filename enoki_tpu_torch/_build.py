@@ -162,11 +162,10 @@ SIGNATURES = {
         "generic_bwd_reduce_launch": (_P, _I, _P, _P),
     },
     "sphere_render": {
-        "sphere_fwd_launch": (_P, _P, _I, _F, _F, _P),
-        "sphere_fwd_bf16_launch": (_P, _P, _I, _F, _F, _P),
+        "sphere_fwd_launch": (_P, _P, _I, _F, _F, _I, _P),
+        "sphere_fwd_bf16_launch": (_P, _P, _I, _F, _F, _I, _P),
         "sphere_bwd_num_blocks": (_I,),
-        "sphere_bwd_partial_launch": (_P, _P, _P, _I, _F, _F, _P),
-        "sphere_bwd_reduce_launch": (_P, _I, _P, _P),
+        "sphere_bwd_launch": (_P, _P, _P, _P, _P, _I, _F, _F, _I, _P),
     },
     "hist": {
         "hist_num_blocks": (_L, _I),

@@ -40,6 +40,8 @@
 namespace {
 
 struct ReversePixel {
+  static constexpr bool kReadsTs = true;
+
   struct Scene {
     float cx, cy, cz, gain, lx, ly, lz;
   };

@@ -91,6 +91,21 @@ def sphere_bwd_plain(params, g, n: int, extent: float = 1.2):
 # ---------------------------------------------------------------------------
 
 
+def fwd_vector_stores(img, n: int) -> bool:
+    """Whether the sphere_fwd kernels store a thread's 4 pixels as one
+    vector (16 bytes in f32, 8 in bf16): a row is whole vectors (n % 4 ==
+    0) and ``img`` starts on 16 bytes. Otherwise they store every pixel on
+    its own."""
+    return n % 4 == 0 and img.data_ptr() % 16 == 0
+
+
+def bwd_vector_loads(g, n: int) -> bool:
+    """Whether the sphere_bwd kernel loads ``g`` as float4: a row is whole
+    float4s (n % 4 == 0) and ``g`` starts on 16 bytes. Otherwise it loads
+    every pixel on its own."""
+    return n % 4 == 0 and g.data_ptr() % 16 == 0
+
+
 def sphere_fwd(params, n: int, extent: float = 1.2, dtype=torch.float32):
     """Forward render -> (n, n) image of ``dtype`` (f32 or bf16): the
     sphere_fwd kernel of that dtype for a CUDA tensor, the plain version
@@ -105,16 +120,17 @@ def sphere_fwd(params, n: int, extent: float = 1.2, dtype=torch.float32):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, f"{kernel}_launch")(
             params.data_ptr(), img.data_ptr(), n, pixel_step(n, extent),
-            extent, stream)
+            extent, int(fwd_vector_stores(img, n)), stream)
     _build.launched(err, kernel)
     return img
 
 
 def sphere_bwd(params, g, n: int, extent: float = 1.2):
     """Parameter cotangent dp[16] of the f32 render for the image
-    cotangent ``g`` (a bf16 ``g`` is upcast): the sphere_bwd kernels
-    (per-block partial sums, then one fixed-order reduce) for CUDA
-    tensors, the plain version for CPU ones."""
+    cotangent ``g`` (a bf16 ``g`` is upcast) in one launch of the
+    sphere_bwd kernel, whose blocks write per-block sums and whose last
+    block sums them in a fixed order, for CUDA tensors; the plain version
+    for CPU ones."""
     if not _build.is_cuda(params):
         return sphere_bwd_plain(params, g, n, extent)
     dev = params.device
@@ -127,13 +143,12 @@ def sphere_bwd(params, g, n: int, extent: float = 1.2):
     dp = torch.empty(N_PARAMS, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sphere_bwd_partial_launch(
-            params.data_ptr(), g.data_ptr(), partial.data_ptr(), n,
-            pixel_step(n, extent), extent, stream)
+        err = lib.sphere_bwd_launch(
+            params.data_ptr(), g.data_ptr(), partial.data_ptr(),
+            _build.ticket(dev, stream).data_ptr(), dp.data_ptr(), n,
+            pixel_step(n, extent), extent, int(bwd_vector_loads(g, n)),
+            stream)
         _build.launched(err, "sphere_bwd")
-        err = lib.sphere_bwd_reduce_launch(partial.data_ptr(), rows,
-                                           dp.data_ptr(), stream)
-        _build.launched(err, "sphere_bwd_reduce")
     return dp
 
 

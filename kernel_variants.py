@@ -2,12 +2,16 @@
 """Design variants of the kernels of the PyTorch/CUDA port, timed in
 turns on one CUDA card, and some of them of another checkout beside them.
 
-  python kernel_variants.py [--sdf-only | --bwd-only] [--ab OTHER_ROOT]
+  python kernel_variants.py [--sdf-only | --bwd-only | --sphere-only]
+                            [--ab OTHER_ROOT]
 
 The SDF backward pair (sdf_bwd in csrc/sdf_render.cu, sdf_bwd_ad in
 csrc/sdf_bwd_ad.cu, both on csrc/pixel_sum.cuh) on the reference sphere at
-1024^2 with g = 1 / N^2; the sdf_fwd family (csrc/sdf_render.cu: sdf_fwd, sdf_fwd_bf16,
-sdf_fwd_relax and sdf_fwd_relax_bf16 with relax 1.6 and unimodal,
+1024^2 with g = 1 / N^2; the sphere kernels (csrc/sphere_render.cu:
+sphere_bwd on csrc/pixel_sum.cuh, sphere_fwd in f32 and bf16) on the
+reference scene at 1024^2, g = 1 / N^2; the sdf_fwd family
+(csrc/sdf_render.cu: sdf_fwd, sdf_fwd_bf16, sdf_fwd_relax and
+sdf_fwd_relax_bf16 with relax 1.6 and unimodal,
 sdf_fwd_split at split 16) on the reference sphere at 1024^2, 64 steps;
 generic_fwd and generic_bwd (csrc/generic_render.cuh) on chip_smoke.py's
 composed scene at 1024^2, 64 steps (g = 1 / N^2 for the backward);
@@ -16,9 +20,9 @@ data, f16 and bf16; hist (csrc/hist.cu) at 16M samples, 64 bins, on
 binned normal samples, counting and weighted. A variant is the shipped
 source with one constant or one piece of text replaced, built by nvcc
 through enoki_tpu_torch._build; each is checked against its plain
-version (the backward pair: within rtol 2e-4 / atol 2e-4 * scale at
-1024^2 and 257^2, two runs bit-equal; the sdf_fwd family: every output
-bit-equal; generic_fwd: ts
+version (the backward pairs and sphere_bwd: within rtol 2e-4 / atol
+2e-4 * scale at 1024^2 and 257^2, two runs bit-equal; the sdf_fwd family
+and sphere_fwd: every output bit-equal; generic_fwd: ts
 bit-equal, image within 1e-3; generic_bwd within rtol 2e-4 / atol 2e-4 *
 scale; stochastic_round bit-equal; hist counts exactly) before it is
 timed, and the variants are timed twice, in one order and then in the
@@ -43,6 +47,26 @@ other. The variants:
                256 threads, float4 or single floats); then the probes,
                timed and not gated: g summed alone, the rows alone, the
                ticket without the last block's sum, no fence
+  sphere_bwd   256 threads x 4 pixels of a row a thread (shipped), 256 x
+               8, 128 x 8 or 128 x 4, each on the pixel-sum skeleton's
+               g-only branch; and with the shipped geometry each step of
+               the redesign reverted alone: the blocks' rows summed by
+               reduce_rows_kernel in a second launch, single-float loads,
+               each pixel's column from its 64-bit flat index, the row's
+               terms computed for each pixel, the hit's division by the
+               IEEE division (not __fdividef); the probes, timed and not
+               gated: g summed alone (4 MiB), the hit test alone (no hit's
+               terms)
+  sphere_fwd   f32 and bf16 in one library: 128, 256 or 512 threads x 1,
+               2, 4 or 8 pixels a thread (shipped: 256 x 4 in both, one
+               16-byte store a thread in f32, one 8-byte store in bf16;
+               8 bf16 pixels take one 16-byte store); and with the shipped
+               geometry the row's terms for each pixel, the exact
+               identities kept (the plain version's graph as written: a,
+               b, the division, o + d t, the mask on the normal), one
+               pixel a thread in blocks of 32 x 8 (the earlier layout),
+               scalar stores; the probe, timed and not gated: the stores
+               alone (every pixel ambient)
   sdf_fwd      a warp on an 8 x 4 tile of pixels in blocks of 16 x 8
                (shipped), of 8 x 8 or 32 x 8; 4 x 8 tiles in the same
                three; 32 x 1 in 32 x 8 (the earlier geometry); and with
@@ -81,13 +105,16 @@ other. The variants:
                pipelined, and a row per warp for every bins (the earlier
                design)
 
---sdf-only times the sdf_fwd family's variants alone, --bwd-only the
-backward pair's. --ab OTHER_ROOT times the sdf_fwd family, the backward
-kernels (sdf_bwd, sdf_bwd_ad, sphere_bwd, generic_bwd), generic_fwd and
-stochastic_round (f16 and bf16) of the enoki_tpu_torch under OTHER_ROOT (a checkout of another
-commit, with its own chip_smoke.py) in child processes, interleaved:
-other, this, this, other, each with its kernels' ptxas registers and
-spills.
+--sdf-only times the sdf_fwd family's variants alone, --bwd-only the SDF
+backward pair's, --sphere-only the sphere kernels'. --ab OTHER_ROOT
+times the sdf_fwd family, the backward kernels (sdf_bwd, sdf_bwd_ad,
+sphere_bwd, generic_bwd), sphere_fwd (f32 and bf16), generic_fwd and
+stochastic_round (f16 and bf16) of the enoki_tpu_torch under OTHER_ROOT
+(a checkout of another commit, with its own chip_smoke.py) in child
+processes, interleaved: other, this, this, other, each with its kernels'
+ptxas registers and spills; each child also hashes the SDF backward
+pair's dp on chip_smoke.py's phase 2 / 11 cases, and the last line says
+whether the two checkouts give the same bits.
 
 Needs a CUDA card; prints one line per variant (the card's name and power
 limit first), and its ptxas registers and spills.
@@ -171,6 +198,11 @@ def time_root(root):
             ("generic_bwd_ms",
              lambda: G.generic_bwd(kern, p, g, ts_generic, N))):
         out[name] = timer(fn, 200)
+    for name, dtype in (("sphere_fwd_ms", torch.float32),
+                        ("sphere_fwd_bf16_ms", torch.bfloat16)):
+        out[name] = timer(lambda dtype=dtype: S.sphere_fwd(p_sdf, N, 1.2,
+                                                           dtype), 200)
+    out.update(bwd_bits(torch, C, K, dev))
     for name, fn in (
             ("generic_fwd_ms", lambda: G.generic_fwd(kern, p, N, STEPS)),
             ("stochastic_round_f16_ms",
@@ -185,6 +217,10 @@ def time_root(root):
                         ("AnalyticPixel", "sdf_bwd_partial_kernel")),
         first_resources(C, _build.build("sdf_bwd_ad"),
                         ("ReversePixel", "sdf_bwd_ad_partial_kernel")),
+        first_resources(C, _build.build("sphere_render"),
+                        ("SpherePixel", "sphere_bwd_partial_kernel")),
+        C.resources_text(_build.build("sphere_render"), (
+            "sphere_fwd_kernelIf", "sphere_fwd_kernelI13__nv_bf")),
         first_resources(C, _build.build_generated(
             "generic_render", kern.traced.source),
             ("generic_fwd_kernelILb0E", "generic_fwd_kernel")),
@@ -192,6 +228,30 @@ def time_root(root):
             "stochastic_round_kernelILb1ELb1E",
             "stochastic_round_kernelILb0ELb1E"))])
     print(json.dumps(out))
+
+
+def bwd_bits(torch, C, K, dev):
+    """A digest of the SDF backward pair's dp bits on chip_smoke.py's
+    phase 2 / 11 cases (its BWD_SIZES, SEEDS, the mixed and the all-miss
+    scene, a seeded g and 1/n^2), by kernel: two checkouts whose kernels
+    sum in the same order give the same digests."""
+    import hashlib
+    digests = {"sdf_bwd": hashlib.sha256(), "sdf_bwd_ad": hashlib.sha256()}
+    for n in C.BWD_SIZES:
+        gs = (torch.from_numpy(np.random.default_rng(7).standard_normal(
+            (n, n)).astype(np.float32)).to(dev),
+              torch.full((n, n), 1.0 / (n * n), device=dev))
+        for seed in C.SEEDS:
+            for shift in (0.0, 10.0):
+                p = torch.from_numpy(C.scene_vec(seed)).to(dev)
+                p[0] += shift
+                ts = K.sdf_fwd(p, n, STEPS, 1.2)[1]
+                for g in gs:
+                    for name, kernel in (("sdf_bwd", "analytic"),
+                                         ("sdf_bwd_ad", "ad")):
+                        dp = K.sdf_bwd(p, g, ts, n, 1.2, kernel)
+                        digests[name].update(dp.cpu().numpy().tobytes())
+    return {f"{name}_bits": d.hexdigest()[:16] for name, d in digests.items()}
 
 
 def substitute(text, pairs):
@@ -640,21 +700,21 @@ INDEX64 = [("""        F::hit(sc, g, t, col, py, step, extent, d);""",
 # a thread's pixels in straight-line code, a miss's terms dropped by a
 # select, under one vote of the warp (a warp without a hit adds g alone)
 PIXEL_LOOP = """#pragma unroll
-  for (int j = 0; j < kChunks; ++j) {
+    for (int j = 0; j < kChunks; ++j) {
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) {
-      const int col = seg + (j * kThreads + threadIdx.x) * kVec + e;
-      const float g = gv[j * kVec + e], t = tv[j * kVec + e];
-      if (t >= 0.0f) {  // a hit stores t itself
-        float d[kNGrad];
-        F::hit(sc, g, t, col, py, step, extent, d);
+      for (int e = 0; e < kVec; ++e) {
+        const int col = seg + (j * kThreads + threadIdx.x) * kVec + e;
+        const float g = gv[j * kVec + e], t = tv[j * kVec + e];
+        if (t >= 0.0f) {  // a hit stores t itself
+          float d[kNGrad];
+          F::hit(sc, g, t, col, py, step, extent, d);
 #pragma unroll
-        for (int k = 0; k < kNGrad; ++k) acc[k] += d[k];
-      } else {
-        acc[4] += g;
+          for (int k = 0; k < kNGrad; ++k) acc[k] += d[k];
+        } else {
+          acc[4] += g;
+        }
       }
-    }
-  }"""
+    }"""
 WARP_VOTE = [(PIXEL_LOOP, """  bool any_hit = false;
 #pragma unroll
   for (int k = 0; k < kPixels; ++k) any_hit |= tv[k] >= 0.0f;
@@ -744,6 +804,8 @@ __device__ __forceinline__ Dual relu(const Dual& a) {
 }
 
 struct ReversePixel {
+  static constexpr bool kReadsTs = true;
+
   struct Scene {
     const float* params;
   };
@@ -1110,6 +1172,215 @@ def run_bwd_variants(torch, dev, timer, C):
               + C.resources_text(path, (BWD_PAIR[k][2],)))
 
 
+# the sphere path (csrc/sphere_render.cu): sphere_bwd on the pixel-sum
+# skeleton, its g-only branch
+SPHERE_SUM_GEOMETRY = ("constexpr int kSphereSumThreads = {}, "
+                       "kSphereSumPixels = {};")
+SPHERE_PIXEL_CALL = ("        if (col < n)\n"
+                     "          F::pixel(sc, r, gv[j * kVec + e], col, step, "
+                     "extent, acc);\n")
+SPHERE_BWD_SHIPPED = "256 threads x 4 pixels (shipped)"
+SPHERE_BWD_VARIANTS = {
+    SPHERE_BWD_SHIPPED: [],
+    **{f"{t} threads x {px} pixels": [
+        (SPHERE_SUM_GEOMETRY.format(256, 4),
+         SPHERE_SUM_GEOMETRY.format(t, px))]
+       for t, px in ((256, 8), (128, 8), (128, 4))},
+    "two launches (reduce_rows_kernel)": TWO_LAUNCHES,
+    "single-float loads": [("  if (vec) {", "  if (false) {")],
+    # each pixel's column from its flat 64-bit index, as before
+    "64-bit index": [(SPHERE_PIXEL_CALL, """\
+        const int64_t i = static_cast<int64_t>(row) * n + col;
+        const int r64 = static_cast<int>(i / n);
+        if (col < n)
+          F::pixel(sc, r, gv[j * kVec + e],
+                   static_cast<int>(i - static_cast<int64_t>(r64) * n), step,
+                   extent, acc);
+""")],
+    "row terms per pixel": [("F::pixel(sc, r, ",
+                             "F::pixel(sc, F::row(sc, row, step, extent), ")],
+    # the hit's one division by the IEEE division, as before
+    "the IEEE division": [(
+        "disc > 0.0f ? __fdividef(dhz * 0.25f, sq) : 0.0f;",
+        "disc > 0.0f ? dhz * 0.25f / sq : 0.0f;")],
+}
+SPHERE_BWD_PROBES = {
+    "probe: the hit test alone (no hit's terms)": [(
+        "    if (!(disc >= 0.0f)) return;  // a miss contributes nothing "
+        "else\n",
+        "    acc[5] += disc >= 0.0f ? g : 0.0f;\n    return;\n")],
+    "probe: g summed alone at 4 MiB (no pixel's terms)": [
+        (SPHERE_PIXEL_CALL,
+         "        if (col < n) acc[4] += gv[j * kVec + e];\n")],
+}
+# sphere_fwd, one geometry for both dtypes
+FWD_GEOMETRY = "constexpr int kFwdThreads = {}, kFwdPixels = {};"
+FWD_BODY = """\
+  const int row = blockIdx.x;
+  const int col0 = blockIdx.y * (kThreads * kPixels) + threadIdx.x * kPixels;
+  if (col0 >= n) return;
+  const FwdRow<T> r = fwd_row<T>(params, row, step, extent);
+  T v[kPixels];
+#pragma unroll
+  for (int e = 0; e < kPixels; ++e)
+    v[e] = sphere_pixel<T>(r, col0 + e, step, extent);
+"""
+# one pixel a thread in blocks of 32 x 8 pixels (the earlier layout)
+ONE_PIXEL = [
+    (FWD_BODY + """\
+  T* out = img + static_cast<size_t>(row) * n + col0;
+  if (vec) {
+    store_vector<T, kPixels>(out, v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < kPixels; ++e)
+      if (col0 + e < n) out[e] = v[e];
+  }
+""", """\
+  const int col = blockIdx.x * 32 + threadIdx.x % 32;
+  const int row = blockIdx.y * 8 + threadIdx.x / 32;
+  if (col >= n || row >= n) return;
+  const FwdRow<T> r = fwd_row<T>(params, row, step, extent);
+  img[static_cast<size_t>(row) * n + col] =
+      sphere_pixel<T>(r, col, step, extent);
+"""),
+    ("  const dim3 grid(n, (n + kSegment - 1) / kSegment);",
+     "  const dim3 grid((n + 31) / 32, (n + 7) / 8);"),
+    (FWD_GEOMETRY.format(256, 4), FWD_GEOMETRY.format(256, 1))]
+# the forward's graph as the plain version writes it: a = d.d and
+# b = 2 oc.d computed, the division by 2a, hit_p = o + d t - c, the mask
+# on the normal
+IDENTITIES_KEPT = """\
+  using O = Ops<T>;
+  const T zero = O::of(0.0f), one = O::of(1.0f);
+  const T px = O::of(pixel_coord(col, step, extent));
+  const T oz = O::of(-1.0f), dx = zero, dy = zero, dz = one;
+  const T ocx = O::sub(px, r.cx), ocy = O::sub(r.py, r.cy);
+  const T ocz = O::sub(oz, r.cz);
+  const T a = tdot3<O>(dx, dy, dz, dx, dy, dz);
+  const T b = O::mul(O::of(2.0f), tdot3<O>(ocx, ocy, ocz, dx, dy, dz));
+  const T c = O::sub(tdot3<O>(ocx, ocy, ocz, ocx, ocy, ocz), r.r2);
+  const T discrim = O::sub(O::mul(b, b), O::mul(O::mul(O::of(4.0f), a), c));
+  const float d32 = O::f32(discrim);
+  const T t = O::of(__fdiv_rn(add(-O::f32(b), __fsqrt_rn(fmaxf(d32, 0.0f))),
+                              mul(2.0f, O::f32(a))));
+  const bool valid = d32 >= 0.0f;
+  const T hx = O::sub(O::add(px, O::mul(dx, t)), r.cx);
+  const T hy = O::sub(O::add(r.py, O::mul(dy, t)), r.cy);
+  const T hz = O::sub(O::add(oz, O::mul(dz, t)), r.cz);
+  const T nx = valid ? hx : zero, ny = valid ? hy : zero;
+  const T nz = valid ? hz : zero;
+  const T s = tdot3<O>(nx, ny, nz, r.lx, r.ly, r.lz);
+  const T lambert = O::f32(s) > 0.0f ? s : zero;
+  return O::add(r.amb, O::mul(lambert, r.gain));
+}
+"""
+SPHERE_FWD_VARIANTS = {
+    **{f"{t} threads x {px} pixels" + (" (shipped)" if (t, px) == (256, 4)
+                                         else ""): [
+        (FWD_GEOMETRY.format(256, 4), FWD_GEOMETRY.format(t, px))]
+       for t in (128, 256, 512) for px in (1, 2, 4, 8)},
+    "row terms per pixel": [(
+        "    v[e] = sphere_pixel<T>(r, col0 + e, step, extent);",
+        "    v[e] = sphere_pixel<T>(fwd_row<T>(params, row, step, extent),\n"
+        "                           col0 + e, step, extent);")],
+    "the exact identities kept": [
+        ("  float nb;  // -b in f32\n};",
+         "  float nb;  // -b in f32\n  T py, cy, ly;\n};"),
+        ("O::mul(ocy, ly), -O::f32(b)};",
+         "O::mul(ocy, ly), -O::f32(b),\n"
+         "                   O::of(pixel_coord(row, step, extent)), cy, ly};"),
+        "identities"],
+    "one pixel a thread in 32 x 8 blocks": ONE_PIXEL,
+    "scalar stores": [("  if (vec) {\n    store_vector",
+                       "  if (false) {\n    store_vector")],
+}
+SPHERE_FWD_PROBES = {
+    "probe: stores alone (every pixel ambient)": [(
+        "    v[e] = sphere_pixel<T>(r, col0 + e, step, extent);",
+        "    v[e] = r.amb;")],
+}
+
+
+def sphere_fwd_text(source, pairs):
+    """``source`` with a sphere_fwd variant's substitutions; the string
+    "identities" among them puts IDENTITIES_KEPT in place of the body of
+    sphere_pixel."""
+    source = substitute(source, [p for p in pairs if p != "identities"])
+    if "identities" not in pairs:
+        return source
+    a = source.index("  using O = Ops<T>;\n  // intersect_rays")
+    b = source.index("\n}\n", a) + len("\n}\n")
+    return source[:a] + IDENTITIES_KEPT + source[b:]
+
+
+def run_sphere_variants(torch, dev, timer, C):
+    """The sphere path's design variants: sphere_bwd's and sphere_fwd's
+    (f32 and bf16), each built, held to its plain version (sphere_bwd
+    under chip_smoke.py's phase 6 gate at 1024^2 and 257^2 and bitwise
+    equal from run to run; sphere_fwd bit-equal at 1024^2 and 257^2),
+    timed in two passes (one order, then the other) at 1024^2 on the
+    reference scene (g = 1 / N^2), ptxas's report printed; and the probes,
+    timed alone."""
+    from concurrent.futures import ThreadPoolExecutor
+    from unittest import mock
+
+    from enoki_tpu_torch import _build
+    from enoki_tpu_torch.render import sphere_kernels as S
+
+    source = inlined("sphere_render")
+    texts = {("bwd", name): substitute(source, pairs) for name, pairs in
+             {**SPHERE_BWD_VARIANTS, **SPHERE_BWD_PROBES}.items()}
+    texts.update({("fwd", name): sphere_fwd_text(source, pairs)
+                  for name, pairs in
+                  {**SPHERE_FWD_VARIANTS, **SPHERE_FWD_PROBES}.items()})
+    with ThreadPoolExecutor(len(texts)) as ex:
+        libs = dict(zip(texts, ex.map(
+            lambda t: _build.load_generated("sphere_render", t),
+            texts.values())))
+    p = torch.from_numpy(C.scene_vec(None)).to(dev)
+    probes = {*SPHERE_BWD_PROBES, *SPHERE_FWD_PROBES}
+    g_mean = torch.full((N, N), 1.0 / (N * N), device=dev)
+    cases = {n: torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (n, n)).astype(np.float32)).to(dev) for n in (N, 257)}
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    times = {}
+    for order in (1, -1):
+        for (kind, name), lib in list(libs.items())[::order]:
+            with mock.patch.object(_build, "load", lambda _, lib=lib: lib):
+                if kind == "bwd":
+                    for n, g in (() if name in probes else cases.items()):
+                        dp = S.sphere_bwd(p, g, n)
+                        ref = S.sphere_bwd_plain(p, g, n)
+                        scale = max(1.0, ref.abs().max().item())
+                        if not (torch.equal(dp, S.sphere_bwd(p, g, n))
+                                and bool(((dp - ref).abs() <= 2e-4 * scale
+                                          + 2e-4 * ref.abs()).all().item())):
+                            raise RuntimeError(f"sphere_bwd {name} n={n}: "
+                                               "off its gate")
+                    times.setdefault(("sphere_bwd", name), []).append(timer(
+                        lambda: S.sphere_bwd(p, g_mean, N), 200))
+                    continue
+                for tag, dtype in dtypes.items():
+                    for n in (() if name in probes else (N, 257)):
+                        if not torch.equal(S.sphere_fwd(p, n, 1.2, dtype),
+                                           S.sphere_fwd_plain(p, n, 1.2,
+                                                              dtype)):
+                            raise RuntimeError(f"sphere_fwd {tag} {name} "
+                                               f"n={n}: not bit-equal")
+                    times.setdefault((f"sphere_fwd {tag}", name), []).append(
+                        timer(lambda dtype=dtype: S.sphere_fwd(p, N, 1.2,
+                                                               dtype), 200))
+    for (k, name), t in sorted(times.items()):
+        print(f"{k} {name}: {' / '.join(f'{v:.5f}' for v in t)} ms")
+    for (kind, name), text in texts.items():
+        path = _build.build_generated("sphere_render", text)
+        kernels = (("SpherePixel",) if kind == "bwd" else
+                   ("sphere_fwd_kernelIf", "sphere_fwd_kernelI13__nv_bf"))
+        print(f"ptxas sphere_{kind} {name}: "
+              + C.resources_text(path, kernels))
+
+
 def traced_with_identities(kern):
     """The scene's source traced with every operation recorded, the exact
     identities that the tracer leaves out (sdf_trace.Trace._identity)
@@ -1282,6 +1553,8 @@ def main():
                     help="time the sdf_fwd family's variants alone")
     ap.add_argument("--bwd-only", action="store_true",
                     help="time the SDF backward pair's variants alone")
+    ap.add_argument("--sphere-only", action="store_true",
+                    help="time the sphere kernels' variants alone")
     ap.add_argument("--time-root", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time_root:
@@ -1294,19 +1567,34 @@ def main():
         sys.exit("kernel_variants: needs a CUDA card")
     print(C.nvidia_smi("name,power.limit"))
     dev, timer = torch.device("cuda"), C.DeviceTimer(torch)
-    if not args.sdf_only:
+    only = [args.sdf_only, args.bwd_only, args.sphere_only]
+    if sum(only) > 1:
+        sys.exit("kernel_variants: at most one of --sdf-only, --bwd-only "
+                 "and --sphere-only")
+    if args.bwd_only or not any(only):
         run_bwd_variants(torch, dev, timer, C)
-    if not args.bwd_only:
+    if args.sdf_only or not any(only):
         run_sdf_variants(torch, dev, timer, C)
-    if not (args.sdf_only or args.bwd_only):
+    if args.sphere_only or not any(only):
+        run_sphere_variants(torch, dev, timer, C)
+    if not any(only):
         run_variants(torch, dev, timer, C)
     if args.ab:
+        bits = {}
         for root in (args.ab, HERE, HERE, args.ab):
             out = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--time-root",
                  os.path.abspath(root)], cwd=root, check=True,
                 capture_output=True, text=True)
-            print(out.stdout.strip().splitlines()[-1])
+            line = out.stdout.strip().splitlines()[-1]
+            print(line)
+            got = json.loads(line)
+            bits.setdefault(root, set()).add(
+                (got["sdf_bwd_bits"], got["sdf_bwd_ad_bits"]))
+        same = len(set.union(*bits.values())) == 1
+        print("the SDF backward pair's dp bits on the phase 2 / 11 cases: "
+              + ("the same in both checkouts and runs" if same else
+                 f"DIFFER: {bits}"))
 
 
 if __name__ == "__main__":

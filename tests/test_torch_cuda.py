@@ -22,6 +22,7 @@ from enoki_tpu_torch.render.sdf_kernels import (
     sdf_bwd, sdf_bwd_ad_plain, sdf_bwd_plain, sdf_fwd, sdf_fwd_plain,
     sdf_fwd_split, sdf_fwd_split_plain, sdf_split, sdf_split_plain)
 from enoki_tpu_torch.render.sphere_kernels import (
+    bwd_vector_loads as sphere_bwd_vector_loads, fwd_vector_stores,
     render_sphere_cuda, sphere_bwd, sphere_bwd_plain, sphere_fwd,
     sphere_fwd_plain)
 
@@ -267,8 +268,55 @@ def test_render_sphere_cuda_launches_one_of_each(cuda, dtype):
     render_sphere_cuda(p, N, dtype=dtype).float().mean().backward()
     torch.cuda.synchronize()
     fwd = "sphere_fwd" if dtype == torch.float32 else "sphere_fwd_bf16"
-    assert LAUNCHES == {fwd: 1, "sphere_bwd": 1, "sphere_bwd_reduce": 1}
+    # the backward is one launch: its last block sums the blocks' rows
+    assert LAUNCHES == {fwd: 1, "sphere_bwd": 1}
     assert torch.isfinite(p.grad).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_SIZES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shift", [0.0, 10.0], ids=["mixed", "all_miss"])
+def test_sphere_fwd_kernel_at_edge_sizes(params, dtype, n, shift):
+    # one vector store a thread where the rows start on 16 bytes (256 and
+    # 1000 in both dtypes), single stores at 257: bit-equal either way
+    p = params.clone()
+    p[0] += shift
+    img_k = sphere_fwd(p, n, 1.2, dtype)
+    img_p = sphere_fwd_plain(p, n, 1.2, dtype)
+    torch.cuda.synchronize()
+    assert fwd_vector_stores(img_k, n) == (n != 257)
+    assert torch.equal(img_k, img_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_SIZES)
+@pytest.mark.parametrize("shift", [0.0, 10.0], ids=["mixed", "all_miss"])
+def test_sphere_bwd_kernel_at_edge_sizes(params, n, shift):
+    p = params.clone()
+    p[0] += shift
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (n, n)).astype(np.float32)).to(p.device)
+    assert sphere_bwd_vector_loads(g, n) == (n % 4 == 0)
+    reset_launch_counts()
+    dp1 = sphere_bwd(p, g, n, 1.2)
+    assert LAUNCHES == {"sphere_bwd": 1}
+    dp2 = sphere_bwd(p, g, n, 1.2)
+    ref = sphere_bwd_plain(p, g, n, 1.2)
+    torch.cuda.synchronize()
+    assert torch.equal(dp1, dp2)
+    scale = max(1.0, ref.abs().max().item())
+    torch.testing.assert_close(dp1, ref, rtol=2e-4, atol=2e-4 * scale)
+    # single-float loads of a view off 16 bytes: the same pixels a thread
+    # in the same order, so the same bits
+    buf = torch.empty(n * n + 1, device=p.device)
+    g_off = buf[1:].view(n, n)
+    g_off.copy_(g)
+    assert not sphere_bwd_vector_loads(g_off, n)
+    dp3 = sphere_bwd(p, g_off, n, 1.2)
+    torch.cuda.synchronize()
+    assert torch.equal(dp3, dp1)
 
 
 # -- the bring-your-own-SDF renderer: one kernel pair per scene ---------------

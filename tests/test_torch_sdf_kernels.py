@@ -435,21 +435,25 @@ def test_reverse_sweep_at_the_guard_and_the_relu_tie(scene_vec, case, n):
         assert (dz[g > 0].abs() < 1e-6).all()
 
 
-def _header_constant(name):
-    text = (_build.CSRC_DIR / "pixel_sum.cuh").read_text()
+def _header_constant(name, source="pixel_sum.cuh"):
+    text = (_build.CSRC_DIR / source).read_text()
     return int(re.search(rf"{name} = (\d+)", text).group(1))
 
 
 @pytest.mark.parametrize("n", [1, 64, 257, 1000, 1024])
 @pytest.mark.parametrize("threads,pixels", [
-    ("shipped", "shipped"), (128, 2), (128, 4), (128, 8), (256, 2),
-    (256, 8)])
+    ("shipped", "shipped"), ("sphere", "sphere"), (128, 2), (128, 4),
+    (128, 8), (256, 2), (256, 8)])
 def test_pixel_sum_layout_covers_the_image_once(n, threads, pixels):
     # pixel_sum.cuh's map from (row, segment, thread, chunk, element) to a
-    # column, with the shipped geometry and those kernel_variants.py builds
+    # column, with the SDF pair's and sphere_bwd's shipped geometries and
+    # those kernel_variants.py builds
     if threads == "shipped":
         threads = _header_constant("kPixelSumThreads")
         pixels = _header_constant("kPixelSumPixels")
+    elif threads == "sphere":
+        threads = _header_constant("kSphereSumThreads", "sphere_render.cu")
+        pixels = _header_constant("kSphereSumPixels", "sphere_render.cu")
     vec = min(pixels, 4)
     segment = threads * pixels
     segments = (n + segment - 1) // segment

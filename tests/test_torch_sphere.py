@@ -18,6 +18,8 @@ against an autodiff one, rtol 2e-4 / atol 2e-4 * scale
 < 0.01 against f32 (tests/test_pallas.py:65-81).
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -33,13 +35,16 @@ from enoki_tpu.render.pallas_kernels import (render_sphere_pallas,
                                              vec_to_scene as j_vec_to_scene)
 from enoki_tpu.render.vec import Vec3 as JVec3
 
+from enoki_tpu_torch import _build
 from enoki_tpu_torch.interop import scene_from_numpy, scene_to_numpy
+from enoki_tpu_torch.ops.router import safe_sqrt
 from enoki_tpu_torch.render import LAUNCHES, reset_launch_counts
 from enoki_tpu_torch.render import io as t_io
 from enoki_tpu_torch.render import sphere as TS
+from enoki_tpu_torch.render.sdf_kernels import tile_pixels
 from enoki_tpu_torch.render.sphere_kernels import (
-    SphereRender, render_sphere_cuda, sphere_bwd_plain, sphere_fwd,
-    sphere_fwd_plain)
+    SphereRender, fwd_vector_stores, render_sphere_cuda, sphere_bwd_plain,
+    sphere_fwd, sphere_fwd_plain)
 from enoki_tpu_torch.render.vec import Vec3
 
 from test_torch_cuda import SCENES, scene_vec as _scene_vec
@@ -227,6 +232,123 @@ def test_sphere_fwd_plain_bf16_gate(scene_vec):
         # reference's bf16 kernel as for the port's
         img_f = render_sphere_pallas(jnp.asarray(scene_vec), N, 1.2, TILE)
         assert _interior_median_rel(img_b, img_f) < 0.01
+
+
+# -- sphere_fwd's per-pixel sequence (csrc/sphere_render.cu) -----------------
+
+
+def sphere_fwd_hoisted(params, n, extent=1.2, dtype=torch.float32):
+    """sphere_fwd's arithmetic over the whole image, op for op as the
+    kernel writes it (fwd_row, sphere_pixel): the row's terms once, on an
+    (n, 1) column; a = 1 and b = 2 ocz; the halving as a product with 0.5;
+    hit_p = (ocx, ocy, (-1 + t) - cz); one selection for the hit mask and
+    the relu. Returns (image, discrim in f32)."""
+    px, py = tile_pixels(n, extent, params.device)
+    px, py = px[:1, :].to(dtype), py[:, :1].to(dtype)  # (1, n), (n, 1)
+    cx, cy, cz, rad, amb, gain, lx, ly, lz = (params[k].to(dtype)
+                                              for k in range(9))
+    # the row's terms
+    ocy = py - cy
+    ocz = -1.0 - cz
+    b = 2.0 * ocz
+    ocy2, ocz2, r2, b2, ocy_ly = ocy * ocy, ocz * ocz, rad * rad, b * b, \
+        ocy * ly
+    nb = -b.to(torch.float32)
+    # a pixel
+    ocx = px - cx
+    c = ((ocx * ocx + ocy2) + ocz2) - r2
+    d32 = (b2 - 4.0 * c).to(torch.float32)
+    t = ((nb + safe_sqrt(d32)) * 0.5).to(dtype)
+    hz = (-1.0 + t) - cz
+    s = (ocx * lx + ocy_ly) + hz * lz
+    lam = torch.where((d32 >= 0.0) & (s.to(torch.float32) > 0.0), s,
+                      torch.zeros_like(s))
+    return amb + lam * gain, d32
+
+
+def _tangent_scene(n, dtype, extent=1.2):
+    """A scene in which the ray of one pixel grazes the sphere: the center
+    on the pixel coordinates of (row n/2 + 7, col n/2 - 20), cz = -1, the
+    radius the distance to col n/2 + 20, all in ``dtype``, so that the
+    pixel's discrim is exactly 0."""
+    px, py = tile_pixels(n, extent, CPU)
+    xs, ys = px[0].to(dtype), py[:, 0].to(dtype)
+    cx, cy = xs[n // 2 - 20], ys[n // 2 + 7]
+    v = _scene_vec(None)
+    v[:4] = [cx.item(), cy.item(), -1.0, (xs[n // 2 + 20] - cx).item()]
+    return v
+
+
+FWD_SCENES = {
+    **{f"seed{k}": (lambda k=k: _scene_vec(k)) for k in range(1, 9)},
+    "reference": lambda: _scene_vec(None),
+    "cz=-1": lambda: np.asarray([0, 0, -1.0, *_scene_vec(None)[3:]],
+                                np.float32),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("scene", [*FWD_SCENES, "tangent"])
+def test_sphere_fwd_sequence_is_bit_equal_to_plain(scene, dtype):
+    # the exact identities sphere_fwd leaves out, checked on whole images:
+    # the hoisted, shortened sequence gives the plain version's bits, the
+    # silhouette's pixels included
+    n = 257
+    v = _tangent_scene(n, dtype) if scene == "tangent" \
+        else FWD_SCENES[scene]()
+    p = torch.from_numpy(v)
+    img, d32 = sphere_fwd_hoisted(p, n, 1.2, dtype)
+    ref = sphere_fwd_plain(p, n, 1.2, dtype)
+    assert img.dtype == dtype and img.shape == (n, n)
+    assert torch.equal(img, ref)
+    hit = d32 >= 0.0
+    # hits and misses side by side along a row: the silhouette is inside
+    assert (hit[:, 1:] != hit[:, :-1]).any()
+    if scene == "tangent":
+        assert (d32 == 0.0).sum() >= 1
+    if scene == "cz=-1":
+        assert p[2].item() == -1.0
+
+
+def _fwd_geometry():
+    text = (_build.CSRC_DIR / "sphere_render.cu").read_text()
+    return tuple(int(re.search(rf"kFwd{what} = (\d+)", text).group(1))
+                 for what in ("Threads", "Pixels"))
+
+
+@pytest.mark.parametrize("n", [1, 64, 257, 1000, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_sphere_fwd_layout_covers_the_image_once(n, dtype):
+    # sphere_fwd_kernel's map from (row, segment, thread, pixel) to a
+    # column with the shipped geometry: blockIdx.x the row, blockIdx.y a
+    # segment of threads * pixels columns, thread t the pixels from
+    # t * pixels on; a thread whose first pixel is past the row returns
+    threads, pixels = _fwd_geometry()
+    segment = threads * pixels
+    segments = (n + segment - 1) // segment
+    seg, t, e = np.meshgrid(np.arange(segments), np.arange(threads),
+                            np.arange(pixels), indexing="ij")
+    col0 = seg * segment + t * pixels
+    col = (col0 + e)[col0 < n]
+    # the scalar route: every column < n once in each row
+    np.testing.assert_array_equal(np.bincount(col[col < n], minlength=n),
+                                  np.ones(n, np.int64))
+    img = torch.empty((n, n), dtype=dtype)
+    vec = fwd_vector_stores(img, n)
+    assert vec == (n % 4 == 0)
+    if vec:
+        # the vector route: a thread's pixels are wholly inside the row
+        # (the launcher's n % pixels guard never changes the route) and
+        # start on the bytes they take, at most 16, in every row
+        assert n % pixels == 0
+        starts = col0[col0 < n]
+        assert (starts + pixels <= n).all()
+        width = min(16, pixels * img.element_size())
+        rows = np.arange(n)[:, None]
+        assert ((rows * n + starts[None, :]) * img.element_size() % width
+                == 0).all()
 
 
 # -- the whole path on the CPU ----------------------------------------------
