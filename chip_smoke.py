@@ -68,10 +68,13 @@ rounding.
            hit distance; at 1000^2 and 257^2, sizes that the kernels'
            warp tiles and blocks do not divide, the four instantiations
            and the split render bit-equal (with and without the start map
-           where it divides)
+           where it divides), pass 1's survivor list, sorted, equal to
+           the plain list
   phase 10 the split render for (split, coarse) in (16,0), (32,0), (16,8):
-           image and ts bit-equal to the one-pass kernel's, the survivors'
-           share, pass 1 and the tail against their plain versions
+           image and ts bit-equal to the one-pass kernel's and from run
+           to run, the survivors' share, pass 1 (and its list, sorted)
+           and the tail against their plain versions; no survivor: the
+           tail launches and leaves pass 1's image
   phase 11 sdf_bwd_ad against sdf_bwd_ad_plain and against sdf_bwd, at
            the sizes, scenes and g of phase 2; two runs must be bitwise
            equal
@@ -80,12 +83,17 @@ rounding.
            head-start gates, then one fwd+bwd step for each other option
            at the reference scene, each counted; timing of
            each new kernel alone with its bound and plain version; the
-           issue floor of each sdf_fwd instantiation, of sdf_fwd_split
-           and of sdf_tail (the SASS instructions an iteration of its
-           march loop issues times its warps' iterations, as phase 16
-           derives it; a tail warp takes 32 consecutive survivors; held
+           issue floor of each sdf_fwd instantiation and of sdf_fwd_split
+           (the SASS instructions an iteration of its march loop issues
+           times its warps' iterations, as phase 16 derives it; held
            below the measured time) with its busy-lane and block shares and
-           ptxas's registers and spills; timing of the
+           ptxas's registers and spills; sdf_tail's two floors (its
+           survivors' evaluations packed 32 to a warp, and 32 consecutive
+           survivors a warp in the card's list and in row-major order),
+           the shipped tail against its three refill schedules, the split
+           forward's device time (memset, pass 1, tail) and a split
+           forward run under torch.cuda.set_sync_debug_mode("error");
+           timing of the
            cone prepass, and of the chained fwd+bwd step for the five
            candidate configurations of bench.py:233-235, interleaved
   phase 13 generic_fwd against generic_fwd_plain: the composed scene at
@@ -138,6 +146,13 @@ rounding.
            torch.bincount;
            the mini-app's stages in device time and its iteration as
            samples/s
+  phase 21 the render functions the port gained last, on the card
+           against their CPU results: unit_angle and unit_angle_z on 10^4
+           pairs of unit vectors (rtol 1e-5, atol 1e-6), cross3 bit-equal,
+           Vec3.of and Vec3.splat on the card by default,
+           render_sdf_grads at 64^2, 64 steps (the image atol 1e-3, the
+           gradient rtol 1e-2, atol 1e-3 * max(1, |g|max), the ambient
+           gradient 1 within 1e-4)
 
 Run from the root of the repository:  python chip_smoke.py
 Needs one CUDA card; exits non-zero, printing no result, without one or
@@ -476,6 +491,129 @@ def resources_text(lib_path, kernels):
     return "; ".join(out)
 
 
+# sdf_tail's refill schedules, timed beside the shipped kernel (a lane a
+# list slot, then the slot a grid's lanes further on): a persistent warp
+# refills its idle lanes from the work counter counters[1] once fewer than
+# kTailRefillBelow lanes are busy, stepping its lanes together
+# kTailStepsPerTrip steps between two votes; 1 refills whole warps, whose
+# lanes march in march_z's own loop. The kernel that replaces the shipped
+# one in csrc/sdf_render.cu:
+TAIL_SCHEDULES = {32: "any lane idle", 16: "half the lanes idle",
+                  1: "the whole warp idle (32 survivors at a time)"}
+REFILL_TAIL = """constexpr int kTailRefillBelow = BELOW;
+constexpr int kTailStepsPerTrip = STEPS;
+
+""" + """__global__ void __launch_bounds__(kTailThreads)
+sdf_tail_kernel(const float* __restrict__ params,
+                const int2* __restrict__ pairs, int* __restrict__ counters,
+                float* __restrict__ img, float* __restrict__ ts, int n,
+                int n_tail, float step, float extent) {
+  using O = Ops<float>;
+  constexpr unsigned kAll = 0xffffffffu;
+  const int count = counters[0];
+  const int lanes = gridDim.x * kTailThreads;
+  const int lane = threadIdx.x % 32;
+  const unsigned below = (1u << lane) - 1u;
+  const Shading sh{params[0], params[1], params[2], params[4],
+                   params[5], params[6], params[7], params[8]};
+  MarchParts<float> m = march_parts<float>(0.0f, 0.0f, sh.cx, sh.cy, sh.cz,
+                                           params[3]);
+  bool busy = false, ended = false;
+  int i = 0, k = 0;
+  float px = 0.0f, py = 0.0f, z = 0.0f, s = 0.0f;
+  // a lane takes the survivor in list slot ``slot``, if there is one
+  auto take = [&](int slot) {
+    if (slot >= count) return;
+    const int2 e = pairs[slot];
+    i = e.x;
+    z = __int_as_float(e.y);
+    const int row = i / n;
+    px = pixel_coord(i - row * n, step, extent);
+    py = pixel_coord(row, step, extent);
+    m = march_parts<float>(px, py, sh.cx, sh.cy, sh.cz, params[3]);
+    k = -1;  // the replayed advance first
+    busy = true;
+  };
+  // the first round is static, lane j of the grid on slot j: no atomic
+  // (every warp drawing from one counter at once queued them all on one
+  // address); the work counter hands out the slots from ``lanes`` on
+  take(blockIdx.x * kTailThreads + threadIdx.x);
+  bool drained = lanes >= count;
+  for (;;) {
+    // after a refill every idle lane holds a survivor unless the list is
+    // drained: no lane busy means the warp is done
+    if (__ballot_sync(kAll, busy) == 0u) break;
+    if constexpr (kTailRefillBelow == 1) {
+      // the warp refills only once every lane has ended: each lane
+      // marches its survivor to the end in march_z's own loop
+      if (busy) {
+        s = dist_len<O>(m.rxy2, z);
+        if (march_alive<float>(m, z, s)) z = O::add(z, O::sub(s, m.rad));
+        march_z<float>(m, z, s, n_tail);
+        busy = false;
+        ended = true;
+      }
+    } else {
+      // kTailStepsPerTrip steps a trip, every lane through the same
+      // instructions: a lane that is not busy, or stops, keeps its z (and
+      // evaluates its last distance again, to the same bits)
+      do {
+#pragma unroll
+        for (int u = 0; u < kTailStepsPerTrip; ++u) {
+          s = dist_len<O>(m.rxy2, z);
+          const bool go =
+              busy & (k < n_tail - 1) & march_alive<float>(m, z, s);
+          ended = ended | (busy & !go);
+          busy = go;
+          if (go) {
+            z = O::add(z, O::sub(s, m.rad));
+            ++k;
+          }
+        }
+      } while (drained ? __any_sync(kAll, busy)
+               : kTailRefillBelow == 32
+                   ? __all_sync(kAll, busy)
+                   : __popc(__ballot_sync(kAll, busy)) >= kTailRefillBelow);
+    }
+    if (ended) {  // the marches that ended: their pixels
+      write_pixel(sh, px, py, O::sub(z, m.z0), O::sub(s, m.rad) < m.eps,
+                  static_cast<size_t>(i), img, ts);
+      ended = false;
+    }
+    const unsigned idle = __ballot_sync(kAll, !busy);
+    if (idle != 0u && !drained) {
+      const int leader = __ffs(idle) - 1;
+      int base = 0;
+      if (lane == leader) base = atomicAdd(counters + 1, __popc(idle));
+      base = lanes + __shfl_sync(kAll, base, leader);
+      drained = base + __popc(idle) >= count;
+      if (!busy) take(base + __popc(idle & below));
+    }
+  }
+}
+"""
+SHIPPED_TAIL = ("__global__ void __launch_bounds__(kTailThreads)\n"
+                "sdf_tail_kernel(")
+
+
+def function_text(text, head):
+    """The definition that starts with ``head`` in ``text``, up to its
+    closing brace at the start of a line."""
+    start = text.index(head)
+    return text[start:text.index("\n}\n", start) + 2]
+
+
+def tail_schedule_sources(steps=2):
+    """{refill threshold: csrc/sdf_render.cu with its sdf_tail replaced by
+    the refill kernel of that schedule, ``steps`` steps a vote}."""
+    from enoki_tpu_torch import _build
+    text = (_build.CSRC_DIR / "sdf_render.cu").read_text()
+    shipped = function_text(text, SHIPPED_TAIL)
+    return {below: text.replace(shipped, REFILL_TAIL.replace(
+        "BELOW", str(below)).replace("STEPS", str(steps)).rstrip("\n"))
+        for below in TAIL_SCHEDULES}
+
+
 def fwd_footprint(source="generic_render.cuh"):
     """A march kernel's footprint, read from its source in csrc/
     (generic_fwd's skeleton, or sdf_render.cu for sdf_fwd): (warp
@@ -628,10 +766,12 @@ def path_counts(sass, kernel):
     return sum(not t.startswith("NOP") for _, t in ins), int(fewest)
 
 
-def loop_counts(sass, kernel):
+def loop_counts(sass, kernel, innermost=False):
     """(first address, back branch's address, instructions laid out
     between them, instructions an iteration issues) of the largest loop
-    of the function whose mangled name holds ``kernel`` in ``sass``
+    (with ``innermost``, the smallest: a persistent kernel's march inside
+    its refill loop) of the function whose mangled name holds ``kernel``
+    in ``sass``
     (cuobjdump -sass text). An iteration's instructions are those of the
     walk from the loop's head to its back branch that follows every
     unconditional branch and takes a conditional one only where the
@@ -677,12 +817,13 @@ def loop_counts(sass, kernel):
                 i += 1
         return len(walked) + 1
 
-    # the largest backward branch that an iteration reaches: a slow path
-    # laid out past the kernel's end branches back into the loop too
+    # the largest (smallest) backward branch that an iteration reaches: a
+    # slow path laid out past the kernel's end branches back into the loop
+    # too
     for first, last in sorted(
             ((b[0], ins[i][0]) for i in range(len(ins))
              if (b := branch(i)) and b[0] is not None and b[0] < ins[i][0]),
-            key=lambda lp: lp[0] - lp[1]):
+            key=lambda lp: (lp[1] - lp[0]) * (1 if innermost else -1)):
         issued = walk(first, last)
         if issued is not None:
             return first, last, sum(first <= a <= last for a, _ in ins), issued
@@ -816,12 +957,17 @@ def run(torch, dev):
         scenes[name][0].kernels.lib
         return time.perf_counter() - t_start
 
-    with concurrent.futures.ThreadPoolExecutor(len(libs)
-                                               + len(scenes)) as pool:
+    # sdf_tail's refill schedules, for phase 12
+    schedules = list(tail_schedule_sources().values())
+    with concurrent.futures.ThreadPoolExecutor(
+            len(libs) + len(scenes) + len(schedules)) as pool:
         # one nvcc per source, all at once
         built = pool.map(_build.build, libs)
+        variants = pool.map(
+            lambda t: _build.build_generated("sdf_render", t), schedules)
         first_use = dict(zip(scenes, pool.map(build_scene, scenes)))
         list(built)
+        list(variants)
     for name in libs:
         _build.load(name)
     log(f"build: {', '.join(f'{n}.cu' for n in libs)} and the generated "
@@ -1016,10 +1162,59 @@ def run(torch, dev):
     kernels += run_sdf_options(torch, dev, timer, cuda_vec)
     kernels += run_generic(torch, dev, timer, scenes, first_use)
     kernels += run_hist(torch, dev, timer)
+    run_render_extras(torch, dev)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def run_render_extras(torch, dev):
+    """Phase 21: cross3, unit_angle, unit_angle_z, Vec3.of, Vec3.splat and
+    render_sdf_grads on the card against their CPU results."""
+    from enoki_tpu_torch.render import (SDFScene, Vec3, cross3,
+                                        render_sdf_grads, scene_to_vec)
+    from enoki_tpu_torch.render.vec import unit_angle, unit_angle_z
+    rng = np.random.default_rng(3)
+    a, b = rng.normal(size=(2, 3, 10_000))
+    a /= np.linalg.norm(a, axis=0)
+    b /= np.linalg.norm(b, axis=0)
+
+    def vec(x, device):
+        return Vec3(*(torch.from_numpy(c.astype(np.float32)).to(device)
+                      for c in x))
+    va, vb, ca, cb = vec(a, "cpu"), vec(b, "cpu"), vec(a, dev), vec(b, dev)
+    worst = 0.0
+    for got, want in ((unit_angle(ca, cb), unit_angle(va, vb)),
+                      (unit_angle_z(ca), unit_angle_z(va))):
+        got = got.cpu()
+        worst = max(worst, (got - want).abs().max().item())
+        check(bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6)),
+              "unit_angle on the card differs from the CPU")
+    c, w = cross3(ca, cb), cross3(va, vb)
+    check(all(torch.equal(g.cpu(), x) for g, x in
+              ((c.x, w.x), (c.y, w.y), (c.z, w.z))),
+          "cross3 on the card differs from the CPU")
+    check(Vec3.of(1, 2, 3).x.device.type == "cuda"
+          and Vec3.splat(1.0, 2.0, 3.0).z.device.type == "cuda"
+          and Vec3.of(1, 2, 3).y.dtype == torch.get_default_dtype(),
+          "Vec3.of / Vec3.splat not on the card by default")
+    img, g = render_sdf_grads(SDFScene.reference(dev), 64, 64)
+    img_c, g_c = render_sdf_grads(SDFScene.reference("cpu"), 64, 64)
+    gv, gc = scene_to_vec(g).cpu(), scene_to_vec(g_c)
+    d_img = (img.cpu() - img_c).abs().max().item()
+    tol = 1e-3 * max(1.0, gc.abs().max().item())
+    ok = (d_img <= 1e-3 and bool(torch.isfinite(gv).all().item())
+          and bool(torch.allclose(gv, gc, rtol=1e-2, atol=tol))
+          and abs(gv[4].item() - 1.0) <= 1e-4)
+    log(f"phase 21 unit_angle, unit_angle_z on 10^4 pairs: max|card - cpu| "
+        f"{worst:.3e} (rtol 1e-5, atol 1e-6); cross3 bit-equal; Vec3.of / "
+        f"splat on the card by default; render_sdf_grads at 64^2, 64 steps "
+        f"(the march checkpointed per step): max|img - cpu| {d_img:.3e}, "
+        f"max|grad - cpu| {(gv - gc).abs().max().item():.3e} (rtol 1e-2, "
+        f"atol {tol:.3e}), d ambient {gv[4].item():.7g}: "
+        f"{'pass' if ok else 'FAIL'}")
+    check(ok, "render_sdf_grads on the card differs from the CPU")
 
 
 def run_sphere(torch, dev, timer, cuda_vec):
@@ -1265,6 +1460,33 @@ def run_sphere(torch, dev, timer, cuda_vec):
     ]
 
 
+def same_list(torch, K, got, want):
+    """Whether two survivor lists of pass 1 (``sdf_fwd_split_list``'s
+    pairs and counters, at [3] and [4]) hold the same pairs: the card's
+    list sorted by pixel index against the plain, row-major one, the
+    carries bit for bit."""
+    idx, z = K.survivor_entries(got[3], got[4])
+    w_idx, w_z = K.survivor_entries(want[3], want[4])
+    order = torch.argsort(idx)
+    return (idx.numel() == w_idx.numel() and torch.equal(idx[order], w_idx)
+            and torch.equal(z[order], w_z))
+
+
+def fresh_counters(torch, dev, calls, count=0):
+    """A function that returns, at each call, an int32 pair (count, 0) not
+    handed out before, ``calls`` of them: a timed pass 1 needs its list's
+    count at 0, a timed tail its work counter, and each call moves them."""
+    rows = torch.zeros((calls, 2), dtype=torch.int32, device=dev)
+    rows[:, 0] = count
+    it = iter(rows)
+
+    def take():
+        row = next(it, None)
+        check(row is not None, "fresh_counters: more calls than counters")
+        return row
+    return take
+
+
 def flip_gate(d, what):
     """The gate of a kernel against its plain version where they are not
     bit-equal (bench.py:209-212): a hit/miss flip jumps by ~gain; the
@@ -1382,17 +1604,19 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
                       f"differs from its plain version")
             got = K.sdf_split(p, n, STEPS, EXTENT, 16, start)
             one = K.sdf_fwd(p, n, STEPS, EXTENT, start)
-            want = K.sdf_fwd_split_plain(p, n, 16, EXTENT, start)
-            p1 = K.sdf_fwd_split(p, n, 16, EXTENT, start)
+            want = K.sdf_fwd_split_list_plain(p, n, 16, EXTENT, start)
+            p1 = K.sdf_fwd_split_list(p, n, 16, EXTENT, start)
             torch.cuda.synchronize()
             check(all(torch.equal(a, b) for a, b in zip(got, one))
-                  and all(torch.equal(a, b) for a, b in zip(p1, want)),
+                  and all(torch.equal(a, b) for a, b in zip(p1[:3], want))
+                  and same_list(torch, K, p1, want),
                   f"the split render at n={n} (start map: "
                   f"{start is not None}) differs")
         log(f"phase 9 n={n}: the four sdf_fwd instantiations "
             f"{'with and without the start map ' if n % 8 == 0 else ''}"
-            f"bit-equal to plain, the split render to the one-pass render "
-            f"and its pass 1 to plain: pass")
+            f"bit-equal to plain, the split render to the one-pass render, "
+            f"its pass 1 to plain and pass 1's list, sorted, to the plain "
+            f"list: pass")
 
     # -- phase 10: the split render -----------------------------------------
     shares = {}
@@ -1403,11 +1627,12 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
             start = t0 if coarse else None
             one = K.sdf_fwd(p, N, STEPS, EXTENT, start)
             two = K.sdf_split(p, N, STEPS, EXTENT, split, start)
-            p1 = K.sdf_fwd_split(p, N, split, EXTENT, start)
-            p1_plain = K.sdf_fwd_split_plain(p, N, split, EXTENT, start)
-            idx = K.survivors(p1[2])
-            tail = K.sdf_tail(p, idx, p1[2], p1[0].clone(), p1[1].clone(),
+            again = K.sdf_split(p, N, STEPS, EXTENT, split, start)
+            p1 = K.sdf_fwd_split_list(p, N, split, EXTENT, start)
+            p1_plain = K.sdf_fwd_split_list_plain(p, N, split, EXTENT, start)
+            tail = K.sdf_tail(p, p1[3], p1[4], p1[0].clone(), p1[1].clone(),
                               N, STEPS, split, EXTENT)
+            idx = K.survivors(p1_plain[2])
             tail_plain = K.sdf_tail_plain(
                 p, idx, p1_plain[2], p1_plain[0].clone(),
                 p1_plain[1].clone(), N, STEPS, split, EXTENT)
@@ -1418,20 +1643,41 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
             if seed is None:
                 shares[(split, coarse)] = share
             same = all(torch.equal(a, b) for a, b in zip(one, two))
-            p1_ok = all(torch.equal(a, b) for a, b in zip(p1, p1_plain))
+            repeat = all(torch.equal(a, b) for a, b in zip(two, again))
+            p1_ok = all(torch.equal(a, b) for a, b in zip(p1[:3],
+                                                          p1_plain[:3]))
+            list_ok = same_list(torch, K, p1, p1_plain)
             tail_ok = all(torch.equal(a, b) for a, b in zip(tail, tail_plain))
             log(f"phase 10 scene={seed} split={split} coarse={coarse}: "
                 f"survivors {idx.numel()} ({share:.4%} of the pixels); img "
                 f"and ts bit-equal to the one-pass kernel: "
-                f"{'pass' if same else 'FAIL'}; pass 1 (img, ts, cont) "
-                f"bit-equal to plain: {'pass' if p1_ok else 'FAIL'}; tail "
-                f"bit-equal to plain: {'pass' if tail_ok else 'FAIL'}")
-            check(same, f"split render differs from one pass (scene {seed}, "
-                  f"split {split}, coarse {coarse})")
+                f"{'pass' if same else 'FAIL'}, two runs bitwise equal: "
+                f"{'pass' if repeat else 'FAIL'}; pass 1 (img, ts, cont) "
+                f"bit-equal to plain: {'pass' if p1_ok else 'FAIL'}, its "
+                f"list sorted equal to the plain list: "
+                f"{'pass' if list_ok else 'FAIL'}; tail bit-equal to plain: "
+                f"{'pass' if tail_ok else 'FAIL'}")
+            check(same and repeat and list_ok,
+                  f"split render differs from one pass, from itself or from "
+                  f"the plain list (scene {seed}, split {split}, coarse "
+                  f"{coarse})")
             if not p1_ok:
                 flip_gate((p1[0] - p1_plain[0]).abs(), "phase 10 pass 1")
             if not tail_ok:
                 flip_gate((tail[0] - tail_plain[0]).abs(), "phase 10 tail")
+    # no survivor: the tail launches, reads a count of 0 on the card and
+    # leaves pass 1's image
+    p = cuda_vec(None)
+    p[0] += 50.0
+    img, ts, _, pairs, counters = K.sdf_fwd_split_list(p, N, 16, EXTENT)
+    img1, ts1 = img.clone(), ts.clone()
+    K.sdf_tail(p, pairs, counters, img, ts, N, STEPS, 16, EXTENT)
+    torch.cuda.synchronize()
+    check(counters[0].item() == 0 and torch.equal(img, img1)
+          and torch.equal(ts, ts1) and bool((ts < 0).all().item()),
+          "the tail over an empty list changed pass 1's image")
+    log("phase 10 no survivor (the sphere off screen): count 0 on the card, "
+        "the tail launched and left pass 1's img and ts: pass")
 
     # -- phase 11: sdf_bwd_ad against both routes, determinism -------------
     err["sdf_bwd_ad"] = bwd_cases(torch, dev, "phase 11", lambda p, g, ts, n: (
@@ -1619,22 +1865,32 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
         return ((RELAX_FLOPS_PER_STEP + UNIMODAL_FLOPS_PER_STEP) * steps
                 + RELAX_FLOPS_HIT_TEST * rays)
 
-    p1 = K.sdf_fwd_split(p_ref, N, 16, EXTENT)
+    p1 = K.sdf_fwd_split_list(p_ref, N, 16, EXTENT)
+    k = int(p1[4][0].item())
+    p1_img, p1_ts = p1[0].clone(), p1[1].clone()  # the timed tails write p1
     idx = K.survivors(p1[2])
     # a survivor's advances in the tail: the one-pass march's less pass
     # 1's (the split render is the one-pass render bit for bit)
-    tail_adv = (K.march_counts(p_ref, N, STEPS, EXTENT)[1]
-                - K.march_counts(p_ref, N, 16, EXTENT)[1]).view(-1)[idx]
+    adv_tail = (K.march_counts(p_ref, N, STEPS, EXTENT)[1]
+                - K.march_counts(p_ref, N, 16, EXTENT)[1]).view(-1)
+    tail_adv = adv_tail[idx]
     tail_adv_n = int(tail_adv.sum().item())
     # a survivor's evaluations: one per advance (the replayed one's
     # included) and one more, whose distance the hit test takes
-    k = idx.numel()
     tail_evals = tail_adv_n + k
     tail_hits = int((ts_ref.view(-1)[idx] >= 0).sum().item())
+    # each timed call (201 a timing: one, then 200 back to back) with
+    # counters of its own
+    fwd_counters = fresh_counters(torch, dev, 1000)
+    tail_counters = fresh_counters(torch, dev, 2000, k)
+
+    def split_call():
+        return K.sdf_fwd_split_list(p_ref, N, 16, EXTENT,
+                                    counters=fwd_counters())
 
     def tail_call():
-        return K.sdf_tail(p_ref, idx, p1[2], p1[0], p1[1], N, STEPS, 16,
-                          EXTENT)
+        return K.sdf_tail(p_ref, p1[3], tail_counters(), p1[0], p1[1], N,
+                          STEPS, 16, EXTENT)
 
     # name -> (kernel call, plain call, (bound ms, by)); each kernel at the
     # configuration phase 12's steps ran it in. A bf16 march's operations
@@ -1655,17 +1911,19 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
                                     True),
             bound(8 * rays + 64, shade_flops(),
                   relax_march_flops(dtype=bf16))),
+        # writes img, ts and cont per pixel, a pair per survivor
         "sdf_fwd_split": (
-            lambda: K.sdf_fwd_split(p_ref, N, 16, EXTENT),
-            lambda: K.sdf_fwd_split_plain(p_ref, N, 16, EXTENT),
-            bound(12 * rays + 64,
+            split_call,
+            lambda: K.sdf_fwd_split_list_plain(p_ref, N, 16, EXTENT),
+            bound(12 * rays + 8 * k + 64,
                   shade_flops(CONT_FLOPS_PER_PIXEL) + z_march_flops(16))),
-        # reads idx (8 B) and cont (4 B), writes img and ts, per survivor
+        # reads a pair (8 B), writes img and ts, per survivor; the two
+        # counters
         "sdf_tail": (
             tail_call,
             lambda: K.sdf_tail_plain(p_ref, idx, p1[2], p1[0], p1[1], N,
                                      STEPS, 16, EXTENT),
-            bound(20 * k + 64, FWD_FLOPS_PER_EVAL * tail_evals
+            bound(16 * k + 8 + 64, FWD_FLOPS_PER_EVAL * tail_evals
                   + FWD_FLOPS_PER_ADVANCE * tail_adv_n
                   + (FWD_FLOPS_PER_PIXEL + FWD_FLOPS_HIT_TEST) * k
                   + FWD_FLOPS_PER_HIT * tail_hits)),
@@ -1735,13 +1993,6 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
 
     def relax_steps(**kw):
         return K.march_counts(p_ref, N, STEPS, EXTENT, **relax_kw, **kw)[1]
-    # sdf_tail: thread j of a block of 256 takes survivor j, so a warp
-    # takes 32 consecutive survivors; a survivor's loop iterations are its
-    # tail advances (one evaluation each, the last one's the hit test's;
-    # the replayed advance's distance is evaluated before the loop)
-    tail_iters = tail_adv.new_zeros(-(-k // 32) * 32)
-    tail_iters[:k] = tail_adv
-    tail_iters = tail_iters.view(-1, 32)
     floors = {  # name: (its __global__ function, iterations per pixel,
         #               measured ms, bound, fewest instructions a step,
         #               warp columns, block columns and rows)
@@ -1766,8 +2017,6 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
                           K.march_counts(p_ref, N, 16, EXTENT)[0],
                           ms["sdf_fwd_split"], work["sdf_fwd_split"][2],
                           FWD_FLOPS_PER_EVAL, cols, block_cols, block_rows),
-        "sdf_tail": ("sdf_tail_kernel", tail_iters, ms["sdf_tail"],
-                     work["sdf_tail"][2], FWD_FLOPS_PER_EVAL, 32, 32, 8),
     }
     for name, (kernel, iters, t_ms, (b_ms, b_by), least, cols,
                block_cols, block_rows) in floors.items():
@@ -1792,6 +2041,109 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
             f"{rate_text} = {floor_ms:.5f} ms, {floor_ms / t_ms:.4f} of the "
             f"measured {t_ms:.5f} ms (bound {b_ms:.5f} ms by {b_by}); "
             f"ptxas: " + resources_text(lib_path, (kernel,)))
+
+    # sdf_tail's floors (derived, not measured). An iteration of its march
+    # loop (march_z's, the innermost loop of the persistent kernel) is one
+    # evaluation of a lane: one per advance after the replayed one, and
+    # the one whose distance the hit test takes; the replayed advance's
+    # evaluation, before the loop, is counted with them. The least any
+    # schedule issues packs the lanes' evaluations 32 to a warp trip; a
+    # warp that takes 32 consecutive survivors waits for the longest of
+    # them: in the card's list (the order of pass 1's blocks, 8x4-pixel
+    # warps) and, for the record, in the row-major list the thread-per-
+    # survivor kernel took
+    first, last, laid_out, loop_ins = loop_counts(sass, "sdf_tail_kernel",
+                                                  innermost=True)
+    card_idx = K.survivor_entries(p1[3], p1[4])[0].long()
+
+    def warp_trips(evals):
+        pad = evals.new_zeros(-(-evals.numel() // 32) * 32)
+        pad[:evals.numel()] = evals
+        return int(pad.view(-1, 32).amax(dim=1).sum().item())
+
+    packed = -(-tail_evals // 32)
+    trips = {"packed": packed, "the card's list, 32 consecutive":
+             warp_trips(adv_tail[card_idx] + 1),
+             "the row-major list, 32 consecutive": warp_trips(tail_adv + 1)}
+    floor_ms = 1e3 * loop_ins * packed / rate
+    check(loop_ins >= FWD_FLOPS_PER_EVAL, f"sdf_tail: the loop found in its "
+          f"SASS issues {loop_ins} instructions, fewer than a step's "
+          f"{FWD_FLOPS_PER_EVAL} operations")
+    check(floor_ms <= ms["sdf_tail"], f"sdf_tail's issue floor "
+          f"{floor_ms:.5f} ms is above its time {ms['sdf_tail']:.5f} ms")
+    log(f"phase 12 sdf_tail issue floors (derived, not measured): an "
+        f"iteration of its march loop issues {loop_ins} SASS instructions "
+        f"(the loop {first:#x}-{last:#x} lays out {laid_out}; cuobjdump); "
+        f"{k} survivors, {tail_evals} lane iterations; "
+        + "; ".join(f"{what}: {t} warp iterations (busy lanes "
+                    f"{tail_evals / (32 * t):.4f}) = "
+                    f"{1e3 * loop_ins * t / rate:.5f} ms"
+                    for what, t in trips.items())
+        + f"; over {rate_text}; the first, the least any schedule issues, "
+        f"{floor_ms / ms['sdf_tail']:.4f} of the measured "
+        f"{ms['sdf_tail']:.5f} ms (bound {work['sdf_tail'][2][0]:.5f} ms "
+        f"by {work['sdf_tail'][2][1]}); ptxas: "
+        + resources_text(lib_path, ("sdf_tail_kernel",)))
+
+    # the shipped tail and the three refill schedules, each held bit-equal
+    # to the plain tail, timed in turns, then in the other order
+    from unittest import mock
+    want = K.sdf_tail_plain(p_ref, idx, p1[2], p1_img.clone(),
+                            p1_ts.clone(), N, STEPS, 16, EXTENT)
+    sched_libs = {"shipped": _build.load("sdf_render")}
+    sched_libs.update({
+        below: _build.load_generated("sdf_render", text)
+        for below, text in tail_schedule_sources().items()})
+    sched_ms = {}
+    for order in (1, -1):
+        for below, lib in list(sched_libs.items())[::order]:
+            with mock.patch.object(_build, "load", lambda _, lib=lib: lib):
+                got = K.sdf_tail(p_ref, p1[3], tail_counters(),
+                                 p1_img.clone(), p1_ts.clone(), N, STEPS, 16,
+                                 EXTENT)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"sdf_tail ({below}) differs from plain")
+                sched_ms.setdefault(below, []).append(timer(tail_call, 200))
+    log("phase 12 sdf_tail, shipped (a lane a list slot, then the slot a "
+        "grid's lanes further on) and refilled from the work counter, "
+        "2 steps a vote, each bit-equal to plain, ms (two passes): "
+        + "; ".join(f"{TAIL_SCHEDULES.get(b, b)} "
+                    f"{' / '.join(f'{t:.5f}' for t in v)}"
+                    for b, v in sched_ms.items()))
+
+    # the split forward as a step takes it: the counters' memset, pass 1
+    # and the tail, with no host sync; against the one-pass forward
+    split_fwd_ms = timer(lambda: K.sdf_split(p_ref, N, STEPS, EXTENT, 16),
+                         200)
+    log(f"phase 12 split forward (split 16: the counters' memset, "
+        f"sdf_fwd_split, sdf_tail) {split_fwd_ms:.5f} ms of device time "
+        f"against the one-pass sdf_fwd's {fwd0_ms:.5f} ms")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        K.sdf_split(p_ref, N, STEPS, EXTENT, 16)
+        with torch.no_grad():
+            K.render_sdf_cuda(p_ref, N, STEPS, EXTENT, 128, coarse=0,
+                              split=16)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    import warnings
+    torch.cuda.synchronize()
+    pg = p_ref.clone().requires_grad_(True)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            K.render_sdf_cuda(pg, N, STEPS, EXTENT, 128, coarse=0,
+                              split=16).mean().backward()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in seen if "synchroniz" in str(w.message)]
+    log(f"phase 12 the split forward under "
+        f"torch.cuda.set_sync_debug_mode('error') (sdf_split, and "
+        f"render_sdf_cuda(split=16) without grad): no host sync: pass; a "
+        f"whole split fwd+bwd step warns of {len(syncs)} host sync(s)")
 
     # the cone prepass: eager ops on a (N/8)^2 array, device and wall time
     cone_dev_ms = timer(lambda: K._cone_t0(p_ref, N, STEPS, EXTENT, 8), 5,

@@ -143,8 +143,9 @@ SIGNATURES = {
         "sdf_fwd_launch": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _P),
         "sdf_fwd_relax_launch": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _F, _F,
                                  _I, _P),
-        "sdf_fwd_split_launch": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
-        "sdf_tail_launch": (_P, _P, _P, _P, _P, _L, _I, _I, _F, _F, _P),
+        "sdf_fwd_split_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
+                                 _P),
+        "sdf_tail_launch": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
         "sdf_bwd_num_blocks": (_I,),
         "sdf_bwd_launch": (_P, _P, _P, _P, _P, _P, _I, _F, _F, _I, _P),
     },

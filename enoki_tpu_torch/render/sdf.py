@@ -6,7 +6,8 @@ the card, the baseline the hand-written kernels of ``sdf_kernels`` are
 timed against:
 
   * ``march``: the masked fixed-step loop -- converged or escaped lanes
-    freeze, every lane runs all ``n_steps``;
+    freeze, every lane runs all ``n_steps``; ``render_sdf_grads``
+    differentiates through it, each step checkpointed;
   * ``march_implicit``: the same forward, with an implicit-function
     backward (``implicit_t_vjp``) instead of reversing the loop;
   * ``normal_at``: the SDF gradient taken by autograd, not written in
@@ -19,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .implicit import implicit_t_vjp
 from .sphere import (Ray, _reference_leaves, make_rays, pixel_grid,
@@ -68,22 +70,43 @@ def sdf_ortho_dist(px, py, scene: SDFScene):
     return lambda t: torch.sqrt(rxy2 + (z0 + t) * (z0 + t)) - rad
 
 
+def _march_step(ray, scene, eps, t_max, t, active, hit):
+    """One masked step of ``march``: (t, active, hit) after it."""
+    d = sdf(ray.at(t), scene)
+    converged = d < eps
+    hit = hit | (active & converged)
+    t_new = t + d
+    escaped = t_new > t_max
+    active = active & ~converged & ~escaped
+    return torch.where(active, t_new, t), active, hit
+
+
+def _scene_needs_grad(ray, scene):
+    return any(x.requires_grad for x in (ray.o.x, ray.o.y, ray.o.z, ray.d.x,
+                                         ray.d.y, ray.d.z,
+                                         *scene_leaves(scene)))
+
+
 def march(ray: Ray, scene: SDFScene, n_steps: int = 64,
           eps: float = 1e-4, t_max: float = 10.0):
     """Sphere-trace with a per-lane active mask: returns (t, hit).
     Converged or escaped lanes stop advancing; every lane runs
-    ``n_steps`` masked steps. Differentiable through the loop."""
+    ``n_steps`` masked steps. Differentiable through the loop: where
+    autograd records, each step is checkpointed (its graph rebuilt in the
+    backward), as the reference checkpoints it (``jax.checkpoint``,
+    enoki_tpu/render/sdf.py:103), so the loop holds one step's
+    intermediates, not all of them; the values are the same."""
     t = torch.zeros_like(ray.o.x)
     active = torch.ones_like(t, dtype=torch.bool)
     hit = torch.zeros_like(active)
+    ckpt = torch.is_grad_enabled() and _scene_needs_grad(ray, scene)
     for _ in range(n_steps):
-        d = sdf(ray.at(t), scene)
-        converged = d < eps
-        hit = hit | (active & converged)
-        t_new = t + d
-        escaped = t_new > t_max
-        active = active & ~converged & ~escaped
-        t = torch.where(active, t_new, t)
+        if ckpt:
+            t, active, hit = checkpoint(_march_step, ray, scene, eps, t_max,
+                                        t, active, hit, use_reentrant=False)
+        else:
+            t, active, hit = _march_step(ray, scene, eps, t_max, t, active,
+                                         hit)
     return t, hit
 
 
@@ -151,6 +174,23 @@ def render_sdf(scene: SDFScene, n: int = 512, n_steps: int = 64):
     """Flat (n*n,) image, differentiable through the march loop."""
     rays = make_rays(pixel_grid(n, device=scene.radius.device))
     return shade(rays, scene, n_steps)
+
+
+def sdf_loss(scene: SDFScene, n: int = 256, n_steps: int = 64):
+    """mean(render_sdf(scene, n, n_steps)), differentiable through the
+    march loop."""
+    return torch.mean(render_sdf(scene, n, n_steps))
+
+
+def render_sdf_grads(scene: SDFScene, n: int = 256, n_steps: int = 64):
+    """Image and d mean(image) / d scene (an SDFScene of gradients) through
+    the unrolled, checkpointed march loop: the reference's
+    ``render_sdf_grads``, with ``render_sdf_grads_implicit``'s structure."""
+    leaves = [x.detach().requires_grad_(True) for x in scene_leaves(scene)]
+    with torch.enable_grad():
+        img = render_sdf(scene_from_leaves(leaves, SDFScene), n, n_steps)
+        grads = torch.autograd.grad(torch.mean(img), leaves)
+    return img.detach(), scene_from_leaves(grads, SDFScene)
 
 
 def shade_implicit(ray: Ray, scene: SDFScene, n_steps: int = 64):

@@ -13,7 +13,8 @@ sdf_render.cu`` and ``sdf_bwd_ad.cu``, built with nvcc on first use
 (``enoki_tpu_torch._build``).
 
 Each kernel has a plain PyTorch version beside it (``sdf_fwd_plain``,
-``sdf_fwd_split_plain``, ``sdf_tail_plain``, ``sdf_bwd_plain``,
+``sdf_fwd_split_plain`` and ``sdf_fwd_split_list_plain`` with its
+survivor list, ``sdf_tail_plain``, ``sdf_bwd_plain``,
 ``sdf_bwd_ad_plain``) that repeats its arithmetic. A wrapper takes the
 plain version only for a tensor on the CPU; for a CUDA tensor it launches
 the kernel or raises. ``_build.LAUNCHES`` counts the kernel launches, by
@@ -326,6 +327,48 @@ def sdf_fwd_split_plain(params, n: int, split: int, extent: float = 1.2,
     return img, ts, torch.where(alive, z, CONT_FROZEN)
 
 
+def sdf_fwd_split_list_plain(params, n: int, split: int, extent: float = 1.2,
+                             t0=None):
+    """Plain version of the sdf_fwd_split kernel with its survivor list ->
+    (img, ts, cont, pairs, counters): ``sdf_fwd_split_plain``'s outputs,
+    ``pairs`` an (n*n, 2) int32 tensor whose first ``count`` rows are the
+    survivors (flat pixel index, bits of the carry z = cont[index]) in
+    row-major order, zeros after them, and ``counters`` the int32 pair
+    (count, 0). The kernel's list holds the same pairs in the order of its
+    blocks' atomics."""
+    img, ts, cont = sdf_fwd_split_plain(params, n, split, extent, t0)
+    idx = survivors(cont)
+    pairs = torch.zeros((n * n, 2), dtype=torch.int32, device=params.device)
+    pairs[:idx.numel(), 0] = idx.to(torch.int32)
+    pairs[:idx.numel(), 1] = cont.reshape(-1)[idx].view(torch.int32)
+    counters = torch.tensor([idx.numel(), 0], dtype=torch.int32,
+                            device=params.device)
+    return img, ts, cont, pairs, counters
+
+
+def survivor_entries(pairs, counters):
+    """(flat pixel indices as int32, carries z) of a survivor list, in its
+    order. Reads the count on the host, a sync on the card: for checks,
+    never on a render's path."""
+    k = int(counters[0].item())
+    return pairs[:k, 0], pairs[:k, 1].view(torch.float32)
+
+
+def _tail_plain(params, idx, z, img, ts, n, n_steps, split, extent):
+    """The tail's march for survivors ``idx`` (int64) from carries ``z``;
+    writes ``img`` and ``ts`` at ``idx`` in place."""
+    coords = tile_pixels(n, extent, params.device)[0][0]
+    row = torch.div(idx, n, rounding_mode="floor")
+    px, py = coords[idx - row * n], coords[row]
+    rxy2, z0, rad = _march_parts(params, px, py, torch.float32)
+    z = _march_z(rxy2, z0, rad, 2, EPS, z_init=z)[0]
+    z, hit, _, _ = _march_z(rxy2, z0, rad, n_steps - split, EPS, z_init=z)
+    img_c, ts_c = _shade(params, px, py, z - z0, hit)
+    img.view(-1)[idx] = img_c
+    ts.view(-1)[idx] = ts_c
+    return img, ts
+
+
 def sdf_tail_plain(params, idx, cont, img, ts, n: int, n_steps: int,
                    split: int, extent: float = 1.2):
     """Plain version of the sdf_tail kernel (pass 2): for the survivors
@@ -333,16 +376,8 @@ def sdf_tail_plain(params, idx, cont, img, ts, n: int, n_steps: int,
     last step masked, march ``n_steps - split`` more steps from the carry
     ``cont[idx]``, shade, and write ``img`` and ``ts`` at ``idx`` in
     place. Returns (img, ts)."""
-    coords = tile_pixels(n, extent, params.device)[0][0]
-    row = torch.div(idx, n, rounding_mode="floor")
-    px, py = coords[idx - row * n], coords[row]
-    rxy2, z0, rad = _march_parts(params, px, py, torch.float32)
-    z = _march_z(rxy2, z0, rad, 2, EPS, z_init=cont.reshape(-1)[idx])[0]
-    z, hit, _, _ = _march_z(rxy2, z0, rad, n_steps - split, EPS, z_init=z)
-    img_c, ts_c = _shade(params, px, py, z - z0, hit)
-    img.view(-1)[idx] = img_c
-    ts.view(-1)[idx] = ts_c
-    return img, ts
+    return _tail_plain(params, idx, cont.reshape(-1)[idx], img, ts, n,
+                       n_steps, split, extent)
 
 
 def sdf_bwd_plain(params, g, ts, n: int, extent: float = 1.2):
@@ -526,84 +561,114 @@ def sdf_fwd(params, n: int, n_steps: int, extent: float = 1.2, t0=None,
     return img, ts
 
 
-def sdf_fwd_split(params, n: int, split: int, extent: float = 1.2, t0=None):
-    """Pass 1 of the two-pass march -> (img, ts, cont): the sdf_fwd_split
-    kernel for a CUDA tensor, the plain version for a CPU one."""
+def _check_list_size(n):
+    if n * n >= 2 ** 31:
+        raise ValueError(f"the split march's survivor list takes 32-bit "
+                         f"pixel indices: n*n must be below 2^31, got n={n}")
+
+
+def sdf_fwd_split_list(params, n: int, split: int, extent: float = 1.2,
+                       t0=None, counters=None):
+    """Pass 1 of the two-pass march with its survivor list -> (img, ts,
+    cont, pairs, counters): the sdf_fwd_split kernel for a CUDA tensor,
+    which appends each survivor (flat pixel index, bits of its carry z)
+    to ``pairs`` (n*n rows of two int32, the first ``counters[0]`` of them
+    filled, in no fixed order) and counts them in ``counters[0]`` on the
+    card; ``sdf_fwd_split_list_plain`` for a CPU one. ``counters`` is an
+    int32 pair of zeros, allocated (one memset on the stream) for each
+    call unless it is given: the count, and a work counter that the
+    shipped tail leaves alone and the refill schedules that chip_smoke.py
+    times draw from. No host reads the count."""
     if not _build.is_cuda(params):
-        return sdf_fwd_split_plain(params, n, split, extent, t0)
+        return sdf_fwd_split_list_plain(params, n, split, extent, t0)
     dev = params.device
     _build.check(params, "params", (N_PARAMS,), dev)
+    _check_list_size(n)
     t0_ptr = _check_t0(t0, n, dev)
+    if counters is None:
+        counters = torch.zeros(2, dtype=torch.int32, device=dev)
+    _build.check(counters, "counters", (2,), dev, torch.int32)
     lib = _build.load("sdf_render")
     img = torch.empty((n, n), dtype=torch.float32, device=dev)
     ts, cont = torch.empty_like(img), torch.empty_like(img)
+    pairs = torch.empty((n * n, 2), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sdf_fwd_split_launch(
             params.data_ptr(), t0_ptr, img.data_ptr(), ts.data_ptr(),
-            cont.data_ptr(), n, split, pixel_step(n, extent), extent, stream)
+            cont.data_ptr(), pairs.data_ptr(), counters.data_ptr(), n, split,
+            pixel_step(n, extent), extent, stream)
     _build.launched(err, "sdf_fwd_split")
-    return img, ts, cont
+    return img, ts, cont, pairs, counters
 
 
-def sdf_tail(params, idx, cont, img, ts, n: int, n_steps: int, split: int,
-             extent: float = 1.2):
-    """Pass 2 of the two-pass march over the survivors ``idx`` (a
-    non-empty 1-D int64 tensor of flat pixel indices): writes ``img`` and
-    ``ts`` at ``idx`` in place and returns them. The sdf_tail kernel for
-    CUDA tensors, the plain version for CPU ones."""
+def sdf_fwd_split(params, n: int, split: int, extent: float = 1.2, t0=None):
+    """Pass 1 of the two-pass march -> (img, ts, cont): the sdf_fwd_split
+    kernel for a CUDA tensor, the plain version for a CPU one
+    (``sdf_fwd_split_list`` without its list)."""
     if not _build.is_cuda(params):
-        return sdf_tail_plain(params, idx, cont, img, ts, n, n_steps, split,
-                              extent)
+        return sdf_fwd_split_plain(params, n, split, extent, t0)
+    return sdf_fwd_split_list(params, n, split, extent, t0)[:3]
+
+
+def sdf_tail(params, pairs, counters, img, ts, n: int, n_steps: int,
+             split: int, extent: float = 1.2):
+    """Pass 2 of the two-pass march over pass 1's survivor list ``pairs``,
+    ``counters`` (``sdf_fwd_split_list``'s): writes ``img`` and ``ts`` at
+    the survivors in place and returns them. The sdf_tail kernel for CUDA
+    tensors, which reads the count on the card and launches with no
+    survivor too; the plain version over the list's entries for CPU
+    ones."""
+    if not _build.is_cuda(params):
+        idx, z = survivor_entries(pairs, counters)
+        return _tail_plain(params, idx.long(), z, img, ts, n, n_steps, split,
+                           extent)
     dev = params.device
     _build.check(params, "params", (N_PARAMS,), dev)
-    for x, name in ((cont, "cont"), (img, "img"), (ts, "ts")):
+    _check_list_size(n)
+    for x, name in ((img, "img"), (ts, "ts")):
         _build.check(x, name, (n, n), dev)
-    if (idx.dtype != torch.int64 or idx.dim() != 1 or idx.numel() == 0
-            or not idx.is_contiguous() or idx.device != dev):
-        raise ValueError(f"idx: expected a non-empty contiguous 1-D int64 "
-                         f"tensor on {dev}, got {idx.dtype} "
-                         f"{tuple(idx.shape)} on {idx.device}")
+    _build.check(pairs, "pairs", (n * n, 2), dev, torch.int32)
+    _build.check(counters, "counters", (2,), dev, torch.int32)
     lib = _build.load("sdf_render")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sdf_tail_launch(
-            params.data_ptr(), idx.data_ptr(), cont.data_ptr(),
-            img.data_ptr(), ts.data_ptr(), idx.numel(), n, n_steps - split,
+            params.data_ptr(), pairs.data_ptr(), counters.data_ptr(),
+            img.data_ptr(), ts.data_ptr(), n, n_steps - split,
             pixel_step(n, extent), extent, stream)
     _build.launched(err, "sdf_tail")
     return img, ts
 
 
 def survivors(cont):
-    """The flat indices of pass 1's survivors, in row-major order. The
-    list is exact, at the price of one host sync (``torch.nonzero`` has to
-    know its length): no worklist capacity to overflow."""
+    """The flat indices of pass 1's survivors, in row-major order
+    (``torch.nonzero``, whose length the host has to know: a sync on the
+    card). The plain route's list, and the order the card's list is held
+    against."""
     return torch.nonzero(cont.reshape(-1) > 0.1 * CONT_FROZEN).reshape(-1)
-
-
-def _split_render(fwd, tail, params, n, n_steps, extent, split, t0):
-    img, ts, cont = fwd(params, n, split, extent, t0)
-    idx = survivors(cont)
-    if idx.numel():
-        tail(params, idx, cont, img, ts, n, n_steps, split, extent)
-    return img, ts
 
 
 def sdf_split(params, n: int, n_steps: int, extent: float = 1.2,
               split: int = 16, t0=None):
     """The two-pass compacted forward -> (img, ts), the one-pass march's
-    bit for bit: pass 1 capped at ``split`` steps, the survivors compacted
-    by ``torch.nonzero``, pass 2 over them."""
-    return _split_render(sdf_fwd_split, sdf_tail, params, n, n_steps, extent,
-                         split, t0)
+    bit for bit: pass 1 capped at ``split`` steps appends its survivors to
+    a list on the card, and pass 2 marches them on, both on the current
+    stream with no host sync between or after them (the list's count
+    stays on the card); on the CPU the plain versions of both."""
+    img, ts, _, pairs, counters = sdf_fwd_split_list(params, n, split,
+                                                     extent, t0)
+    return sdf_tail(params, pairs, counters, img, ts, n, n_steps, split,
+                    extent)
 
 
 def sdf_split_plain(params, n: int, n_steps: int, extent: float = 1.2,
                     split: int = 16, t0=None):
-    """``sdf_split`` through the plain versions of both passes."""
-    return _split_render(sdf_fwd_split_plain, sdf_tail_plain, params, n,
-                         n_steps, extent, split, t0)
+    """``sdf_split`` through the plain versions of both passes, the
+    survivors compacted by ``survivors`` in row-major order."""
+    img, ts, cont = sdf_fwd_split_plain(params, n, split, extent, t0)
+    return sdf_tail_plain(params, survivors(cont), cont, img, ts, n, n_steps,
+                          split, extent)
 
 
 def bwd_vector_loads(g, ts, n: int) -> bool:

@@ -9,8 +9,19 @@ port of ``trace/``.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+
+from .._device import resolve_device
+
+
+def _as_tensor(v, dtype, device):
+    """``v`` in ``dtype``: a tensor keeps its device, a Python number goes
+    to ``device``."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype)
+    return torch.as_tensor(v, dtype=dtype, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +46,35 @@ class Vec3:
     x: torch.Tensor
     y: torch.Tensor
     z: torch.Tensor
+
+    @staticmethod
+    def of(x, y, z, device=None) -> "Vec3":
+        """A vector of the components ``x``, ``y``, ``z``, in ``x``'s dtype
+        if that is a floating type, else the default float dtype (as
+        ``jnp.result_type(x, 1.0)`` promotes); ``y`` and ``z`` take ``x``'s
+        dtype. Tensors keep their device; Python numbers go to
+        ``resolve_device(device)``: the card unless the caller asks for the
+        CPU. The eager branch of the reference's ``Vec3.of``: its lift of
+        lazy components waits for the port of ``trace/``."""
+        device = x.device if isinstance(x, torch.Tensor) else \
+            resolve_device(device)
+        xt = torch.as_tensor(x, device=device)
+        if not xt.is_floating_point():
+            xt = xt.to(torch.get_default_dtype())
+        return Vec3(xt, _as_tensor(y, xt.dtype, device),
+                    _as_tensor(z, xt.dtype, device))
+
+    @staticmethod
+    def splat(x, y, z, like=None, device=None) -> "Vec3":
+        """Constant vector in ``like.x``'s dtype and on its device, else in
+        float32 on ``resolve_device(device)``; it broadcasts against
+        ``like``'s lanes."""
+        if like is not None:
+            dt, device = like.x.dtype, like.x.device
+        else:
+            dt, device = torch.float32, resolve_device(device)
+        return Vec3(_as_tensor(x, dt, device), _as_tensor(y, dt, device),
+                    _as_tensor(z, dt, device))
 
     def __add__(self, o):
         if isinstance(o, Vec3):
@@ -63,9 +103,47 @@ def dot3(a: Vec3, b: Vec3):
     return a.x * b.x + a.y * b.y + a.z * b.z
 
 
+def cross3(a: Vec3, b: Vec3) -> Vec3:
+    return Vec3(a.y * b.z - a.z * b.y,
+                a.z * b.x - a.x * b.z,
+                a.x * b.y - a.y * b.x)
+
+
 def norm3(a: Vec3):
     return torch.sqrt(dot3(a, a))
 
 
 def normalize3(a: Vec3) -> Vec3:
     return a * torch.rsqrt(dot3(a, a))
+
+
+def _mulsign(a, b):
+    """a * sign(b) by the sign bit of b: -0.0 flips a, as the reference's
+    sign-bit XOR does (enoki_tpu/ops/router.py:671-690)."""
+    return torch.where(torch.signbit(b), -a, a)
+
+
+def unit_angle(a: Vec3, b: Vec3):
+    """Numerically well-behaved angle between two UNIT vectors (Don
+    Hatch's formulation, enoki_tpu/render/vec.py:106-117): accurate for
+    nearly parallel and nearly antiparallel inputs, where acos(dot) loses
+    all precision. ``_mulsign``, ``torch.asin`` and ``torch.where`` stand
+    in for the reference's ``ns.mulsign``, ``ns.asin`` and ``ns.select``;
+    the port's ``ops.mulsign`` takes ``_mulsign``'s place when the rest of
+    ``ops/router.py`` is ported."""
+    d = dot3(a, b)
+    s = _mulsign(a.x, d), _mulsign(a.y, d), _mulsign(a.z, d)
+    diff = Vec3(b.x - s[0], b.y - s[1], b.z - s[2])
+    temp = 2.0 * torch.asin(0.5 * norm3(diff))
+    return torch.where(d >= 0.0, temp, math.pi - temp)
+
+
+def unit_angle_z(v: Vec3):
+    """Angle between a unit vector and the z-axis
+    (enoki_tpu/render/vec.py:120-127): use wherever acos(v.z) is tempting.
+    ``torch.copysign`` stands in for the reference's ``ns.copysign`` until
+    the port's ``ops.copysign`` exists."""
+    zc = v.z - torch.copysign(v.z * 0.0 + 1.0, v.z)
+    temp = 2.0 * torch.asin(0.5 * torch.sqrt(v.x * v.x + v.y * v.y
+                                             + zc * zc))
+    return torch.where(v.z >= 0.0, temp, math.pi - temp)

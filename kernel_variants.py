@@ -2,8 +2,8 @@
 """Design variants of the kernels of the PyTorch/CUDA port, timed in
 turns on one CUDA card, and some of them of another checkout beside them.
 
-  python kernel_variants.py [--sdf-only | --bwd-only | --sphere-only]
-                            [--ab OTHER_ROOT]
+  python kernel_variants.py [--sdf-only | --bwd-only | --sphere-only |
+                             --split-only] [--ab OTHER_ROOT]
 
 The SDF backward pair (sdf_bwd in csrc/sdf_render.cu, sdf_bwd_ad in
 csrc/sdf_bwd_ad.cu, both on csrc/pixel_sum.cuh) on the reference sphere at
@@ -99,6 +99,17 @@ other. The variants:
                f16 with the span's reciprocal built from lo's exponent
                (shipped) or an IEEE division (the earlier route), each
                with 2 (shipped) or 4 Philox groups a thread
+  split        the two-pass split march (pass 1 of sdf_fwd_split with
+               its survivor list, sdf_tail over it) at 1024^2 split 16
+               (chip_smoke.py's), 1024^2 split 8 and 2048^2 split 16
+               (more survivors than the persistent grid has lanes): the
+               tail's schedules (refill at any idle lane, below half the
+               lanes, whole warps 32 survivors at a time; 2 or 4 march
+               steps a vote), a thread a survivor of the list, the 64-bit
+               index, the persistent grid halved; pass 1 with an atomic
+               a warp instead of the block scan, and without the append;
+               each split render bit-equal to the one-pass render, pass 1
+               to plain; pass 1, the tail and the split forward timed
   hist         a row per thread with the next chunks' loads in flight
                while the current ones are added (shipped: 8 chunks when
                counting, 4 weighted), the same with 4 when counting, not
@@ -106,8 +117,11 @@ other. The variants:
                design)
 
 --sdf-only times the sdf_fwd family's variants alone, --bwd-only the SDF
-backward pair's, --sphere-only the sphere kernels'. --ab OTHER_ROOT
-times the sdf_fwd family, the backward kernels (sdf_bwd, sdf_bwd_ad,
+backward pair's, --sphere-only the sphere kernels', --split-only the
+split march's. --ab OTHER_ROOT
+times the sdf_fwd family, sdf_tail, the split forward's device time
+(torch.profiler), the chained fwd+bwd step with split 16 and without,
+the backward kernels (sdf_bwd, sdf_bwd_ad,
 sphere_bwd, generic_bwd), sphere_fwd (f32 and bf16), generic_fwd and
 stochastic_round (f16 and bf16) of the enoki_tpu_torch under OTHER_ROOT
 (a checkout of another commit, with its own chip_smoke.py) in child
@@ -190,7 +204,8 @@ def time_root(root):
     timer = C.DeviceTimer(torch)
     out = {"root": root}
     for name in SDF_KERNELS:
-        out[f"{name}_ms"] = timer(sdf_call(torch, K, p_sdf, name), 200)
+        out[f"{name}_ms"] = timer(sdf_call(torch, C, K, p_sdf, name), 200)
+    out.update(split_times(torch, C, K, p_sdf, timer))
     for name, fn in (
             ("sdf_bwd_ms", lambda: K.sdf_bwd(p_sdf, g, ts, N)),
             ("sdf_bwd_ad_ms", lambda: K.sdf_bwd(p_sdf, g, ts, N, 1.2, "ad")),
@@ -228,6 +243,43 @@ def time_root(root):
             "stochastic_round_kernelILb1ELb1E",
             "stochastic_round_kernelILb0ELb1E"))])
     print(json.dumps(out))
+
+
+def split_times(torch, C, K, p, timer):
+    """sdf_tail's device time, the split forward's (split 16: the kernels
+    of pass 1, of the compaction where there is one, and of the tail, from
+    torch.profiler), and the chained fwd+bwd step with split 16 and
+    without, through ``K`` (a checkout whose split march compacts by
+    torch.nonzero, or by the list on the card)."""
+    out = {}
+    if hasattr(K, "sdf_fwd_split_list"):
+        img, ts, _, pairs, counters = K.sdf_fwd_split_list(p, N, 16)
+        fresh = C.fresh_counters(torch, p.device, 1000,
+                                 int(counters[0].item()))
+        out["sdf_tail_ms"] = timer(lambda: K.sdf_tail(
+            p, pairs, fresh(), img, ts, N, STEPS, 16), 200)
+    else:
+        img, ts, cont = K.sdf_fwd_split(p, N, 16)
+        idx = K.survivors(cont)
+        out["sdf_tail_ms"] = timer(lambda: K.sdf_tail(
+            p, idx, cont, img, ts, N, STEPS, 16), 200)
+    by_kernel = C.device_ms_by_kernel(
+        torch, lambda p0, p_, k: (K.sdf_split(p0, N, STEPS, 1.2, 16), p0)[1],
+        p, 50)
+    out["split_fwd_device_ms"] = sum(by_kernel.values())
+
+    def step(split):
+        def run(p0, p_, k):
+            p_ = p_.detach().requires_grad_(True)
+            loss = K.render_sdf_cuda(p_, N, STEPS, 1.2, 128, coarse=0,
+                                     split=split).mean()
+            (g,) = torch.autograd.grad(loss, p_)
+            return p0 + (loss.detach() + 1e-12 * g.sum()) * 1e-12 + 1e-6 * k
+        return run
+    for split in (16, 0, 0, 16):
+        out.setdefault(f"step_split{split}_ms", []).append(
+            round(C.chain_ms(torch, step(split), p, 100, 5)[0], 5))
+    return out
 
 
 def bwd_bits(torch, C, K, dev):
@@ -599,12 +651,17 @@ def sdf_options(torch, name):
                 else torch.float32)
 
 
-def sdf_call(torch, K, p, name):
+def sdf_call(torch, C, K, p, name):
     """A call of the sdf_fwd family's kernel ``name`` through its wrapper,
-    at the shapes chip_smoke.py times it."""
+    at the shapes chip_smoke.py times it: pass 1 of the split march with
+    counters zeroed beforehand where it appends its survivors to a list
+    (the wrapper would add a memset to each call)."""
     kw = sdf_options(torch, name)
     if kw is None:
-        return lambda: K.sdf_fwd_split(p, N, 16)
+        if not hasattr(K, "sdf_fwd_split_list"):
+            return lambda: K.sdf_fwd_split(p, N, 16)
+        fresh = C.fresh_counters(torch, p.device, 1000)
+        return lambda: K.sdf_fwd_split_list(p, N, 16, counters=fresh())
     return lambda: K.sdf_fwd(p, N, STEPS, 1.2, None, **kw)
 
 
@@ -644,7 +701,7 @@ def run_sdf_variants(torch, dev, timer, C):
             # the wrappers load sdf_render alone: they launch the variant's
             with mock.patch.object(_build, "load", lambda _, lib=lib: lib):
                 for k in SDF_KERNELS:
-                    call = sdf_call(torch, K, p, k)
+                    call = sdf_call(torch, C, K, p, k)
                     if not all(torch.equal(a, b)
                                for a, b in zip(call(), plain[k])):
                         raise RuntimeError(f"{k} {name}: differs from its "
@@ -675,6 +732,188 @@ def run_sdf_variants(torch, dev, timer, C):
                   + C.resources_text(path, (kernel,))
                   + f"; its march loop lays out {laid_out} SASS "
                   f"instructions and issues {issued} an iteration")
+
+
+# the two-pass split march (csrc/sdf_render.cu: pass 1's append, sdf_tail)
+TAIL_GRID = "    grid[dev] = sms * per_sm;"
+# a lane's first pair loaded beside the count (every slot below n^2 lies
+# inside the list), the next one while the current one marches
+PREFETCH = [
+    ("""  const int count = counters[0];
+  const int lanes = gridDim.x * kTailThreads;""",
+     """  const int lanes = gridDim.x * kTailThreads;
+  int j = blockIdx.x * kTailThreads + threadIdx.x;
+  int2 e = j < n * n ? pairs[j] : make_int2(0, 0);
+  const int count = counters[0];"""),
+    ("""  for (int j = blockIdx.x * kTailThreads + threadIdx.x; j < count;
+       j += lanes) {
+    const int2 e = pairs[j];""",
+     """  while (j < count) {
+    const int next = j + lanes;
+    const int2 e_next = next < count ? pairs[next] : e;"""),
+    ("""                static_cast<size_t>(i), img, ts);
+  }
+}""", """                static_cast<size_t>(i), img, ts);
+    j = next;
+    e = e_next;
+  }
+}""")]
+# each survivor's row and column from its index taken as 64 bits
+TAIL_INDEX64 = [("""    const int row = i / n;
+    const float px = pixel_coord(i - row * n, step, extent);""",
+                 """    const int64_t i64 = i;
+    const int row = static_cast<int>(i64 / n);
+    const float px = pixel_coord(
+        static_cast<int>(i64 - static_cast<int64_t>(row) * n), step,
+        extent);""")]
+# pass 1's append with one atomicAdd a warp and no block scan
+APPEND_HEAD = "__device__ __forceinline__ void append_survivor("
+WARP_APPEND = """__device__ __forceinline__ void append_survivor(bool live, int i, float z,
+                                                int2* __restrict__ pairs,
+                                                int* __restrict__ counters) {
+  const int lane = threadIdx.x % 32;
+  const unsigned ballot = __ballot_sync(0xffffffffu, live);
+  if (ballot == 0u) return;
+  int base = 0;
+  if (lane == 0) base = atomicAdd(counters, __popc(ballot));
+  base = __shfl_sync(0xffffffffu, base, 0);
+  if (live) {
+    pairs[base + __popc(ballot & ((1u << lane) - 1u))] =
+        make_int2(i, __float_as_int(z));
+  }
+}"""
+# pass 1's append where every thread sums the four warps' counts itself:
+# a block without a survivor leaves after one barrier
+SUMMED_APPEND = """__device__ __forceinline__ void append_survivor(bool live, int i, float z,
+                                                int2* __restrict__ pairs,
+                                                int* __restrict__ counters) {
+  constexpr int kWarps = kFwdThreads / 32;
+  __shared__ int warp_count[kWarps];
+  __shared__ int base;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const unsigned ballot = __ballot_sync(0xffffffffu, live);
+  if (lane == 0) warp_count[warp] = __popc(ballot);
+  __syncthreads();
+  int total = 0, before = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = warp_count[w];
+    before += w < warp ? c : 0;
+    total += c;
+  }
+  if (total == 0) return;
+  if (threadIdx.x == 0) base = atomicAdd(counters, total);
+  __syncthreads();
+  if (live) {
+    pairs[base + before + __popc(ballot & ((1u << lane) - 1u))] =
+        make_int2(i, __float_as_int(z));
+  }
+}"""
+NO_APPEND = "pass 1 without the append (pass 1 alone)"
+
+
+def split_variants(C, source):
+    """{name: text of csrc/sdf_render.cu} of the split march's variants;
+    ``source`` is the shipped text."""
+    texts = {"a lane a slot, then the slot a grid further (shipped)": source}
+    for steps in (2, 4):
+        for below, text in C.tail_schedule_sources(steps).items():
+            if below == 1 and steps == 4:
+                continue  # whole warps march in march_z's loop: no votes
+            texts[f"refill: {C.TAIL_SCHEDULES[below]}"
+                  + ("" if below == 1 else f", {steps} steps a vote")] = text
+    for name, pairs in (
+            ("the same, the next pair prefetched", PREFETCH),
+            ("the 64-bit index", TAIL_INDEX64),
+            ("persistent grid / 2",
+             [(TAIL_GRID, TAIL_GRID.replace(";", " / 2;"))]),
+            ("pass 1 with an atomic a warp (no block scan)",
+             [(C.function_text(source, APPEND_HEAD), WARP_APPEND)]),
+            ("pass 1's counts summed by every thread, one barrier where "
+             "a block has no survivor",
+             [(C.function_text(source, APPEND_HEAD), SUMMED_APPEND)]),
+            (NO_APPEND, [("    append_survivor(live, row * n + col, z, "
+                          "pairs, counters);\n", "")])):
+        texts[name] = substitute(source, pairs)
+    return texts
+
+
+# (n, split): chip_smoke.py's, and two where the survivors outnumber the
+# persistent grid's lanes
+SPLIT_CASES = ((N, 16), (N, 8), (2 * N, 16))
+
+
+def run_split_variants(torch, dev, timer, C):
+    """The split march's design variants: each built, its split render
+    held bit-equal to the one-pass render and its pass 1 to the plain
+    version, then pass 1 (counters zeroed beforehand), the tail and the
+    split forward as sdf_split runs it timed in two passes, one order then
+    the other, with the tail's registers and the SASS of its march loop."""
+    from concurrent.futures import ThreadPoolExecutor
+    from unittest import mock
+
+    from enoki_tpu_torch import _build
+    from enoki_tpu_torch.render import sdf_kernels as K
+
+    texts = split_variants(
+        C, (_build.CSRC_DIR / "sdf_render.cu").read_text())
+    with ThreadPoolExecutor(len(texts)) as ex:
+        libs = dict(zip(texts, ex.map(
+            lambda t: _build.load_generated("sdf_render", t),
+            texts.values())))
+    p = torch.from_numpy(C.scene_vec(None)).to(dev)
+    one = {(n, split): K.sdf_fwd(p, n, STEPS) for n, split in SPLIT_CASES}
+    plain = {(n, split): K.sdf_fwd_split_plain(p, n, split)
+             for n, split in SPLIT_CASES}
+    survivors = {}
+    times = {}
+    for order in (1, -1):
+        for name, lib in list(libs.items())[::order]:
+            with mock.patch.object(_build, "load", lambda _, lib=lib: lib):
+                for n, split in SPLIT_CASES:
+                    img, ts, cont, pairs, counters = K.sdf_fwd_split_list(
+                        p, n, split)
+                    if not all(torch.equal(a, b) for a, b in
+                               zip((img, ts, cont), plain[(n, split)])):
+                        raise RuntimeError(f"{name} n={n} split={split}: "
+                                           f"pass 1 differs from plain")
+                    fresh = C.fresh_counters(torch, dev, 1000)
+                    got = [timer(lambda: K.sdf_fwd_split_list(
+                        p, n, split, counters=fresh()), 200)]
+                    if name != NO_APPEND:
+                        k = int(counters[0].item())
+                        survivors[(n, split)] = k
+                        two = K.sdf_split(p, n, STEPS, 1.2, split)
+                        if not all(torch.equal(a, b) for a, b in
+                                   zip(two, one[(n, split)])):
+                            raise RuntimeError(
+                                f"{name} n={n} split={split}: the split "
+                                f"render differs from the one-pass render")
+                        fresh_t = C.fresh_counters(torch, dev, 1000, k)
+                        got.append(timer(lambda: K.sdf_tail(
+                            p, pairs, fresh_t(), img, ts, n, STEPS, split),
+                            200))
+                        got.append(timer(lambda: K.sdf_split(
+                            p, n, STEPS, 1.2, split), 200))
+                    times.setdefault((name, n, split), []).append(got)
+    lanes = (torch.cuda.get_device_properties(0).multi_processor_count
+             * 2048)
+    print(f"split march: survivors {survivors}; at most {lanes} resident "
+          f"lanes on this card")
+    for (name, n, split), runs in times.items():
+        parts = ["pass 1", "sdf_tail", "split forward"][:len(runs[0])]
+        print(f"split {name} n={n} split={split}: " + "; ".join(
+            f"{part} " + " / ".join(f"{r[j]:.5f}" for r in runs) + " ms"
+            for j, part in enumerate(parts)))
+    for name, text in texts.items():
+        path = _build.build_generated("sdf_render", text)
+        kernel = "sdf_tail_kernel"
+        sass = C.sass_of(path)
+        _, _, laid_out, issued = C.loop_counts(sass, kernel, innermost=True)
+        print(f"ptxas split {name} ({path.name}): " + C.resources_text(
+            path, (kernel, "sdf_fwd_kernelIfLb0ELb1EE"))
+            + f"; {kernel}'s march loop lays out {laid_out} SASS "
+            f"instructions and issues {issued} a trip")
 
 
 # the backward pair on the pixel-sum skeleton (csrc/pixel_sum.cuh)
@@ -1555,6 +1794,8 @@ def main():
                     help="time the SDF backward pair's variants alone")
     ap.add_argument("--sphere-only", action="store_true",
                     help="time the sphere kernels' variants alone")
+    ap.add_argument("--split-only", action="store_true",
+                    help="time the split march's variants alone")
     ap.add_argument("--time-root", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time_root:
@@ -1567,16 +1808,18 @@ def main():
         sys.exit("kernel_variants: needs a CUDA card")
     print(C.nvidia_smi("name,power.limit"))
     dev, timer = torch.device("cuda"), C.DeviceTimer(torch)
-    only = [args.sdf_only, args.bwd_only, args.sphere_only]
+    only = [args.sdf_only, args.bwd_only, args.sphere_only, args.split_only]
     if sum(only) > 1:
-        sys.exit("kernel_variants: at most one of --sdf-only, --bwd-only "
-                 "and --sphere-only")
+        sys.exit("kernel_variants: at most one of --sdf-only, --bwd-only, "
+                 "--sphere-only and --split-only")
     if args.bwd_only or not any(only):
         run_bwd_variants(torch, dev, timer, C)
     if args.sdf_only or not any(only):
         run_sdf_variants(torch, dev, timer, C)
     if args.sphere_only or not any(only):
         run_sphere_variants(torch, dev, timer, C)
+    if args.split_only or not any(only):
+        run_split_variants(torch, dev, timer, C)
     if not any(only):
         run_variants(torch, dev, timer, C)
     if args.ab:

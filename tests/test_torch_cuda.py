@@ -20,7 +20,9 @@ from enoki_tpu_torch.render import (LAUNCHES, Vec3, generic as G,
 from enoki_tpu_torch.render.sdf_kernels import (
     SDFRender, _cone_t0, bwd_vector_loads, fwd_kernel_name, render_sdf_cuda,
     sdf_bwd, sdf_bwd_ad_plain, sdf_bwd_plain, sdf_fwd, sdf_fwd_plain,
-    sdf_fwd_split, sdf_fwd_split_plain, sdf_split, sdf_split_plain)
+    sdf_fwd_split, sdf_fwd_split_list, sdf_fwd_split_list_plain,
+    sdf_fwd_split_plain, sdf_split, sdf_split_plain, sdf_tail,
+    survivor_entries)
 from enoki_tpu_torch.render.sphere_kernels import (
     bwd_vector_loads as sphere_bwd_vector_loads, fwd_vector_stores,
     render_sphere_cuda, sphere_bwd, sphere_bwd_plain, sphere_fwd,
@@ -173,10 +175,13 @@ def test_sdf_fwd_variants_are_bit_equal_to_plain(params, name, n):
     assert torch.equal(img_k, img_p) and torch.equal(ts_k, ts_p)
 
 
+SPLIT_CASES = [(split, coarse, n) for split, coarse in [(16, 0), (32, 0),
+                                                         (16, 8)]
+               for n in EDGE_SIZES if n % 8 == 0 or not coarse]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("split,coarse,n", [
-    (split, coarse, n) for split, coarse in [(16, 0), (32, 0), (16, 8)]
-    for n in EDGE_SIZES if n % 8 == 0 or not coarse])
+@pytest.mark.parametrize("split,coarse,n", SPLIT_CASES)
 def test_split_kernels_are_bit_equal_to_one_pass_and_plain(params, split,
                                                            coarse, n):
     t0 = _cone_t0(params, n, STEPS, 1.2, coarse) if coarse else None
@@ -191,6 +196,86 @@ def test_split_kernels_are_bit_equal_to_one_pass_and_plain(params, split,
     for a, b in zip(sdf_fwd_split(params, n, split, 1.2, t0),
                     sdf_fwd_split_plain(params, n, split, 1.2, t0)):
         assert torch.equal(a, b)
+    # two runs bitwise equal, whatever order the list took
+    again = sdf_split(params, n, STEPS, 1.2, split, t0)
+    assert all(torch.equal(a, b) for a, b in zip(two, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split,coarse,n", SPLIT_CASES)
+def test_pass_1s_list_sorted_is_the_plain_list(params, split, coarse, n):
+    t0 = _cone_t0(params, n, STEPS, 1.2, coarse) if coarse else None
+    got = sdf_fwd_split_list(params, n, split, 1.2, t0)
+    want = sdf_fwd_split_list_plain(params, n, split, 1.2, t0)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    assert got[4].tolist() == want[4].tolist()
+    idx, z = survivor_entries(got[3], got[4])
+    order = torch.argsort(idx)
+    w_idx, w_z = survivor_entries(want[3], want[4])
+    assert torch.equal(idx[order], w_idx)
+    assert torch.equal(z[order], w_z)  # the carries, bit for bit
+
+
+@pytest.mark.cuda
+def test_split_with_no_survivor_launches_the_tail_and_keeps_pass_1(cuda):
+    v = scene_vec(None)
+    v[0] = 50.0   # off screen: every ray escapes within a few steps
+    p = torch.from_numpy(v).to(cuda)
+    img, ts, cont, pairs, counters = sdf_fwd_split_list(p, N, 16)
+    img1, ts1 = img.clone(), ts.clone()
+    reset_launch_counts()
+    sdf_tail(p, pairs, counters, img, ts, N, STEPS, 16, 1.2)
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"sdf_tail": 1}
+    assert counters[0].item() == 0
+    assert torch.equal(img, img1) and torch.equal(ts, ts1)
+    assert (img == v[4]).all() and (ts < 0).all()
+
+
+@pytest.mark.cuda
+def test_the_split_forward_makes_no_host_sync(cuda):
+    p = torch.from_numpy(scene_vec(None)).to(cuda)
+    sdf_split(p, N, STEPS, 1.2, 16)   # the build and load, outside
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img, ts = sdf_split(p, N, STEPS, 1.2, 16)
+        with torch.no_grad():
+            img2 = render_sdf_cuda(p, N, STEPS, 1.2, 64, coarse=0, split=16)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(img, img2)
+
+
+@pytest.mark.cuda
+def test_c4_functions_on_the_card_match_the_cpu(cuda):
+    from enoki_tpu_torch.render import (SDFScene, cross3, render_sdf_grads,
+                                        scene_to_vec)
+    from enoki_tpu_torch.render.vec import unit_angle, unit_angle_z
+    rng = np.random.default_rng(3)
+    a = rng.normal(size=(3, 10_000)).astype(np.float32)
+    b = rng.normal(size=(3, 10_000)).astype(np.float32)
+    a /= np.linalg.norm(a, axis=0)
+    b /= np.linalg.norm(b, axis=0)
+    va, vb = (Vec3(*(torch.from_numpy(x) for x in c)) for c in (a, b))
+    ca, cb = (Vec3(*(x.to(cuda) for x in (v.x, v.y, v.z))) for v in (va, vb))
+    torch.testing.assert_close(unit_angle(ca, cb).cpu(), unit_angle(va, vb),
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(unit_angle_z(ca).cpu(), unit_angle_z(va),
+                               rtol=1e-5, atol=1e-6)
+    c = cross3(ca, cb)
+    for g, w in zip((c.x, c.y, c.z), (lambda x: (x.x, x.y, x.z))(
+            cross3(va, vb))):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-6, atol=1e-7)
+    assert Vec3.of(1, 2, 3).x.device.type == "cuda"
+    assert Vec3.splat(1, 2, 3).z.device.type == "cuda"
+    img, g = render_sdf_grads(SDFScene.reference(cuda), 64, 64)
+    img_c, g_c = render_sdf_grads(SDFScene.reference("cpu"), 64, 64)
+    torch.testing.assert_close(img.cpu(), img_c, rtol=0, atol=1e-3)
+    gv, gc = scene_to_vec(g).cpu(), scene_to_vec(g_c)
+    torch.testing.assert_close(gv, gc, rtol=1e-2,
+                               atol=1e-3 * max(1.0, gc.abs().max().item()))
 
 
 @pytest.mark.cuda

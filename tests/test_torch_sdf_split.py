@@ -27,9 +27,12 @@ from enoki_tpu.render.pallas_kernels import (
 
 from enoki_tpu_torch.render import LAUNCHES, reset_launch_counts
 from enoki_tpu_torch.render.sdf_kernels import (
-    CONT_FROZEN, SDFRender, _cone_t0, march_counts, render_sdf_cuda, sdf_bwd,
-    sdf_bwd_ad_plain, sdf_bwd_plain, sdf_fwd_plain, sdf_fwd_split_plain,
-    sdf_split, sdf_split_plain, sdf_tail_plain, survivors)
+    CONT_FROZEN, EPS, T_MAX, SDFRender, _cone_t0, _const, _dist_len,
+    _march_parts, _shade, march_counts, render_sdf_cuda, sdf_bwd,
+    sdf_bwd_ad_plain, sdf_bwd_plain, sdf_fwd_plain, sdf_fwd_split_list,
+    sdf_fwd_split_list_plain, sdf_fwd_split_plain, sdf_split,
+    sdf_split_plain, sdf_tail, sdf_tail_plain, survivor_entries, survivors,
+    tile_pixels)
 
 from test_torch_cuda import SCENES, scene_vec as _scene_vec
 
@@ -126,6 +129,180 @@ def test_split_with_no_survivor_skips_the_tail():
     assert survivors(sdf_fwd_split_plain(p, 64, 16, 1.2)[2]).numel() == 0
     img, ts = sdf_split(p, 64, STEPS, 1.2, 16)
     assert (img == v[4]).all() and (ts < 0).all()
+
+
+# -- the survivor list of pass 1 and the tail over it ----------------------
+
+
+@pytest.mark.parametrize("split,coarse", SPLITS)
+def test_the_list_form_holds_exactly_the_survivors(scene_vec, split,
+                                                   coarse):
+    p = torch.from_numpy(scene_vec)
+    t0 = _t0(p, coarse)
+    img, ts, cont, pairs, counters = sdf_fwd_split_list_plain(p, N, split,
+                                                              1.2, t0)
+    for a, b in zip((img, ts, cont), sdf_fwd_split_plain(p, N, split, 1.2,
+                                                         t0)):
+        assert torch.equal(a, b)
+    idx, z = survivor_entries(pairs, counters)
+    want = survivors(cont)
+    assert idx.dtype == torch.int32 and torch.equal(idx.long(), want)
+    assert torch.equal(z, cont.reshape(-1)[want]) and (z > -1e8).all()
+    assert counters.tolist() == [want.numel(), 0]
+    assert pairs.shape == (N * N, 2) and (pairs[want.numel():] == 0).all()
+    # the wrapper on the CPU takes the plain list, and the tail over it
+    # finishes the one-pass render
+    got = sdf_fwd_split_list(p, N, split, 1.2, t0)
+    assert all(torch.equal(a, b) for a, b in zip(got, (img, ts, cont,
+                                                       pairs, counters)))
+    sdf_tail(p, pairs, counters, img, ts, N, STEPS, split, 1.2)
+    one = sdf_fwd_plain(p, N, STEPS, 1.2, t0)
+    assert torch.equal(img, one[0]) and torch.equal(ts, one[1])
+
+
+def test_the_tail_over_an_empty_list_leaves_pass_1s_image():
+    v = _scene_vec(None)
+    v[0] = 50.0   # off screen: every ray escapes within a few steps
+    p = torch.from_numpy(v)
+    img, ts, cont, pairs, counters = sdf_fwd_split_list_plain(p, 64, 16)
+    assert counters.tolist() == [0, 0]
+    img1, ts1 = img.clone(), ts.clone()
+    sdf_tail(p, pairs, counters, img, ts, 64, STEPS, 16, 1.2)
+    assert torch.equal(img, img1) and torch.equal(ts, ts1)
+
+
+def _tail_schedule(p, pairs, counters, img, ts, n, n_steps, split, extent,
+                   n_warps, refill_below, steps_per_trip, order):
+    """A model of the sdf_tail kernels' loops on ``n_warps`` warps of 32
+    lanes: lane j of the grid first takes list slot j. With
+    ``refill_below`` None (the shipped kernel) each lane marches to the end
+    and takes the slot a grid's lanes further on. Else (the refill
+    schedules chip_smoke.py and kernel_variants.py time beside it) each
+    outer trip of a warp marches (with ``refill_below`` 1, every busy lane
+    to its end; else ``steps_per_trip`` steps at a time while all lanes, at
+    least ``refill_below`` of them, or once the list is drained any of
+    them, are busy), writes the pixels of the marches that ended, and
+    refills its idle lanes from the work counter, whose slots start past
+    the grid's lanes. The warps take their trips in the order ``order``
+    returns. Returns how many times each pixel was written."""
+    count, work, lanes = int(counters[0]), 0, 32 * n_warps
+    coords = tile_pixels(n, extent, "cpu")[0][0]
+    n_tail = n_steps - split
+    writes = torch.zeros(n * n, dtype=torch.int64)
+    f = dict(dtype=torch.float32)
+    warps = [dict(busy=torch.zeros(32, dtype=torch.bool),
+                  ended=torch.zeros(32, dtype=torch.bool),
+                  i=torch.zeros(32, dtype=torch.int64),
+                  z=torch.zeros(32, **f), s=torch.zeros(32, **f),
+                  k=torch.zeros(32, dtype=torch.int64),
+                  rxy2=torch.ones(32, **f), px=torch.zeros(32, **f),
+                  py=torch.zeros(32, **f), drained=lanes >= count,
+                  done=False)
+             for _ in range(n_warps)]
+    _, z0, rad = _march_parts(p, coords[:1], coords[:1], torch.float32)
+    eps = _const(EPS, z0)
+    s_hit, esc = rad + eps, _const(T_MAX, z0) + z0 + rad
+
+    def take(w, lanes_of, slots):
+        new = lanes_of[slots < count]
+        ent = pairs[slots[slots < count]]
+        i = ent[:, 0].long()
+        row = torch.div(i, n, rounding_mode="floor")
+        w["i"][new] = i
+        w["z"][new] = ent[:, 1].view(torch.float32)
+        w["px"][new], w["py"][new] = coords[i - row * n], coords[row]
+        w["rxy2"][new] = _march_parts(p, w["px"][new], w["py"][new],
+                                      torch.float32)[0]
+        w["k"][new] = -1
+        w["busy"][new] = True
+
+    all_lanes = torch.arange(32)
+    for g, w in enumerate(warps):
+        w["slot"] = 32 * g + all_lanes
+        take(w, all_lanes, w["slot"])
+
+    def step(w):
+        b = w["busy"]
+        s = _dist_len(w["rxy2"][b], w["z"][b])
+        alive = (s >= s_hit) & (w["z"][b] + s <= esc)
+        stop = (w["k"][b] >= n_tail - 1) | ~alive
+        w["s"][b] = s
+        z = w["z"][b]
+        w["z"][b] = torch.where(stop, z, z + (s - rad))
+        w["k"][b] += (~stop).long()
+        lanes_b = b.nonzero().reshape(-1)
+        w["busy"][lanes_b[stop]] = False
+        w["ended"][lanes_b[stop]] = True
+
+    def going(w):
+        busy = int(w["busy"].sum())
+        if w["drained"] or refill_below in (None, 1):
+            return busy > 0
+        return busy >= refill_below
+
+    while not all(w["done"] for w in warps):
+        for w in order(warps):
+            if w["done"]:
+                continue
+            if not w["busy"].any():
+                w["done"] = True
+                continue
+            while True:
+                for _ in range(steps_per_trip if refill_below else 1):
+                    step(w)
+                if not going(w):
+                    break
+            e = w["ended"]
+            hit = (w["s"][e] - rad) < eps
+            im, t = _shade(p, w["px"][e], w["py"][e], w["z"][e] - z0, hit)
+            img.view(-1)[w["i"][e]] = im
+            ts.view(-1)[w["i"][e]] = t
+            writes[w["i"][e]] += 1
+            w["ended"] = torch.zeros_like(e)
+            idle = (~w["busy"]).nonzero().reshape(-1)
+            if refill_below is None:
+                w["slot"] = w["slot"] + lanes
+                take(w, idle, w["slot"][idle])
+                w["drained"] = not w["busy"].any()
+            elif idle.numel() and not w["drained"]:
+                base = lanes + work
+                work += idle.numel()
+                w["drained"] = base + idle.numel() >= count
+                take(w, idle, base + torch.arange(idle.numel()))
+    return writes
+
+
+@pytest.mark.parametrize("refill_below,steps_per_trip", [
+    (None, 1), (32, 2), (32, 4), (16, 2), (1, 1)],
+    ids=["strided", "any_idle_2", "any_idle_4", "half_idle_2", "whole_warp"])
+@pytest.mark.parametrize("n_warps", [3, 64])
+def test_the_tail_schedule_marches_each_survivor_once(refill_below,
+                                                      steps_per_trip,
+                                                      n_warps):
+    # a small grid refills many times; a large one holds every survivor
+    # in its first, static round. The warps take turns in a seeded order,
+    # as the card's run in none; every order must give the one-pass render
+    n = 64
+    p = torch.from_numpy(_scene_vec(2))
+    img, ts, cont, pairs, counters = sdf_fwd_split_list_plain(p, n, 16)
+    k = int(counters[0])
+    assert 32 * 3 < k < 32 * 64
+    # the card's list comes in the order of its blocks' atomics
+    perm = torch.from_numpy(np.random.default_rng(5).permutation(k))
+    pairs[:k] = pairs[:k][perm]
+    rng = np.random.default_rng(n_warps + (refill_below or 0)
+                                + steps_per_trip)
+
+    def order(ws):
+        return [ws[j] for j in rng.permutation(len(ws))]
+
+    writes = _tail_schedule(p, pairs, counters, img, ts, n, STEPS, 16, 1.2,
+                            n_warps, refill_below, steps_per_trip, order)
+    live = torch.zeros(n * n, dtype=torch.int64)
+    live[survivors(cont)] = 1
+    assert torch.equal(writes, live)
+    one = sdf_fwd_plain(p, n, STEPS, 1.2)
+    assert torch.equal(img, one[0]) and torch.equal(ts, one[1])
 
 
 @pytest.mark.parametrize("kw", [
