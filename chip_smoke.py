@@ -153,6 +153,16 @@ rounding.
            render_sdf_grads at 64^2, 64 steps (the image atol 1e-3, the
            gradient rtol 1e-2, atol 1e-3 * max(1, |g|max), the ambient
            gradient 1 within 1e-4)
+  phase 22 the ops the port gained last (ops/router.py and ops/horiz.py,
+           plain PyTorch), each on the card against the same call on the
+           CPU, on seeded inputs of 2^20 elements: integer, bit, sign,
+           select, layout, compress and partition results and the float
+           elementwise ops bit-equal (dtype included), the safe_*
+           gradients bit-equal, asin / acos within 1 ulp (float64 libm
+           roundings), float reductions within 2^-22 * sum|x| per output
+           (the card sums in another order; products 2^-22 * n * |p|),
+           and the constructors, range_packets and extract on the card by
+           default
 
 Run from the root of the repository:  python chip_smoke.py
 Needs one CUDA card; exits non-zero, printing no result, without one or
@@ -247,6 +257,7 @@ HIST_N = 1 << 24
 HIST_BINS = 64
 HIST_LO, HIST_HI = -4.0, 4.0
 HIST_ITERS = 3                 # chained iterations of phase 19
+OPS_N = 1 << 20                # elements of phase 22's inputs
 ACC_UPDATES = 64               # updates of phase 19's bf16 accumulator
 # operations of csrc/hist.cu's function per sample: two compares of the
 # index against the range (integer) and one f32 add; of
@@ -1163,6 +1174,7 @@ def run(torch, dev):
     kernels += run_generic(torch, dev, timer, scenes, first_use)
     kernels += run_hist(torch, dev, timer)
     run_render_extras(torch, dev)
+    run_ops_extras(torch, dev)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
@@ -1215,6 +1227,196 @@ def run_render_extras(torch, dev):
         f"atol {tol:.3e}), d ambient {gv[4].item():.7g}: "
         f"{'pass' if ok else 'FAIL'}")
     check(ok, "render_sdf_grads on the card differs from the CPU")
+
+
+def ops_gate(torch, got, want, kind, mag=None):
+    """Phase 22's gate of one result: (passed, worst error).
+
+    ``exact``: the same dtype and shape, and every value bit-equal (NaN to
+    NaN, the sign of zero kept); ``ulp1``: floats within one unit in the
+    last place; ``sum``: |got - want| <= 2^-22 * mag per output, mag being
+    the sum of the magnitudes that output adds. The worst error is the
+    largest |got - want| (in ulps for ``ulp1``)."""
+    got, want = got.detach().cpu(), want.detach().cpu()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False, float("inf")
+    if not got.dtype.is_floating_point:
+        diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
+        return bool((diff == 0).all()), float(diff.max()) if diff.numel() \
+            else 0.0
+    g, w = got.double(), want.double()
+    nan = torch.isnan(g) | torch.isnan(w)
+    same_nan = bool((torch.isnan(g) == torch.isnan(w)).all())
+    diff = torch.where(nan | (g == w), 0.0, (g - w).abs())
+    err = float(diff.max()) if diff.numel() else 0.0
+    if kind == "exact":
+        sign = torch.signbit(g) == torch.signbit(w)
+        return same_nan and bool(((diff == 0) & sign | nan).all()), err
+    if kind == "ulp1":
+        ulp = torch.where(nan, 0.0, torch.abs(
+            torch.nextafter(want, torch.full_like(want, float("inf")))
+            .double() - w))
+        over = torch.where(nan | (diff == 0), 0.0, diff / ulp)
+        worst = float(over.max()) if over.numel() else 0.0
+        return same_nan and worst <= 1.0, worst
+    tol = 2.0 ** -22 * torch.as_tensor(mag, dtype=torch.float64)
+    return same_nan and bool((diff <= tol).all()), err
+
+
+def _grad_of(torch, fn):
+    def grad(x):
+        x = x.detach().requires_grad_(True)
+        fn(x).sum().backward()
+        return x.grad
+    return grad
+
+
+def ops_cases(torch, n, seed=22):
+    """Phase 22's cases: (name, gate, function, inputs as numpy, mag).
+    ``mag`` (for the ``sum`` gate) is computed from the inputs."""
+    from enoki_tpu_torch import ops
+    from enoki_tpu_torch.ops import horiz
+
+    rng = np.random.default_rng(seed)
+
+    def floats(scale=3.0):
+        return (rng.standard_normal(n) * scale).astype(np.float32)
+
+    a, b, c = floats(), floats(), floats()
+    t = rng.random(n).astype(np.float32)
+    u = rng.uniform(-1.2, 1.2, n).astype(np.float32)
+    p = (1.0 + 0.001 * rng.standard_normal(n)).astype(np.float32)
+    i32 = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    j32 = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    u32, v32 = i32.view(np.uint32), j32.view(np.uint32)
+    k = rng.integers(-40, 70, n).astype(np.int32)
+    m = rng.random(n) < 0.5
+    keys = rng.integers(-2, 1030, n).astype(np.int32)
+    v3 = floats().reshape(-1, 4)[:, :3].copy()
+    w3 = floats().reshape(-1, 4)[:, :3].copy()
+    table = np.sort(floats())
+    q = floats()
+    cases = []
+
+    def add(name, gate, fn, *args, mag=None):
+        cases.append((name, gate, fn, args, mag))
+
+    for name in ("fmadd", "fmsub", "fnmadd", "fnmsub", "fmaddsub",
+                 "fmsubadd"):
+        add(name, "exact", getattr(ops, name), a, b, c)
+    add("lerp", "exact", ops.lerp, a, b, t)
+    for name in ("rcp", "sign", "abs_", "sqr", "sqrt", "deg_to_rad",
+                 "rad_to_deg", "isdenormal", "safe_rsqrt"):
+        add(name, "exact", getattr(ops, name), a)
+    add("clamp", "exact", lambda x: ops.clamp(x, -1.0, 2.0), a)
+    for name in ("copysign", "mulsign", "copysign_neg", "mulsign_neg"):
+        add(name, "exact", getattr(ops, name), a, b)
+        add(name + " int32", "exact", getattr(ops, name), i32, j32)
+    add("cross", "exact", ops.cross, v3, w3)
+    for name in ("safe_asin", "safe_acos"):
+        add(name, "ulp1", getattr(ops, name), u)
+    for name in ("safe_rsqrt", "safe_asin", "safe_acos", "safe_sqrt"):
+        add(name + " grad", "exact", _grad_of(torch, getattr(ops, name)),
+            u if name != "safe_rsqrt" else a)
+    for name in ("popcnt", "lzcnt", "tzcnt", "log2i"):
+        add(name + " int32", "exact", getattr(ops, name), i32)
+        add(name + " uint32", "exact", getattr(ops, name), u32)
+    for name in ("ror", "rol"):
+        add(name + " int32", "exact", getattr(ops, name), i32, k)
+        add(name + " uint32", "exact", getattr(ops, name), u32,
+            k.view(np.uint32))
+    add("mulhi int32", "exact", ops.mulhi, i32, j32)
+    add("mulhi uint32", "exact", ops.mulhi, u32, v32)
+    add("tile", "exact", lambda x: ops.tile(x, 2), u32)
+    add("repeat", "exact", lambda x: ops.repeat(x, 2), a)
+    add("reverse", "exact", ops.reverse, u32)
+    add("horiz.reverse", "exact", horiz.reverse, v3)
+    add("head, tail, concat", "exact", lambda x, y: ops.concat(
+        ops.head(x, n // 3), ops.tail(y, n // 5)), u32, v32)
+    add("extract", "exact", ops.extract, a, m)
+    add("binary_search", "exact", lambda tb, qq: ops.binary_search(
+        0, n, lambda i: tb[i.long().clamp(max=n - 1)] < qq, tb.device),
+        table, q)
+    add("compress", "exact", lambda x, mm: ops.compress(x, mm, 7)[0], a, m)
+    add("compress count", "exact", lambda x, mm: ops.compress(x, mm)[1],
+        a, m)
+    for out, part in enumerate(("unique", "counts", "perm")):
+        add(f"partition {part}", "exact",
+            lambda kk, out=out: ops.partition(kk, 1024)[out], keys)
+    add("segment_offsets", "exact", lambda kk: ops.segment_offsets(
+        ops.partition(kk, 1024)[1]), keys)
+    for name in ("hmax", "hmin", "hmax_nested", "hmin_nested"):
+        add(name, "exact", getattr(ops, name), a)
+        add(name + " uint32", "exact", getattr(ops, name), u32)
+    for name in ("hsum", "hprod", "psum", "hsum_nested", "hprod_nested"):
+        add(name + " int32", "exact", getattr(ops, name), i32)
+    for name in ("all_", "any_", "none", "count", "all_nested",
+                 "any_nested", "none_nested", "count_nested"):
+        add(name, "exact", getattr(ops, name), m)
+    add("psum bool", "exact", ops.psum, m)
+    s_a = float(np.abs(a).sum())
+    add("hsum", "sum", ops.hsum, a, mag=s_a)
+    add("hsum_nested", "sum", ops.hsum_nested, a, mag=s_a)
+    add("hmean", "sum", ops.hmean, a, mag=s_a / n)
+    add("hsum axis 0", "sum", lambda x: ops.hsum(x, 0), v3,
+        mag=np.abs(v3).sum(0))
+    add("psum", "sum", ops.psum, a, mag=np.cumsum(np.abs(a)))
+    prod = float(np.prod(p.astype(np.float64)))
+    add("hprod", "sum", ops.hprod, p, mag=n * abs(prod))
+    add("hprod_nested", "sum", ops.hprod_nested, p, mag=n * abs(prod))
+    ab = float(np.abs(a * b).sum())
+    add("dot", "sum", ops.dot, a, b, mag=ab)
+    add("abs_dot", "sum", ops.abs_dot, a, b, mag=ab)
+    add("squared_norm", "sum", ops.squared_norm, a, mag=float((a * a).sum()))
+    nrm = float(np.sqrt((a.astype(np.float64) ** 2).sum()))
+    add("norm", "sum", ops.norm, a, mag=nrm)
+    # the sum's 2^-22 halves under the root; 2 more roundings
+    unit = v3 / np.linalg.norm(v3.astype(np.float64), axis=-1, keepdims=True)
+    add("normalize", "sum", ops.normalize, v3, mag=2.0 * np.abs(unit))
+    add("allclose", "exact", lambda x, y: torch.tensor(
+        [ops.allclose(x, y), ops.allclose(x, y + 1e-2)]), a, a * (1 + 1e-4))
+    return cases
+
+
+def run_ops_extras(torch, dev):
+    """Phase 22: every function of ops/router.py and ops/horiz.py that the
+    port gained last, on the card against the same call on the CPU."""
+    from enoki_tpu_torch import ops
+
+    t0 = time.perf_counter()
+    cases = ops_cases(torch, OPS_N)
+    worst = {"exact": 0.0, "ulp1": 0.0, "sum": 0.0}
+    failed = []
+    for name, gate, fn, args, mag in cases:
+        cpu = [torch.from_numpy(x) for x in args]
+        got = fn(*(x.to(dev) for x in cpu))
+        want = fn(*cpu)
+        ok, err = ops_gate(torch, got, want, gate, mag)
+        worst[gate] = max(worst[gate], err)
+        if not ok:
+            failed.append(f"{name} ({gate}, error {err:.3e})")
+    on_card = True
+    if dev.type == "cuda":
+        packets = list(ops.range_packets(10, 4))
+        on_card = (all(x.device.type == "cuda" for x in (
+            ops.zeros(4), ops.full(4, 2.0), ops.empty(4), ops.arange(4),
+            packets[0][0], packets[-1][1], ops.popcnt(7), ops.sign(-0.0),
+            ops.hsum([1.0, 2.0]), ops.partition([5, 0, 1], 2)[2],
+            ops.binary_search(0, 8, lambda i: i < 3)))
+            and ops.arange(4).dtype == torch.int32
+            and ops.prefetch(ops.zeros(4), ops.arange(2)) is None
+            and bool(torch.isnan(ops.empty(4)).all()))
+    log(f"phase 22 {len(cases)} cases of the ops the port gained last on "
+        f"2^{OPS_N.bit_length() - 1} elements, card against CPU: bit-equal "
+        f"cases max|d| {worst['exact']:.3e}, asin / acos "
+        f"{worst['ulp1']:.3f} ulp, reductions max|d| {worst['sum']:.3e} "
+        f"(gate 2^-22 * sum|x| per output); constructors, range_packets "
+        f"and ops of Python values on the card by default: {on_card}; "
+        f"{time.perf_counter() - t0:.2f} s: "
+        f"{'pass' if not failed and on_card else 'FAIL ' + '; '.join(failed)}")
+    check(not failed, "phase 22: " + "; ".join(failed))
+    check(on_card, "phase 22: the constructors are not on the card by "
+          "default")
 
 
 def run_sphere(torch, dev, timer, cuda_vec):

@@ -32,6 +32,7 @@ import math
 import torch
 
 from .. import _build
+from .router import _sqrt_rn
 
 _M32 = 0xFFFFFFFF
 
@@ -337,12 +338,9 @@ def div_down(a, b):
         _bump_down(q, torch.isfinite(q) & ~exact_zero), fin)
 
 
-def _sqrt_rn(a):
-    """The correctly rounded float32 sqrt, which the one-ulp bounds below
-    rest on: taken in float64 and rounded once (53 bits are enough for
-    that double rounding to be exact). PyTorch's CPU float32 sqrt goes
-    through a vector library that is 1 ulp off on ~0.6% of inputs."""
-    return torch.sqrt(a.double()).to(torch.float32)
+# sqrt_up and sqrt_down rest on the correctly rounded float32 sqrt
+# (router._sqrt_rn): PyTorch's CPU float32 sqrt is 1 ulp off on ~0.6% of
+# inputs, and its float64 sqrt is not always correctly rounded either.
 
 
 def sqrt_up(a):

@@ -1,22 +1,173 @@
-"""Core ops (counterpart of enoki_tpu/ops/router.py).
+"""Core ops (counterpart of enoki_tpu/ops/router.py), ported whole.
 
-The eager subset ported so far: what the renders need (``linspace``,
-``meshgrid``, ``safe_sqrt``, ``rsqrt``), and what the histogram and
-rounding paths need: ``select`` / ``masked_assign``, ``reinterpret``,
-``ldexp`` / ``frexp``, the memory operations ``gather`` / ``scatter`` /
-``scatter_add`` / ``transform``, ``isnan`` / ``isinf`` / ``isfinite`` and
-``next_float`` / ``prev_float``. Tensors are updated functionally, as in
-the reference: ``scatter`` and ``scatter_add`` return a new tensor. The
-lazy ``LazyArray`` branch of each function waits for the port of
-``trace/``.
+Every public function of the reference, with its name, argument order
+and defaults, as plain PyTorch on tensors. The reference's lazy
+``LazyArray`` branch of each function is left out: it waits for the port
+of ``trace/``. Tensors are updated functionally, as in the reference:
+``scatter`` and ``scatter_add`` return a new tensor.
+
+Dtypes follow the reference with JAX's 64-bit types off: a Python int
+becomes int32 and a Python float float32 where the reference calls
+``jnp.asarray`` on it, ``arange`` counts in int32, and the sign helpers
+promote as ``jnp.promote_types`` does. The width of a bit operation comes
+from the dtype; ``torch.uint32`` tensors are accepted and computed through
+int64 (PyTorch has no shifts or compares for UInt32), and each result
+comes back in the dtype the reference returns. Square roots, and the
+reciprocal square roots, come from an IEEE float64 root (``_sqrt64``),
+so that the CPU and the card agree. A function that makes a tensor from
+Python values alone makes it on the CUDA card, or raises without one.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from .._device import resolve_device
 from ..config import config
+
+
+# ---------------------------------------------------------------------------
+# Operands, dtypes and bit patterns
+# ---------------------------------------------------------------------------
+
+_SCALAR_DTYPE = ((bool, torch.bool), (int, torch.int32),
+                 (float, torch.float32), (complex, torch.complex64))
+
+
+def _asarray(v, device=None):
+    """``v`` as a tensor, as ``jnp.asarray`` makes it: a tensor stays as
+    it is; a Python scalar or list takes int32 / float32 on ``device``,
+    which None resolves to the CUDA card, or raises (``resolve_device``)."""
+    if isinstance(v, torch.Tensor):
+        return v
+    device = resolve_device(device)
+    for kind, dtype in _SCALAR_DTYPE:
+        if isinstance(v, kind):
+            return torch.tensor(v, dtype=dtype, device=device)
+    t = torch.as_tensor(v, device=device)
+    if isinstance(v, (list, tuple)):
+        t = t.to({torch.int64: torch.int32,
+                  torch.float64: torch.float32}.get(t.dtype, t.dtype))
+    return t
+
+
+def _operands(*vs):
+    """Every operand as a tensor on the device of the first tensor, or
+    on the card when none is a tensor."""
+    like = next((v.device for v in vs if isinstance(v, torch.Tensor)), None)
+    return tuple(_asarray(v, like) for v in vs)
+
+
+def _shape(shape):
+    return (shape,) if isinstance(shape, int) else tuple(shape)
+
+
+_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+
+
+def _signed_view(x):
+    """uint16 and uint32 viewed as the signed dtype of their width, for
+    which PyTorch has the operations; any other x as it is."""
+    return x.view(_SIGNED_VIEW.get(x.dtype, x.dtype))
+
+
+def _on_bits(fn, x):
+    """``fn(x)`` for a function that moves elements and computes nothing
+    on them, or wraps around as two's complement does: uint16 and uint32
+    go through ``_signed_view`` and come back."""
+    return fn(_signed_view(x)).view(x.dtype)
+
+
+def _width(dtype):
+    """(bits, signed) of an integer dtype of at most 32 bits, or int64."""
+    if dtype.is_floating_point or dtype.is_complex or dtype == torch.bool:
+        raise TypeError(f"bit operation on {dtype}: needs an integer dtype")
+    if dtype == torch.uint64:
+        raise TypeError("bit operations on uint64 are not supported "
+                        "(PyTorch has almost no uint64 operations)")
+    info = torch.iinfo(dtype)
+    return info.bits, info.min < 0
+
+
+def _bits(x):
+    """The bit pattern of integer ``x`` as int64: in [0, 2**w) for a
+    w <= 32 bit dtype, and x itself for int64."""
+    w, _ = _width(x.dtype)
+    v = x.to(torch.int64)
+    return v if w == 64 else v & ((1 << w) - 1)
+
+
+def _from_bits(v, dtype):
+    """The int64 ``v``, taken modulo 2**w, as the w-bit ``dtype``."""
+    w, signed = _width(dtype)
+    if w == 64:
+        return v
+    v = v & ((1 << w) - 1)
+    if signed:
+        v = v - ((v >> (w - 1)) << w)
+    return v.to(dtype)
+
+
+_UNSIGNED = (torch.uint8, torch.uint16, torch.uint32, torch.uint64)
+
+
+def _is_negative(x):
+    if x.dtype in _UNSIGNED:
+        return torch.zeros_like(x, dtype=torch.bool)
+    return x < 0
+
+
+def _negate(x):
+    """-x, wrapping for an unsigned dtype as the reference's does."""
+    return _from_bits(-_bits(x), x.dtype) if x.dtype in _UNSIGNED else -x
+
+
+def _to_float(x):
+    """x, or x as float32 where it holds integers (``result_type(x,
+    1.0)`` with 64-bit types off)."""
+    return x if x.dtype.is_floating_point else x.to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Constructors
+# ---------------------------------------------------------------------------
+
+
+def zeros(shape, dtype=torch.float32, device=None):
+    """``zero<Array>(size)``."""
+    return torch.zeros(_shape(shape), dtype=dtype,
+                       device=resolve_device(device))
+
+
+def full(shape, value, dtype=None, device=None):
+    """``full<Array>(value, size)``. Without ``dtype``, a Python bool
+    fills bool, an int int32 and a float float32, as in the reference; a
+    tensor value keeps its dtype and is broadcast."""
+    device = resolve_device(device)
+    if dtype is not None and not isinstance(value, torch.Tensor):
+        return torch.full(_shape(shape), value, dtype=dtype, device=device)
+    value = _asarray(value, device)
+    dtype = value.dtype if dtype is None else dtype
+    return torch.broadcast_to(value.to(device=device, dtype=dtype),
+                              _shape(shape)).clone()
+
+
+def empty(shape, dtype=torch.float32, device=None):
+    """Defined contents, as in the reference (which has no uninitialised
+    memory): NaN for floating dtypes, 0 for the rest. Not
+    ``torch.empty``."""
+    fill = float("nan") if dtype.is_floating_point else 0
+    return torch.full(_shape(shape), fill, dtype=dtype,
+                      device=resolve_device(device))
+
+
+def arange(n, dtype=torch.int32, device=None):
+    """``arange<Array>(n)``: int32 by default, as in the reference."""
+    return torch.arange(n, dtype=torch.int64,
+                        device=resolve_device(device)).to(dtype)
 
 
 def linspace(start, stop, num, dtype=torch.float32, device=None):
@@ -49,35 +200,6 @@ def meshgrid(x, y):
     return xs.reshape(-1), ys.reshape(-1)
 
 
-class _SafeSqrt(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        # sqrt in float64, rounded back once: the correctly rounded sqrt
-        # that XLA and CUDA's sqrt give. PyTorch's CPU float32 sqrt goes
-        # through MKL's vector library, which is 1 ulp off for ~0.6% of
-        # inputs, and that moves silhouette pixels of the sphere render.
-        y = torch.sqrt(torch.clamp_min(x, 0.0).double()).to(x.dtype)
-        ctx.save_for_backward(x, y)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        x, y = ctx.saved_tensors
-        pos = x > 0
-        return g * torch.where(pos, 0.5 / torch.where(pos, y, 1.0), 0.0)
-
-
-def safe_sqrt(x):
-    """sqrt(max(x, 0)), correctly rounded, with a zero (not infinite)
-    gradient at x <= 0."""
-    return _SafeSqrt.apply(x)
-
-
-def rsqrt(x):
-    """Reciprocal square root."""
-    return torch.rsqrt(x)
-
-
 # ---------------------------------------------------------------------------
 # Select / masking
 # ---------------------------------------------------------------------------
@@ -91,6 +213,226 @@ def select(mask, a, b):
 def masked_assign(x, mask, value):
     """Functional form of ``masked(x, m) = v``: returns the new tensor."""
     return torch.where(mask, value, x)
+
+
+# ---------------------------------------------------------------------------
+# Fused arithmetic: the reference computes a*b+c with two roundings, and
+# so does the port (no torch.addcmul).
+# ---------------------------------------------------------------------------
+
+
+def fmadd(a, b, c):
+    return a * b + c
+
+
+def fmsub(a, b, c):
+    return a * b - c
+
+
+def fnmadd(a, b, c):
+    return c - a * b
+
+
+def fnmsub(a, b, c):
+    return -(a * b) - c
+
+
+def _odd_lanes(a, b, c):
+    """Boolean odd-lane mask over the last axis of the broadcast shape; a
+    0-d broadcast has a single (even) lane, so the result has shape (1,),
+    as the reference's has."""
+    shape = torch.broadcast_shapes(*(tuple(v.shape) for v in (a, b, c)
+                                     if isinstance(v, torch.Tensor)))
+    n = shape[-1] if shape else 1
+    like = next((v for v in (a, b, c) if isinstance(v, torch.Tensor)), None)
+    device = resolve_device(like.device if like is not None else None)
+    return torch.arange(n, device=device) % 2 == 1
+
+
+def fmaddsub(a, b, c):
+    """Even lanes a*b-c, odd lanes a*b+c."""
+    return torch.where(_odd_lanes(a, b, c), a * b + c, a * b - c)
+
+
+def fmsubadd(a, b, c):
+    """Even lanes a*b+c, odd lanes a*b-c."""
+    return torch.where(_odd_lanes(a, b, c), a * b - c, a * b + c)
+
+
+# ---------------------------------------------------------------------------
+# Reciprocal and reciprocal square root
+# ---------------------------------------------------------------------------
+
+
+def rcp(x):
+    """Reciprocal, ``1.0 / x``."""
+    return 1.0 / x
+
+
+def rsqrt(x):
+    """Reciprocal square root."""
+    return torch.rsqrt(x)
+
+
+class _NumpySqrt(torch.autograd.Function):
+    """numpy's float64 sqrt of a float64 CPU tensor, which is IEEE
+    (PyTorch's CPU float64 sqrt is up to 1 ulp off); sqrt's gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        with np.errstate(invalid="ignore"):  # NaN below 0, as torch's
+            y = torch.as_tensor(np.sqrt(x.detach().numpy()))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * 0.5 / y
+
+
+def _sqrt64(x):
+    """sqrt(x) in float64, correctly rounded on every device: the card's
+    float64 sqrt is IEEE, the CPU's goes through numpy. Rounded once to a
+    16- or 32-bit float dtype it is that dtype's correctly rounded root."""
+    xd = x.double()
+    return _NumpySqrt.apply(xd) if xd.device.type == "cpu" else torch.sqrt(xd)
+
+
+def _sqrt_rn(x):
+    """sqrt(x), correctly rounded, in x's float dtype."""
+    return _sqrt64(x).to(x.dtype)
+
+
+def _rsqrt_rn(x):
+    """1/sqrt(x) in float64 rounded once to x's dtype: the same bits on
+    the CPU and the card."""
+    return (1.0 / _sqrt64(x)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Bit manipulation. Each works on the bit pattern (``_bits``) and gives
+# the input's dtype back, as the reference's lax ops do; 64-bit values
+# are taken as two 32-bit halves.
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _popcnt32(v):
+    """Set bits of each int64 in [0, 2**32): the SWAR count."""
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & _M32) >> 24
+
+
+def _clz32(v):
+    """Leading zeros of each int64 in [0, 2**32), as a 32-bit word: five
+    halving steps, each shifting the word up where its top half is 0."""
+    n = torch.zeros_like(v)
+    for s in (16, 8, 4, 2, 1):
+        small = v < (1 << (32 - s))
+        n = n + small * s
+        v = torch.where(small, v << s, v)
+    return n + (v == 0)
+
+
+def _clz(v, w):
+    if w == 64:
+        hi, lo = (v >> 32) & _M32, v & _M32
+        return torch.where(hi != 0, _clz32(hi), 32 + _clz32(lo))
+    return _clz32(v) - (32 - w)
+
+
+def popcnt(x):
+    """Set bits of each element, in x's dtype."""
+    x = _asarray(x)
+    w, _ = _width(x.dtype)
+    v = _bits(x)
+    n = (_popcnt32(v & _M32) + _popcnt32((v >> 32) & _M32) if w == 64
+         else _popcnt32(v))
+    return _from_bits(n, x.dtype)
+
+
+def lzcnt(x):
+    """Leading zero bits of each element at x's width, in x's dtype."""
+    x = _asarray(x)
+    w, _ = _width(x.dtype)
+    return _from_bits(_clz(_bits(x), w), x.dtype)
+
+
+def tzcnt(x):
+    """Trailing zero bits: w - 1 - lzcnt(x & -x), and w for x == 0."""
+    x = _asarray(x)
+    w, _ = _width(x.dtype)
+    v = _bits(x)
+    n = torch.where(v == 0, w, w - 1 - _clz(v & -v, w))
+    return _from_bits(n, x.dtype)
+
+
+def log2i(x):
+    """Integer log2: the position of the highest set bit, w - 1 -
+    lzcnt(x); -1 in x's dtype (all bits set) for x == 0."""
+    x = _asarray(x)
+    w, _ = _width(x.dtype)
+    return _from_bits((w - 1) - _clz(_bits(x), w), x.dtype)
+
+
+def mulhi(a, b):
+    """High 32 bits of the 64-bit product: uint32 for unsigned inputs,
+    int32 for signed ones (each taken at 32 bits with its sign), as in
+    the reference; 64-bit inputs raise."""
+    a, b = _operands(a, b)
+    b = b.to(a.dtype)
+    w, signed = _width(a.dtype)
+    if w == 64:
+        raise NotImplementedError("64-bit mulhi: use types.u64 module")
+    if signed:
+        # |a|, |b| <= 2**31: the product fits in int64
+        return ((a.to(torch.int64) * b.to(torch.int64)) >> 32).to(
+            torch.int32)
+    # (a*b) >> 32 as ((a_hi*b) + ((a_lo*b) >> 16)) >> 16 with 16-bit halves
+    # of a: every term stays below 2**49
+    ua, ub = _bits(a), _bits(b)
+    hi = ((ua >> 16) * ub + (((ua & 0xFFFF) * ub) >> 16)) >> 16
+    return hi.to(torch.uint32)
+
+
+def _shr(v, k, w, signed):
+    """v >> k on a w-bit pattern: arithmetic for a signed dtype, as the
+    reference's ``>>`` is, logical for an unsigned one."""
+    if w == 64:
+        return v >> k
+    if signed:
+        v = v - ((v >> (w - 1)) << w)
+    return (v >> k) & ((1 << w) - 1)
+
+
+def _rotate(x, k, right):
+    x, k = _operands(x, k)
+    w, signed = _width(x.dtype)
+    k = k.to(torch.int64) & (w - 1)
+    back = (w - k) & (w - 1)
+    v = _bits(x)
+    if right:
+        out = _shr(v, k, w, signed) | (v << back)
+    else:
+        out = (v << k) | _shr(v, back, w, signed)
+    return _from_bits(out, x.dtype)
+
+
+def ror(x, k):
+    """Rotate right: ``(x >> k) | (x << (w - k))`` at x's width. As in the
+    reference, ``>>`` is arithmetic on a signed dtype, so a negative
+    signed x does not rotate: ror(int32(-2), 1) == -1."""
+    return _rotate(x, k, True)
+
+
+def rol(x, k):
+    """Rotate left: ``(x << k) | (x >> (w - k))``, with ``ror``'s
+    arithmetic shift on a signed dtype."""
+    return _rotate(x, k, False)
 
 
 def reinterpret(x, dtype):
@@ -228,7 +570,97 @@ def transform(target, index, func, *args, mask=None):
 
 
 # ---------------------------------------------------------------------------
-# Float classification and neighbours
+# Range and sign helpers
+# ---------------------------------------------------------------------------
+
+
+def clamp(x, lo, hi):
+    """``minimum(maximum(x, lo), hi)``, as ``jnp.clip``: a float bound
+    promotes an integer x to float32, NaN in x stays NaN, -0.0 clamped at
+    0 becomes +0.0 (``torch.clamp`` keeps -0.0), and lo > hi gives hi. A
+    Python bound is a 0-d tensor, which does not widen x's float
+    dtype."""
+    lo, hi = (torch.as_tensor(v, device=x.device) for v in (lo, hi))
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def lerp(a, b, t):
+    """``t*b + (a - t*a)``, the reference's expression, exact at both
+    endpoints (not ``torch.lerp``)."""
+    return t * b + (a - t * a)
+
+
+def sign(x):
+    """copysign(1, x): sign(+-0) is +-1 and sign(+-NaN) is +-1, unlike
+    ``torch.sign``; an integer x gives -1 or 1 in its dtype."""
+    x = _asarray(x)
+    one = torch.ones_like(x)
+    if x.dtype.is_floating_point:
+        return torch.copysign(one, x)
+    return torch.where(_is_negative(x), _negate(one), one)
+
+
+def copysign(a, b):
+    """|a| with the sign bit of b, in the promoted float dtype (integers
+    promote to float32, as in the reference)."""
+    a, b = _operands(a, b)
+    dt = torch.promote_types(a.dtype, b.dtype)
+    if not dt.is_floating_point:
+        dt = torch.promote_types(dt, torch.float32)
+    return torch.copysign(a.to(dt), b.to(dt))
+
+
+def mulsign(a, b):
+    """a with its sign bit flipped where b's sign bit is set (a * sign(b)
+    for floats, -0.0 included). For integers, -a where b < 0, in the
+    promoted integer dtype, as in the reference."""
+    a, b = _operands(a, b)
+    dt = torch.promote_types(a.dtype, b.dtype)
+    if not dt.is_floating_point:
+        return torch.where(_is_negative(b), _negate(a), a).to(dt)
+    a, b = a.to(dt), b.to(dt)
+    return torch.where(torch.signbit(b), -a, a)
+
+
+def cross(a, b, axis=-1):
+    """3-D cross product along ``axis``, component by component as
+    ``jnp.cross`` computes it; Vec3-style component structs go to
+    ``render.vec.cross3``."""
+    if hasattr(a, "x") and hasattr(a, "z"):
+        from ..render.vec import cross3
+
+        return cross3(a, b)
+    a, b = torch.broadcast_tensors(*_operands(a, b))
+    a0, a1, a2 = a.unbind(axis)
+    b0, b1, b2 = b.unbind(axis)
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=axis)
+
+
+def copysign_neg(a, b):
+    """copysign(a, -b)."""
+    a, b = _operands(a, b)
+    return copysign(a, _negate(b))
+
+
+def mulsign_neg(a, b):
+    """mulsign(a, -b)."""
+    a, b = _operands(a, b)
+    return mulsign(a, _negate(b))
+
+
+def abs_(x):
+    """|x|; an unsigned x is its own magnitude."""
+    x = _asarray(x)
+    return x if x.dtype in _UNSIGNED else torch.abs(x)
+
+
+def sqr(x):
+    return x * x
+
+
+# ---------------------------------------------------------------------------
+# Float classification, predicates and neighbours
 # ---------------------------------------------------------------------------
 
 
@@ -244,6 +676,33 @@ def isfinite(x):
     return torch.isfinite(x)
 
 
+def isdenormal(x):
+    """True where x is a nonzero subnormal: 0 < |x| < finfo.tiny. The
+    IEEE answer: PyTorch and the card keep subnormals, while the
+    reference on XLA's CPU backend flushes f32 subnormals and answers
+    False there."""
+    x = _asarray(x)
+    a = torch.abs(x)
+    return (a < torch.finfo(x.dtype).tiny) & (a > 0)
+
+
+def allclose(a, b, rtol=None, atol=None, equal_nan=False):
+    """A Python bool: ``|a - b| <= atol + rtol*|b|`` everywhere, in the
+    promoted dtype (integers compare as float32). The defaults depend on
+    it, as in the reference: 1e-5 / 1e-8 for float64, 1e-3 / 1e-5
+    otherwise."""
+    a, b = _operands(a, b)
+    dt = torch.promote_types(a.dtype, b.dtype)
+    if rtol is None:
+        rtol = 1e-5 if dt == torch.float64 else 1e-3
+    if atol is None:
+        atol = 1e-8 if dt == torch.float64 else 1e-5
+    dt = dt if dt.is_floating_point else torch.float32
+    a, b = torch.broadcast_tensors(a.to(dt), b.to(dt))
+    return bool(torch.isclose(a, b, rtol=rtol, atol=atol,
+                              equal_nan=equal_nan).all())
+
+
 def next_float(x):
     """Next representable float toward +inf."""
     return torch.nextafter(x, torch.full_like(x, float("inf")))
@@ -252,3 +711,199 @@ def next_float(x):
 def prev_float(x):
     """Next representable float toward -inf."""
     return torch.nextafter(x, torch.full_like(x, float("-inf")))
+
+
+# ---------------------------------------------------------------------------
+# Safe math: the domain is clamped so that neither the value nor the
+# derivative is inf or NaN. Each backward is the reference's custom JVP.
+# ---------------------------------------------------------------------------
+
+
+class _SafeSqrt(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        # the correctly rounded sqrt that XLA and CUDA's sqrt give.
+        # PyTorch's CPU float32 sqrt goes through MKL's vector library,
+        # which is 1 ulp off for ~0.6% of inputs, and that moves
+        # silhouette pixels of the sphere render.
+        y = _sqrt_rn(torch.clamp_min(x, 0.0))
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        pos = x > 0
+        return g * torch.where(pos, 0.5 / torch.where(pos, y, 1.0), 0.0)
+
+
+def safe_sqrt(x):
+    """sqrt(max(x, 0)), correctly rounded, with a zero (not infinite)
+    gradient at x <= 0."""
+    return _SafeSqrt.apply(x)
+
+
+class _SafeRsqrt(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = _rsqrt_rn(torch.clamp_min(x, torch.finfo(x.dtype).tiny))
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return g * torch.where(x > 0, -0.5 * y * y * y, 0.0)
+
+
+def safe_rsqrt(x):
+    """rsqrt(max(x, finfo.tiny)) of x's float dtype: finite everywhere,
+    with a zero gradient at x <= 0. The root is ``_rsqrt_rn``'s."""
+    return _SafeRsqrt.apply(_to_float(_asarray(x)))
+
+
+class _SafeArc(torch.autograd.Function):
+    """asin or acos of clamp(x, -1, 1), taken in float64 and rounded
+    once (the card and the CPU may differ in the float64 libm's last
+    bit, and so, rarely, by one ulp); the derivative is
+    +-rsqrt(max(1 - x*x, 1e-30)) where |x| < 1 and 0 outside, the root
+    ``_rsqrt_rn``'s."""
+
+    @staticmethod
+    def forward(ctx, x, fn, sign):
+        ctx.sign = sign
+        ctx.save_for_backward(x)
+        return fn(torch.clamp(x, -1.0, 1.0).double()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        d = _rsqrt_rn(torch.clamp_min(1.0 - x * x, 1e-30))
+        d = -d if ctx.sign < 0 else d
+        return g * torch.where(torch.abs(x) < 1.0, d, 0.0), None, None
+
+
+def safe_asin(x):
+    """asin(clamp(x, -1, 1)), with a zero gradient outside (-1, 1)."""
+    return _SafeArc.apply(_to_float(_asarray(x)), torch.asin, 1)
+
+
+def safe_acos(x):
+    """acos(clamp(x, -1, 1)), with a zero gradient outside (-1, 1)."""
+    return _SafeArc.apply(_to_float(_asarray(x)), torch.acos, -1)
+
+
+# ---------------------------------------------------------------------------
+# Misc
+# ---------------------------------------------------------------------------
+
+
+def tile(x, count):
+    """``tile(x, n)``: the whole array n times, as ``jnp.tile``."""
+    return torch.tile(x, (count,) if isinstance(count, int) else count)
+
+
+def repeat(x, count):
+    """``repeat(x, n)``: each element n times, flattened, as
+    ``jnp.repeat``."""
+    return torch.repeat_interleave(x, count)
+
+
+def reverse(x):
+    """The order of the last axis reversed; a 0-d x as it is."""
+    x = _asarray(x)
+    return _on_bits(lambda v: v.flip(-1), x) if x.ndim else x
+
+
+def head(x, n):
+    return x[:n]
+
+
+def tail(x, n):
+    return x[-n:]
+
+
+def concat(*arrays):
+    """The arrays joined along the first axis."""
+    return torch.cat(_operands(*arrays), dim=0)
+
+
+def deg_to_rad(x):
+    return x * (math.pi / 180.0)
+
+
+def rad_to_deg(x):
+    return x * (180.0 / math.pi)
+
+
+def range_packets(n, width, dim=1, device=None):
+    """Packets ``(index, mask)`` of ``width`` int32 lanes covering
+    [0, n), the last one masked at its tail: the packet loop ``for (auto
+    [i, m] : range<UInt32P>(n))``. ``dim=2``: ``n`` is (nx, ny) and the
+    index is ``(ix, iy)`` with x varying fastest. The packets are on
+    ``device``."""
+    lane = torch.arange(width, dtype=torch.int32,
+                        device=resolve_device(device))
+    if dim == 1:
+        total = int(n)
+        for start in range(0, total, width):  # empty range: no packets
+            idx = lane + start
+            yield idx, idx < total
+        return
+    if dim != 2:
+        raise ValueError("range_packets supports dim 1 or 2")
+    nx, ny = int(n[0]), int(n[1])
+    total = nx * ny
+    for start in range(0, total, width):
+        flat = lane + start
+        yield (flat % nx, flat // nx), flat < total
+
+
+def extract(value, mask):
+    """``value`` at the first set lane of ``mask`` (flattened), as a
+    size-1 tensor; element 0 when no lane is set. An index past the first
+    axis clamps, as the reference's indexing does. No host sync."""
+    value, mask = _operands(value, mask)
+    first = torch.argmax(mask.reshape(-1).to(torch.int32))
+    return value[first.clamp(max=value.shape[0] - 1)][None]
+
+
+def prefetch(source, index, mask=None):
+    """Memory-prefetch hint: a no-op, as in the reference (the card's
+    caches are not steered from here)."""
+    return None
+
+
+def binary_search(start, end, pred, device=None):
+    """Per lane, the first index in [start, end) where ``pred`` turns
+    False (``pred`` monotone: True...True False...False), in a fixed
+    floor(log2(end - start)) + 1 trips. ``pred`` receives int32 index
+    tensors on ``device`` (None: the CUDA card, or raise), a 0-d one on
+    the first trip, as start and end are host ints. The result is int32
+    on ``device``: ``start`` for end <= start."""
+    device = resolve_device(device)
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=device)
+
+    start, end = int(start), int(end)
+    iters = math.floor(math.log2(end - start)) + 1 if end > start else 0
+    if not iters:
+        return i32(start)
+    mid0 = (start + end) >> 1
+    cond = pred(i32(mid0))
+    lo = torch.where(cond, i32(min(mid0 + 1, end)), i32(start))
+    hi = torch.where(cond, i32(end), i32(mid0))
+    for _ in range(iters - 1):
+        mid = (lo + hi) >> 1
+        cond = pred(mid)
+        lo = torch.where(cond, torch.minimum(mid + 1, hi), lo)
+        hi = torch.where(cond, hi, mid)
+    return lo + torch.zeros_like(hi)
+
+
+def sqrt(x):
+    """Square root, correctly rounded (``_sqrt_rn``), as ``safe_sqrt``
+    is: PyTorch's CPU float32 sqrt is 1 ulp off on about 0.6% of inputs.
+    Integers give float32."""
+    return _sqrt_rn(_to_float(_asarray(x)))

@@ -14,6 +14,7 @@ import math
 import torch
 
 from .._device import resolve_device
+from ..ops.router import copysign, mulsign
 
 
 def _as_tensor(v, dtype, device):
@@ -117,22 +118,14 @@ def normalize3(a: Vec3) -> Vec3:
     return a * torch.rsqrt(dot3(a, a))
 
 
-def _mulsign(a, b):
-    """a * sign(b) by the sign bit of b: -0.0 flips a, as the reference's
-    sign-bit XOR does (enoki_tpu/ops/router.py:671-690)."""
-    return torch.where(torch.signbit(b), -a, a)
-
-
 def unit_angle(a: Vec3, b: Vec3):
     """Numerically well-behaved angle between two UNIT vectors (Don
     Hatch's formulation, enoki_tpu/render/vec.py:106-117): accurate for
     nearly parallel and nearly antiparallel inputs, where acos(dot) loses
-    all precision. ``_mulsign``, ``torch.asin`` and ``torch.where`` stand
-    in for the reference's ``ns.mulsign``, ``ns.asin`` and ``ns.select``;
-    the port's ``ops.mulsign`` takes ``_mulsign``'s place when the rest of
-    ``ops/router.py`` is ported."""
+    all precision. ``torch.asin`` and ``torch.where`` stand in for the
+    reference's ``ns.asin`` and ``ns.select``."""
     d = dot3(a, b)
-    s = _mulsign(a.x, d), _mulsign(a.y, d), _mulsign(a.z, d)
+    s = mulsign(a.x, d), mulsign(a.y, d), mulsign(a.z, d)
     diff = Vec3(b.x - s[0], b.y - s[1], b.z - s[2])
     temp = 2.0 * torch.asin(0.5 * norm3(diff))
     return torch.where(d >= 0.0, temp, math.pi - temp)
@@ -140,10 +133,9 @@ def unit_angle(a: Vec3, b: Vec3):
 
 def unit_angle_z(v: Vec3):
     """Angle between a unit vector and the z-axis
-    (enoki_tpu/render/vec.py:120-127): use wherever acos(v.z) is tempting.
-    ``torch.copysign`` stands in for the reference's ``ns.copysign`` until
-    the port's ``ops.copysign`` exists."""
-    zc = v.z - torch.copysign(v.z * 0.0 + 1.0, v.z)
+    (enoki_tpu/render/vec.py:120-127): use wherever acos(v.z) is
+    tempting."""
+    zc = v.z - copysign(v.z * 0.0 + 1.0, v.z)
     temp = 2.0 * torch.asin(0.5 * torch.sqrt(v.x * v.x + v.y * v.y
                                              + zc * zc))
     return torch.where(v.z >= 0.0, temp, math.pi - temp)

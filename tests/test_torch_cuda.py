@@ -836,3 +836,53 @@ def test_stochastic_round_kernel_is_unbiased_and_checks_its_input(cuda):
         RD.stochastic_round_cuda(x.double(), 1)
     with pytest.raises(ValueError, match="bfloat16 or float16"):
         RD.stochastic_round_cuda(x, 1, torch.float32)
+
+
+# -- the ops the port gained last (ops/router.py, ops/horiz.py) -----------------------
+# phase 22's table of chip_smoke.py at 2^16 elements: each function on the
+# card against the same call on the CPU, with the phase's gates
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+SMOKE = _chip_smoke()
+OPS_CASES = {c[0]: c for c in SMOKE.ops_cases(torch, 1 << 16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(OPS_CASES))
+def test_op_on_the_card_matches_the_cpu(cuda, name):
+    _, gate, fn, args, mag = OPS_CASES[name]
+    cpu = [torch.from_numpy(x) for x in args]
+    got = fn(*(x.to(cuda) for x in cpu))
+    ok, err = SMOKE.ops_gate(torch, got, fn(*cpu), gate, mag)
+    assert ok, (name, gate, err)
+
+
+@pytest.mark.cuda
+def test_constructors_and_packets_default_to_the_card(cuda):
+    for t in (R.zeros(4), R.full(4, 2.0), R.empty(4), R.arange(4),
+              next(R.range_packets(10, 4))[0]):
+        assert t.device.type == "cuda"
+    assert R.arange(4).dtype == torch.int32
+    assert bool(torch.isnan(R.empty(4)).all())
+    assert R.full(3, 7).dtype == torch.int32
+
+
+@pytest.mark.cuda
+def test_ops_of_python_values_default_to_the_card(cuda):
+    for t in (R.popcnt(7), R.sign(-0.0), R.copysign(1.0, -2.0),
+              R.fmaddsub(1.0, 2.0, 3.0), R.sqrt(2.0),
+              R.binary_search(0, 8, lambda i: i < 3),
+              R.hsum([1.0, 2.0]), R.partition([5, 0, 1], 2)[2]):
+        assert t.device.type == "cuda"
+    assert R.binary_search(0, 8, lambda i: i < 3).item() == 3
+    assert R.partition([5, 0, 1], 2)[2].tolist() == [1, 2, 0]

@@ -16,6 +16,7 @@ from enoki_tpu_torch import resolve_device
 from enoki_tpu_torch.interop import (generic_params_from_numpy,
                                      params_from_numpy, pcg32_from_numpy,
                                      scene_from_numpy, scene_to_numpy)
+from enoki_tpu_torch import ops
 from enoki_tpu_torch.ops.router import linspace
 from enoki_tpu_torch.render import generic, sdflib
 from enoki_tpu_torch.render.sdf import SDFScene
@@ -82,6 +83,25 @@ ENTRY_POINTS = {
     "SphereScene.reference": lambda: SphereScene.reference().radius,
     "pixel_grid": lambda: pixel_grid(8).x,
     "linspace": lambda: linspace(-1.0, 1.0, 8),
+    "zeros": lambda: ops.zeros(8),
+    "full": lambda: ops.full(8, 2.5),
+    "empty": lambda: ops.empty(8),
+    "arange": lambda: ops.arange(8),
+    "range_packets": lambda: next(ops.range_packets(10, 4))[0],
+    # ops given Python values alone make their tensors on the card too
+    "popcnt(7)": lambda: ops.popcnt(7),
+    "mulhi(3, 5)": lambda: ops.mulhi(3, 5),
+    "ror(1, 1)": lambda: ops.ror(1, 1),
+    "sign(-0.0)": lambda: ops.sign(-0.0),
+    "copysign(1.0, -2.0)": lambda: ops.copysign(1.0, -2.0),
+    "fmaddsub(1.0, 2.0, 3.0)": lambda: ops.fmaddsub(1.0, 2.0, 3.0),
+    "sqrt(2.0)": lambda: ops.sqrt(2.0),
+    "safe_rsqrt(4.0)": lambda: ops.safe_rsqrt(4.0),
+    "extract": lambda: ops.extract([1.0, 2.0], [False, True]),
+    "binary_search": lambda: ops.binary_search(0, 8, lambda i: i < 3),
+    "hsum([1., 2.])": lambda: ops.hsum([1.0, 2.0]),
+    "compress": lambda: ops.compress([1.0, 2.0], [True, False])[0],
+    "partition([5, 0, 1], 2)": lambda: ops.partition([5, 0, 1], 2)[2],
     "SDFRender": lambda: SDFRender(n=64).params,
     "SphereRender": lambda: SphereRender(n=64).params,
     "SphereRender_bf16": lambda: SphereRender(n=64,
@@ -175,16 +195,65 @@ def test_histogram_example_imports_neither_jax_nor_the_reference():
         assert mod.split(".")[0] not in ("jax", "jaxlib", "enoki_tpu"), mod
 
 
+def test_sphere_example_imports_neither_jax_nor_the_reference():
+    for mod in _imported_modules(REPO / "examples" / "sphere_torch.py"):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "enoki_tpu"), mod
+
+
+def test_sphere_example_runs_small_on_the_cpu(tmp_path):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "sphere_torch", REPO / "examples" / "sphere_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    times = mod.main(n=64, iters=2, device="cpu", out_dir=tmp_path)
+    assert len(times) == 2 and all(t > 0 for t in times)
+    from enoki_tpu_torch.render.io import read_ppm
+    staged = read_ppm(tmp_path / "sphere1.ppm")
+    fused = read_ppm(tmp_path / "sphere2.ppm")
+    assert staged.shape == (64, 64)
+    np.testing.assert_array_equal(staged, fused)
+    assert staged.min() == 0 and 0 < staged.max() <= 255  # a lit sphere
+
+
+ROUTER_NAMES = (
+    "zeros", "full", "empty", "arange", "linspace", "meshgrid",
+    "select", "masked_assign",
+    "fmadd", "fmsub", "fnmadd", "fnmsub", "fmaddsub", "fmsubadd",
+    "rcp", "rsqrt",
+    "popcnt", "lzcnt", "tzcnt", "log2i", "mulhi", "ror", "rol",
+    "reinterpret", "ldexp", "frexp",
+    "gather", "scatter", "scatter_add", "transform", "prefetch",
+    "binary_search", "extract", "range_packets",
+    "clamp", "lerp", "sign", "copysign", "mulsign", "abs_", "sqr",
+    "cross", "copysign_neg", "mulsign_neg",
+    "isnan", "isinf", "isfinite", "isdenormal", "allclose",
+    "sqrt", "safe_sqrt", "safe_rsqrt", "safe_asin", "safe_acos",
+    "tile", "repeat", "reverse", "head", "tail", "concat",
+    "next_float", "prev_float", "deg_to_rad", "rad_to_deg")
+HORIZ_NAMES = (
+    "hsum", "hprod", "hmax", "hmin", "hmean",
+    "hsum_nested", "hprod_nested", "hmax_nested", "hmin_nested",
+    "all_nested", "any_nested", "none_nested", "count_nested",
+    "psum", "all_", "any_", "none", "count",
+    "dot", "abs_dot", "norm", "squared_norm", "normalize",
+    "compress", "partition", "segment_offsets")
+
+
 def test_ops_exports_the_ported_functions():
-    from enoki_tpu_torch import ops
-    for name in ("linspace", "meshgrid", "select", "masked_assign", "rsqrt",
-                 "reinterpret", "ldexp", "frexp", "gather", "scatter",
-                 "scatter_add", "transform", "isnan", "isinf", "isfinite",
-                 "safe_sqrt", "next_float", "prev_float", "log", "erfinv",
-                 "histogram", "polys", "rounding", "round_",
-                 "round_half_away", "floor", "ceil", "trunc",
-                 "stochastic_round"):
+    from enoki_tpu_torch.ops import horiz, router
+    for name in ROUTER_NAMES + HORIZ_NAMES + (
+            "log", "erfinv", "histogram", "polys", "rounding", "round_",
+            "round_half_away", "floor", "ceil", "trunc",
+            "stochastic_round"):
         assert hasattr(ops, name), name
+    for name in ROUTER_NAMES:
+        assert getattr(ops, name) is getattr(router, name), name
+    for name in HORIZ_NAMES:
+        assert getattr(ops, name) is getattr(horiz, name), name
+    # ops.reverse is the router's (last axis), as in the reference
+    assert ops.reverse is router.reverse and ops.horiz.reverse is \
+        horiz.reverse
     import inspect
     sig = inspect.signature(ops.histogram)
     assert [(k, p.default) for k, p in sig.parameters.items()][1:] == [
