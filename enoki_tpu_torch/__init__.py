@@ -17,9 +17,11 @@ mini-app, with its f32 and bf16 forward kernels and analytic backward
 (``render.generic``, ``render.sdflib``), whose two kernels are generated
 per scene from the scene's Python functions (``render.sdf_trace``).
 Beside the renders: the histogram mini-app's path, a vectorised PCG32
-(``types``), ``ops.erfinv``, the dense histogram kernel
-(``ops.histogram``), ``ops.rounding`` with its stochastic-rounding
-kernel, and the whole op layer of ``ops.router`` and ``ops.horiz``.
+(``types``), the dense histogram kernel (``ops.histogram``),
+``ops.rounding`` with its stochastic-rounding kernel, and the rest of
+``ops`` in plain PyTorch: the op layer of ``ops.router`` and
+``ops.horiz``, the transcendental and special functions of ``ops.math``
+and ``ops.special``, and ``ops.backend``'s dispatch point.
 """
 
 from ._device import resolve_device  # noqa: F401

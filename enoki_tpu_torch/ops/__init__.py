@@ -1,9 +1,9 @@
 """enoki_tpu_torch.ops -- the flat functional op set (counterpart of
-enoki_tpu/ops), as far as it is ported: ``from enoki_tpu_torch import
-ops`` and call ``ops.select`` / ``ops.hsum`` / ``ops.erfinv`` /
-``ops.histogram`` as with the reference. ``ops/router.py`` and
-``ops/horiz.py`` are ported whole; ``ops.reverse`` is the router's (last
-axis), ``ops.horiz.reverse`` the horizontal one (first axis).
+enoki_tpu/ops), ported whole but for the lazy (``LazyArray``) halves that
+wait for the port of ``trace/``: ``from enoki_tpu_torch import ops`` and
+call ``ops.select`` / ``ops.sincos`` / ``ops.carlson_rf`` /
+``ops.histogram`` as with the reference. ``ops.reverse`` is the router's
+(last axis), ``ops.horiz.reverse`` the horizontal one (first axis).
 """
 
 from .router import (  # noqa: F401
@@ -32,9 +32,22 @@ from .horiz import (  # noqa: F401
     compress, partition, segment_offsets,
 )
 
-from .math import log  # noqa: F401
+from .math import (  # noqa: F401
+    sin, cos, sincos, tan, cot,
+    asin, acos, atan, atan2,
+    exp, exp2, log, log2, log1p, expm1, cbrt, pow,
+    sinh, cosh, sincosh, tanh, csc, sec, csch, sech, coth,
+    asinh, acosh, atanh,
+    fmod, hypot,
+)
 
-from .special import erfinv  # noqa: F401
+from .special import (  # noqa: F401
+    erf, erfc, erfinv, i0e, dawson, erfi,
+    lgamma, tgamma, gamma,
+    carlson_rf, carlson_rd, carlson_rc, carlson_rj,
+    comp_ellint_1, ellint_1, comp_ellint_2, ellint_2,
+    comp_ellint_3, ellint_3,
+)
 
 from .hist_kernels import histogram  # noqa: F401
 

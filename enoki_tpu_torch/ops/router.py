@@ -574,6 +574,25 @@ def transform(target, index, func, *args, mask=None):
 # ---------------------------------------------------------------------------
 
 
+def _maximum(a, b):
+    """``jnp.maximum`` of two tensors: NaN where either is NaN, and +0.0
+    above -0.0 (``torch.maximum`` gives the first of two equal operands,
+    so ``maximum(-0.0, 0.0)`` would be -0.0)."""
+    r = torch.maximum(a, b)
+    if not r.dtype.is_floating_point:
+        return r
+    return torch.where((a == b) & torch.signbit(a), b, r)
+
+
+def _minimum(a, b):
+    """``jnp.minimum`` of two tensors: NaN where either is NaN, and -0.0
+    below +0.0."""
+    r = torch.minimum(a, b)
+    if not r.dtype.is_floating_point:
+        return r
+    return torch.where((a == b) & torch.signbit(b), b, r)
+
+
 def clamp(x, lo, hi):
     """``minimum(maximum(x, lo), hi)``, as ``jnp.clip``: a float bound
     promotes an integer x to float32, NaN in x stays NaN, -0.0 clamped at
@@ -581,7 +600,7 @@ def clamp(x, lo, hi):
     Python bound is a 0-d tensor, which does not widen x's float
     dtype."""
     lo, hi = (torch.as_tensor(v, device=x.device) for v in (lo, hi))
-    return torch.minimum(torch.maximum(x, lo), hi)
+    return _minimum(_maximum(x, lo), hi)
 
 
 def lerp(a, b, t):

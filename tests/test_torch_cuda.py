@@ -886,3 +886,55 @@ def test_ops_of_python_values_default_to_the_card(cuda):
         assert t.device.type == "cuda"
     assert R.binary_search(0, 8, lambda i: i < 3).item() == 3
     assert R.partition([5, 0, 1], 2)[2].tolist() == [1, 2, 0]
+
+
+# -- ops/math.py and ops/special.py ------------------------------------------
+# phase 23's cases of chip_smoke.py at 2^14 elements: poly on the card
+# against the same call on the CPU, both impls against a float64 truth
+
+
+MATH_CASES = {f"{c[1]} {c[0]}": c for c in SMOKE.math_cases(1 << 14)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(MATH_CASES))
+def test_math_on_the_card(cuda, name):
+    failed, text, _ = SMOKE.math_case(torch, cuda, MATH_CASES[name])
+    assert not failed, (failed, text)
+
+
+@pytest.mark.cuda
+def test_math_bf16_is_the_float32_result_rounded_once(cuda):
+    from enoki_tpu_torch.ops import math as M
+    x = torch.linspace(-3, 3, 1 << 14, device=cuda).to(torch.bfloat16)
+    for name in SMOKE.wrapped_math_names():
+        for impl in ("poly", "native"):
+            a, b = getattr(M, name)(x, impl), getattr(M, name)(x.float(),
+                                                               impl)
+            for u, v in zip(a if isinstance(a, tuple) else (a,),
+                            b if isinstance(b, tuple) else (b,)):
+                v = v.to(torch.bfloat16)
+                assert u.dtype == torch.bfloat16
+                assert bool(((u == v) | (u.isnan() & v.isnan())).all()), name
+
+
+@pytest.mark.cuda
+def test_math_of_python_values_defaults_to_the_card(cuda):
+    x = torch.ones(4, device=cuda)
+    for t in (R.sin(1.0, "poly"), R.pow(2.0, 0.5), R.atan2(1.0, 2.0),
+              R.hypot(3.0, 4.0), R.erf(0.5, "poly"), R.dawson(0.5),
+              R.carlson_rf(1.0, 2.0, 3.0), R.ellint_3(0.5, 0.5, 0.2),
+              R.pow(x, 2.0), R.atan2(x, 0.5)):
+        assert t.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_special_gradients_on_the_card_are_finite(cuda):
+    for fn in (lambda t: R.i0e(t, "poly"), lambda t: R.erf(t, "poly"),
+               R.dawson):
+        t = torch.tensor(1e20, device=cuda, requires_grad=True)
+        fn(t).backward()
+        assert torch.isfinite(t.grad)
+    t = torch.tensor(0.0, device=cuda, requires_grad=True)
+    R.dawson(t).backward()
+    assert abs(t.grad.item() - 1.0) < 1e-5

@@ -44,7 +44,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "render/sdf_kernels.py", "render/generic.py", "render/sdflib.py",
             "render/sdf_trace.py", "interop.py", "config.py",
             "types/u64.py", "types/random.py", "ops/polys.py", "ops/math.py",
-            "ops/special.py", "ops/rounding.py",
+            "ops/special.py", "ops/rounding.py", "ops/polys64.py",
+            "ops/backend.py", "ops/router.py", "ops/horiz.py",
             "ops/hist_kernels.py"} <= names
     for f in files:
         for mod in _imported_modules(f):
@@ -56,7 +57,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, enoki_tpu_torch, enoki_tpu_torch.render, "
             "enoki_tpu_torch.render.io, enoki_tpu_torch.interop, "
             "enoki_tpu_torch.types, enoki_tpu_torch.ops.hist_kernels, "
-            "enoki_tpu_torch.ops.rounding, enoki_tpu_torch.config; "
+            "enoki_tpu_torch.ops.rounding, enoki_tpu_torch.config, "
+            "enoki_tpu_torch.ops.math, enoki_tpu_torch.ops.special, "
+            "enoki_tpu_torch.ops.backend, enoki_tpu_torch.ops.polys64; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'enoki_tpu')]; "
             "assert not bad, bad")
@@ -102,6 +105,14 @@ ENTRY_POINTS = {
     "hsum([1., 2.])": lambda: ops.hsum([1.0, 2.0]),
     "compress": lambda: ops.compress([1.0, 2.0], [True, False])[0],
     "partition([5, 0, 1], 2)": lambda: ops.partition([5, 0, 1], 2)[2],
+    "sin(1.0)": lambda: ops.sin(1.0, "poly"),
+    "atan2(1.0, 2.0)": lambda: ops.atan2(1.0, 2.0, "poly"),
+    "pow(2.0, 0.5)": lambda: ops.pow(2.0, 0.5),
+    "hypot(3.0, 4.0)": lambda: ops.hypot(3.0, 4.0),
+    "erf(0.5)": lambda: ops.erf(0.5, "poly"),
+    "dawson(0.5)": lambda: ops.dawson(0.5),
+    "carlson_rf(1.0, 2.0, 3.0)": lambda: ops.carlson_rf(1.0, 2.0, 3.0),
+    "ellint_3(0.5, 0.5, 0.2)": lambda: ops.ellint_3(0.5, 0.5, 0.2),
     "SDFRender": lambda: SDFRender(n=64).params,
     "SphereRender": lambda: SphereRender(n=64).params,
     "SphereRender_bf16": lambda: SphereRender(n=64,
@@ -200,6 +211,23 @@ def test_sphere_example_imports_neither_jax_nor_the_reference():
         assert mod.split(".")[0] not in ("jax", "jaxlib", "enoki_tpu"), mod
 
 
+def test_haversine_example_imports_neither_jax_nor_the_reference():
+    for mod in _imported_modules(REPO / "examples" / "haversine_torch.py"):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "enoki_tpu"), mod
+
+
+@pytest.mark.parametrize("impl", ["native", "poly"])
+def test_haversine_example_runs_small_on_the_cpu(impl, capsys):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "haversine_torch", REPO / "examples" / "haversine_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t, err = mod.main(n=10_000, impl=impl, iters=2, device="cpu")
+    assert t > 0 and err < 1e-5
+    assert "max rel err vs f64" in capsys.readouterr().out
+
+
 def test_sphere_example_runs_small_on_the_cpu(tmp_path):
     import importlib.util
     spec = importlib.util.spec_from_file_location(
@@ -238,6 +266,22 @@ HORIZ_NAMES = (
     "psum", "all_", "any_", "none", "count",
     "dot", "abs_dot", "norm", "squared_norm", "normalize",
     "compress", "partition", "segment_offsets")
+
+
+def _reference_exports(path):
+    """The names a reference __init__.py imports, read with ast (the port's
+    tests import no JAX for this)."""
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.ImportFrom):
+            yield from (a.asname or a.name for a in node.names)
+
+
+def test_ops_exports_every_name_of_the_reference():
+    names = list(_reference_exports(REPO / "enoki_tpu" / "ops" /
+                                    "__init__.py"))
+    assert len(names) == 149 and {"sincos", "ellint_3", "polys"} <= set(names)
+    missing = [n for n in names if not hasattr(ops, n)]
+    assert not missing, missing
 
 
 def test_ops_exports_the_ported_functions():
