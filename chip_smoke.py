@@ -177,6 +177,18 @@ rounding.
            the float32 result rounded once; the special values at +-inf
            and +-0; math_ns; the masked branches' gradients finite; ops
            of Python values on the card
+  phase 24 every public function of the eleven types/ modules the port
+           gained last (half, idiv, morton, enum_array, color, complex,
+           quaternion, matrix, matrix_soa, transform, sh; plain PyTorch)
+           on the card against the same call on the CPU, on seeded inputs
+           of 2^20 elements (2^18 quaternions and matrices): integers and
+           bit patterns exact, floats bit-equal where only IEEE arithmetic
+           and correctly rounded roots are inside (the poly impl, the
+           closed-form det and inverse, the SoA matrices, sh), within N
+           ulp of the result's norm where PyTorch's own functions are
+           (norm<N>, ulp<N>), the dense matmul / matvec / sums within
+           2^-22 * sum|terms| per output; the constructors on the card by
+           default
 
 Run from the root of the repository:  python chip_smoke.py
 Needs one CUDA card; exits non-zero, printing no result, without one or
@@ -189,6 +201,7 @@ and bounds.
 import concurrent.futures
 import contextlib
 import functools
+import itertools
 import json
 import statistics
 import subprocess
@@ -275,6 +288,7 @@ HIST_LO, HIST_HI = -4.0, 4.0
 HIST_ITERS = 3                 # chained iterations of phase 19
 OPS_N = 1 << 20                # elements of phase 22's inputs
 MATH_N = 1 << 20               # elements of phase 23's inputs
+TYPES_N = 1 << 20              # elements of phase 24's inputs
 ACC_UPDATES = 64               # updates of phase 19's bf16 accumulator
 # operations of csrc/hist.cu's function per sample: two compares of the
 # index against the range (integer) and one f32 add; of
@@ -1193,6 +1207,7 @@ def run(torch, dev):
     run_render_extras(torch, dev)
     run_ops_extras(torch, dev)
     run_math_extras(torch, dev)
+    run_types_extras(torch, dev)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
@@ -1886,6 +1901,444 @@ def run_math_extras(torch, dev):
         f"the card: {time.perf_counter() - t0:.2f} s: "
         f"{'pass' if not failed else 'FAIL ' + '; '.join(failed)}")
     check(not failed, "phase 23: " + "; ".join(failed))
+
+
+# -- phase 24: the rest of types/ ----------------------------------------------
+
+
+def flat_result(torch, out):
+    """A result of the types modules on the CPU as one tensor, and whether
+    its last axis is a structure's: a Complex's or Quaternion's parts, or
+    the members of a tuple of one shape (an SoA matrix's rows too), stacked
+    last; a tuple of members of other shapes flattened and concatenated; a
+    tensor as it is."""
+    if hasattr(out, "re"):
+        parts = torch.broadcast_tensors(out.re, out.im)
+    elif hasattr(out, "w"):
+        parts = torch.broadcast_tensors(out.x, out.y, out.z, out.w)
+    elif isinstance(out, (tuple, list)):
+        parts = out
+    else:
+        return out.detach().cpu(), False
+    parts = [flat_result(torch, p)[0] for p in parts]
+    if len({p.shape for p in parts}) == 1:
+        return torch.stack(parts, -1), True
+    return torch.cat([p.reshape(-1) for p in parts]), False
+
+
+def types_gate(torch, got, want, kind, mag):
+    """Phase 24's gate: ``ops_gate``'s kinds, and ``norm<N>``: |got - want|
+    <= N * 2^-24 * S per output, S the norm of the result's structure
+    (a complex number's modulus, a quaternion's norm; |want| for a plain
+    tensor) and at least ``mag``: N units in the last place of the
+    result's scale, for the cases with a native function inside. The
+    worst error of a norm gate is in those units."""
+    (g, structured), (w, _) = got, want
+    if not kind.startswith("norm"):
+        return ops_gate(torch, g, w, kind, mag)
+    wd = torch.nan_to_num(w.double(), posinf=0.0, neginf=0.0)
+    s = (wd.pow(2).sum(-1, keepdim=True).sqrt().expand_as(wd) if structured
+         else wd.abs())
+    s = torch.clamp_min(s, float(mag or 0.0))
+    ok, _ = ops_gate(torch, g, w, "sum", int(kind[4:]) * 0.25 * s.numpy())
+    d = (g.double() - w.double()).abs()
+    units = torch.where(torch.isnan(d) | (d == 0), 0.0,
+                        d / (2.0 ** -24 * s))
+    return ok, float(units.max()) if units.numel() else 0.0
+
+
+def _perm_abs(m):
+    """The permanent of |m| over the last two axes: the sum of the
+    magnitudes of a determinant's terms."""
+    k = m.shape[-1]
+    a = np.abs(m.astype(np.float64))
+    return sum(np.prod([a[..., i, p[i]] for i in range(k)], axis=0)
+               for p in itertools.permutations(range(k)))
+
+
+def types_cases(torch, n, seed=24):
+    """Phase 24's cases: (name, gate, function, inputs as numpy, mag,
+    module of types/). Complex parts, scalars and codes have ``n`` elements, quaternions and
+    matrices n / 4. Gates: ``exact`` where only IEEE arithmetic and
+    correctly rounded roots are inside (the poly impl included);
+    ``norm<N>`` where a native function is (mag the least scale); ``sum``
+    (2^-22 * sum|terms|) for the products and sums of the dense
+    matrices; ``ulp2`` for angles taken by one native function."""
+    from enoki_tpu_torch.types import (Complex, DivisorI32, DivisorU32,
+                                       Quaternion, color, complex_ as C,
+                                       divisor,
+                                       half, matrix as M, matrix_soa as S,
+                                       morton_decode, morton_encode,
+                                       quaternion as Q, sh, transform as T)
+    from enoki_tpu_torch.types import enum_array as E
+
+    rng = np.random.default_rng(seed)
+    nq = n // 4
+    cases = []
+
+    def add(name, gate, fn, *args, mag=None):
+        cases.append((name, gate, fn, args, mag, module))
+
+    # -- half, idiv, morton, enum arrays, color
+    module = "half"
+    x = (rng.standard_normal(n)
+         * np.exp2(rng.integers(-30, 18, n))).astype(np.float32)
+    x[:6] = [0.0, -0.0, 65504.0, 65520.0, np.inf, np.nan]
+    add("float_to_half", "exact", half.float_to_half, x)
+    add("half_to_float", "exact",
+        lambda v: half.half_to_float(half.float_to_half(v)), x)
+    add("float_to_bf16", "exact", half.float_to_bf16, x)
+    add("bf16_to_float", "exact",
+        lambda v: half.bf16_to_float(half.float_to_bf16(v)), x)
+
+    def half_bits(v):
+        # a NaN's payload is the device's: the CPU keeps float32's quiet
+        # NaN (0x7E00), the card gives 0x7FFF; bits of a float16 NaN
+        # (exponent all ones, mantissa not 0) read as 0x7E00, any other
+        # bits as they are
+        b = half.half_bits(half.float_to_half(v)).view(torch.int16)
+        nan16 = ((b & 0x7C00) == 0x7C00) & ((b & 0x03FF) != 0)
+        return torch.where(nan16, 0x7E00, b)
+
+    add("half_bits", "exact", half_bits, x)
+    add("half_from_bits", "exact",
+        lambda b: half.half_from_bits(b.view(torch.uint16)),
+        rng.integers(-2**15, 2**15, n).astype(np.int16))
+    module = "idiv"
+    i32 = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    i32[:4] = [0, -1, -2**31, 2**31 - 1]
+    u32 = i32.view(np.uint32)
+    for d in (1, 2, 1 << 20, 3, 7, 0x7FFFFFFF, 0xFFFFFFFF):
+        add(f"DivisorU32({d})", "exact", DivisorU32(d), u32)
+        add(f"DivisorU32({d}).mod", "exact", DivisorU32(d).mod, u32)
+    for d in (1, -1, 2, 3, -7, 1 << 20, 0x7FFFFFFF, -2**31):
+        add(f"DivisorI32({d}), divisor", "exact", divisor(d, True), i32)
+        add(f"DivisorI32({d}).mod", "exact", DivisorI32(d).mod, i32)
+    module = "morton"
+    for dim in (1, 2, 3):
+        cs = [rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+              for _ in range(dim)]
+        add(f"morton_encode {dim}-D", "exact",
+            lambda *c: morton_encode(list(c)), *cs)
+        add(f"morton_decode {dim}-D", "exact",
+            lambda c, dim=dim: morton_decode(c, dim), cs[0])
+    module = "enum_array"
+    kinds = rng.integers(0, 3, n).astype(np.int32)
+    add("enum_eq int32", "exact", lambda k: E.enum_eq(k, 2), kinds)
+    add("enum_eq uint32", "exact", lambda k: E.enum_eq(k, 1 << 31),
+        np.where(kinds > 0, np.uint32(1 << 31), np.uint32(1)))
+    add("enum_array, enum_full", "exact", lambda k: torch.stack([
+        E.enum_array([2, 0, 1], None, k.device).to(torch.int64),
+        E.enum_full(1 << 31, 3, k.device).to(torch.int64)]), kinds)
+    module = "color"
+    lin = rng.uniform(-0.1, 1.2, n).astype(np.float32)
+    lin[:4] = [0.0, 0.0031308, 0.04045, 1.0]
+    for name in ("linear_to_srgb", "srgb_to_linear"):
+        fn = getattr(color, name)
+        add(f"{name} poly", "exact", lambda v, fn=fn: fn(v, "poly"), lin)
+        add(f"{name} native", "norm16", fn, lin, mag=1.0)
+
+    # -- complex
+    module = "complex"
+    re, im, re2, im2 = rng.uniform(-2, 2, (4, n)).astype(np.float32)
+
+    def cx(f):
+        return lambda a, b, c, d: f(Complex(a, b), Complex(c, d))
+
+    for name, f in (("+", lambda a, b: a + b), ("-", lambda a, b: a - b),
+                    ("*", lambda a, b: a * b), ("/", lambda a, b: a / b),
+                    ("neg", lambda a, b: -a), ("== / !=", lambda a, b: (
+                        (a == a) & (a != b)).to(torch.int8)),
+                    ("* 2.5", lambda a, b: a * 2.5),
+                    ("/ 3.0", lambda a, b: a / 3.0),
+                    ("1.0 - z", lambda a, b: 1.0 - a),
+                    ("2.0 / z", lambda a, b: 2.0 / a),
+                    ("z * real", lambda a, b: a * b.re),
+                    ("Complex.of", lambda a, b: Complex.of(a.re, 0.5)),
+                    ("to_torch_complex, from_torch_complex",
+                     lambda a, b: torch.view_as_real(
+                        C.to_torch_complex(C.from_torch_complex(
+                            C.to_torch_complex(a)))))):
+        add(f"complex {name}", "exact", cx(f), re, im, re2, im2)
+    for name in ("real", "imag", "conj", "squared_norm", "abs_", "rcp",
+                 "sqrt"):
+        add(f"complex.{name}", "exact", cx(lambda a, b, f=getattr(C, name):
+                                           f(a)), re, im, re2, im2)
+    add("complex.arg", "ulp2", cx(lambda a, b: C.arg(a)), re, im, re2, im2)
+    poly_exact = ("exp", "sin", "cos", "sincos", "tan", "sinh", "cosh",
+                  "tanh")
+    # native: CUDA's and the CPU's functions differ by a few ulp; tan and
+    # tanh divide four of them
+    native = {"tan": "norm16", "tanh": "norm16"}
+    for name in poly_exact + ("log", "asin", "acos", "atan"):
+        f = getattr(C, name)
+        for impl in ("poly", "native"):
+            gate = ("exact" if impl == "poly" and name in poly_exact
+                    else native.get(name, "norm8"))
+            add(f"complex.{name} {impl}", gate,
+                cx(lambda a, b, f=f, impl=impl: f(a, impl)), re, im, re2,
+                im2, mag=np.pi / 2 if name == "acos" else None)
+    for impl in ("poly", "native"):
+        add(f"complex.pow w = 2 {impl}", "norm32", cx(
+            lambda a, b, impl=impl: C.pow(a, Complex.of(a.re * 0 + 2), impl)),
+            re, im, re2, im2)
+        add(f"complex.pow {impl}", "norm32",
+            cx(lambda a, b, impl=impl: C.pow(a, b * 0.5, impl)), re, im,
+            re2, im2)
+
+    # -- quaternion
+    module = "quaternion"
+    q = rng.standard_normal((8, nq)).astype(np.float32)
+    qe = q[:4].copy()
+    qe[:3] *= 0.5
+    qe[3] = np.abs(qe[3]) + 1.0
+    un = q.copy()
+    un[:4] /= np.linalg.norm(q[:4].astype(np.float64), axis=0)
+    un[4:] /= np.linalg.norm(q[4:].astype(np.float64), axis=0)
+    ang = rng.uniform(-4, 4, nq).astype(np.float32)
+    ax = un[:3] / np.linalg.norm(un[:3].astype(np.float64), axis=0)
+    ax = ax.astype(np.float32)
+
+    def qq(f):
+        return lambda *c: f(Quaternion(*c[:4]), Quaternion(*c[4:]))
+
+    for name, f in (("+", lambda a, b: a + b), ("-", lambda a, b: a - b),
+                    ("neg", lambda a, b: -a), ("*", lambda a, b: a * b),
+                    ("/", lambda a, b: a / b), ("* 1.5", lambda a, b: a * 1.5),
+                    ("2.5 *", lambda a, b: 2.5 * a),
+                    ("/ 3.0", lambda a, b: a / 3.0),
+                    ("Quaternion.of", lambda a, b: Quaternion.of(
+                        a.x, 0.5, a.z, 1)),
+                    ("dot", lambda a, b: Q.dot(a, b)),
+                    ("imag", lambda a, b: Q.imag(a)),
+                    ("rotate_vector", lambda a, b: Q.rotate_vector(
+                        a, b.x, b.y, b.z))):
+        add(f"quaternion {name}", "exact", qq(f), *q)
+    for name in ("real", "conj", "squared_norm", "abs_", "normalize", "rcp",
+                 "to_matrix"):
+        add(f"quaternion.{name}", "exact",
+            qq(lambda a, b, f=getattr(Q, name): f(a)), *q)
+    for impl in ("poly", "native"):
+        add(f"quaternion.sqrt {impl}", "exact",
+            qq(lambda a, b, impl=impl: Q.sqrt(a, impl)), *q)
+        add(f"quaternion.exp {impl}", "exact" if impl == "poly" else "norm8",
+            qq(lambda a, b, impl=impl: Q.exp(a, impl)), *qe, *q[4:])
+        add(f"quaternion.log {impl}", "norm8",
+            qq(lambda a, b, impl=impl: Q.log(a, impl)), *qe, *q[4:])
+        add(f"quaternion.pow {impl}", "norm32",
+            qq(lambda a, b, impl=impl: Q.pow(a, 0.7, impl)), *qe, *q[4:])
+        # roll and yaw: atan2 (CUDA's atan2f is within 3 ulp); pitch the
+        # float64 asin rounded once
+        add(f"quaternion.euler_angles {impl}",
+            "ulp2" if impl == "poly" else "ulp4",
+            qq(lambda a, b, impl=impl: Q.euler_angles(a, impl)), *un)
+        add(f"quaternion.slerp {impl}", "norm16",
+            qq(lambda a, b, impl=impl: Q.slerp(a, b, 0.3, impl)), *un,
+            mag=1.0)
+        add(f"quaternion.from_axis_angle {impl}",
+            "exact" if impl == "poly" else "norm4",
+            lambda x0, x1, x2, g, impl=impl: Q.from_axis_angle(
+                x0, x1, x2, g, impl), *ax, ang, mag=1.0)
+    add("quaternion.from_matrix", "exact",
+        qq(lambda a, b: Q.from_matrix(Q.to_matrix(a))), *un)
+    add("quaternion.from_matrix SoA", "exact",
+        qq(lambda a, b: Q.from_matrix(S.from_dense(Q.to_matrix(a)))), *un)
+    ties = np.stack([np.eye(3), np.diag([1.0, -1, -1]),
+                     np.diag([-1.0, 1, -1]), np.diag([-1.0, -1, 1]),
+                     np.diag([-1.0, -1, -1]), np.zeros((3, 3)),
+                     np.diag([0.5, 0.5, -1.0]),
+                     np.diag([-0.5, 0.25, 0.25])]).astype(np.float32)
+    add("quaternion.from_matrix ties", "exact", Q.from_matrix, ties)
+
+    # -- dense matrices
+    module = "matrix"
+    mats = []
+    for k in (1, 2, 3, 4):
+        a = (rng.standard_normal((nq, k, k)) + 3 * np.eye(k)).astype(
+            np.float32)
+        b = (rng.standard_normal((nq, k, k)) + 3 * np.eye(k)).astype(
+            np.float32)
+        v = rng.standard_normal((nq, k)).astype(np.float32)
+        mats.append((k, a, b, v))
+        ad, bd, vd = (np.abs(t.astype(np.float64)) for t in (a, b, v))
+        for name in ("det", "inverse", "inverse_transpose", "transpose",
+                     "diag"):
+            add(f"matrix.{name} {k}", "exact", getattr(M, name), a)
+        add(f"matrix.diag_matrix {k}", "exact", M.diag_matrix, v)
+        add(f"matrix.from_rows, from_cols {k}", "exact", lambda m: (
+            M.from_rows(*m.unbind(-2)), M.from_cols(*m.unbind(-1)),
+            M.from_rows(list(m[..., 0, :].unbind(-1)), *m[..., 1:, :]
+                        .unbind(-2))), a)
+        add(f"matrix.matmul {k}", "sum", M.matmul, a, b, mag=ad @ bd)
+        add(f"matrix.matvec {k}", "sum", M.matvec, a, v,
+            mag=np.einsum("nij,nj->ni", ad, vd))
+        add(f"matrix.trace {k}", "sum", M.trace, a,
+            mag=np.trace(ad, axis1=-2, axis2=-1))
+        add(f"matrix.frob {k}", "sum", M.frob, a, mag=(ad * ad).sum((-2, -1)))
+    a5 = (rng.standard_normal((4096, 5, 5)) + 3 * np.eye(5)).astype(
+        np.float32)
+    inv5 = np.abs(np.linalg.inv(a5.astype(np.float64)))
+    add("matrix.det 5 (torch.linalg)", "sum", M.det, a5,
+        mag=5 * _perm_abs(a5))
+    add("matrix.inverse 5 (torch.linalg)", "sum", M.inverse, a5,
+        mag=5 * inv5 @ np.abs(a5.astype(np.float64)) @ inv5)
+    # the SoA form: straight-line elementwise code
+    module = "matrix_soa"
+    for k, a, b, v in mats:
+        for name in ("det", "inverse", "inverse_transpose", "transpose",
+                     "trace", "frob"):
+            add(f"matrix_soa.{name} {k}", "exact",
+                lambda m, f=getattr(S, name): f(S.from_dense(m)), a)
+        add(f"matrix_soa.matmul {k}", "exact", lambda m, mb: S.to_dense(
+            S.matmul(S.from_dense(m), S.from_dense(mb))), a, b)
+        add(f"matrix_soa.matvec {k}", "exact", lambda m, w: S.matvec(
+            S.from_dense(m), tuple(w.unbind(-1))), a, v)
+        add(f"matrix_soa.matrix, from_dense, to_dense {k}", "exact",
+            lambda m: S.to_dense(S.matrix(S.from_dense(m))), a)
+        add(f"matrix_soa.identity_like {k}", "exact", lambda m: S.to_dense(
+            S.identity_like(m.shape[-1], m[..., 0, 0])), a)
+
+    # -- SoA and dense transforms
+    t3 = rng.standard_normal((3, nq)).astype(np.float32)
+    p3 = rng.standard_normal((3, nq)).astype(np.float32)
+    for name in ("translate", "scale"):
+        f = getattr(S, name)
+        add(f"matrix_soa.{name}", "exact", lambda tx, ty, tz, f=f:
+            S.to_dense(f(tx, ty, tz)), *t3)
+        add(f"matrix_soa.{name}, transform_point, transform_vector",
+            "exact", lambda tx, ty, tz, px, py, pz, f=f: (
+                S.transform_point(f(tx, ty, tz), px, py, pz)
+                + S.transform_vector(f(tx, ty, tz), px, py, pz)), *t3, *p3)
+    add("matrix_soa.rotate", "norm8", lambda x0, x1, x2, g: S.to_dense(
+        S.rotate(x0, x1, x2, g)), *ax, ang, mag=1.0)
+    module = "transform"
+    add("transform.translate, scale", "exact", lambda v: (
+        T.translate(v), T.scale(v)), t3.T.copy())
+    for impl in ("poly", "native"):
+        add(f"transform.rotate {impl}",
+            "exact" if impl == "poly" else "norm8",
+            lambda v, g, impl=impl: T.rotate(v, g, impl), ax.T.copy(), ang,
+            mag=1.0)
+    # c = 1 / tan(fov / 2): CUDA's tanf is within 4 ulp
+    add("transform.perspective", "ulp8", lambda f: torch.stack([
+        T.perspective(f[0], 0.1, 100.0), T.perspective(f[1], 0.5, 20.0,
+                                                       1.3)]),
+        np.float32([np.pi / 2, 1.1]))
+    add("transform.frustum, ortho", "exact", lambda v: torch.stack([
+        T.frustum(-1.0, 1.2, -0.7, 0.9, 0.1, 50.0, device=v.device),
+        T.ortho(-1.0, 1.2, -0.7, 0.9, 0.1, 50.0, device=v.device)]),
+        np.zeros(1, np.float32))
+    o, tg, up = (rng.standard_normal((nq, 3)).astype(np.float32)
+                 for _ in range(3))
+    add("transform.look_at", "norm4", T.look_at, o, tg, up, mag=1.0)
+    # rotations with a translation and an anisotropic scale
+    m4 = np.zeros((nq, 4, 4), np.float32)
+    c, s = np.cos(ang), np.sin(ang)
+    xx, yy, zz = ax
+    rot = np.stack([
+        np.stack([c + xx * xx * (1 - c), xx * yy * (1 - c) - zz * s,
+                  xx * zz * (1 - c) + yy * s], -1),
+        np.stack([yy * xx * (1 - c) + zz * s, c + yy * yy * (1 - c),
+                  yy * zz * (1 - c) - xx * s], -1),
+        np.stack([zz * xx * (1 - c) - yy * s, zz * yy * (1 - c) + xx * s,
+                  c + zz * zz * (1 - c)], -1)], -2)
+    m4[:, :3, :3] = rot * rng.uniform(0.5, 2.0, (nq, 1, 3))
+    m4[:, :3, 3] = t3.T
+    m4[:, 3, 3] = 1.0
+    a3 = np.abs(m4[:, :3, :3].astype(np.float64))
+    pd = np.abs(p3.T.astype(np.float64))
+    add("transform.polar_decompose Q", "exact",
+        lambda m: T.polar_decompose(m[..., :3, :3])[0], m4)
+    add("transform.transform_decompose R, t", "exact",
+        lambda m: T.transform_decompose(m)[1:], m4)
+    # P = Q^T A, Q orthogonal: sum_k |Q_ki| |A_kj| <= |A_:j| (Cauchy-Schwarz)
+    pmag = np.linalg.norm(a3, axis=-2, keepdims=True).repeat(3, -2)
+    add("transform.polar_decompose P", "sum",
+        lambda m: T.polar_decompose(m[..., :3, :3])[1], m4, mag=pmag)
+    add("transform.transform_decompose P", "sum",
+        lambda m: T.transform_decompose(m)[0], m4, mag=pmag)
+    # R S with both orthogonal, |entries| <= 1: sum|terms| <= 3; t copied
+    m4r = np.zeros((nq, 4, 4), np.float32)
+    m4r[:, :3, :3] = rot
+    m4r[:, :3, 3] = t3.T
+    m4r[:, 3, 3] = 1.0
+    add("transform.transform_compose", "sum", lambda m: T.transform_compose(
+        m[..., :3, :3], Q.from_matrix(m[..., :3, :3]), m[..., :3, 3]),
+        m4r, mag=np.full((nq, 4, 4), 3.0))
+    pm = np.einsum("nij,nj->ni", a3, pd)
+    add("transform.transform_point", "sum", T.transform_point, m4,
+        p3.T.copy(), mag=pm + np.abs(m4[:, :3, 3]))
+    add("transform.transform_vector", "sum", T.transform_vector, m4,
+        p3.T.copy(), mag=pm)
+    itd = np.abs(np.linalg.inv(m4[:, :3, :3].astype(np.float64))
+                 .transpose(0, 2, 1))
+    add("transform.transform_normal", "sum", T.transform_normal, m4,
+        p3.T.copy(), mag=np.einsum("nij,nj->ni", itd, pd))
+
+    # -- spherical harmonics
+    module = "sh"
+    d = un[:3] / np.linalg.norm(un[:3].astype(np.float64), axis=0)
+    d = np.concatenate([d.astype(np.float32)] * 4, -1)
+    for order in (2, 9):
+        add(f"sh_eval_stacked {order}", "exact",
+            lambda x0, x1, x2, order=order: sh.sh_eval_stacked(
+                x0, x1, x2, order), *d)
+    add("sh_eval 4", "exact", lambda x0, x1, x2: sh.sh_eval(x0, x1, x2, 4),
+        *d)
+    return cases
+
+
+def types_case(torch, dev, case):
+    """One case of phase 24 on ``dev`` against the CPU: (passed, worst
+    error). The CPU side of a case with a native function inside runs in
+    one thread (``one_cpu_thread``)."""
+    name, gate, fn, args, mag, _ = case
+    cpu = [torch.from_numpy(x) for x in args]
+    got = flat_result(torch, fn(*(x.to(dev) for x in cpu)))
+    with one_cpu_thread(torch, gate != "exact"):
+        want = flat_result(torch, fn(*cpu))
+    return types_gate(torch, got, want, gate, mag)
+
+
+def run_types_extras(torch, dev):
+    """Phase 24: every public function of the eleven modules of types/
+    that the port gained last, on the card against the same call on the
+    CPU (gates: ``types_cases``)."""
+    from enoki_tpu_torch.types import Quaternion, matrix as M
+    from enoki_tpu_torch.types import enum_array as E
+
+    t0 = time.perf_counter()
+    cases = types_cases(torch, TYPES_N)
+    worst, failed, by_module = {}, [], {}
+    for case in cases:
+        name, gate, module = case[0], case[1], case[-1]
+        ok, err = types_case(torch, dev, case)
+        worst[gate] = max(worst.get(gate, (0.0, "")), (err, name))
+        by_module.setdefault(module, []).append(f"{name} {err:.3g}")
+        if not ok:
+            failed.append(f"{name} ({gate}, error {err:.3e})")
+    for module, errs in by_module.items():
+        log(f"phase 24 {module}, each case's worst error: "
+            + "; ".join(errs))
+    kinds = E.enum_array([2, 0, 1], None, dev)
+    if E.to_enum_list(kinds, int) != [2, 0, 1]:
+        failed.append("to_enum_list")
+    on_card = True
+    if dev.type == "cuda":
+        on_card = all(t.device.type == "cuda" for t in (
+            M.identity(3), Quaternion.identity().w, E.enum_full(1, 3)))
+    log(f"phase 24 {len(cases)} cases of the eleven types/ modules on "
+        f"2^{TYPES_N.bit_length() - 1} elements (quaternions, matrices "
+        f"2^{TYPES_N.bit_length() - 3}), card against CPU, worst per gate: "
+        + ", ".join(f"{g} {e:.3g}{f' ({n})' if e else ''}"
+                    for g, (e, n) in sorted(worst.items()))
+        + f" (ulp<N> in ulp, norm<N> in units of 2^-24 * the result's "
+        f"norm, exact and sum max|d|); constructors on the card by "
+        f"default: {on_card}; {time.perf_counter() - t0:.2f} s: "
+        f"{'pass' if not failed and on_card else 'FAIL ' + '; '.join(failed)}")
+    check(not failed, "phase 24: " + "; ".join(failed))
+    check(on_card, "phase 24: the constructors are not on the card by "
+          "default")
 
 
 def run_sphere(torch, dev, timer, cuda_vec):

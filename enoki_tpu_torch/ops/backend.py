@@ -76,12 +76,18 @@ class _TorchNS:
 _TORCH = _TorchNS()
 
 
-def ns_of(*xs):
-    """The op namespace for the given element tensors (the array_router
-    dispatch point)."""
+def require_eager(*xs):
+    """Raise ``NotImplementedError`` if any of ``xs`` is a LazyArray: the
+    lazy branches of the reference wait for the port of trace/."""
     if any(is_lazy(x) for x in xs):
         raise NotImplementedError("the lazy namespace waits for the port "
                                   "of trace/")
+
+
+def ns_of(*xs):
+    """The op namespace for the given element tensors (the array_router
+    dispatch point)."""
+    require_eager(*xs)
     return _TORCH
 
 
@@ -148,7 +154,5 @@ def math_ns(x, impl: str = "native"):
     eager tensors. The dispatch point that makes types/ and ops/special.py
     backend-generic; the trace's namespace for a LazyArray waits for the
     port of trace/."""
-    if is_lazy(x):
-        raise NotImplementedError("the lazy namespace waits for the port "
-                                  "of trace/")
+    require_eager(x)
     return _EAGER_NATIVE if impl == "native" else _EagerMath(impl)

@@ -310,6 +310,21 @@ def _rsqrt_rn(x):
     return (1.0 / _sqrt64(x)).to(x.dtype)
 
 
+def _plain_root(native, rn):
+    """The root of the render paths' plain versions: ``rn``, correctly
+    rounded, on the CPU, whose ``torch.sqrt`` / ``torch.rsqrt`` round
+    differently from one host to another; PyTorch's own ``native`` on the
+    card, to which the kernels' ``sqrt_pos_`` / ``rsqrt_pos_`` are held bit
+    for bit."""
+    def root(x):
+        return rn(x) if x.device.type == "cpu" else native(x)
+    return root
+
+
+_plain_sqrt = _plain_root(torch.sqrt, _sqrt_rn)
+_plain_rsqrt = _plain_root(torch.rsqrt, _rsqrt_rn)
+
+
 # ---------------------------------------------------------------------------
 # Bit manipulation. Each works on the bit pattern (``_bits``) and gives
 # the input's dtype back, as the reference's lax ops do; 64-bit values

@@ -39,7 +39,7 @@ from torch import nn
 
 from .. import _build
 from .._device import resolve_device
-from ..ops.router import linspace
+from ..ops.router import _plain_rsqrt, linspace
 from . import sdf_trace
 from .implicit import implicit_t_vjp
 from .sdf_kernels import cone_t0, march_tile, pixel_step, tile_pixels
@@ -87,7 +87,7 @@ def _shade(o, d, t, hit, pvec, sdf_fn):
     # a scene that ignores a coordinate has a zero partial there
     gx, gy, gz = (torch.zeros_like(x) if g is None else g
                   for g, x in zip(grads, xs))
-    inv = torch.rsqrt(gx * gx + gy * gy + gz * gz + 1e-12)
+    inv = _plain_rsqrt(gx * gx + gy * gy + gz * gz + 1e-12)
     light = pvec[LIGHT]
     lam = (gx * light[0] + gy * light[1] + gz * light[2]) * inv
     img = pvec[AMBIENT] + torch.maximum(lam, torch.zeros_like(lam)) \

@@ -26,6 +26,7 @@ from .implicit import implicit_t_vjp
 from .sphere import (Ray, _reference_leaves, make_rays, pixel_grid,
                      scene_from_leaves, scene_leaves)
 from .vec import Vec3, dot3, normalize3
+from ..ops.router import _plain_sqrt
 from .._device import resolve_device
 
 
@@ -49,7 +50,7 @@ class SDFScene:
 def sdf(p: Vec3, scene: SDFScene):
     """Signed distance to the sphere."""
     d = p - scene.center
-    return torch.sqrt(dot3(d, d) + 1e-12) - scene.radius
+    return _plain_sqrt(dot3(d, d) + 1e-12) - scene.radius
 
 
 def sdf_ortho_parts(px, py, scene: SDFScene):
@@ -67,7 +68,7 @@ def sdf_ortho_dist(px, py, scene: SDFScene):
     """``sdf(Vec3(px, py, -1 + t), scene)`` as a function of t, with the
     xy part computed once (only the addition order differs, ~1 ulp)."""
     rxy2, z0, rad = sdf_ortho_parts(px, py, scene)
-    return lambda t: torch.sqrt(rxy2 + (z0 + t) * (z0 + t)) - rad
+    return lambda t: _plain_sqrt(rxy2 + (z0 + t) * (z0 + t)) - rad
 
 
 def _march_step(ray, scene, eps, t_max, t, active, hit):

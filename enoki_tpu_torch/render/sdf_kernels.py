@@ -41,7 +41,7 @@ from torch import nn
 
 from .. import _build
 from .._device import resolve_device
-from ..ops.router import safe_sqrt
+from ..ops.router import _plain_rsqrt, safe_sqrt
 from .implicit import implicit_t_vjp
 from .sdf import SDFScene, sdf, sdf_ortho_dist
 from .sphere import SphereScene, scene_from_leaves, scene_leaves
@@ -177,7 +177,7 @@ def march_tile(dist_at, like, n_steps: int, eps: float = 1e-4,
 
 def _dist_len(rxy2, z):
     x = rxy2 + z * z
-    return x * torch.rsqrt(x)
+    return x * _plain_rsqrt(x)
 
 
 def _march_z(rxy2, z0, rad, n_steps: int, eps: float = EPS, t0=None,
@@ -260,9 +260,9 @@ def _shade(params, px, py, t, hit):
     dx = px - params[0]
     dy = py - params[1]
     dz = (-1.0 + t) - params[2]
-    q = torch.rsqrt(dx * dx + dy * dy + dz * dz + 1e-12)
+    q = _plain_rsqrt(dx * dx + dy * dy + dz * dz + 1e-12)
     gx, gy, gz = dx * q, dy * q, dz * q
-    inv = torch.rsqrt(gx * gx + gy * gy + gz * gz + 1e-12)
+    inv = _plain_rsqrt(gx * gx + gy * gy + gz * gz + 1e-12)
     lam = torch.clamp_min((gx * lx + gy * ly + gz * lz) * inv, 0.0)
     img = torch.where(hit, amb + lam * gain, amb)
     return img, torch.where(hit, t, -t - 1.0)
@@ -392,9 +392,9 @@ def sdf_bwd_plain(params, g, ts, n: int, extent: float = 1.2):
     dx = px - params[0]
     dy = py - params[1]
     dz = (-1.0 + t) - cz
-    q = torch.rsqrt(dx * dx + dy * dy + dz * dz + 1e-12)
+    q = _plain_rsqrt(dx * dx + dy * dy + dz * dz + 1e-12)
     ux, uy, uz = dx * q, dy * q, dz * q
-    inv = torch.rsqrt(ux * ux + uy * uy + uz * uz + 1e-12)
+    inv = _plain_rsqrt(ux * ux + uy * uy + uz * uz + 1e-12)
     s = ux * lx + uy * ly + uz * lz
     y = s * inv
     lam = torch.clamp_min(y, 0.0)
@@ -432,7 +432,7 @@ def shade_tile(px, py, t, hit, pvec):
               for c in (px, py, -1.0 + t)]
         gx, gy, gz = torch.autograd.grad(sdf(Vec3(*xs), scene).sum(), xs,
                                          create_graph=True)
-    inv = torch.rsqrt(gx * gx + gy * gy + gz * gz + 1e-12)
+    inv = _plain_rsqrt(gx * gx + gy * gy + gz * gz + 1e-12)
     lam = (gx * scene.light.x + gy * scene.light.y
            + gz * scene.light.z) * inv
     img = scene.ambient + torch.maximum(lam, torch.zeros_like(lam)) \

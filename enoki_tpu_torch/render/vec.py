@@ -14,7 +14,7 @@ import math
 import torch
 
 from .._device import resolve_device
-from ..ops.router import copysign, mulsign
+from ..ops.router import _plain_rsqrt, _plain_sqrt, copysign, mulsign
 
 
 def _as_tensor(v, dtype, device):
@@ -111,11 +111,11 @@ def cross3(a: Vec3, b: Vec3) -> Vec3:
 
 
 def norm3(a: Vec3):
-    return torch.sqrt(dot3(a, a))
+    return _plain_sqrt(dot3(a, a))
 
 
 def normalize3(a: Vec3) -> Vec3:
-    return a * torch.rsqrt(dot3(a, a))
+    return a * _plain_rsqrt(dot3(a, a))
 
 
 def unit_angle(a: Vec3, b: Vec3):
@@ -136,6 +136,6 @@ def unit_angle_z(v: Vec3):
     (enoki_tpu/render/vec.py:120-127): use wherever acos(v.z) is
     tempting."""
     zc = v.z - copysign(v.z * 0.0 + 1.0, v.z)
-    temp = 2.0 * torch.asin(0.5 * torch.sqrt(v.x * v.x + v.y * v.y
+    temp = 2.0 * torch.asin(0.5 * _plain_sqrt(v.x * v.x + v.y * v.y
                                              + zc * zc))
     return torch.where(v.z >= 0.0, temp, math.pi - temp)

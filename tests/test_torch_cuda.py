@@ -938,3 +938,33 @@ def test_special_gradients_on_the_card_are_finite(cuda):
     t = torch.tensor(0.0, device=cuda, requires_grad=True)
     R.dawson(t).backward()
     assert abs(t.grad.item() - 1.0) < 1e-5
+
+
+# -- types/ ------------------------------------------------------------------
+# phase 24's cases of chip_smoke.py at 2^14 elements: each on the card
+# against the same call on the CPU, under the phase's gates
+
+
+TYPES_CASES = {c[0]: c for c in SMOKE.types_cases(torch, 1 << 14)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(TYPES_CASES))
+def test_types_on_the_card_match_the_cpu(cuda, name):
+    ok, err = SMOKE.types_case(torch, cuda, TYPES_CASES[name])
+    assert ok, (name, TYPES_CASES[name][1], err)
+
+
+@pytest.mark.cuda
+def test_types_constructors_default_to_the_card(cuda):
+    from enoki_tpu_torch import types as T
+    for t in (T.matrix.identity(3), T.Quaternion.identity().w,
+              T.Quaternion.of(1, 2, 3, 4).w, T.Complex.of(1.0, 2.0).im,
+              T.enum_array.enum_full(1, 3),
+              T.enum_array.enum_array([1, 2], None),
+              T.transform.perspective(1.0, 0.1, 10.0),
+              T.transform.frustum(-1, 1, -1, 1, 0.1, 10.0),
+              T.transform.rotate([0, 0, 1], 0.5),
+              T.morton_encode([3, 5]), T.DivisorU32(7)(100),
+              T.sh.sh_eval_stacked(0.0, 0.0, 1.0, 2)):
+        assert t.device.type == "cuda"

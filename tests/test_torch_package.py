@@ -3,6 +3,7 @@ the JAX reference, runs on CUDA unless told otherwise, and carries scene
 parameters across from numpy exactly."""
 
 import ast
+import importlib
 import pathlib
 import subprocess
 import sys
@@ -23,9 +24,13 @@ from enoki_tpu_torch.render.sdf import SDFScene
 from enoki_tpu_torch.render.sdf_kernels import SDFRender
 from enoki_tpu_torch.render.sphere import SphereScene, pixel_grid
 from enoki_tpu_torch.render.sphere_kernels import SphereRender
+import enoki_tpu_torch.types as T
 from enoki_tpu_torch.types import PCG32, u64
 
 PKG = pathlib.Path(enoki_tpu_torch.__file__).parent
+# the modules of enoki_tpu/types/ besides random and u64
+TYPES = ("half", "idiv", "morton", "enum_array", "color", "complex",
+         "quaternion", "matrix", "matrix_soa", "transform", "sh")
 REPO = PKG.parent
 
 
@@ -46,7 +51,7 @@ def test_port_imports_neither_jax_nor_the_reference():
             "types/u64.py", "types/random.py", "ops/polys.py", "ops/math.py",
             "ops/special.py", "ops/rounding.py", "ops/polys64.py",
             "ops/backend.py", "ops/router.py", "ops/horiz.py",
-            "ops/hist_kernels.py"} <= names
+            "ops/hist_kernels.py"} | {f"types/{m}.py" for m in TYPES} <= names
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]
@@ -129,6 +134,22 @@ ENTRY_POINTS = {
     "u64.zeros": lambda: u64.zeros((4,)).v,
     "pcg32_from_numpy": lambda: pcg32_from_numpy(
         *(np.zeros(4, np.uint32),) * 4).state.v,
+    "matrix.identity": lambda: T.matrix.identity(3),
+    "Quaternion.identity": lambda: T.Quaternion.identity().w,
+    "Quaternion.of(1, 2, 3, 4)": lambda: T.Quaternion.of(1, 2, 3, 4).w,
+    "Complex.of(1.0, 2.0)": lambda: T.Complex.of(1.0, 2.0).im,
+    "enum_full": lambda: T.enum_array.enum_full(1, 3),
+    "enum_array": lambda: T.enum_array.enum_array([1, 2], None),
+    "perspective(1.0, ...)": lambda: T.transform.perspective(1.0, 0.1, 10.0),
+    "frustum": lambda: T.transform.frustum(-1, 1, -1, 1, 0.1, 10.0),
+    "ortho": lambda: T.transform.ortho(-1, 1, -1, 1, 0.1, 10.0),
+    "rotate([0, 0, 1], 0.5)": lambda: T.transform.rotate([0, 0, 1], 0.5),
+    "morton_encode([3, 5])": lambda: T.morton_encode([3, 5]),
+    "DivisorU32(7)(100)": lambda: T.DivisorU32(7)(100),
+    "float_to_half(1.0)": lambda: T.half.float_to_half(1.0),
+    "linear_to_srgb(0.5)": lambda: T.color.linear_to_srgb(0.5),
+    "sh_eval_stacked(0.0, 0.0, 1.0, 2)":
+        lambda: T.sh.sh_eval_stacked(0.0, 0.0, 1.0, 2),
 }
 
 
@@ -281,6 +302,35 @@ def test_ops_exports_every_name_of_the_reference():
                                     "__init__.py"))
     assert len(names) == 149 and {"sincos", "ellint_3", "polys"} <= set(names)
     missing = [n for n in names if not hasattr(ops, n)]
+    assert not missing, missing
+
+
+def test_types_exports_every_name_of_the_reference():
+    names = list(_reference_exports(REPO / "enoki_tpu" / "types" /
+                                    "__init__.py"))
+    assert len(names) == 21 and {"complex_", "Complex", "divisor",
+                                 "enum_array", "PCG32"} <= set(names)
+    missing = [n for n in names if not hasattr(T, n)]
+    assert not missing, missing
+    assert T.complex_ is T.complex and T.matrix_soa.__name__.startswith(
+        "enoki_tpu_torch.types")
+
+
+# the reference's from_jnp_complex / to_jnp_complex, renamed (ROADMAP §C)
+RENAMED = {"from_jnp_complex": "from_torch_complex",
+           "to_jnp_complex": "to_torch_complex"}
+
+
+@pytest.mark.parametrize("module", TYPES)
+def test_types_modules_have_every_public_function(module):
+    tree = ast.parse((REPO / "enoki_tpu" / "types" / f"{module}.py")
+                     .read_text())
+    names = [n.name for n in tree.body
+             if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+             and not n.name.startswith("_")]
+    assert names
+    port = importlib.import_module(f"enoki_tpu_torch.types.{module}")
+    missing = [n for n in names if not hasattr(port, RENAMED.get(n, n))]
     assert not missing, missing
 
 

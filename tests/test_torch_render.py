@@ -60,6 +60,77 @@ def _ulp_of(x):
     return float(np.spacing(np.float32(abs(x))))
 
 
+def assert_within_eps_band(img_t, img_j, stop_t, stop_j, atol=1e-3):
+    """The port's render ``img_t`` against JAX's ``img_j``, each march's
+    stop a pair (t, hit), with the reference's gate for a stopping point
+    within eps (tests/test_pallas.py:94-111).
+
+    A hit's t freezes once its distance is below eps. Where rounding puts
+    one side's last distance just above eps, that side takes one more step
+    of about eps: the roots of either side (XLA's CPU rsqrt, PyTorch's)
+    and XLA's FMA contraction decide it, and they differ between hosts.
+    The band is every JAX hit whose t differs from the port's by more than
+    1e-5. It must hold under 1e-3 of the pixels, with image differences
+    under 0.05 there. Every other pixel keeps the plain gate: image within
+    ``atol`` (1e-3, tests/test_pallas.py:91), and t within 1e-5 by the
+    band's definition (the old gate was 2e-4). The hit masks are equal
+    everywhere."""
+    (t_t, hit_t), (t_j, hit_j) = stop_t, stop_j
+    img_t, img_j, t_t, t_j = (np.asarray(a, np.float32)
+                              for a in (img_t, img_j, t_t, t_j))
+    hit_j = np.asarray(hit_j, bool)
+    np.testing.assert_array_equal(np.asarray(hit_t, bool), hit_j)
+    band = hit_j & (np.abs(t_j - t_t) > 1e-5)
+    d = np.abs(img_t - img_j)
+    assert d[~band].max() <= atol, d[~band].max()
+    assert band.mean() < 1e-3, band.mean()
+    assert not band.any() or d[band].max() < 0.05, d[band].max()
+
+
+def ts_parts(ts):
+    """(t, hit) of a forward's packed residual: ts = t on a hit, -t-1 on
+    a miss."""
+    ts = np.asarray(ts)
+    hit = ts >= 0
+    return np.where(hit, ts, -1.0 - ts), hit
+
+
+def test_cpu_roots_are_correctly_rounded():
+    # fault C6: PyTorch's CPU sqrt / rsqrt round differently from host to
+    # host, so the plain march and shade take the correctly rounded roots
+    # on the CPU: numpy's float64 root rounded once, reciprocal included
+    from enoki_tpu_torch.ops.router import _plain_rsqrt, _plain_sqrt
+    from enoki_tpu_torch.render.sdf_kernels import _dist_len
+    from enoki_tpu_torch.render.vec import norm3, normalize3
+
+    rng = np.random.default_rng(14)
+    x = rng.uniform(1e-3, 10.0, 1 << 16).astype(np.float32)
+    z = rng.uniform(-3.0, 3.0, 1 << 16).astype(np.float32)
+    x64 = x.astype(np.float64)
+    root = np.sqrt(x64).astype(np.float32)
+    rroot = (1.0 / np.sqrt(x64)).astype(np.float32)
+    xt, zt = torch.from_numpy(x), torch.from_numpy(z)
+    np.testing.assert_array_equal(_plain_sqrt(xt).numpy(), root)
+    np.testing.assert_array_equal(_plain_rsqrt(xt).numpy(), rroot)
+    s = x + z * z
+    np.testing.assert_array_equal(
+        _dist_len(xt, zt).numpy(),
+        s * (1.0 / np.sqrt(s.astype(np.float64))).astype(np.float32))
+    v = Vec3(xt, zt, xt)
+    q = x * x + z * z + x * x
+    np.testing.assert_array_equal(norm3(v).numpy(),
+                                  np.sqrt(q.astype(np.float64))
+                                  .astype(np.float32))
+    np.testing.assert_array_equal(
+        normalize3(v).y.numpy(),
+        z * (1.0 / np.sqrt(q.astype(np.float64))).astype(np.float32))
+    # the gradients flow through them
+    xg = xt[:64].clone().requires_grad_(True)
+    (_plain_sqrt(xg) + _plain_rsqrt(xg)).sum().backward()
+    want = 0.5 / np.sqrt(x64[:64]) - 0.5 / (x64[:64] * np.sqrt(x64[:64]))
+    np.testing.assert_allclose(xg.grad.numpy(), want, rtol=1e-6)
+
+
 @pytest.mark.parametrize("n", [64, 128, 1024])
 def test_linspace_matches_jnp(n):
     # ulp of the endpoint: entries near 0 are sums of two terms of size
@@ -123,20 +194,12 @@ def test_render_sdf_matches_jax(scene_vec, n):
     js, ts_ = _jscene(scene_vec), scene_from_numpy(scene_vec, CPU)
     a = np.asarray(j_render_sdf(js, n, STEPS))
     b = render_sdf(ts_, n, STEPS).detach().numpy()
-    # XLA contracts the step's products into FMAs and torch does not. On
-    # about 1 pixel in 16k at 128^2 (none at 64^2, none in the reference
-    # scene) the last distance then lands on the other side of eps and one
-    # side takes one more ~eps step. Those lanes get the reference's
-    # gate for a within-eps stopping point (tests/test_pallas.py:94-111);
-    # every other pixel is held to atol 1e-3.
+    # XLA contracts the step's products into FMAs and torch does not: on
+    # about 1 pixel in 16k at 128^2 the last distance lands on the other
+    # side of eps
     tj, hj = j_march(j_make_rays(j_pixel_grid(n)), js, STEPS)
-    tt, _ = march(make_rays(pixel_grid(n, device=CPU)), ts_, STEPS)
-    hj = np.asarray(hj)
-    band = hj & (np.abs(np.asarray(tj) - tt.numpy()) > 1e-5)
-    d = np.abs(a - b)
-    assert d[~band].max() <= 1e-3, d[~band].max()
-    assert band.mean() < 1e-3, band.mean()
-    assert not band.any() or d[band].max() < 0.05, d[band].max()
+    tt, ht = march(make_rays(pixel_grid(n, device=CPU)), ts_, STEPS)
+    assert_within_eps_band(b, a, (tt.numpy(), ht.numpy()), (tj, hj))
 
 
 def test_render_sdf_grads_implicit_matches_jax(scene_vec):

@@ -23,9 +23,11 @@ import jax.numpy as jnp
 
 from enoki_tpu.render import cross3 as j_cross3
 from enoki_tpu.render.pallas_kernels import vec_to_scene as j_vec_to_scene
-from enoki_tpu.render.sdf import (SDFScene as JSDFScene,
+from enoki_tpu.render.sdf import (SDFScene as JSDFScene, march as j_march,
                                   render_sdf_grads as j_render_sdf_grads,
                                   sdf_loss as j_sdf_loss)
+from enoki_tpu.render.sphere import (make_rays as j_make_rays,
+                                     pixel_grid as j_pixel_grid)
 from enoki_tpu.render.vec import (Vec3 as JVec3, normalize3 as j_normalize3,
                                   unit_angle as j_unit_angle,
                                   unit_angle_z as j_unit_angle_z)
@@ -33,14 +35,16 @@ from enoki_tpu.render.vec import (Vec3 as JVec3, normalize3 as j_normalize3,
 import enoki_tpu_torch.render as R
 from enoki_tpu_torch.interop import scene_from_numpy, scene_to_numpy
 from enoki_tpu_torch.render import (SDFScene, Vec3, cross3, make_rays,
-                                    normalize3, pixel_grid,
+                                    march, normalize3, pixel_grid,
                                     render_sdf_grads,
                                     render_sdf_grads_implicit, sdf_loss,
                                     shade)
+from enoki_tpu_torch.render.sdf import _shade_at
 from enoki_tpu_torch.render.sphere import scene_from_leaves
 from enoki_tpu_torch.render.vec import unit_angle, unit_angle_z
 
 from test_torch_cuda import SCENES, scene_vec as _scene_vec
+from test_torch_render import assert_within_eps_band
 
 CPU = "cpu"
 
@@ -223,7 +227,17 @@ def test_render_sdf_grads_matches_jax(scene_vec):
     img, grads = render_sdf_grads(scene_from_numpy(scene_vec, CPU), n, steps)
     j_img, j_g = j_render_sdf_grads(
         j_vec_to_scene(jnp.asarray(scene_vec), JSDFScene), n, steps)
-    np.testing.assert_allclose(img.numpy(), np.asarray(j_img), atol=1e-3)
+    tj, hj = j_march(j_make_rays(j_pixel_grid(n)),
+                     j_vec_to_scene(jnp.asarray(scene_vec), JSDFScene), steps)
+    rays, scene = make_rays(pixel_grid(n, device=CPU)), scene_from_numpy(
+        scene_vec, CPU)
+    tt, ht = march(rays, scene, steps)
+    # the stops come from the same march as the image under test
+    np.testing.assert_array_equal(
+        _shade_at(rays, scene, tt, ht).detach().numpy().view(np.int32),
+        img.numpy().view(np.int32))
+    assert_within_eps_band(img.numpy(), j_img, (tt.numpy(), ht.numpy()),
+                           (tj, hj))
     want = np.array([float(x) for x in jax.tree_util.tree_leaves(j_g)])
     got = scene_to_numpy(grads)[:9]
     # the reference's leaves are center.xyz, radius, ambient, gain,

@@ -32,6 +32,7 @@ from enoki_tpu_torch.render.sdf_kernels import (
 from enoki_tpu_torch.ops.router import linspace
 
 from test_torch_cuda import SCENES, scene_vec as _scene_vec
+from test_torch_render import assert_within_eps_band, ts_parts
 
 N = 128
 TILE = 64
@@ -75,11 +76,10 @@ def test_sdf_fwd_plain_matches_jax_kernel(scene_vec):
     img_j, ts_j = _jax_fwd(scene_vec)
     img_t, ts_t = sdf_fwd_plain(torch.from_numpy(scene_vec.copy()), N,
                                 STEPS, 1.2)
-    hj = ts_j >= 0
-    np.testing.assert_array_equal(ts_t.numpy() >= 0, hj)
-    np.testing.assert_allclose(img_t.numpy(), img_j, rtol=0, atol=1e-3)
-    np.testing.assert_allclose(ts_t.numpy()[hj], ts_j[hj], rtol=0,
-                               atol=2e-4)
+    # the kernel's |p-c| is x * rsqrt(x) in interpret mode: XLA's CPU
+    # rsqrt, whose bits depend on the host, decides a grazing stop
+    assert_within_eps_band(img_t.numpy(), img_j, ts_parts(ts_t.numpy()),
+                           ts_parts(ts_j))
 
 
 @pytest.mark.parametrize("shift", [0.0, 10.0], ids=["mixed", "all_miss"])
@@ -109,10 +109,16 @@ def test_render_sdf_cuda_slice_matches_jax(scene_vec):
 
     l_j, g_j = jax.value_and_grad(loss)(jnp.asarray(scene_vec))
     g_j = np.asarray(g_j)[:9]
-    np.testing.assert_allclose(img_t.detach().numpy(),
-                               np.asarray(render_sdf_pallas(
-                                   jnp.asarray(scene_vec), N, STEPS, 1.2,
-                                   TILE, None, 0)), rtol=0, atol=1e-3)
+    img_j = render_sdf_pallas(jnp.asarray(scene_vec), N, STEPS, 1.2, TILE,
+                              None, 0)
+    img_s, ts_t = sdf_fwd_plain(torch.from_numpy(scene_vec.copy()), N, STEPS,
+                                1.2)
+    # the stops come from the same march as the image under test
+    np.testing.assert_array_equal(img_s.numpy().view(np.int32),
+                                  img_t.detach().numpy().view(np.int32))
+    _, ts_j = _jax_fwd(scene_vec)
+    assert_within_eps_band(img_t.detach().numpy(), img_j,
+                           ts_parts(ts_t.numpy()), ts_parts(ts_j))
     assert np.isclose(img_t.mean().item(), float(l_j), rtol=1e-3, atol=1e-5)
     np.testing.assert_allclose(p.grad.numpy()[:9], g_j, rtol=1e-2,
                                atol=1e-3 * max(1.0, np.abs(g_j).max()))
