@@ -189,6 +189,24 @@ rounding.
            (norm<N>, ulp<N>), the dense matmul / matvec / sums within
            2^-22 * sum|terms| per output; the constructors on the card by
            default
+  phase 25 the struct, AD and runtime layers (plain PyTorch, no kernel of
+           their own): (a) every helper of struct/ and Masked on a struct
+           of Vec3s and an int32 leaf at 2^20 lanes, the dispatchers and
+           the instance registry with 3 and 16 instances, card against
+           CPU bit-equal (dtype included; NaN as NaN), and the masked and
+           partition dispatch timed at 2-32 instances (the card's
+           crossover); (b) ad.backward of the main path's loss bit-equal
+           to SDFRender's own gradient, one sdf_fwd and one sdf_bwd, held
+           to the plain twin as phase 3 holds it; ad.forward and vmap of
+           the safe functions and safe_mul card against CPU; (c) a
+           checkpoint of SDFRender + Adam + a PCG32 of 2^20 lanes at
+           1024^2, 64 steps: 3 steps, save_step, restore_latest into fresh
+           objects, 3 steps, bitwise equal to 6 steps straight; (d)
+           runtime on the card: memory_stats, whos, vectorization_report
+           of a main-path step (2 kernel launches; its host syncs printed),
+           assert_vectorized, compile_timings of a new generic scene (the
+           cache hit under a tenth of the first call, nvcc included);
+           (e) examples/calls_torch.py at 1024^2 lanes
 
 Run from the root of the repository:  python chip_smoke.py
 Needs one CUDA card; exits non-zero, printing no result, without one or
@@ -203,6 +221,7 @@ import contextlib
 import functools
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -289,6 +308,9 @@ HIST_ITERS = 3                 # chained iterations of phase 19
 OPS_N = 1 << 20                # elements of phase 22's inputs
 MATH_N = 1 << 20               # elements of phase 23's inputs
 TYPES_N = 1 << 20              # elements of phase 24's inputs
+STRUCT_N = 1 << 20             # lanes of phase 25's structs
+STRUCT_KS = (2, 4, 8, 16, 32)  # instance counts of phase 25's timing
+CALLS_N = 1024                 # phase 25 (e): calls_torch at CALLS_N^2
 ACC_UPDATES = 64               # updates of phase 19's bf16 accumulator
 # operations of csrc/hist.cu's function per sample: two compares of the
 # index against the range (integer) and one f32 add; of
@@ -1208,6 +1230,7 @@ def run(torch, dev):
     run_ops_extras(torch, dev)
     run_math_extras(torch, dev)
     run_types_extras(torch, dev)
+    run_struct_extras(torch, dev)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
@@ -2339,6 +2362,430 @@ def run_types_extras(torch, dev):
     check(not failed, "phase 24: " + "; ".join(failed))
     check(on_card, "phase 24: the constructors are not on the card by "
           "default")
+
+
+def same_tree(torch, got, want):
+    """Whether two pytrees have equal leaves: same dtype and shape, the
+    same bits (signed zeros included), a NaN where the other has a NaN."""
+    from torch.utils import _pytree as pytree
+    lg, sg = pytree.tree_flatten(got)
+    lw, sw = pytree.tree_flatten(want)
+    if sg != sw:
+        return False
+    for a, b in zip(lg, lw):
+        if not isinstance(a, torch.Tensor):
+            if a != b:
+                return False
+            continue
+        a, b = a.detach().cpu(), b.detach().cpu()
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        if a.dtype.is_floating_point:
+            nan = torch.isnan(a)
+            if not torch.equal(nan, torch.isnan(b)):
+                return False
+            a, b = a.masked_fill(nan, 0), b.masked_fill(nan, 0)
+            a, b = (v.view({2: torch.int16, 4: torch.int32,
+                            8: torch.int64}[v.element_size()]) for v in (a, b))
+        if not torch.equal(a, b):
+            return False
+    return True
+
+
+def struct_callee(i):
+    """Instance i of phase 25's dispatch: a struct result over a Ray and an
+    int32 leaf (IEEE arithmetic and integer products only)."""
+    from enoki_tpu_torch.render import Ray
+
+    def f(mask, ray, k):
+        c = float(i + 1)
+        return {"ray": Ray(ray.o * c + ray.d, ray.d - ray.o * (0.5 * c)),
+                "k": k * (i + 1) - i}
+    return f
+
+
+class StructInstance:
+    """A registered instance of phase 25: a scale and a method."""
+
+    def __init__(self, i):
+        self.c = float(i + 1)
+        self.eval = struct_callee(i)
+
+
+STRUCT_CASES = {
+    "width": lambda S, a, b, i, m, mf: S.width(a),
+    "zeros_like": lambda S, a, b, i, m, mf: S.zeros_like(a),
+    "full_like 2.5": lambda S, a, b, i, m, mf: S.full_like(a, 2.5),
+    "full_like -3": lambda S, a, b, i, m, mf: S.full_like(a, -3),
+    "select_struct": lambda S, a, b, i, m, mf: S.select_struct(mf, a, b),
+    "gather_struct": lambda S, a, b, i, m, mf: S.gather_struct(a, i),
+    "gather_struct masked": lambda S, a, b, i, m, mf: S.gather_struct(a, i,
+                                                                       m),
+    "scatter_struct": lambda S, a, b, i, m, mf: S.scatter_struct(
+        S.zeros_like(a), S.gather_struct(b, i), i),
+    "scatter_struct masked": lambda S, a, b, i, m, mf: S.scatter_struct(
+        S.zeros_like(a), S.gather_struct(b, i), i, m),
+    "slice_struct": lambda S, a, b, i, m, mf: S.slice_struct(a, 5),
+    "slice_struct -1": lambda S, a, b, i, m, mf: S.slice_struct(a, -1),
+    "set_slice_struct": lambda S, a, b, i, m, mf: S.set_slice_struct(
+        a, 7, S.slice_struct(b, 3)),
+    "concat_structs": lambda S, a, b, i, m, mf: S.concat_structs(a, b),
+    "detach": lambda S, a, b, i, m, mf: S.detach(a),
+    **{f"Masked.{op}": (lambda op: lambda S, a, b, i, m, mf: getattr(
+        S.masked(a["ray"].o.x, mf), op)(b["ray"].d.y))(op)
+       for op in ("assign", "add", "sub", "mul", "div", "min", "max")},
+}
+
+
+def struct_inputs(torch, n, seed=25):
+    """Phase 25 (a)'s inputs as numpy arrays: two structs' worth of
+    floats (signed zeros, NaN and infinities at their heads), int32
+    leaves, n/2 unique indices and a mask beside them, and instance ids
+    with nulls (-1) and ids past the last instance."""
+    rng = np.random.default_rng(seed)
+    f = rng.normal(size=(12, n)).astype(np.float32)
+    f[:, :5] = [0.0, -0.0, np.nan, np.inf, -np.inf]
+    f[1::2, :2] = [-0.0, 0.0]
+    k = rng.integers(-1000, 1000, (2, n)).astype(np.int32)
+    idx = rng.permutation(n).astype(np.int32)[:n // 2]
+    mask = rng.random(n // 2) < 0.5
+    ids = {m: rng.integers(-1, m + 2, n).astype(np.int32) for m in (3, 16)}
+    return f, k, idx, mask, ids
+
+
+def struct_of(torch, f, k, j, dev):
+    """The struct {"ray": Ray(o, d), "k": int32} of draw j on ``dev``."""
+    from enoki_tpu_torch.render import Ray, Vec3
+    c = [torch.from_numpy(f[6 * j + r]).to(dev) for r in range(6)]
+    return {"ray": Ray(Vec3(*c[:3]), Vec3(*c[3:])),
+            "k": torch.from_numpy(k[j]).to(dev)}
+
+
+def dispatch_ms(torch, dev, fn, reps=10):
+    """Time of one call of ``fn`` back to back: CUDA events on the card
+    (the host's launch gaps included, as a user meets them), the wall
+    clock on the CPU."""
+    fn()
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / reps
+    ev = torch.cuda.Event
+    s, e = ev(enable_timing=True), ev(enable_timing=True)
+    torch.cuda.synchronize()
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def run_struct_extras(torch, dev):
+    """Phase 25: the struct, AD and runtime layers on the card (a)-(e)."""
+    import importlib.util
+    import pathlib
+    import shutil
+    import tempfile
+    import warnings
+    from torch.utils import _pytree as pytree
+    from enoki_tpu_torch import ad, ops, runtime, struct as S
+    from enoki_tpu_torch.render import (LAUNCHES, SDFScene, Vec3, generic,
+                                        reset_launch_counts, sdf_kernels as K,
+                                        sdflib)
+    from enoki_tpu_torch.render.sdf import render_sdf_grads_implicit
+    from enoki_tpu_torch.runtime import checkpoint as ck
+    from enoki_tpu_torch.types import PCG32
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    failed = []
+    n = STRUCT_N
+
+    # -- (a) struct/ at STRUCT_N lanes, card against CPU -------------------
+    f, k, idx, mask, ids = struct_inputs(torch, n)
+
+    def on(d):
+        return (struct_of(torch, f, k, 0, d), struct_of(torch, f, k, 1, d),
+                torch.from_numpy(idx).to(d), torch.from_numpy(mask).to(d),
+                torch.from_numpy(np.resize(mask, n)).to(d))
+
+    args_c, args_d = on(cpu), on(dev)
+    for name, fn in STRUCT_CASES.items():
+        if not same_tree(torch, fn(S, *args_d), fn(S, *args_c)):
+            failed.append(name)
+    before = pytree.tree_map(torch.clone, args_d[0])
+    S.set_slice_struct(args_d[0], 0, S.slice_struct(args_d[1], 0))
+    if not same_tree(torch, args_d[0], before):
+        failed.append("set_slice_struct changed its input")
+    n_dispatch = 0
+    for m in (3, 16):
+        funcs = [struct_callee(i) for i in range(m)]
+        reg_c, reg_d = S.InstanceRegistry(), S.InstanceRegistry()
+        for i in range(m):
+            reg_c.register(StructInstance(i))
+            reg_d.register(StructInstance(i))
+        ic, id_ = torch.from_numpy(ids[m]), torch.from_numpy(ids[m]).to(dev)
+        a_c, b_c = args_c[0], args_c[1]
+        a_d, b_d = args_d[0], args_d[1]
+        calls = {
+            "dispatch_masked": lambda I, a, b: S.dispatch_masked(
+                funcs, I, a["ray"], a["k"]),
+            "dispatch_partition": lambda I, a, b: S.dispatch_partition(
+                funcs, I, a["ray"], a["k"]),
+            "dispatch_masked default": lambda I, a, b: S.dispatch_masked(
+                funcs, I, a["ray"], a["k"], default=b),
+            "dispatch_partition default": lambda I, a, b: S.dispatch_partition(
+                funcs, I, a["ray"], a["k"], default=b),
+            "dispatch_switch": lambda I, a, b: S.dispatch_switch(
+                funcs, I[5], a["ray"], a["k"]),
+        }
+        for name, call in calls.items():
+            n_dispatch += 1
+            if not same_tree(torch, call(id_, a_d, b_d), call(ic, a_c, b_c)):
+                failed.append(f"{name} ({m} instances)")
+        if not same_tree(torch, S.dispatch_masked(funcs, id_, a_d["ray"],
+                                                  a_d["k"]),
+                         S.dispatch_partition(funcs, id_, a_d["ray"],
+                                              a_d["k"])):
+            failed.append(f"masked != partition on the card ({m})")
+        for name, got, want in (
+                ("registry getter", reg_d.getter("c", id_),
+                 reg_c.getter("c", ic)),
+                ("registry stack", reg_d.stack("c", dev),
+                 reg_c.stack("c", cpu)),
+                ("registry dispatch auto",
+                 reg_d.dispatch("eval", id_, a_d["ray"], a_d["k"]),
+                 reg_c.dispatch("eval", ic, a_c["ray"], a_c["k"]))):
+            n_dispatch += 1
+            if not same_tree(torch, got, want):
+                failed.append(f"{name} ({m} instances)")
+    # the crossover: both strategies at 2..32 instances on the card
+    times = {}
+    rng = np.random.default_rng(26)
+    for m in STRUCT_KS:
+        funcs = [struct_callee(i) for i in range(m)]
+        I = torch.from_numpy(rng.integers(0, m, n).astype(np.int32)).to(dev)
+        a = args_d[0]
+        times[m] = tuple(dispatch_ms(torch, dev, lambda fn=fn: fn(
+            funcs, I, a["ray"], a["k"])) for fn in (S.dispatch_masked,
+                                                    S.dispatch_partition))
+    faster = [m for m in STRUCT_KS if times[m][1] < times[m][0]]
+    log(f"phase 25 (a) struct/ at {n} lanes ({{ray: Ray(Vec3, Vec3), k: "
+        f"int32}}), card against CPU, bit-equal with dtypes: "
+        f"{len(STRUCT_CASES)} helper and Masked cases, {n_dispatch} "
+        f"dispatcher and registry cases at 3 and 16 instances: "
+        f"{'pass' if not failed else 'FAIL ' + '; '.join(failed)}")
+    log("phase 25 (a) dispatch ms a call (CUDA events, back to back, host "
+        "gaps included), masked / partition: " + ", ".join(
+            f"k={m} {tm:.4f} / {tp:.4f}" for m, (tm, tp) in times.items())
+        + f"; partition faster at k in {faster or 'none'} (auto takes it "
+        f"from k >= {S.call._AUTO_PARTITION_MIN_K}, the reference's TPU "
+        f"value)")
+    check(not failed, "phase 25 (a): " + "; ".join(failed))
+
+    # -- (b) ad.backward of the main path ----------------------------------
+    p = torch.from_numpy(scene_vec(None)).to(dev)
+
+    def loss_fn(q):
+        return K.render_sdf_cuda(q, N, STEPS, EXTENT, min(128, N),
+                                 coarse=0).mean()
+
+    reset_launch_counts()
+    val, (g_ad,) = ad.backward(loss_fn, p)
+    launches = dict(LAUNCHES)
+    model = K.SDFRender(p, n=N, n_steps=STEPS, extent=EXTENT)
+    loss = model().mean()
+    loss.backward()
+    g_own = model.params.grad
+    img_x, g_x = render_sdf_grads_implicit(K.vec_to_scene(p, SDFScene), N,
+                                           STEPS)
+    gx = K.scene_to_vec(g_x)[:9]
+    lx = img_x.mean().item()
+    tol = 1e-3 * max(1.0, gx.abs().max().item())
+    ok_b = (torch.equal(g_ad, g_own) and val.item() == loss.item()
+            and launches == {"sdf_fwd": 1, "sdf_bwd": 1}
+            and bool(torch.allclose(g_ad[:9], gx, rtol=1e-2, atol=tol))
+            and abs(val.item() - lx) <= 1e-5 + 1e-3 * abs(lx))
+    log(f"phase 25 (b) ad.backward of render_sdf_cuda({N}^2, {STEPS} steps,"
+        f" plain).mean(): loss {val.item():.7g}, gradient bit-equal to "
+        f"SDFRender's own backward: {torch.equal(g_ad, g_own)}; launches "
+        f"{launches}; against the twin: max|grad - twin| "
+        f"{(g_ad[:9] - gx).abs().max().item():.3e} (rtol 1e-2, atol "
+        f"{tol:.3e}), loss {lx:.7g}: {'pass' if ok_b else 'FAIL'}")
+    check(ok_b, "phase 25 (b): ad.backward of the main path")
+    rng = np.random.default_rng(27)
+    bad = []
+    for name in ("safe_sqrt", "safe_rsqrt", "safe_asin", "safe_acos"):
+        lo, hi = (-1.5, 1.5) if name in ("safe_asin", "safe_acos") else \
+            (-2.0, 50.0)
+        x = rng.uniform(lo, hi, n).astype(np.float32)
+        x[:9] = [0.0, -0.0, 1.0, -1.0, -3.0, 0.5, -0.5, 2.0, 1e-30]
+        tx = rng.normal(size=n).astype(np.float32)
+        fn = getattr(ops, name)
+        res = {}
+        for d in (cpu, dev):
+            xd, td = torch.from_numpy(x).to(d), torch.from_numpy(tx).to(d)
+            v, t = ad.forward(fn, (xd,), (td,))
+            vm = torch.func.vmap(fn)(xd.reshape(-1, 64)).reshape(-1)
+            g = torch.func.vmap(torch.func.grad(fn))(xd)
+            res[d.type] = (v.cpu(), t.cpu(), vm.cpu(), g.cpu())
+        (v0, t0, m0, g0), (v1, t1, m1, g1) = res["cpu"], res[dev.type]
+        # asin / acos values: the float64 libm's last bit (phase 22)
+        vgate = 1 if name in ("safe_asin", "safe_acos") else 0
+        vd = max((ulp_of(a.numpy(), b.numpy().astype(np.float64),
+                         np.float32)).max() for a, b in ((v1, v0), (m1, m0)))
+        if vd > vgate or not (torch.equal(t1, t0) and torch.equal(g1, g0)
+                              and torch.equal(m1, v1)):
+            bad.append(f"{name} (values {vd} ulp)")
+    a, b = np.meshgrid(np.float32([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0,
+                                   -2.5, 3.0]), np.float32([0.0, np.inf,
+                                                            np.nan, -2.0]))
+    a, b = np.resize(a.ravel(), n), np.resize(b.ravel(), n)
+    res = {}
+    for d in (cpu, dev):
+        ta, tb = torch.from_numpy(a).to(d), torch.from_numpy(b).to(d)
+        v, t = ad.forward(ad.safe_mul, (ta, tb), (torch.ones_like(ta),
+                                                 torch.ones_like(tb)))
+        g = torch.func.vmap(torch.func.grad(ad.safe_mul, (0, 1)))(ta, tb)
+        vm = torch.func.vmap(ad.safe_mul)(ta, tb)
+        res[d.type] = (v, t, g, vm)
+    if not same_tree(torch, res[dev.type], res["cpu"]):
+        bad.append("safe_mul")
+    zero_inf = res[dev.type][0][:2].tolist() == [0.0, 0.0]
+    log(f"phase 25 (b) ad.forward, torch.func.vmap and vmap(grad) of "
+        f"safe_sqrt / rsqrt / asin / acos at {n} lanes and of safe_mul "
+        f"(0 * inf, 0 * NaN: {res[dev.type][0][8:10].tolist()}), card "
+        f"against CPU: bit-equal (asin / acos values within 1 ulp): "
+        f"{'pass' if not bad and zero_inf else 'FAIL ' + '; '.join(bad)}")
+    check(not bad and zero_inf, "phase 25 (b): " + "; ".join(bad))
+
+    # -- (c) checkpoint at full width --------------------------------------
+    def train(model, opt, gen, steps):
+        for _ in range(steps):
+            opt.zero_grad()
+            model().mean().backward()
+            opt.step()
+            _, gen = gen.next_uint32()
+        return gen
+
+    def fresh(seed):
+        model = K.SDFRender(torch.from_numpy(scene_vec(seed)).to(dev), n=N,
+                            n_steps=STEPS, extent=EXTENT)
+        return model, torch.optim.Adam(model.parameters(), lr=1e-3)
+
+    m_a, o_a = fresh(None)
+    gen_a = train(m_a, o_a, PCG32.create(n, device=dev), 6)
+    m_b, o_b = fresh(None)
+    gen_b = train(m_b, o_b, PCG32.create(n, device=dev), 3)
+    root = tempfile.mkdtemp(prefix="enoki_ckpt_")
+    try:
+        ck.save_step(root, 3, {"scene": K.vec_to_scene(
+            m_b.params.detach(), SDFScene), "opt": o_b.state_dict(),
+            "rng": gen_b, "step": 3})
+        del m_b, o_b, gen_b
+        m_c, o_c = fresh(1)
+        m_c.params.grad = torch.zeros_like(m_c.params)
+        o_c.step()  # a zero step: the optimiser's state takes its shape
+        like = {"scene": K.vec_to_scene(m_c.params.detach(), SDFScene),
+                "opt": o_c.state_dict(),
+                "rng": PCG32.create(n, initstate=7, device=dev), "step": 0}
+        restored, step = ck.restore_latest(root, like=like)
+        size = sum(os.path.getsize(os.path.join(root, x))
+                   for x in os.listdir(root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    with torch.no_grad():
+        m_c.params.copy_(K.scene_to_vec(restored["scene"]))
+    o_c.load_state_dict(restored["opt"])
+    gen_c = train(m_c, o_c, restored["rng"], 3)
+    st_a, st_c = o_a.state_dict()["state"][0], o_c.state_dict()["state"][0]
+    ok_c = (step == 3 and restored["step"] == 3
+            and torch.equal(m_a.params, m_c.params)
+            and all(torch.equal(st_a[key], st_c[key])
+                    for key in ("exp_avg", "exp_avg_sq", "step"))
+            and torch.equal(gen_a.state.v, gen_c.state.v)
+            and torch.equal(gen_a.inc.v, gen_c.inc.v))
+    log(f"phase 25 (c) SDFRender {N}^2, {STEPS} steps, Adam: 3 steps, "
+        f"save_step ({size} bytes with a PCG32 of {n} lanes), "
+        f"restore_latest into fresh objects on the card, 3 steps, against "
+        f"6 steps straight: parameters, Adam moments and the generator's "
+        f"state bitwise equal: {'pass' if ok_c else 'FAIL'}")
+    check(ok_c, "phase 25 (c): the resumed run differs from the straight one")
+
+    # -- (d) runtime on the card --------------------------------------------
+    stats = runtime.memory_stats(dev)
+    known = torch.empty((1234, 567), dtype=torch.float32, device=dev)
+    table = runtime.whos(print_out=False)
+    row = [r for r in table.splitlines() if "(1234, 567)" in r]
+    ok_whos = bool(row) and str(1234 * 567 * 4) in row[0] and \
+        dev.type in row[0]
+    del known
+    ok_mem = (stats["bytes_in_use"] > 0 and (
+        stats["bytes_limit"] == torch.cuda.get_device_properties(
+            dev).total_memory if dev.type == "cuda"
+        else stats["bytes_limit"] is None))
+
+    def main_step(q):
+        q = q.detach().requires_grad_(True)
+        K.render_sdf_cuda(q, N, STEPS, EXTENT, min(128, N),
+                          coarse=0).mean().backward()
+        return q.grad
+
+    rep = runtime.vectorization_report(main_step, p)
+    plain = runtime.assert_vectorized(
+        lambda x: torch.sin(x) * 2.0 + torch.sqrt(x * x + 1.0), p)
+    try:
+        runtime.assert_vectorized(lambda x: x * x[0].item(), p)
+        raises = False
+    except AssertionError:
+        raises = True
+    names_kernel = True
+    if dev.type == "cuda":  # the CPU takes the plain versions: no kernel
+        try:
+            ad.whos(loss_fn, p)
+            names_kernel = False
+        except RuntimeError as e:
+            names_kernel = "make_fx cannot trace sdf_fwd" in str(e)
+    render_new, _ = generic.make_sdf_renderer(
+        lambda q, pv: sdflib.sd_sphere(q, Vec3(pv[5], pv[6], pv[7]),
+                                       pv[8]) - 0.0125, n_params=9)
+    pv = torch.tensor([0.2, 90.0, -1.0, -1.0, 2.0, 0.05, -0.05, 0.0, 0.9],
+                      device=dev)
+    timings = runtime.compile_timings(lambda v: render_new(v, N).mean(), pv)
+    hit_ok = dev.type != "cuda" or \
+        timings["cache_hit_s"] < timings["compile_s"] / 10
+    ok_d = (ok_mem and ok_whos and rep["custom_calls"] == 2 and raises
+            and plain["host_transfers"] == 0 and names_kernel and hit_ok)
+    log(f"phase 25 (d) memory_stats: {stats['bytes_in_use']} bytes in use, "
+        f"peak {stats['peak_bytes_in_use']}, limit {stats['bytes_limit']}; "
+        f"whos lists a (1234, 567) float32 tensor: {ok_whos}; "
+        f"vectorization_report of a main-path fwd+bwd step: "
+        f"{rep['custom_calls']} kernel launches (2 expected), "
+        f"{rep['fusions'] if rep['fusions'] is not None else 'not measured (the profiler captured no device activity)'} device "
+        f"kernels, {rep['host_transfers']} host "
+        f"transfer(s){': ' + '; '.join(sorted(set(rep['syncs']))) if rep['syncs'] else ''}; "
+        f"assert_vectorized passes on plain ops and raises on .item(): "
+        f"{raises}; make_fx names the kernel it cannot trace: "
+        f"{names_kernel}; compile_timings of a new generic scene: first "
+        f"call {timings['compile_s']:.3f} s (trace + nvcc), second "
+        f"{timings['cache_hit_s']:.4f} s, {timings['n_eqns']} aten ops and "
+        f"launches: {'pass' if ok_d else 'FAIL'}")
+    check(ok_d, "phase 25 (d): the runtime layer on the card")
+
+    # -- (e) examples/calls_torch.py -----------------------------------------
+    path = pathlib.Path(__file__).resolve().parent / "examples" / \
+        "calls_torch.py"
+    spec = importlib.util.spec_from_file_location("calls_torch", path)
+    calls = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(calls)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        t_m, t_p = calls.main(CALLS_N, dev)
+    log(f"phase 25 (e) examples/calls_torch.py at {CALLS_N}^2 lanes: masked"
+        f" {t_m:.4f} ms, partition {t_p:.4f} ms a chained iteration, bit-"
+        f"equal; phase 25 took {time.perf_counter() - t_phase:.2f} s")
 
 
 def run_sphere(torch, dev, timer, cuda_vec):

@@ -19,10 +19,21 @@ per scene from the scene's Python functions (``render.sdf_trace``).
 Beside the renders: the histogram mini-app's path, a vectorised PCG32
 (``types``), the dense histogram kernel (``ops.histogram``),
 ``ops.rounding`` with its stochastic-rounding kernel, and the rest of
-``ops`` in plain PyTorch: the op layer of ``ops.router`` and
-``ops.horiz``, the transcendental and special functions of ``ops.math``
-and ``ops.special``, and ``ops.backend``'s dispatch point.
+``ops`` and ``types`` in plain PyTorch; ``struct`` (struct support,
+vectorized method calls), ``ad`` (differentiation helpers on autograd),
+``runtime`` (introspection, checkpoints), ``cache``, ``config`` and
+``interop``. ``trace`` (the lazy runtime) and ``dist`` wait for their
+port.
 """
 
+__version__ = "0.4.0"
+
 from ._device import resolve_device  # noqa: F401
-from . import config, interop, ops, render, types  # noqa: F401
+from . import config  # noqa: F401
+from . import cache  # noqa: F401
+
+# the build directory, chosen and bounded once (ENOKI_TPU_COMPILE_CACHE);
+# nothing is built here
+cache.enable_default_compile_cache()
+from . import ops, types, struct, ad, runtime, render, interop  # noqa: F401,E402
+from .config import set_log_level, log_level  # noqa: F401,E402

@@ -101,11 +101,20 @@ def _digest(source: bytes) -> str:
     return h.hexdigest()
 
 
+def set_build_dir(path) -> Path:
+    """Build into and load from ``path`` from now on (``cache`` sets it
+    from ``ENOKI_TPU_COMPILE_CACHE``, ``runtime.enable_compile_cache``
+    from the caller)."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).expanduser().resolve()
+    return BUILD_DIR
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library for this exact source
     and these flags exists; returns the library's path."""
     src = CSRC_DIR / f"{name}.cu"
-    BUILD_DIR.mkdir(exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     return _compile(src, _digest(src.read_bytes()), name)
 
 
@@ -124,7 +133,7 @@ def build_generated(name: str, text: str) -> Path:
     these flags exists. The text is kept beside the library, as
     ``_build/<name>-<hash>.cu``."""
     digest = _digest(text.encode())
-    BUILD_DIR.mkdir(exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src = BUILD_DIR / f"{name}-{digest[:16]}.cu"
     _write_source(src, text)
     return _compile(src, digest, name)

@@ -1,5 +1,16 @@
-"""Carry scene parameters and generator state across from numpy
-(counterpart of the parameter side of enoki_tpu/interop.py).
+"""Interop with numpy and other array libraries, and scene parameters and
+generator state carried across from numpy (counterpart of
+enoki_tpu/interop.py).
+
+``to_numpy`` / ``from_numpy`` copy to and from numpy (``from_numpy`` puts
+the tensor on the card unless given ``device``); ``to_torch`` takes any
+DLPack producer (a tensor passes through) and ``from_torch`` hands a
+detached, contiguous tensor on. ``torch_wrap(f)`` makes an
+``autograd.Function`` of a differentiable function of tensors, as the
+reference's makes one of a JAX function: forward runs ``f`` and keeps its
+graph, backward is ``torch.autograd.grad`` with one cotangent per output.
+The reference's bridges JAX to torch; the port's keeps its contract (a
+torch function in, grads out) on the tape.
 
 The reference's scene leaves leave JAX as numpy arrays (for example
 ``np.asarray(scene_to_vec(scene))``); these helpers turn them into the
@@ -12,8 +23,11 @@ the port's int64 lanes, bit for bit.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from ._device import resolve_device
 from .render.sdf import SDFScene
@@ -80,3 +94,70 @@ def pcg32_to_numpy(gen: PCG32):
     reference's layout."""
     return tuple(h.detach().cpu().numpy().astype(np.uint32)
                  for u in (gen.state, gen.inc) for h in (u.hi, u.lo))
+
+
+def to_numpy(x) -> np.ndarray:
+    """A tensor as a numpy array (a copy off the card)."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def from_numpy(x, device=None) -> torch.Tensor:
+    """A numpy array as a tensor on ``device`` (None: the card, or
+    raise)."""
+    return torch.as_tensor(np.asarray(x), device=resolve_device(device))
+
+
+def to_torch(x) -> torch.Tensor:
+    """Any DLPack producer as a tensor, zero-copy (enoki_to_torch,
+    common.h:241); a tensor passes through."""
+    return x if isinstance(x, torch.Tensor) else torch.from_dlpack(x)
+
+
+def from_torch(x) -> torch.Tensor:
+    """A tensor as the port takes it: detached and contiguous
+    (torch_to_enoki, common.h:243)."""
+    return x.detach().contiguous()
+
+
+def torch_wrap(f: Callable):
+    """``f`` (tensors in, a tensor or a pytree of tensors out) as an
+    ``autograd.Function``: forward runs ``f`` on detached inputs that
+    require grad, under ``enable_grad``, and keeps the outputs; backward is
+    ``torch.autograd.grad`` of them with one cotangent per output leaf.
+    Returns a callable taking and returning tensors."""
+
+    class _Fn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *tensors):
+            inputs = tuple(t.detach().requires_grad_(t.dtype.is_floating_point)
+                           for t in tensors)
+            with torch.enable_grad():
+                out = f(*inputs)
+            leaves, ctx.out_tree = pytree.tree_flatten(out)
+            ctx.inputs, ctx.outputs = inputs, leaves
+            # one tensor per output leaf: backward then gets one cotangent
+            # for each
+            if len(leaves) == 1:
+                return leaves[0].detach()
+            return tuple(l.detach() for l in leaves)
+
+        @staticmethod
+        def backward(ctx, *gs):
+            wanted = [i for i, t in enumerate(ctx.inputs) if t.requires_grad]
+            outs = [(o, g) for o, g in zip(ctx.outputs, gs)
+                    if o.requires_grad and g is not None]
+            grads = torch.autograd.grad(
+                [o for o, _ in outs], [ctx.inputs[i] for i in wanted],
+                [g for _, g in outs], allow_unused=True,
+                materialize_grads=True) if outs else \
+                [torch.zeros_like(ctx.inputs[i]) for i in wanted]
+            out = [None] * len(ctx.inputs)
+            for i, g in zip(wanted, grads):
+                out[i] = g
+            return tuple(out)
+
+    def apply(*tensors):
+        return _Fn.apply(*tensors)
+
+    return apply

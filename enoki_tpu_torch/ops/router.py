@@ -274,21 +274,39 @@ def rsqrt(x):
     return torch.rsqrt(x)
 
 
+def _elementwise_vmap(fn):
+    """The ``vmap`` rule of an elementwise Function: the op applied to the
+    batched tensor as it is, its batch dimension kept."""
+    def rule(info, in_dims, x, *rest):
+        return fn(x, *rest), in_dims[0]
+    return staticmethod(rule)
+
+
 class _NumpySqrt(torch.autograd.Function):
     """numpy's float64 sqrt of a float64 CPU tensor, which is IEEE
     (PyTorch's CPU float64 sqrt is up to 1 ulp off); sqrt's gradient."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(x):
         with np.errstate(invalid="ignore"):  # NaN below 0, as torch's
-            y = torch.as_tensor(np.sqrt(x.detach().numpy()))
-        ctx.save_for_backward(y)
-        return y
+            return torch.as_tensor(np.sqrt(x.detach().numpy()))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
+        ctx.save_for_forward(output)
 
     @staticmethod
     def backward(ctx, g):
         (y,) = ctx.saved_tensors
         return g * 0.5 / y
+
+    @staticmethod
+    def jvp(ctx, t):
+        (y,) = ctx.saved_tensors
+        return t * 0.5 / y
+
+    vmap = _elementwise_vmap(lambda x: _NumpySqrt.apply(x))
 
 
 def _sqrt64(x):
@@ -591,21 +609,23 @@ def transform(target, index, func, *args, mask=None):
 
 def _maximum(a, b):
     """``jnp.maximum`` of two tensors: NaN where either is NaN, and +0.0
-    above -0.0 (``torch.maximum`` gives the first of two equal operands,
-    so ``maximum(-0.0, 0.0)`` would be -0.0)."""
+    above -0.0. Which of two equal operands ``torch.maximum`` gives
+    depends on the size (the CPU's vector loop gives the second, its
+    scalar tail the first), so equal operands take the one without the
+    sign bit."""
     r = torch.maximum(a, b)
     if not r.dtype.is_floating_point:
         return r
-    return torch.where((a == b) & torch.signbit(a), b, r)
+    return torch.where(a == b, torch.where(torch.signbit(a), b, a), r)
 
 
 def _minimum(a, b):
     """``jnp.minimum`` of two tensors: NaN where either is NaN, and -0.0
-    below +0.0."""
+    below +0.0 (equal operands take the one with the sign bit)."""
     r = torch.minimum(a, b)
     if not r.dtype.is_floating_point:
         return r
-    return torch.where((a == b) & torch.signbit(b), b, r)
+    return torch.where(a == b, torch.where(torch.signbit(a), a, b), r)
 
 
 def clamp(x, lo, hi):
@@ -749,26 +769,46 @@ def prev_float(x):
 
 # ---------------------------------------------------------------------------
 # Safe math: the domain is clamped so that neither the value nor the
-# derivative is inf or NaN. Each backward is the reference's custom JVP.
+# derivative is inf or NaN. Each is the reference's custom JVP: ``jvp``
+# multiplies the tangent by the derivative, ``backward`` the cotangent, so
+# both are linear in what they are given; ``vmap`` applies the op to the
+# batched tensor (they are elementwise), so that torch.func's vmap, jvp
+# and grad all go through them.
 # ---------------------------------------------------------------------------
+
+
+def _save_both(ctx, *tensors):
+    ctx.save_for_backward(*tensors)
+    ctx.save_for_forward(*tensors)
 
 
 class _SafeSqrt(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(x):
         # the correctly rounded sqrt that XLA and CUDA's sqrt give.
         # PyTorch's CPU float32 sqrt goes through MKL's vector library,
         # which is 1 ulp off for ~0.6% of inputs, and that moves
         # silhouette pixels of the sphere render.
-        y = _sqrt_rn(torch.clamp_min(x, 0.0))
-        ctx.save_for_backward(x, y)
-        return y
+        return _sqrt_rn(torch.clamp_min(x, 0.0))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _save_both(ctx, inputs[0], output)
+
+    @staticmethod
+    def _d(x, y):
+        pos = x > 0
+        return torch.where(pos, 0.5 / torch.where(pos, y, 1.0), 0.0)
 
     @staticmethod
     def backward(ctx, g):
-        x, y = ctx.saved_tensors
-        pos = x > 0
-        return g * torch.where(pos, 0.5 / torch.where(pos, y, 1.0), 0.0)
+        return g * _SafeSqrt._d(*ctx.saved_tensors)
+
+    @staticmethod
+    def jvp(ctx, t):
+        return t * _SafeSqrt._d(*ctx.saved_tensors)
+
+    vmap = _elementwise_vmap(lambda x: _SafeSqrt.apply(x))
 
 
 def safe_sqrt(x):
@@ -779,15 +819,26 @@ def safe_sqrt(x):
 
 class _SafeRsqrt(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        y = _rsqrt_rn(torch.clamp_min(x, torch.finfo(x.dtype).tiny))
-        ctx.save_for_backward(x, y)
-        return y
+    def forward(x):
+        return _rsqrt_rn(torch.clamp_min(x, torch.finfo(x.dtype).tiny))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _save_both(ctx, inputs[0], output)
+
+    @staticmethod
+    def _d(x, y):
+        return torch.where(x > 0, -0.5 * y * y * y, 0.0)
 
     @staticmethod
     def backward(ctx, g):
-        x, y = ctx.saved_tensors
-        return g * torch.where(x > 0, -0.5 * y * y * y, 0.0)
+        return g * _SafeRsqrt._d(*ctx.saved_tensors)
+
+    @staticmethod
+    def jvp(ctx, t):
+        return t * _SafeRsqrt._d(*ctx.saved_tensors)
+
+    vmap = _elementwise_vmap(lambda x: _SafeRsqrt.apply(x))
 
 
 def safe_rsqrt(x):
@@ -804,17 +855,30 @@ class _SafeArc(torch.autograd.Function):
     ``_rsqrt_rn``'s."""
 
     @staticmethod
-    def forward(ctx, x, fn, sign):
-        ctx.sign = sign
-        ctx.save_for_backward(x)
+    def forward(x, fn, sign):
         return fn(torch.clamp(x, -1.0, 1.0).double()).to(x.dtype)
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        ctx.sign = inputs[2]
+        _save_both(ctx, inputs[0])
+
+    @staticmethod
+    def _d(ctx):
         (x,) = ctx.saved_tensors
         d = _rsqrt_rn(torch.clamp_min(1.0 - x * x, 1e-30))
         d = -d if ctx.sign < 0 else d
-        return g * torch.where(torch.abs(x) < 1.0, d, 0.0), None, None
+        return torch.where(torch.abs(x) < 1.0, d, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * _SafeArc._d(ctx), None, None
+
+    @staticmethod
+    def jvp(ctx, t, _fn, _sign):
+        return t * _SafeArc._d(ctx)
+
+    vmap = _elementwise_vmap(lambda x, fn, sign: _SafeArc.apply(x, fn, sign))
 
 
 def safe_asin(x):

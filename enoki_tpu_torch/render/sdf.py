@@ -26,10 +26,12 @@ from .implicit import implicit_t_vjp
 from .sphere import (Ray, _reference_leaves, make_rays, pixel_grid,
                      scene_from_leaves, scene_leaves)
 from .vec import Vec3, dot3, normalize3
+from ..struct.pytree import register
 from ..ops.router import _plain_sqrt
 from .._device import resolve_device
 
 
+@register
 @dataclasses.dataclass(frozen=True)
 class SDFScene:
     """Sphere SDF + shading parameters (all differentiable)."""

@@ -23,8 +23,10 @@ import torch
 from .._device import resolve_device
 from ..ops.router import linspace, meshgrid, safe_sqrt
 from .vec import Vec2, Vec3, dot3
+from ..struct.pytree import register
 
 
+@register
 @dataclasses.dataclass(frozen=True)
 class Ray:
     """Ray bundle: o + t*d."""
@@ -44,6 +46,7 @@ def _reference_leaves(device):
                 light=Vec3(f(-1.0), f(-1.0), f(2.0)))
 
 
+@register
 @dataclasses.dataclass(frozen=True)
 class SphereScene:
     """Differentiable scene parameters."""

@@ -15,6 +15,7 @@ import torch
 
 from .._device import resolve_device
 from ..ops.router import _plain_rsqrt, _plain_sqrt, copysign, mulsign
+from ..struct.pytree import register
 
 
 def _as_tensor(v, dtype, device):
@@ -25,6 +26,7 @@ def _as_tensor(v, dtype, device):
     return torch.as_tensor(v, dtype=dtype, device=device)
 
 
+@register
 @dataclasses.dataclass(frozen=True)
 class Vec2:
     x: torch.Tensor
@@ -42,6 +44,7 @@ class Vec2:
     __rmul__ = __mul__
 
 
+@register
 @dataclasses.dataclass(frozen=True)
 class Vec3:
     x: torch.Tensor

@@ -22,10 +22,10 @@ import dataclasses
 import math
 
 import torch
-import torch.utils._pytree as pytree
 
 from ..ops import backend as B
 from ..ops.math import _f, _scalar
+from ..struct.pytree import register
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +92,7 @@ class Complex:
         return (self.re != o.re) | (self.im != o.im)
 
 
-pytree.register_dataclass(Complex)
+register(Complex)
 
 
 def _real(x, like: Complex):

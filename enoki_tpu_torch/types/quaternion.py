@@ -19,13 +19,13 @@ import functools
 import math
 
 import torch
-import torch.utils._pytree as pytree
 
 from .._device import resolve_device
 from ..ops import backend as B
 from ..ops import math as M
 from ..ops.router import (_operands, abs_ as _abs, mulsign, safe_acos,
                           safe_asin, safe_sqrt, select as _sel)
+from ..struct.pytree import register
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +90,7 @@ class Quaternion:
         return self * rcp(o)
 
 
-pytree.register_dataclass(Quaternion)
+register(Quaternion)
 
 
 def _real(o, like: Quaternion):

@@ -27,6 +27,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils._pytree as pytree
 
 from . import u64 as U
 from .._device import resolve_device
@@ -253,3 +254,9 @@ def uniform(gen: PCG32, shape=None, dtype=torch.float32):
     if dtype not in (torch.float32, None):
         val = val.to(dtype)
     return val, gen2
+
+
+# a NamedTuple is a pytree node already; the name lets a treespec holding
+# one be written to disk (runtime.checkpoint)
+pytree._register_namedtuple(
+    PCG32, serialized_type_name="enoki_tpu_torch.types.random.PCG32")

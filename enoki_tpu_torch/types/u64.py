@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from .._device import resolve_device
 
@@ -190,3 +191,9 @@ def zeros(shape=(), device=None) -> U64:
 def ones_bit(a: U64):
     """Lowest bit, int64 0 or 1 (delta & 1 in PCG32 advance)."""
     return a.v & 1
+
+
+# a NamedTuple is a pytree node already; the name lets a treespec holding
+# one be written to disk (runtime.checkpoint)
+pytree._register_namedtuple(
+    U64, serialized_type_name="enoki_tpu_torch.types.u64.U64")

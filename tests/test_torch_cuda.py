@@ -968,3 +968,126 @@ def test_types_constructors_default_to_the_card(cuda):
               T.morton_encode([3, 5]), T.DivisorU32(7)(100),
               T.sh.sh_eval_stacked(0.0, 0.0, 1.0, 2)):
         assert t.device.type == "cuda"
+
+
+# -- struct/, ad/, runtime/ ------------------------------------------------------
+# phase 25's (a), (b) and (d) of chip_smoke.py at 2^14 lanes and 128^2:
+# each on the card against the same call on the CPU, bit for bit
+
+
+STRUCT_LANES = 1 << 14
+
+
+def _struct_args(dev):
+    f, k, idx, mask, ids = SMOKE.struct_inputs(torch, STRUCT_LANES)
+    return (SMOKE.struct_of(torch, f, k, 0, dev),
+            SMOKE.struct_of(torch, f, k, 1, dev),
+            torch.from_numpy(idx).to(dev), torch.from_numpy(mask).to(dev),
+            torch.from_numpy(np.resize(mask, STRUCT_LANES)).to(dev)), ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SMOKE.STRUCT_CASES))
+def test_struct_helper_on_the_card_matches_the_cpu(cuda, name):
+    from enoki_tpu_torch import struct as S
+    fn = SMOKE.STRUCT_CASES[name]
+    (got_args, _), (want_args, _) = _struct_args(cuda), _struct_args("cpu")
+    assert SMOKE.same_tree(torch, fn(S, *got_args), fn(S, *want_args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [3, 16])
+@pytest.mark.parametrize("strategy", ["masked", "partition"])
+def test_dispatch_on_the_card_matches_the_cpu(cuda, m, strategy):
+    from enoki_tpu_torch import struct as S
+    funcs = [SMOKE.struct_callee(i) for i in range(m)]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        (a, b, _, _, _), ids = _struct_args(dev)
+        reg = S.InstanceRegistry()
+        for i in range(m):
+            reg.register(SMOKE.StructInstance(i))
+        I = torch.from_numpy(ids[m]).to(dev)
+        out[dev.type] = (getattr(S, f"dispatch_{strategy}")(
+            funcs, I, a["ray"], a["k"], default=b),
+            reg.dispatch("eval", I, a["ray"], a["k"], strategy=strategy),
+            reg.getter("c", I))
+    assert SMOKE.same_tree(torch, out["cuda"], out["cpu"])
+
+
+@pytest.mark.cuda
+def test_ad_backward_of_the_render_equals_sdfrenders_gradient(cuda):
+    from enoki_tpu_torch import ad
+    p = torch.from_numpy(scene_vec(1)).to(cuda)
+    reset_launch_counts()
+    val, (g,) = ad.backward(lambda q: render_sdf_cuda(q, 128, STEPS, 1.2,
+                                                      128, coarse=0).mean(), p)
+    assert dict(LAUNCHES) == {"sdf_fwd": 1, "sdf_bwd": 1}
+    model = SDFRender(p, n=128, n_steps=STEPS)
+    model().mean().backward()
+    assert torch.equal(g, model.params.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["safe_sqrt", "safe_rsqrt", "safe_asin",
+                                  "safe_acos"])
+def test_safe_functions_under_forward_and_vmap_on_the_card(cuda, name):
+    from enoki_tpu_torch import ad
+    rng = np.random.default_rng(28)
+    x = rng.uniform(-1.5, 50.0, STRUCT_LANES).astype(np.float32)
+    x[:6] = [0.0, -0.0, 1.0, -1.0, -3.0, 0.5]
+    t = rng.normal(size=STRUCT_LANES).astype(np.float32)
+    fn = getattr(R, name)
+    res = []
+    for dev in (cuda, "cpu"):
+        xd, td = torch.from_numpy(x).to(dev), torch.from_numpy(t).to(dev)
+        v, tan = ad.forward(fn, (xd,), (td,))
+        g = torch.func.vmap(torch.func.grad(fn))(xd)
+        res.append((v.cpu(), tan.cpu(), g.cpu(),
+                    torch.func.vmap(fn)(xd.reshape(-1, 64)).reshape(-1).cpu()))
+    (v1, t1, g1, m1), (v0, t0, g0, m0) = res
+    assert torch.equal(t1, t0) and torch.equal(g1, g0) and torch.equal(m1, v1)
+    # asin / acos values: the float64 libm's last bit (phase 22's gate)
+    gate = 1 if name in ("safe_asin", "safe_acos") else 0
+    assert SMOKE.ulp_of(v1.numpy(), v0.numpy(), np.float32).max() <= gate
+
+
+@pytest.mark.cuda
+def test_runtime_on_the_card(cuda):
+    from enoki_tpu_torch import ad, runtime
+    stats = runtime.memory_stats()
+    assert stats["bytes_limit"] == torch.cuda.get_device_properties(
+        0).total_memory
+    keep = torch.empty((321, 77), device=cuda)
+    row = [r for r in runtime.whos(False).splitlines() if "(321, 77)" in r]
+    assert row and str(321 * 77 * 4) in row[0] and "cuda" in row[0]
+    del keep
+    p = torch.from_numpy(scene_vec(None)).to(cuda)
+
+    def step(q):
+        q = q.detach().requires_grad_(True)
+        render_sdf_cuda(q, 128, STEPS, 1.2, 128, coarse=0).mean().backward()
+        return q.grad
+
+    rep = runtime.vectorization_report(step, p)
+    assert rep["custom_calls"] == 2 and rep["fusions"] >= 2
+    runtime.assert_vectorized(lambda x: torch.sin(x) * 2.0 + x, p)
+    with pytest.raises(AssertionError, match="transfers to the host"):
+        runtime.assert_vectorized(lambda x: x * x[0].item(), p)
+    with pytest.raises(RuntimeError, match="make_fx cannot trace sdf_fwd"):
+        ad.whos(lambda q: render_sdf_cuda(q, 128, STEPS, 1.2, 128,
+                                          coarse=0).mean(), p)
+
+
+@pytest.mark.cuda
+def test_compile_timings_pay_the_build_once(cuda):
+    from enoki_tpu_torch import runtime
+    render, _ = G.make_sdf_renderer(
+        lambda q, pv: sd.sd_sphere(q, Vec3(pv[5], pv[6], pv[7]), pv[8])
+        - 0.0375, n_params=9)
+    pv = torch.tensor([0.2, 90.0, -1.0, -1.0, 2.0, 0.0, 0.0, 0.0, 0.8],
+                      device=cuda)
+    t = runtime.compile_timings(lambda v: render(v, 128).mean(), pv)
+    assert t["cache_hit_s"] < t["compile_s"] / 10
+    assert t["trace_s"] is None and t["lower_s"] is None
+    assert t["n_eqns"] >= 2
