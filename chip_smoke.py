@@ -161,6 +161,8 @@ rounding.
            gradients bit-equal, asin / acos within 1 ulp (float64 libm
            roundings), float reductions within 2^-22 * sum|x| per output
            (the card sums in another order; products 2^-22 * n * |p|),
+           hmax / hmin / hmax_nested / hmin_nested on rows of +-0.0 in
+           f16, bf16, f32 and f64 bit-equal with the sign of zero (C10),
            and the constructors, range_packets and extract on the card by
            default
   phase 23 every function of ops/math.py and ops/special.py (plain
@@ -193,7 +195,9 @@ rounding.
            their own): (a) every helper of struct/ and Masked on a struct
            of Vec3s and an int32 leaf at 2^20 lanes, the dispatchers and
            the instance registry with 3 and 16 instances, card against
-           CPU bit-equal (dtype included; NaN as NaN), and the masked and
+           CPU bit-equal (dtype included; NaN as NaN; Masked by the
+           Python numbers 3.0 and 0.1 in f32, f16 and bf16, C11), and the
+           masked and
            partition dispatch timed at 2-32 instances (the card's
            crossover); (b) ad.backward of the main path's loss bit-equal
            to SDFRender's own gradient, one sdf_fwd and one sdf_bwd, held
@@ -207,6 +211,31 @@ rounding.
            assert_vectorized, compile_timings of a new generic scene (the
            cache hit under a tenth of the first call, nvcc included);
            (e) examples/calls_torch.py at 1024^2 lanes
+  phase 26 dist/ at 1024^2 (plain PyTorch; the sphere's combined render):
+           (a) init_distributed() makes a world of one through nccl (with
+           its warning), render_sharded bit-equal to render_fused on the
+           card and within the reference's gates of the CPU (max < 5e-3,
+           mean < 1e-4); (b) both train steps from the perturbed scene of
+           tests/test_dist.py, losses within rtol 1e-4, each step's loss
+           and SGD(1) update bit-equal to one process's autograd of the
+           same loss on its grid; (c) fit_scene resumed from its
+           checkpoint at step 4, bitwise equal to 6 steps straight; (d)
+           one all-reduce of 40 B a step at 512^2 and 1024^2, the record
+           against torch.profiler's c10d all-reduce events, the schedule
+           report; (e) the shardmap step's wall and device ms (median and
+           spread of windows) beside the card's name and power limit, the
+           predicted efficiencies at 2-256 GPUs with that step time, and
+           measured_weak_scaling's one-GPU row; (f) a 2x2 world of four
+           processes sharing the card through gloo on CUDA tensors (NCCL
+           refuses two ranks on one device): the assembled image
+           bit-equal to the world of one's, losses and gradients within
+           the reference's gates of it
+  phase 27 torch.func.vmap and vmap(grad) of every kernel Function on
+           batches of 3 at 1024^2 (render_sphere_cuda f32 and bf16,
+           render_sdf_cuda plain, coarse=8 and split=16, the composed
+           generic scene, ops.histogram on 3 x 2^20 indices): bit-equal
+           to the stacked unbatched calls, each kernel launched 3 times
+           one call's count
 
 Run from the root of the repository:  python chip_smoke.py
 Needs one CUDA card; exits non-zero, printing no result, without one or
@@ -311,6 +340,13 @@ TYPES_N = 1 << 20              # elements of phase 24's inputs
 STRUCT_N = 1 << 20             # lanes of phase 25's structs
 STRUCT_KS = (2, 4, 8, 16, 32)  # instance counts of phase 25's timing
 CALLS_N = 1024                 # phase 25 (e): calls_torch at CALLS_N^2
+DIST_N = 1024                  # phase 26's image side
+DIST_FIT_STEPS = 6             # phase 26 (c): fit_scene steps (resumed at 4)
+DIST_ITERS, DIST_WINDOWS = 20, 7  # phase 26 (e): timed windows of steps
+DIST_WORLD = 4                 # phase 26 (f): the 2x2 world on one card
+VMAP_N = 1024                  # phase 27's image side
+VMAP_BATCH = 3                 # phase 27's batch of parameter vectors
+VMAP_HIST_N = 1 << 20          # phase 27: indices an item of the histogram
 ACC_UPDATES = 64               # updates of phase 19's bf16 accumulator
 # operations of csrc/hist.cu's function per sample: two compares of the
 # index against the range (integer) and one f32 add; of
@@ -1231,6 +1267,8 @@ def run(torch, dev):
     run_math_extras(torch, dev)
     run_types_extras(torch, dev)
     run_struct_extras(torch, dev)
+    run_dist(torch, dev)
+    run_vmap(torch, dev, scenes)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
@@ -1431,6 +1469,21 @@ def ops_cases(torch, n, seed=22):
     add("normalize", "sum", ops.normalize, v3, mag=2.0 * np.abs(unit))
     add("allclose", "exact", lambda x, y: torch.tensor(
         [ops.allclose(x, y), ops.allclose(x, y + 1e-2)]), a, a * (1 + 1e-4))
+    # C10: rows of +-0.0 mixed with negatives (max) or positives (min), so
+    # that most extremes are a zero whose sign the reduction chooses
+    zeros = np.where(rng.random((8, n // 8)) < 0.5, 0.0, -0.0)
+    other = np.abs(rng.standard_normal((8, n // 8))) + 0.5
+    pick = rng.random((8, n // 8)) < 0.6
+    signed = {"max": np.where(pick, zeros, -other).astype(np.float64),
+              "min": np.where(pick, zeros, other).astype(np.float64)}
+    for dt in ("float16", "bfloat16", "float32", "float64"):
+        for name in ("hmax", "hmin", "hmax_nested", "hmin_nested"):
+            for axis in ((None,) if "nested" in name else (0, 1, None)):
+                add(f"{name} signed zeros {dt} axis {axis}", "exact",
+                    lambda x, name=name, axis=axis, dt=dt: getattr(
+                        ops, name)(x.to(getattr(torch, dt)),
+                                   *(() if axis is None else (axis,))),
+                    signed[name[1:4]])
     return cases
 
 
@@ -2434,6 +2487,13 @@ STRUCT_CASES = {
     **{f"Masked.{op}": (lambda op: lambda S, a, b, i, m, mf: getattr(
         S.masked(a["ray"].o.x, mf), op)(b["ray"].d.y))(op)
        for op in ("assign", "add", "sub", "mul", "div", "min", "max")},
+    # C11: a Python number, in float32 and in the 16-bit floats (the card
+    # multiplies by the reciprocal of a Python divisor)
+    **{f"Masked.{op} {v} {dt}": (lambda op, v, dt: lambda S, a, b, i, m, mf:
+                                 getattr(S.masked(getattr(a["ray"].o.x, dt)(),
+                                                  mf), op)(v))(op, v, dt)
+       for op in ("add", "sub", "mul", "div") for v in (3.0, 0.1)
+       for dt in ("float", "half", "bfloat16")},
 }
 
 
@@ -2786,6 +2846,399 @@ def run_struct_extras(torch, dev):
     log(f"phase 25 (e) examples/calls_torch.py at {CALLS_N}^2 lanes: masked"
         f" {t_m:.4f} ms, partition {t_p:.4f} ms a chained iteration, bit-"
         f"equal; phase 25 took {time.perf_counter() - t_phase:.2f} s")
+
+
+# -- phase 26: dist/ ------------------------------------------------------------
+
+# tests/test_dist.py:46-49 and :85-88
+DIST_PERTURBED = dict(center=(0.1, -0.1, 0.0), radius=0.8, ambient=0.3,
+                      gain=80.0)
+DIST_FIT_INIT = dict(center=(0.0, 0.0, 0.0), radius=0.75, ambient=0.2,
+                     gain=90.0)
+
+
+def dist_scene(torch, dev, center, radius, ambient, gain,
+               light=(-1.0, -1.0, 2.0)):
+    from enoki_tpu_torch.render import SphereScene, Vec3
+
+    def f(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+    return SphereScene(center=Vec3(*map(f, center)), radius=f(radius),
+                       ambient=f(ambient), gain=f(gain),
+                       light=Vec3(*map(f, light)))
+
+
+def dist_leaves(scene):
+    from enoki_tpu_torch.render.sphere import scene_leaves
+    return np.array([float(x) for x in scene_leaves(scene)], np.float64)
+
+
+def dist_probe(torch, dev, mesh, n):
+    """Both train steps from the perturbed scene against the reference
+    render: (init, target, {step: (loss with SGD(0), the leaves SGD(1)
+    moves by exactly -grad)})."""
+    from enoki_tpu_torch import dist as D
+    from enoki_tpu_torch.render import SphereScene, render_fused
+
+    target = render_fused(SphereScene.reference(dev), n).reshape(n, n)
+    init = dist_scene(torch, dev, **DIST_PERTURBED)
+    out = {}
+    for name, maker in (("gspmd", D.make_train_step),
+                        ("shardmap", D.make_train_step_shardmap)):
+        _, _, loss = maker(n, mesh, lambda p: torch.optim.SGD(p, lr=0.0))(
+            init, target, None)
+        moved, _, _ = maker(n, mesh, lambda p: torch.optim.SGD(p, lr=1.0))(
+            init, target, None)
+        out[name] = (float(loss), dist_leaves(moved))
+    return init, target, out
+
+
+def dist_world(rank, world, n, device):
+    """One rank of phase 26 (f)'s world: its coordinate, its tile of the
+    sharded image and both steps' probes (dist_probe)."""
+    import torch
+    import torch.distributed as tdist
+    from enoki_tpu_torch import dist as D
+    from enoki_tpu_torch.render import SphereScene
+
+    dev = torch.device(device)
+    mesh = D.make_mesh(device=device)
+    img = D.render_sharded(SphereScene.reference(dev), n, mesh)
+    _, _, probe = dist_probe(torch, dev, mesh, n)
+    return {"coordinate": tuple(mesh.get_coordinate()),
+            "tile": img.to_local().cpu().numpy(), "probe": probe,
+            "backend": tdist.get_backend()}
+
+
+def grad_gate(got, want):
+    """The reference's probe gate (tests/test_dist.py:74-75): rtol 1e-3,
+    atol 1e-5 * the largest |gradient|."""
+    return bool(np.allclose(got, want, rtol=1e-3,
+                            atol=1e-5 * np.abs(want).max()))
+
+
+def run_dist(torch, dev):
+    """Phase 26: dist/ on the card at DIST_N^2, (a)-(f)."""
+    import shutil
+    import tempfile
+    import warnings
+    import torch.distributed as tdist
+    from torch.profiler import ProfilerActivity, profile
+    from enoki_tpu_torch import dist as D
+    from enoki_tpu_torch.dist import bench_scaling as bs
+    from enoki_tpu_torch.dist._world import run_world
+    from enoki_tpu_torch.dist.render import (COLLECTIVES, _iota_tile,
+                                             _sum_sq_over, mse_loss,
+                                             reset_collectives)
+    from enoki_tpu_torch.render import SphereScene, combined, render_fused
+    from enoki_tpu_torch.render.sphere import scene_from_leaves, scene_leaves
+    from enoki_tpu_torch.runtime import checkpoint as ck
+
+    t_phase = time.perf_counter()
+    n, kind = DIST_N, dev.type
+    cpu = torch.device("cpu")
+    sync = torch.cuda.synchronize if kind == "cuda" else (lambda: None)
+
+    # -- (a) a world of one through nccl -------------------------------------
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        world = D.init_distributed(device=kind)
+    try:
+        backend = tdist.get_backend()
+        mesh = D.make_mesh(device=kind)
+        ref = SphereScene.reference(dev)
+        img = D.render_sharded(ref, n, mesh).full_tensor()
+        same = torch.equal(img, render_fused(ref, n).reshape(n, n))
+        d = (img.cpu() - render_fused(SphereScene.reference(cpu), n)
+             .reshape(n, n)).abs()
+        ok_a = (world == 1 and same and d.max().item() < 5e-3
+                and d.mean().item() < 1e-4)
+        log(f"phase 26 (a) init_distributed(): a world of {world} through "
+            f"{backend} ({'; '.join(str(w.message) for w in caught)}), "
+            f"mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}; "
+            f"render_sharded at {n}^2 bit-equal to render_fused on the card: "
+            f"{same}; against the CPU max {d.max().item():.3e} (< 5e-3), "
+            f"mean {d.mean().item():.3e} (< 1e-4): "
+            f"{'pass' if ok_a else 'FAIL'}")
+        check(ok_a, "phase 26 (a): the sharded render in a world of one")
+        image_one = img.cpu().numpy()
+
+        # -- (b) both train steps against one process's autograd ------------
+        init, target, probe = dist_probe(torch, dev, mesh, n)
+
+        def single(loss_fn):
+            leaves = [x.detach().requires_grad_(True)
+                      for x in scene_leaves(init)]
+            with torch.enable_grad():
+                loss = loss_fn(scene_from_leaves(leaves, SphereScene))
+                grads = torch.autograd.grad(loss, leaves)
+            # SGD(1)'s update, p - 1 * g, rounded once
+            return float(loss.detach()), np.array([float(x.detach() - g)
+                                          for x, g in zip(leaves, grads)])
+
+        want = {"gspmd": single(lambda s: mse_loss(s, target, n)),
+                "shardmap": single(lambda s: _sum_sq_over(
+                    combined(_iota_tile(mesh, n, dev), s), target, n))}
+        g0 = dist_leaves(init)
+        parts = {"losses rtol 1e-4": np.isclose(
+            probe["gspmd"][0], probe["shardmap"][0], rtol=1e-4)}
+        for name in want:
+            parts[f"{name} loss bit-equal"] = probe[name][0] == want[name][0]
+            parts[f"{name} update bit-equal"] = np.array_equal(
+                probe[name][1], want[name][1])
+        ok_b = all(parts.values())
+        # the two grids differ by up to an ulp: at this size their
+        # gradients differ by more than the reference's 128^2 probe gate
+        # allows (logged, not gated; the gate holds at 128^2 in the tests)
+        g_gspmd, g_shard = g0 - probe["gspmd"][1], g0 - probe["shardmap"][1]
+        rel = np.abs(g_shard - g_gspmd) / np.maximum(np.abs(g_gspmd), 1e-30)
+        log(f"phase 26 (b) {parts}; shardmap - gspmd gradient "
+            f"{np.array2string(g_shard - g_gspmd, precision=4, max_line_width=200)}"
+            f" (largest relative {rel[np.abs(g_gspmd) > 0].max():.3e}; "
+            f"within rtol 1e-3 / atol 1e-5 * max|g|: "
+            f"{grad_gate(g_shard, g_gspmd)})")
+        log(f"phase 26 (b) one step at {n}^2 from the perturbed scene: loss "
+            f"gspmd {probe['gspmd'][0]:.7g}, shardmap "
+            f"{probe['shardmap'][0]:.7g} (rtol 1e-4); each step's loss and "
+            f"SGD(1) update bit-equal to one process's autograd of the same "
+            f"loss on its grid (mse_loss on the linspace grid, the iota "
+            f"tile); shardmap gradient "
+            f"{np.array2string(g0 - probe['shardmap'][1], precision=5,
+                               max_line_width=200)}: "
+            f"{'pass' if ok_b else 'FAIL'}")
+        check(ok_b, "phase 26 (b): the train steps in a world of one")
+
+        # -- (c) fit_scene, resumed from its checkpoint ---------------------
+        root = tempfile.mkdtemp(prefix="enoki_dist_")
+        try:
+            start = dist_scene(torch, dev, **DIST_FIT_INIT)
+            straight, l_s = D.fit_scene(target, n, mesh, DIST_FIT_STEPS,
+                                        5e-3, start)
+            D.fit_scene(target, n, mesh, 4, 5e-3, start,
+                        checkpoint_dir=root, checkpoint_every=2)
+            at4 = ck.latest_step(root)
+            resumed, l_r = D.fit_scene(target, n, mesh, DIST_FIT_STEPS, 5e-3,
+                                       start, checkpoint_dir=root,
+                                       checkpoint_every=2)
+            at6 = ck.latest_step(root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        ok_c = (at4 == 4 and at6 == DIST_FIT_STEPS
+                and np.array_equal(dist_leaves(resumed),
+                                   dist_leaves(straight))
+                and float(l_r) == float(l_s) and np.isfinite(float(l_r)))
+        log(f"phase 26 (c) fit_scene at {n}^2, Adam lr 5e-3, "
+            f"{DIST_FIT_STEPS} steps from radius 0.75: loss {float(l_s):.7g}"
+            f", radius {float(straight.radius):.7g}; checkpoints at "
+            f"{at4} and {at6}, resumed at 4 bitwise equal to straight: "
+            f"{'pass' if ok_c else 'FAIL'}")
+        check(ok_c, "phase 26 (c): the resumed fit differs")
+
+        # -- (e) timing of the shardmap step --------------------------------
+        step = D.make_train_step_shardmap(
+            n, mesh, lambda p: torch.optim.Adam(p, lr=1e-3))
+
+        def steps(k):
+            sc, st, loss = init, None, None
+            for _ in range(k):
+                sc, st, loss = step(sc, target, st)
+            return loss
+
+        steps(2)
+        sync()
+        walls = []
+        for _ in range(DIST_WINDOWS):
+            sync()
+            t0 = time.perf_counter()
+            steps(DIST_ITERS)
+            sync()
+            walls.append(1e3 * (time.perf_counter() - t0) / DIST_ITERS)
+        wall_ms, spread = robust(walls)
+        acts = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if kind == "cuda" else [])
+        reset_collectives()
+        with profile(activities=acts) as prof:
+            steps(DIST_ITERS)
+            sync()
+        record = list(COLLECTIVES)
+        avg = prof.key_averages()
+        cuda_t = torch.autograd.DeviceType.CUDA
+        dev_ms = sum(e.self_device_time_total for e in avg
+                     if e.device_type == cuda_t) / 1e3 / DIST_ITERS
+        c10d = sum(e.count for e in avg if e.key.startswith(
+            "c10d::allreduce"))
+        comm_kernels = sorted({e.key[:40] for e in avg
+                               if e.device_type == cuda_t
+                               and "nccl" in e.key.lower()})
+        card = nvidia_smi("name,power.limit") if kind == "cuda" else kind
+        log(f"phase 26 (e) make_train_step_shardmap at {n}^2, Adam, one "
+            f"card ({card}): {wall_ms:.4f} ms a "
+            f"step wall (median of {DIST_WINDOWS} windows of {DIST_ITERS}, "
+            f"spread {spread:.2%}; all {[round(w, 4) for w in walls]}), "
+            f"device {dev_ms:.5f} ms a step (torch.profiler), busy share "
+            f"{dev_ms / wall_ms:.4f}")
+
+        # -- (d) the all-reduce record against the profiler ----------------
+        stats = {k: bs.collective_stats(k, device=kind)
+                 for k in (n // 2, n)}
+        report = bs.schedule_overlap_report(n, device=kind)
+        ok_d = (len(record) == DIST_ITERS and c10d == DIST_ITERS
+                and all(c["bytes"] == 40 for c in record)
+                and all(s.allreduce_bytes == 40 and len(s.allreduce_shapes)
+                        == 1 for s in stats.values())
+                and report.n_allreduce == 1 and report.trailing_total > 0)
+        log(f"phase 26 (d) collectives: {len(record)} all-reduces recorded "
+            f"over {DIST_ITERS} steps, {sorted({c['bytes'] for c in record})}"
+            f" bytes each; the profiler's c10d::allreduce_ events {c10d}, "
+            f"device kernels {comm_kernels}; collective_stats "
+            + ", ".join(f"{k}^2 {s.allreduce_bytes} B {s.allreduce_shapes}"
+                        for k, s in stats.items())
+            + f"; schedule report {report}: "
+            f"{'pass' if ok_d else 'FAIL'}")
+        check(ok_d, "phase 26 (d): the collective record")
+
+        payload = stats[n].allreduce_bytes
+        effs = {(mode, m, k): bs.predicted_efficiency(
+            m, k, payload, wall_ms * 1e-3, mode=mode)
+            for mode, m in (("strong", 1024), ("strong", 4096),
+                            ("weak", 1024)) for k in (2, 4, 8, 16, 64, 256)}
+        rows = bs.measured_weak_scaling((1,), tile=n, iters=10, device=kind)
+        log("phase 26 (e) predicted efficiency (this step time, a ring "
+            "all-reduce of 40 B over NVLink / InfiniBand, zero overlap): "
+            + "; ".join(f"{mode} {m}^2 " + ", ".join(
+                f"{k}: {effs[(mode, m, k)]:.4f}" for k in (2, 4, 8, 16, 64,
+                                                           256))
+                for mode, m in (("strong", 1024), ("strong", 4096),
+                                ("weak", 1024)))
+            + f"; measured_weak_scaling((1,), tile={n}): "
+            + ", ".join(f"devices={r[0]} n={r[1]} {r[2] / 1e6:.2f} "
+                        f"Mpix/s/dev eff {r[3]:.3f}" for r in rows))
+        check(len(rows) == 1 and rows[0][2] > 0,
+              "phase 26 (e): measured_weak_scaling gave no row")
+    finally:
+        tdist.destroy_process_group()
+
+    # -- (f) a 2x2 world of four processes on the one card -------------------
+    t0 = time.perf_counter()
+    ranks = run_world("chip_smoke:dist_world", DIST_WORLD, (n, kind),
+                      device=kind, backend="gloo", deadline_s=600)
+    tr = n // 2
+    image = np.empty((n, n), np.float32)
+    for r in ranks:
+        i, j = r["coordinate"]
+        image[i * tr:(i + 1) * tr, j * tr:(j + 1) * tr] = r["tile"]
+    ok_f = np.array_equal(image, image_one)
+    for name in ("gspmd", "shardmap"):
+        losses = {r["probe"][name][0] for r in ranks}
+        ok_f &= len(losses) == 1 and np.isclose(losses.pop(),
+                                                probe[name][0], rtol=1e-4)
+        ok_f &= all(grad_gate(g0 - r["probe"][name][1],
+                              g0 - probe[name][1]) for r in ranks)
+    log(f"phase 26 (f) a 2x2 world of {DIST_WORLD} processes on one card "
+        f"through {ranks[0]['backend']} on {kind} tensors (NCCL refuses "
+        f"two ranks on one device): coordinates "
+        f"{[r['coordinate'] for r in ranks]}; the assembled image bit-equal "
+        f"to the world of one's; losses gspmd "
+        f"{ranks[0]['probe']['gspmd'][0]:.7g}, shardmap "
+        f"{ranks[0]['probe']['shardmap'][0]:.7g} against the world of one "
+        f"rtol 1e-4, gradients rtol 1e-3 / atol 1e-5 * max|g|; "
+        f"{time.perf_counter() - t0:.2f} s: {'pass' if ok_f else 'FAIL'}; "
+        f"phase 26 took {time.perf_counter() - t_phase:.2f} s")
+    check(ok_f, "phase 26 (f): the 2x2 world against the world of one")
+
+
+# -- phase 27: vmap of the kernel Functions ---------------------------------------
+
+
+def vmap_cases(torch, dev, scenes):
+    """Phase 27's cases: name -> (the call on one item, the batch of
+    VMAP_BATCH items, the differentiated input's index)."""
+    from enoki_tpu_torch import ops
+    from enoki_tpu_torch.render import sdf_kernels as K, sphere_kernels as SK
+
+    n = VMAP_N
+    seeds = (None,) + tuple(range(1, VMAP_BATCH))
+    p16 = torch.from_numpy(np.stack([scene_vec(s) for s in seeds])).to(dev)
+    p12 = torch.from_numpy(np.stack([generic_vec(s) for s in seeds])).to(dev)
+    rng = np.random.default_rng(27)
+    idx = torch.from_numpy(rng.integers(
+        -3, HIST_BINS + 4, (VMAP_BATCH, VMAP_HIST_N)).astype(np.int32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal(
+        (VMAP_BATCH, VMAP_HIST_N)).astype(np.float32)).to(dev)
+    composed = scenes["composed"][0]
+    return {
+        "render_sphere_cuda f32": (
+            lambda p: SK.render_sphere_cuda(p, n, EXTENT, n), (p16,)),
+        "render_sphere_cuda bf16": (
+            lambda p: SK.render_sphere_cuda(p, n, EXTENT, n, torch.bfloat16),
+            (p16,)),
+        "render_sdf_cuda plain": (
+            lambda p: K.render_sdf_cuda(p, n, STEPS, EXTENT, n, coarse=0),
+            (p16,)),
+        "render_sdf_cuda coarse=8": (
+            lambda p: K.render_sdf_cuda(p, n, STEPS, EXTENT, n, coarse=8),
+            (p16,)),
+        "render_sdf_cuda split=16": (
+            lambda p: K.render_sdf_cuda(p, n, STEPS, EXTENT, n, coarse=0,
+                                        split=16), (p16,)),
+        "generic composed": (
+            lambda p: composed(p, n, STEPS, EXTENT, tile=n), (p12,)),
+        "ops.histogram weighted": (
+            lambda wi, i: ops.histogram(i, HIST_BINS, wi), (w, idx)),
+    }
+
+
+def run_vmap(torch, dev, scenes):
+    """Phase 27: torch.func.vmap and vmap(grad) of every kernel Function
+    on the card, against the stacked unbatched calls, launches counted."""
+    from enoki_tpu_torch import _build
+    from enoki_tpu_torch.render import LAUNCHES, reset_launch_counts
+
+    t0 = time.perf_counter()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    failed, summary = [], []
+    for name, (f, batch) in vmap_cases(torch, dev, scenes).items():
+        def loss(*a):
+            return f(*a).float().square().mean()
+
+        item = tuple(b[0] for b in batch)
+        reset_launch_counts()
+        f(*item)
+        one_fwd = dict(LAUNCHES)
+        reset_launch_counts()
+        torch.func.grad(loss)(*item)
+        one_all = dict(LAUNCHES)
+        items = list(zip(*batch))
+        want = torch.stack([f(*a) for a in items])
+        want_g = torch.stack([torch.func.grad(loss)(*a) for a in items])
+        _build.VMAP_LOOPS.clear()
+        reset_launch_counts()
+        got = torch.func.vmap(f)(*batch)
+        sync()
+        fwd = dict(LAUNCHES)
+        reset_launch_counts()
+        got_g = torch.func.vmap(torch.func.grad(loss))(*batch)
+        sync()
+        both = dict(LAUNCHES)
+        loops = dict(_build.VMAP_LOOPS)
+        times = VMAP_BATCH
+        ok = (torch.equal(got, want) and torch.equal(got_g, want_g)
+              and fwd == {k: times * v for k, v in one_fwd.items()}
+              and both == {k: times * v for k, v in one_all.items()}
+              and min(loops.values()) >= 1)
+        if dev.type == "cuda":
+            ok &= bool(one_fwd)
+        summary.append(f"{name}: launches one call {one_all}, vmap(grad) "
+                       f"{both}, loops {loops}")
+        if not ok:
+            failed.append(name)
+    log(f"phase 27 torch.func.vmap and vmap(grad) of the kernel Functions "
+        f"on batches of {VMAP_BATCH} at {VMAP_N}^2 ({VMAP_HIST_N} indices "
+        f"an item of the histogram), bit-equal to the stacked unbatched "
+        f"calls, launches {VMAP_BATCH} x one call's: " + "; ".join(summary)
+        + f"; {time.perf_counter() - t0:.2f} s: "
+        f"{'pass' if not failed else 'FAIL ' + '; '.join(failed)}")
+    check(not failed, "phase 27: " + "; ".join(failed))
 
 
 def run_sphere(torch, dev, timer, cuda_vec):

@@ -22,8 +22,9 @@ Beside the renders: the histogram mini-app's path, a vectorised PCG32
 ``ops`` and ``types`` in plain PyTorch; ``struct`` (struct support,
 vectorized method calls), ``ad`` (differentiation helpers on autograd),
 ``runtime`` (introspection, checkpoints), ``cache``, ``config`` and
-``interop``. ``trace`` (the lazy runtime) and ``dist`` wait for their
-port.
+``interop``; ``dist``, the distributed render and train steps over a
+``torch.distributed`` process group (one process a GPU, ``nccl``).
+``trace`` (the lazy runtime) waits for its port.
 """
 
 __version__ = "0.4.0"
@@ -36,4 +37,5 @@ from . import cache  # noqa: F401
 # nothing is built here
 cache.enable_default_compile_cache()
 from . import ops, types, struct, ad, runtime, render, interop  # noqa: F401,E402
+from . import dist  # noqa: F401,E402
 from .config import set_log_level, log_level  # noqa: F401,E402

@@ -234,6 +234,80 @@ def launched(err: int, kernel: str):
     LAUNCHES[kernel] += 1
 
 
+# calls of the looping vmap rules (``loop_vmap``), by Function name: one a
+# batched call, whatever the batch size
+VMAP_LOOPS: collections.Counter = collections.Counter()
+
+
+def loop_vmap(name: str, apply):
+    """The ``vmap`` staticmethod of an ``autograd.Function`` that launches
+    a kernel through ``data_ptr()``, which a batched tensor does not have:
+    ``apply`` (the Function's own ``apply``, so that an outer transform
+    still sees it) once an item of the batch, each item's tensors made
+    contiguous, and the outputs stacked on a new dimension 0. One launch
+    an item; a batch dimension in the kernel's grid would take its place."""
+
+    def rule(info, in_dims, *args):
+        VMAP_LOOPS[name] += 1
+
+        def item(b):
+            return [a if d is None else a.select(d, b).contiguous()
+                    for a, d in zip(args, in_dims)]
+
+        outs = [apply(*item(b)) for b in range(info.batch_size)]
+        if isinstance(outs[0], tuple):
+            return (tuple(torch.stack(o) for o in zip(*outs)),
+                    (0,) * len(outs[0]))
+        return torch.stack(outs), 0
+
+    return staticmethod(rule)
+
+
+class KernelFunction(torch.autograd.Function):
+    """Base of the ``autograd.Function``s that launch a kernel. They are
+    in the ``setup_context`` style, which ``torch.func`` needs, and
+    ``Function.apply`` binds a call's arguments to the signature of
+    ``forward`` for that style, a host cost on every step of the main
+    path. Where no ``torch.func`` transform is active this ``apply`` goes
+    straight to autograd's own, which runs ``forward`` and
+    ``setup_context`` as well: the wrappers pass every argument
+    positionally, so there are no defaults to bind."""
+
+    @classmethod
+    def apply(cls, *args):
+        if torch._C._are_functorch_transforms_active():
+            return super().apply(*args)
+        return super(torch.autograd.Function, cls).apply(*args)
+
+
+def kernel_call(name: str, fn):
+    """``fn``, a kernel's wrapper, as a Function's backward calls it:
+    directly where no ``torch.func`` transform is active (the main path
+    pays nothing), else through an ``autograd.Function`` named ``name``
+    with a looping ``vmap`` rule, since ``vmap(grad(...))`` hands the
+    backward batched tensors, which have no ``data_ptr()``. Not
+    differentiable."""
+
+    def forward(*args):
+        return fn(*args)
+
+    def backward(ctx, *grads):
+        raise NotImplementedError(f"{name} is not differentiable")
+
+    fn_class = type(name, (torch.autograd.Function,), {
+        "forward": staticmethod(forward),
+        "setup_context": staticmethod(lambda ctx, inputs, output: None),
+        "backward": staticmethod(backward),
+        "vmap": loop_vmap(name, lambda *a: fn_class.apply(*a))})
+
+    def call(*args):
+        if torch._C._are_functorch_transforms_active():
+            return fn_class.apply(*args)
+        return fn(*args)
+
+    return call
+
+
 # the counters of the kernels whose last block sums the others' rows
 # (csrc/pixel_sum.cuh), one per (device, stream): zeroed once here, set
 # back to 0 by every launch that used them

@@ -89,17 +89,21 @@ def hist(index, bins: int, weights=None):
     return out
 
 
-class _HistogramFn(torch.autograd.Function):
+class _HistogramFn(_build.KernelFunction):
     """Forward: the kernel route or the plain one. Backward: d / d
     weights_i = g[index_i] on in-range lanes, 0 on dropped ones; nothing
-    for ``index``."""
+    for ``index`` (plain PyTorch, no kernel). ``vmap``: one forward an
+    item of the batch."""
 
     @staticmethod
-    def forward(ctx, index, weights, bins, impl):
-        ctx.save_for_backward(index)
-        ctx.bins = bins
+    def forward(index, weights, bins, impl):
         fn = hist_plain if impl == "fused" else hist
         return fn(index, bins, weights)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+        ctx.bins = inputs[2]
 
     @staticmethod
     def backward(ctx, g):
@@ -109,6 +113,9 @@ class _HistogramFn(torch.autograd.Function):
         inr = (index >= 0) & (index < ctx.bins)
         gi = torch.where(inr, g[torch.where(inr, index, 0).long()], 0.0)
         return None, gi, None, None
+
+    vmap = _build.loop_vmap("_HistogramFn",
+                            lambda *a: _HistogramFn.apply(*a))
 
 
 def histogram(index, bins: int, weights=None, impl: str = "kernel"):

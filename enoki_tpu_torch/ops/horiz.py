@@ -71,12 +71,28 @@ def _prod(x, axis=None):
 
 def _extreme(fn, x, axis):
     """amax / amin in x's dtype; uint16 and uint32, for which PyTorch has
-    none, through int64."""
+    none, through int64. A float extreme of 0 takes the sign that
+    ``jnp.max`` / ``jnp.min`` give it: +0.0 for a maximum where any lane
+    there is +0.0, -0.0 for a minimum where any lane there is -0.0
+    (PyTorch returns either zero). NaN propagates as it does, and the
+    gradient is amax's / amin's, shared among the tied lanes."""
     x = _asarray(x)
     dim = () if axis is None else axis
     if x.dtype in (torch.uint16, torch.uint32):
         return fn(x.to(torch.int64), dim=dim).to(x.dtype)
-    return fn(x, dim=dim)
+    r = fn(x, dim=dim)
+    if not x.dtype.is_floating_point:
+        return r
+    neg = torch.signbit(x)
+    want_neg = fn is torch.amin
+    # the zero lanes of the wanted sign, reduced as r was
+    found = torch.amax(((x == 0) & (neg if want_neg else ~neg))
+                       .to(torch.uint8), dim=dim).to(torch.bool)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    signed = torch.where(found == want_neg, -zero, zero)
+    # r.detach() - r is +0.0 at a zero and carries r's gradient;
+    # subtracting +0.0 keeps the sign of ``signed``
+    return torch.where(r == 0, signed - (r.detach() - r), r)
 
 
 def _cumsum(x, axis):

@@ -293,41 +293,62 @@ def generic_bwd(kernels: SceneKernels, params, g, ts, n: int,
     return dp
 
 
-class _GenericRenderFn(torch.autograd.Function):
-    """Forward: the cone prepass if ``coarse``, then generic_fwd, keeping
-    the packed residual ts (one float per pixel). Backward: generic_bwd on
-    that residual."""
+# generic_bwd as the backward calls it; under vmap(grad(...)) one launch
+# an item of the batch
+_generic_bwd_call = _build.kernel_call(
+    "_GenericBwdFn", lambda params, g, ts, kernels, n, extent:
+    generic_bwd(kernels, params, g, ts, n, extent))
+
+
+class _GenericRenderFn(_build.KernelFunction):
+    """Forward: the cone prepass if ``coarse``, then generic_fwd -> (img,
+    ts), ts the packed residual (one float per pixel) that the backward
+    reads and no gradient reaches. Backward: generic_bwd on that
+    residual. ``vmap``: one forward an item of the batch."""
 
     @staticmethod
-    def forward(ctx, params, kernels, n, n_steps, extent, coarse, relax,
+    def forward(params, kernels, n, n_steps, extent, coarse, relax,
                 unimodal, eps, t_max):
         p = params.detach().to(torch.float32).contiguous()
         t0 = None
         if coarse:
             t0 = _cone_t0_generic(kernels.sdf_fn, kernels.ray_fn, p, n,
                                   n_steps, extent, coarse, eps, t_max)
-        img, ts = generic_fwd(kernels, p, n, n_steps, extent, t0, relax,
-                              unimodal, eps, t_max)
-        ctx.save_for_backward(p, ts)
-        ctx.kernels, ctx.n, ctx.extent = kernels, n, extent
-        ctx.dtype = params.dtype
-        return img
+        return generic_fwd(kernels, p, n, n_steps, extent, t0, relax,
+                           unimodal, eps, t_max)
 
     @staticmethod
-    def backward(ctx, g):
-        p, ts = ctx.saved_tensors
-        dp = generic_bwd(ctx.kernels, p, g.to(torch.float32).contiguous(),
-                         ts, ctx.n, ctx.extent)
+    def setup_context(ctx, inputs, output):
+        params, kernels, n, _, extent = inputs[:5]
+        ctx.mark_non_differentiable(output[1])
+        # no (n, n) zeros for ts's gradient, which the backward ignores
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(params, output[1])
+        ctx.kernels, ctx.n, ctx.extent = kernels, n, extent
+
+    @staticmethod
+    def backward(ctx, g, _ts_bar):
+        params, ts = ctx.saved_tensors
+        p = params.detach().to(torch.float32).contiguous()
+        dp = _generic_bwd_call(p, g.to(torch.float32).contiguous(), ts,
+                               ctx.kernels, ctx.n, ctx.extent)
         # the cotangent's dtype is the primal's
-        return (dp.to(ctx.dtype),) + (None,) * 9
+        return (dp.to(params.dtype),) + (None,) * 9
+
+    vmap = _build.loop_vmap("_GenericRenderFn",
+                            lambda *a: _GenericRenderFn.apply(*a))
 
 
 class _MarchImplicit(torch.autograd.Function):
     """The twin's masked march over ``sdf_fn`` with the implicit-function
-    backward (``implicit_t_vjp``) instead of reversing the loop."""
+    backward (``implicit_t_vjp``) instead of reversing the loop; plain
+    PyTorch in both directions, so ``torch.func`` batches it through its
+    own operations (``generate_vmap_rule``)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, pv, px, py, sdf_fn, ray_fn, n_steps, eps, t_max):
+    def forward(pv, px, py, sdf_fn, ray_fn, n_steps, eps, t_max):
         o, dd = ray_fn(px, py, pv)
         t = torch.zeros_like(px)
         active = torch.ones_like(px, dtype=torch.bool)
@@ -339,10 +360,15 @@ class _MarchImplicit(torch.autograd.Function):
             t_new = t + d
             active = active & ~converged & (t_new <= t_max)
             t = torch.where(active, t_new, t)
+        return t, hit
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pv, px, py, sdf_fn, ray_fn = inputs[:5]
+        t, hit = output
         ctx.save_for_backward(pv, px, py, t, hit)
         ctx.fns = sdf_fn, ray_fn
         ctx.mark_non_differentiable(hit)
-        return t, hit
 
     @staticmethod
     def backward(ctx, t_bar, _hit_bar):
@@ -417,8 +443,10 @@ def make_sdf_renderer(sdf_fn, n_params: int, eps: float = 1e-4,
         if tuple(params.shape) != (n_params,):
             raise ValueError(f"params must have shape ({n_params},), got "
                              f"{tuple(params.shape)}")
-        return _GenericRenderFn.apply(params, kernels, n, n_steps, extent,
-                                      coarse, relax, unimodal, eps, t_max)
+        img, _ = _GenericRenderFn.apply(params, kernels, n, n_steps,
+                                        extent, coarse, relax, unimodal, eps,
+                                        t_max)
+        return img
 
     def render_plain(params, n=1024, n_steps=64, extent=1.2):
         params = params.to(torch.float32)

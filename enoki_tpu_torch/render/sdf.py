@@ -120,12 +120,21 @@ def _ray_scene(leaves):
 
 
 class _MarchImplicit(torch.autograd.Function):
+    """``march`` with the implicit-function backward; plain PyTorch in
+    both directions, so ``torch.func`` batches it through its own
+    operations (``generate_vmap_rule``)."""
+
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, n_steps, eps, t_max, *leaves):
-        t, hit = march(*_ray_scene(leaves), n_steps, eps, t_max)
-        ctx.save_for_backward(t, hit, *leaves)
+    def forward(n_steps, eps, t_max, *leaves):
+        return march(*_ray_scene(leaves), n_steps, eps, t_max)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        t, hit = output
+        ctx.save_for_backward(t, hit, *inputs[3:])
         ctx.mark_non_differentiable(hit)
-        return t, hit
 
     @staticmethod
     def backward(ctx, t_bar, _hit_bar):

@@ -713,31 +713,47 @@ def sdf_bwd(params, g, ts, n: int, extent: float = 1.2,
     return dp
 
 
-class _SDFRenderFn(torch.autograd.Function):
-    """Forward: the cone prepass if ``coarse``, then sdf_split or sdf_fwd,
-    keeping the packed residual ts (one float per pixel) for the backward.
-    Backward: sdf_bwd on that residual, whatever the forward's options."""
+# sdf_bwd as the backward calls it; under vmap(grad(...)) one launch an
+# item of the batch
+_sdf_bwd_call = _build.kernel_call(
+    "_SDFBwdFn", lambda params, g, ts, n, extent, kernel:
+    sdf_bwd(params, g.contiguous(), ts, n, extent, kernel))
+
+
+class _SDFRenderFn(_build.KernelFunction):
+    """Forward: the cone prepass if ``coarse``, then sdf_split or sdf_fwd
+    -> (img, ts), ts the packed residual (one float per pixel) that the
+    backward reads and no gradient reaches. Backward: sdf_bwd on that
+    residual, whatever the forward's options. ``vmap``: one forward an
+    item of the batch."""
 
     @staticmethod
-    def forward(ctx, params, n, n_steps, extent, coarse, dtype, relax,
+    def forward(params, n, n_steps, extent, coarse, dtype, relax,
                 unimodal, split, bwd_kernel):
         p = params.detach()
         t0 = _cone_t0(p, n, n_steps, extent, coarse) if coarse else None
         if split:
-            img, ts = sdf_split(p, n, n_steps, extent, split, t0)
-        else:
-            img, ts = sdf_fwd(p, n, n_steps, extent, t0, dtype, relax,
-                              unimodal)
-        ctx.save_for_backward(params, ts)
-        ctx.n, ctx.extent, ctx.bwd_kernel = n, extent, bwd_kernel
-        return img
+            return sdf_split(p, n, n_steps, extent, split, t0)
+        return sdf_fwd(p, n, n_steps, extent, t0, dtype, relax, unimodal)
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        params, n, _, extent = inputs[:4]
+        ctx.mark_non_differentiable(output[1])
+        # no (n, n) zeros for ts's gradient, which the backward ignores
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(params, output[1])
+        ctx.n, ctx.extent, ctx.bwd_kernel = n, extent, inputs[9]
+
+    @staticmethod
+    def backward(ctx, g, _ts_bar):
         params, ts = ctx.saved_tensors
-        dp = sdf_bwd(params.detach(), g.contiguous(), ts, ctx.n, ctx.extent,
-                     ctx.bwd_kernel)
+        dp = _sdf_bwd_call(params.detach(), g, ts, ctx.n, ctx.extent,
+                           ctx.bwd_kernel)
         return (dp,) + (None,) * 9
+
+    vmap = _build.loop_vmap("_SDFRenderFn",
+                            lambda *a: _SDFRenderFn.apply(*a))
 
 
 def _render_sdf(params, n, n_steps, extent, tile, tile_c, coarse, dtype,
@@ -766,8 +782,9 @@ def _render_sdf(params, n, n_steps, extent, tile, tile_c, coarse, dtype,
     if tuple(params.shape) != (N_PARAMS,):
         raise ValueError(f"params must have shape ({N_PARAMS},), got "
                          f"{tuple(params.shape)}")
-    return _SDFRenderFn.apply(params, n, n_steps, extent, coarse, dtype,
-                              relax, unimodal, split, bwd_kernel)
+    img, _ = _SDFRenderFn.apply(params, n, n_steps, extent, coarse, dtype,
+                                relax, unimodal, split, bwd_kernel)
+    return img
 
 
 def render_sdf_cuda(params, n: int = 1024, n_steps: int = 64,

@@ -152,21 +152,34 @@ def sphere_bwd(params, g, n: int, extent: float = 1.2):
     return dp
 
 
-class _SphereRenderFn(torch.autograd.Function):
+# sphere_bwd as the backward calls it; under vmap(grad(...)) one launch an
+# item of the batch
+_sphere_bwd_call = _build.kernel_call("_SphereBwdFn", sphere_bwd)
+
+
+class _SphereRenderFn(_build.KernelFunction):
     """Forward: sphere_fwd in the compute dtype. Backward: sphere_bwd,
-    which recomputes from the parameters alone (no residual)."""
+    which recomputes from the parameters alone (no residual). ``vmap``:
+    one forward an item of the batch."""
 
     @staticmethod
-    def forward(ctx, params, n, extent, dtype):
+    def forward(params, n, extent, dtype):
+        return sphere_fwd(params, n, extent, dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        params, n, extent, _ = inputs
         ctx.save_for_backward(params)
         ctx.n, ctx.extent = n, extent
-        return sphere_fwd(params, n, extent, dtype)
 
     @staticmethod
     def backward(ctx, g):
         (params,) = ctx.saved_tensors
-        return (sphere_bwd(params.detach(), g, ctx.n, ctx.extent), None,
-                None, None)
+        return (_sphere_bwd_call(params.detach(), g, ctx.n, ctx.extent),
+                None, None, None)
+
+    vmap = _build.loop_vmap("_SphereRenderFn",
+                            lambda *a: _SphereRenderFn.apply(*a))
 
 
 def render_sphere_cuda(params, n: int = 1024, extent: float = 1.2,

@@ -14,6 +14,8 @@ trace/ and raises ``NotImplementedError``.
 
 from __future__ import annotations
 
+import torch
+
 from ..ops.backend import require_eager
 from ..ops.router import _maximum, _minimum, _operands, select
 
@@ -35,17 +37,31 @@ class Masked:
     def assign(self, v):
         return self._sel(v)
 
+    def _operand(self, v):
+        """A Python number as a 0-d tensor of the dtype it takes beside the
+        value (a weak type: the value's own dtype, float32 for a float
+        beside an integer value), on the value's device. PyTorch computes
+        ``x / number`` on the card as a product with the number's
+        reciprocal, and a 16-bit ``x * number`` or ``x / number`` with the
+        number in float32 on every device; an operand of the value's dtype
+        gives the IEEE result of that dtype, as the reference does."""
+        if isinstance(v, (int, float)) and not isinstance(v, bool) \
+                and isinstance(self.value, torch.Tensor):
+            return torch.full((), v, dtype=torch.result_type(self.value, v),
+                              device=self.value.device)
+        return v
+
     def add(self, v):
-        return self._sel(self.value + v)
+        return self._sel(self.value + self._operand(v))
 
     def sub(self, v):
-        return self._sel(self.value - v)
+        return self._sel(self.value - self._operand(v))
 
     def mul(self, v):
-        return self._sel(self.value * v)
+        return self._sel(self.value * self._operand(v))
 
     def div(self, v):
-        return self._sel(self.value / v)
+        return self._sel(self.value / self._operand(v))
 
     def min(self, v):
         return self._sel(_minimum(*_operands(self.value, v)))

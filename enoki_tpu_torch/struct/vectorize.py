@@ -10,9 +10,11 @@ port has no tracing compiler to hand ``f`` to (the JAX reference caches a
 
 ``vectorize_wrapper`` (dynamic.h:1105) adapts a per-lane function to wide
 tensors: ``torch.func.vmap``. A callee that reads a value to the host
-(``.item()``) raises under it, as it does under ``jax.vmap``; so does one
-that launches a kernel of the port, whose ``autograd.Function`` has no
-``vmap`` rule (the reference batches its ``pallas_call``).
+(``.item()``) raises under it, as it does under ``jax.vmap``. A callee
+that launches a kernel of the port is batched by its
+``autograd.Function``'s ``vmap`` rule (``_build.loop_vmap``): one launch
+an item of the batch, forward and backward (the reference batches its
+``pallas_call`` in one launch).
 """
 
 from __future__ import annotations

@@ -13,6 +13,7 @@ within the reference's own rounding, which scans in the 16-bit dtype);
 up to 2 ulp off).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -123,6 +124,62 @@ def test_reductions_over_an_axis(name, axis):
     ji, ti = _jt(i)
     if name != "hprod":
         same(getattr(T, name)(ti, axis), getattr(J, name)(ji, axis))
+
+
+ZERO_DTYPES = {"float16": (torch.float16, jnp.float16),
+               "bfloat16": (torch.bfloat16, jnp.bfloat16),
+               "float32": (torch.float32, jnp.float32),
+               "float64": (torch.float64, jnp.float64)}
+
+
+def signed_zero_rows(name, n, rows=8, seed=10):
+    """Rows of random +-0.0 mixed with negatives (for a maximum) or with
+    positives (for a minimum), so that most extremes are a zero whose
+    sign the reduction has to choose."""
+    rng = np.random.default_rng(seed + n)
+    zeros = np.where(rng.random((rows, n)) < 0.5, 0.0, -0.0)
+    other = np.abs(rng.normal(size=(rows, n))) + 0.5
+    other = -other if "max" in name else other
+    return np.where(rng.random((rows, n)) < 0.6, zeros, other)
+
+
+@pytest.mark.parametrize("n", [4, 17, 1024, 65536])
+@pytest.mark.parametrize("dtype", list(ZERO_DTYPES))
+@pytest.mark.parametrize("name", ["hmax", "hmin", "hmax_nested",
+                                  "hmin_nested"])
+def test_extremes_take_the_references_signed_zero(name, dtype, n):
+    # C10: where the extreme is 0 and both signs occur, jnp.max gives +0.0
+    # and jnp.min -0.0; PyTorch's amax / amin give either. A NaN still
+    # propagates (the second input, a NaN at the head of its last row)
+    tdt, jdt = ZERO_DTYPES[dtype]
+    x = signed_zero_rows(name, n)
+    x_nan = x.copy()
+    x_nan[-1, 0] = np.nan
+    axes = (None,) if name.endswith("nested") else (0, 1, -1, None)
+    with jax.enable_x64(dtype == "float64"):
+        for data in (x, x_nan):
+            tx = torch.from_numpy(data).to(tdt)
+            jx = jnp.asarray(data).astype(jdt)
+            for axis in axes:
+                args = () if axis is None else (axis,)
+                got = getattr(T, name)(tx, *args)
+                want = getattr(J, name)(jx, *args)
+                assert str(got.dtype) == f"torch.{want.dtype}"
+                g = got.to(torch.float64).numpy()
+                w = np.asarray(want.astype(jnp.float64), np.float64)
+                assert g.shape == w.shape
+                assert ((g == w) & (np.signbit(g) == np.signbit(w))
+                        | np.isnan(g) & np.isnan(w)).all(), (axis, g, w)
+                # the data makes the sign matter
+                assert data is x_nan or (w == 0).any()
+                if data is x_nan or dtype not in ("float32", "float64"):
+                    continue
+                # the gradient still reaches the tied lanes, as jax.grad's
+                tg = tx.clone().requires_grad_(True)
+                getattr(T, name)(tg, *args).sum().backward()
+                jg = jax.grad(lambda a: getattr(J, name)(a, *args).sum())(jx)
+                np.testing.assert_array_equal(tg.grad.numpy(),
+                                              np.asarray(jg))
 
 
 @pytest.mark.parametrize("axis", [0, 1, -1])

@@ -54,7 +54,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "ops/special.py", "ops/rounding.py", "ops/polys64.py",
             "ops/backend.py", "ops/router.py", "ops/horiz.py",
             "ops/hist_kernels.py", "cache.py", "ad/__init__.py",
-            "runtime/__init__.py", "runtime/checkpoint.py"} | {
+            "runtime/__init__.py", "runtime/checkpoint.py",
+            "dist/__init__.py", "dist/mesh.py", "dist/render.py",
+            "dist/bench_scaling.py"} | {
             f"types/{m}.py" for m in TYPES} | {
             f"struct/{m}.py" for m in STRUCT} <= names
     for f in files:
@@ -444,7 +446,55 @@ def test_the_package_exports_the_references_top_level():
             "assert callable(E.set_log_level) and callable(E.log_level); "
             "assert all(isinstance(getattr(E, m), types.ModuleType) for m in "
             "('struct', 'ad', 'runtime', 'cache', 'config', 'interop', 'ops', "
-            "'types', 'render'))")
+            "'types', 'render', 'dist'))")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
 
+
+
+# dist/: the reference's functions that have no counterpart (XLA's HLO
+# text parsers; the port records its collectives where it issues them,
+# ROADMAP C), and the parameters the port adds to the reference's (the
+# device of its entry points and the world's rendezvous directory;
+# ROADMAP C)
+DIST_NOT_PORTED = {"_shape_bytes", "_allreduce_shapes",
+                   "_parse_hlo_computations"}
+DIST_ADDED = {"make_mesh": ["device"], "init_distributed": ["device"],
+              "_pixel_block": ["device", "rows", "cols"],
+              "collective_stats": ["device"],
+              "schedule_overlap_report": ["device"],
+              "predicted_efficiency": ["device"],
+              "measured_weak_scaling": ["device", "store_dir"],
+              "main": ["device"]}
+
+
+def test_dist_exports_every_name_of_the_reference():
+    from enoki_tpu_torch import dist
+    names = list(_reference_exports(REPO / "enoki_tpu" / "dist" /
+                                    "__init__.py"))
+    assert len(names) == 9 and {"make_mesh", "fit_scene"} <= set(names)
+    missing = [n for n in names if not hasattr(dist, n)]
+    assert not missing, missing
+    assert isinstance(dist.bench_scaling, type(dist))
+
+
+@pytest.mark.parametrize("module", ["mesh", "render", "bench_scaling"])
+def test_dist_modules_have_every_function_and_parameter_of_the_reference(
+        module):
+    import dataclasses
+    import inspect
+    port = importlib.import_module(f"enoki_tpu_torch.dist.{module}")
+    tree = ast.parse((REPO / "enoki_tpu" / "dist" / f"{module}.py")
+                     .read_text())
+    funcs = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+             and n.name not in DIST_NOT_PORTED]
+    assert funcs
+    for f in funcs:
+        assert hasattr(port, f.name), f.name
+        want = [a.arg for a in f.args.args] + DIST_ADDED.get(f.name, [])
+        got = list(inspect.signature(getattr(port, f.name)).parameters)
+        assert got == want, (f.name, got, want)
+    for c in (n for n in tree.body if isinstance(n, ast.ClassDef)):
+        fields = [s.target.id for s in c.body if isinstance(s, ast.AnnAssign)]
+        assert [x.name for x in dataclasses.fields(getattr(port, c.name))] \
+            == fields, c.name

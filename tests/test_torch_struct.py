@@ -416,6 +416,33 @@ def test_masked_matches_the_reference(op):
     same(got, want)
 
 
+NUMBER_DTYPES = {"float32": (torch.float32, jnp.float32),
+                 "float16": (torch.float16, jnp.float16),
+                 "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+@pytest.mark.parametrize("dtype", list(NUMBER_DTYPES))
+@pytest.mark.parametrize("v", [3.0, 0.1])
+@pytest.mark.parametrize("op", ["add", "sub", "mul", "div", "min", "max"])
+def test_masked_by_a_python_number_matches_the_reference(op, v, dtype):
+    # C11: the reference's eager x / 3.0 is an IEEE division; 1/3 and 0.1
+    # have no exact reciprocal or float32 value, so a product with the
+    # reciprocal, or a 16-bit op on the float32 number, shows
+    tdt, jdt = NUMBER_DTYPES[dtype]
+    rng = np.random.default_rng(16)
+    x = rng.normal(size=1 << 16).astype(np.float32)
+    m = rng.random(1 << 16) < 0.7
+    got = getattr(masked(torch.from_numpy(x).to(tdt), torch.from_numpy(m)),
+                  op)(v)
+    want = getattr(JS.masked(jnp.asarray(x).astype(jdt), jnp.asarray(m)),
+                   op)(v)
+    assert str(got.dtype) == f"torch.{want.dtype}"
+    g = got.float().numpy()
+    w = np.asarray(want.astype(jnp.float32))
+    assert np.array_equal(g.view(np.int32), w.view(np.int32)), \
+        int((g != w).sum())
+
+
 def _ids_and_args(seed, n=1 << 12, k=3):
     rng = np.random.default_rng(seed)
     ids = rng.integers(-1, k + 1, n).astype(np.int32)  # nulls and past k
