@@ -236,6 +236,22 @@ rounding.
            generic scene, ops.histogram on 3 x 2^20 indices): bit-equal
            to the stacked unbatched calls, each kernel launched 3 times
            one call's count
+  phase 28 the lazy trace (enoki_tpu_torch.trace) at 2^24 lanes
+           through LazyArray, its operators, select, eval and numpy, each
+           fused run of a schedule one generated kernel (trace/codegen.py
+           on csrc/trace_kernel.cuh), its structures traced and built at
+           setup: (a) 8 fuzz programs of the CPU tests' recipe (f32 and
+           f64) against the plain interpreter on the card, IEEE-only ones
+           bit-equal, those with transcendentals within 1 ulp, two of
+           them against the CPU plain interpreter too; (b) 16M values ->
+           cast(int32) -> scatter_add into 64 bins in one eval, counts
+           equal to the plain interpreter's and torch.bincount's; (c) the
+           10,444-op chain of tools/jit_overhead.py at 2^16 and 2^24,
+           whole (kernels of at most 1,024 entries) and at max_fused_ops
+           512, bit-equal, with its trace, schedule, nvcc, first-eval,
+           cache-hit and kernel times and bound; (d) one launch a fused
+           run; (e) printf's text the same from both routes; (f) a second
+           process with the same trace_export_dir runs (a) without nvcc
 
 Run from the root of the repository:  python chip_smoke.py
 Needs one CUDA card; exits non-zero, printing no result, without one or
@@ -1059,20 +1075,35 @@ def run(torch, dev):
 
     # sdf_tail's refill schedules, for phase 12
     schedules = list(tail_schedule_sources().values())
+    # phase 28's trace structures, traced here and built in the pool; their
+    # disk cache in a directory of this run's own, which (f) reads
+    from enoki_tpu_torch.config import config
+    import shutil
+    export = _build.BUILD_DIR / "trace_export"
+    shutil.rmtree(export, ignore_errors=True)
+    config.trace_export_dir = str(export)
+    trace_plans = trace_structures(torch, dev)
+    n_texts = len({p.text for p in trace_plans.values()})
     with concurrent.futures.ThreadPoolExecutor(
-            len(libs) + len(scenes) + len(schedules)) as pool:
+            len(libs) + len(scenes) + len(schedules) + n_texts) as pool:
         # one nvcc per source, all at once
         built = pool.map(_build.build, libs)
         variants = pool.map(
             lambda t: _build.build_generated("sdf_render", t), schedules)
-        first_use = dict(zip(scenes, pool.map(build_scene, scenes)))
+        scene_times = pool.map(build_scene, scenes)
+        trace_build_s = build_trace_plans(trace_plans, pool)
+        first_use = dict(zip(scenes, scene_times))
         list(built)
         list(variants)
+    for plan in trace_plans.values():
+        plan.library()
     for name in libs:
         _build.load(name)
-    log(f"build: {', '.join(f'{n}.cu' for n in libs)} and the generated "
-        f"sources of {len(scenes)} scenes with nvcc "
-        f"{' '.join(_build.NVCC_FLAGS)} in {time.perf_counter() - t0:.2f} s")
+    log(f"build: {', '.join(f'{n}.cu' for n in libs)}, the generated "
+        f"sources of {len(scenes)} scenes and of phase 28's {n_texts} trace "
+        f"structures with nvcc {' '.join(_build.NVCC_FLAGS)} in "
+        f"{time.perf_counter() - t0:.2f} s (trace sources: "
+        f"{', '.join(f'{v:.1f}' for v in trace_build_s.values())} s)")
 
     def cuda_vec(seed):
         return torch.from_numpy(scene_vec(seed)).to(dev)
@@ -1269,6 +1300,7 @@ def run(torch, dev):
     run_struct_extras(torch, dev)
     run_dist(torch, dev)
     run_vmap(torch, dev, scenes)
+    kernels += run_trace(torch, dev, timer, trace_plans, trace_build_s)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
@@ -5043,6 +5075,476 @@ def run_hist(torch, dev, timer):
              f16_bound_ms=f16_bound),
     ]
 
+
+
+# ---------------------------------------------------------------------------
+# Phase 28: the lazy trace (enoki_tpu_torch.trace), one generated kernel a
+# fused run
+# ---------------------------------------------------------------------------
+
+TRACE_N = 1 << 24              # phase 28's lanes (the mini-app's 16M)
+TRACE_CHAIN_OPS = 10_444       # tools/jit_overhead.py's chain
+# max_fused_ops of the chain's segmented build: codegen caps a kernel at
+# MAX_KERNEL_ENTRIES (1024) entries, so 2048 would give the whole build
+TRACE_CHAIN_SEG = 512
+TRACE_CHAIN_SMALL = 1 << 16
+TRACE_PRINT_N = 1 << 16
+TRACE_HIST_BINS = 64
+# the CPU fuzz recipes (tests/test_torch_trace_fuzz.py): (name, arity,
+# IEEE only?, op over a trace module)
+TRACE_OPS = [
+    ("add", 2, True, lambda t, a, b: a + b),
+    ("sub", 2, True, lambda t, a, b: a - b),
+    ("mul", 2, True, lambda t, a, b: a * b),
+    ("min", 2, True, lambda t, a, b: t.minimum(a, b)),
+    ("max", 2, True, lambda t, a, b: t.maximum(a, b)),
+    ("fma", 3, True, lambda t, a, b, c: t.fmadd(a, b, c)),
+    ("neg", 1, True, lambda t, a: -a),
+    ("abs", 1, True, lambda t, a: abs(a)),
+    ("sqrt|x|", 1, True, lambda t, a: t.sqrt(abs(a) + 0.25)),
+    ("tanh", 1, False, lambda t, a: t.tanh(a)),
+    ("sin", 1, False, lambda t, a: t.sin(a)),
+    ("exp/8", 1, False, lambda t, a: t.exp(a * 0.125)),
+    ("sel", 2, True, lambda t, a, b: t.select(a > b, a, b * 0.5)),
+    ("scal", 1, True, lambda t, a: a * 1.5 + 0.25),
+]
+# (seed, dtype, IEEE only) of phase 28 (a)'s programs
+TRACE_PROGRAMS = [(0, "float32", False), (1, "float32", False),
+                  (2, "float32", False), (3, "float32", True),
+                  (4, "float32", True), (301, "float64", False),
+                  (302, "float64", False), (303, "float64", True)]
+
+
+def trace_program(tr, seed, dtype, ieee, n, device, data=True):
+    """A fuzz program of the CPU tests' recipe over ``tr`` at ``n`` lanes
+    on ``device`` (``data``: seeded numpy leaves, else uninitialised ones:
+    the same structure). Returns (result, the leaves as numpy or None)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    ops = [o for o in TRACE_OPS if o[2] or not ieee]
+    n_leaves = int(rng.integers(2, 5))
+    depth = int(rng.integers(5, 40))
+    recipe, pool_size = [], n_leaves
+    for _ in range(depth):
+        k = int(rng.integers(len(ops)))
+        recipe.append((k, [int(rng.integers(pool_size))
+                           for _ in range(ops[k][1])]))
+        pool_size += 1
+    if data:
+        leaves = [rng.uniform(-2, 2, n).astype(dtype)
+                  for _ in range(n_leaves)]
+        pool = [tr.LazyArray(l, device=device) for l in leaves]
+    else:
+        leaves = None
+        pool = [tr.LazyArray(torch.empty(n, dtype=getattr(torch, dtype),
+                                         device=device))
+                for _ in range(n_leaves)]
+    for k, slots in recipe:
+        pool.append(ops[k][3](tr, *[pool[s] for s in slots]))
+    return pool[-1], leaves
+
+
+def trace_chain(tr, data):
+    """tools/jit_overhead.py's build_chain: a TRACE_CHAIN_OPS-long fused
+    chain, four appends an iteration (mul, the literal, add, sqrt)."""
+    y = tr.LazyArray(data)
+    for i in range(TRACE_CHAIN_OPS // 4):
+        y = tr.sqrt(y * y + (1.0 + 1e-6 * (i % 7)))
+    return y
+
+
+def trace_hist(tr, values, bins=TRACE_HIST_BINS):
+    """values -> cast(int32) -> scatter_add into ``bins`` bins, one eval."""
+    h = tr.LazyArray.zeros(bins, "int32", device=values.device)
+    h.scatter_add(values.cast("int32"), 1)
+    return h
+
+
+def trace_structures(torch, dev):
+    """Setup of phase 28: every structure the phase evaluates, traced once
+    and prepared (schedule, fused runs, generated source) in this thread;
+    returns {name: plan}. Building them (nvcc) is the caller's, in its
+    pool."""
+    import enoki_tpu_torch.trace as tr
+    from enoki_tpu_torch.config import config
+    plans = {}
+    t0 = time.perf_counter()
+    for seed, dtype, ieee in TRACE_PROGRAMS:
+        out, _ = trace_program(tr, seed, dtype, ieee, TRACE_N, dev,
+                               data=False)
+        plans[f"fuzz{seed}"] = tr.prepare(out)
+    for n in (TRACE_CHAIN_SMALL, TRACE_N):
+        data = torch.empty(n, device=dev)
+        for seg in (0, TRACE_CHAIN_SEG):
+            config.max_fused_ops = seg
+            try:
+                plans[f"chain{n}-{seg}"] = tr.prepare(trace_chain(tr, data))
+            finally:
+                config.max_fused_ops = 0
+    # last: its scatter stays a pending side effect of every later schedule
+    x = tr.LazyArray(torch.empty(TRACE_N, device=dev))
+    plans["hist"] = tr.prepare(trace_hist(tr, x))
+    tr.reset()
+    log(f"setup: phase 28's {len(plans)} trace structures traced and "
+        f"scheduled in {time.perf_counter() - t0:.2f} s; "
+        f"{len({p.text for p in plans.values()})} distinct sources")
+    return plans
+
+
+def build_trace_plans(plans, pool):
+    """Build each distinct source of ``plans`` once, in ``pool``; returns
+    {source text: build seconds}; every plan's library is loaded after."""
+    texts = {}
+    for p in plans.values():
+        texts.setdefault(p.text, p)
+
+    def build(p):
+        t0 = time.perf_counter()
+        p.library()
+        return time.perf_counter() - t0
+
+    return dict(zip(texts, pool.map(build, texts.values())))
+
+
+def trace_ulps(torch, got, want):
+    """Max ulp distance of two float tensors of one dtype (NaN as NaN)."""
+    if not got.dtype.is_floating_point:
+        return 0.0 if torch.equal(got, want) else float("inf")
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        return float("inf")
+    g, w = got[~nan].double(), want[~nan].double()
+    same = g == w
+    if bool(same.all()):
+        return 0.0
+    sp = torch.abs(torch.nextafter(w.to(want.dtype), torch.full_like(
+        w.to(want.dtype), float("inf"))).double() - w)
+    return float(((g - w).abs() / sp)[~same].max().item())
+
+
+def trace_cache_child(device="cuda"):
+    """Phase 28 (f), in a second process: the programs of (a) with the
+    parent's trace_export_dir and a build directory of their own, nvcc
+    refused: every kernel comes from the disk cache."""
+    import torch
+    from enoki_tpu_torch import _build
+    import enoki_tpu_torch.trace as tr
+
+    calls = []
+
+    def no_nvcc():
+        calls.append(1)
+        raise RuntimeError("phase 28 (f): nvcc called in the second process")
+
+    _build.find_nvcc = no_nvcc
+    dev = torch.device(device)
+    worst = 0.0
+    for seed, dtype, ieee in TRACE_PROGRAMS:
+        out, _ = trace_program(tr, seed, dtype, ieee, TRACE_N, dev)
+        (want,) = tr.plain_eval(out)
+        got = out.torch()
+        worst = max(worst, trace_ulps(torch, got, want))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    check(not calls, "phase 28 (f): nvcc was called")
+    check(worst <= 1.0, f"phase 28 (f): kernel against plain {worst} ulp")
+    print(f"phase 28 (f) child: {len(TRACE_PROGRAMS)} programs at "
+          f"{TRACE_N} lanes from the disk cache, no nvcc call, max "
+          f"{worst} ulp against the plain interpreter", flush=True)
+
+
+def run_trace_alone(torch):
+    """Phase 28 alone on the card: its setup (the structures, built in a
+    pool of their own), then the phase; prints the kernels line."""
+    from enoki_tpu_torch import _build
+    from enoki_tpu_torch.config import config
+    import shutil
+    dev = torch.device("cuda")
+    log(nvidia_smi("name,power.limit"))
+    export = _build.BUILD_DIR / "trace_export"
+    shutil.rmtree(export, ignore_errors=True)
+    config.trace_export_dir = str(export)
+    t0 = time.perf_counter()
+    plans = trace_structures(torch, dev)
+    with concurrent.futures.ThreadPoolExecutor(16) as pool:
+        build_s = build_trace_plans(plans, pool)
+    for plan in plans.values():
+        plan.library()
+    log(f"setup: {len(build_s)} trace sources built in "
+        f"{time.perf_counter() - t0:.1f} s (each "
+        f"{', '.join(f'{v:.1f}' for v in build_s.values())} s)")
+    rows = run_trace(torch, dev, DeviceTimer(torch), plans, build_s)
+    print(json.dumps({"kernels": rows}))
+
+
+def run_trace(torch, dev, timer, plans, build_s):
+    """Phase 28: the lazy trace at 2^24 lanes through its public API, each
+    fused run one generated kernel, held to the plain interpreter."""
+    import enoki_tpu_torch.trace as tr
+    from enoki_tpu_torch import _build
+    from enoki_tpu_torch.config import config
+    from enoki_tpu_torch.render import LAUNCHES, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi("name,power.limit")
+    tr.reset()
+    reset_launch_counts()
+    counted = []  # (program, launches of its eval, its fused runs)
+    timed = [0]   # launches made to time a kernel, not the path's
+
+    def timed_ms(fn, reps, hold_ms):
+        before = LAUNCHES["trace"]
+        ms = timer(fn, reps, hold_ms=hold_ms)
+        timed[0] += LAUNCHES["trace"] - before
+        return ms
+
+    # -- (a) fuzz programs: kernel against plain, card against CPU --------
+    worst_ieee = worst_all = 0.0
+    max_err = 0.0
+    cpu_checked = []
+    for seed, dtype, ieee in TRACE_PROGRAMS:
+        out, leaves = trace_program(tr, seed, dtype, ieee, TRACE_N, dev)
+        plan = tr.prepare(out)
+        (want,) = tr.plain_eval(out)
+        before = LAUNCHES["trace"]
+        got = out.torch()
+        torch.cuda.synchronize()
+        counted.append((f"fuzz{seed}", LAUNCHES["trace"] - before,
+                        len(plan.runs)))
+        check(LAUNCHES["trace"] - before == len(plan.runs) == 1,
+              f"phase 28 (d): fuzz{seed} launched "
+              f"{LAUNCHES['trace'] - before} kernels for {len(plan.runs)} "
+              "runs")
+        check(got.shape == (TRACE_N,) and got.dtype == getattr(torch, dtype),
+              f"phase 28 (a): fuzz{seed} gave {got.dtype} {got.shape}")
+        u = trace_ulps(torch, got, want)
+        fin = torch.isfinite(want)
+        max_err = max(max_err, float((got[fin].double() - want[fin].double())
+                                     .abs().max().item()))
+        if ieee:
+            worst_ieee = max(worst_ieee, u)
+            check(u == 0.0, f"phase 28 (a): IEEE-only fuzz{seed} {dtype} not "
+                  f"bit-equal to the plain interpreter ({u} ulp)")
+        else:
+            worst_all = max(worst_all, u)
+            check(u <= 1.0, f"phase 28 (a): fuzz{seed} {dtype} {u} ulp from "
+                  "the plain interpreter")
+        if (seed, dtype) in ((3, "float32"), (301, "float64")):
+            cpu, _ = trace_program(tr, seed, dtype, ieee, TRACE_N, "cpu")
+            c = cpu.torch()
+            if ieee:
+                ok = trace_ulps(torch, got.cpu(), c) == 0.0
+                gate = "bit-equal"
+            else:
+                rtol, atol = (2e-5, 1e-6) if dtype == "float32" \
+                    else (1e-12, 1e-14)
+                ok = bool(torch.allclose(got.cpu(), c, rtol=rtol, atol=atol,
+                                         equal_nan=True))
+                gate = f"rtol {rtol}, atol {atol}"
+            cpu_checked.append(f"fuzz{seed} {dtype} ({gate})")
+            check(ok, f"phase 28 (a): fuzz{seed} on the card against the "
+                  f"CPU plain interpreter: {gate}")
+            del cpu, c
+        del out, got, want
+    log(f"phase 28 (a) {len(TRACE_PROGRAMS)} fuzz programs at {TRACE_N} "
+        f"lanes, one kernel each: IEEE-only bit-equal to the plain "
+        f"interpreter (max {worst_ieee} ulp), with transcendentals max "
+        f"{worst_all} ulp (gate 1); card against the CPU plain interpreter: "
+        f"{', '.join(cpu_checked)}: pass")
+
+    # -- (b) a histogram program, one eval, one kernel ----------------------
+    rng = np.random.default_rng(28)
+    vals = rng.normal(32.0, 12.0, TRACE_N).astype(np.float32)
+    v = tr.LazyArray(vals, device=dev)
+    h = trace_hist(tr, v)
+    plan_h = tr.prepare(h)
+    (want,) = tr.plain_eval(h)
+    before = LAUNCHES["trace"]
+    got = h.torch()
+    torch.cuda.synchronize()
+    launched = LAUNCHES["trace"] - before
+    counted.append(("hist", launched, len(plan_h.runs)))
+    idx = torch.from_numpy(vals).to(dev).to(torch.int32).long()
+    idx = torch.where(idx < 0, idx + TRACE_HIST_BINS, idx)
+    idx = idx[(idx >= 0) & (idx < TRACE_HIST_BINS)]
+    lib = torch.bincount(idx, minlength=TRACE_HIST_BINS).to(torch.int32)
+    check(launched == 1 and len(plan_h.runs) == 1,
+          f"phase 28 (d): the histogram launched {launched} kernels")
+    check(torch.equal(got, want) and torch.equal(got, lib),
+          "phase 28 (b): histogram counts differ from the plain "
+          "interpreter's or torch.bincount's")
+    log(f"phase 28 (b) histogram of {TRACE_N} values into "
+        f"{TRACE_HIST_BINS} bins in one eval: 1 kernel, counts equal to the "
+        f"plain interpreter's and torch.bincount's (total "
+        f"{int(got.sum().item())})")
+
+    # -- (c) the 10,444-op chain ---------------------------------------------
+    chain_rows = {}
+    for n in (TRACE_CHAIN_SMALL, TRACE_N):
+        data = torch.from_numpy(np.linspace(0.5, 1.5, n).astype(np.float32))
+        data = data.to(dev)
+        outs = {}
+        for seg in (0, TRACE_CHAIN_SEG):
+            config.max_fused_ops = seg
+            try:
+                t0 = time.perf_counter()
+                y = trace_chain(tr, data)
+                t_trace = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                plan = tr.prepare(y)
+                t_sched = time.perf_counter() - t0
+                before = LAUNCHES["trace"]
+                t0 = time.perf_counter()
+                y.eval()
+                torch.cuda.synchronize()
+                t_first = time.perf_counter() - t0
+                counted.append((f"chain{n}-{seg}", LAUNCHES["trace"] - before,
+                                len(plan.runs)))
+                check(LAUNCHES["trace"] - before == len(plan.runs),
+                      f"phase 28 (d): the chain launched "
+                      f"{LAUNCHES['trace'] - before} kernels for "
+                      f"{len(plan.runs)} runs")
+                outs[seg] = y.torch()
+                hits = []
+                for k in range(5):
+                    t0 = time.perf_counter()
+                    y2 = trace_chain(tr, data + float(k + 1))
+                    y2.eval()
+                    torch.cuda.synchronize()
+                    hits.append(1e3 * (time.perf_counter() - t0))
+                    del y2
+                hit_ms, hit_spread = robust(hits)
+                row = dict(runs=len(plan.runs), trace_ms=1e3 * t_trace,
+                           sched_ms=1e3 * t_sched,
+                           nvcc_s=build_s.get(plan.text, 0.0),
+                           first_s=build_s.get(plan.text, 0.0) + t_first,
+                           hit_ms=hit_ms, hit_spread=hit_spread)
+                if n == TRACE_N:
+                    # the kernel(s) alone, on the last retrace's literals
+                    # (the native core's current schedule is that retrace)
+                    leaves = [data]
+                    bits, codes = tr._collect_literals(len(plan.entries))
+                    lit = torch.from_numpy(bits.view(np.int64)).to(dev)
+                    row["ms"] = timed_ms(lambda: plan.run(
+                        leaves, lit, bits, codes, dev), 5, 500.0)
+                chain_rows[(n, seg)] = row
+            finally:
+                config.max_fused_ops = 0
+        check(torch.equal(outs[0], outs[TRACE_CHAIN_SEG]),
+              f"phase 28 (c): the chain at {n} lanes, whole and in "
+              f"{TRACE_CHAIN_SEG}-entry kernels, differ")
+        check(bool(torch.isfinite(outs[0]).all()),
+              "phase 28 (c): the chain is not finite")
+    y = trace_chain(tr, torch.from_numpy(
+        np.linspace(0.5, 1.5, TRACE_N).astype(np.float32)).to(dev))
+    chain_plain_ms = timer(lambda: tr.plain_eval(y), 1, hold_ms=1000.0,
+                           plain=True)
+    (chain_plain,) = tr.plain_eval(y)
+    chain_kernel = y.torch()
+    torch.cuda.synchronize()
+    check(torch.equal(chain_plain, chain_kernel),
+          "phase 28 (c): the chain's kernel and plain interpreter differ")
+    del y, chain_plain, chain_kernel
+    iters = TRACE_CHAIN_OPS // 4
+    chain_bound, chain_by = bound(8 * TRACE_N, 3 * iters * TRACE_N)
+    for (n, seg), r in chain_rows.items():
+        log(f"phase 28 (c) chain of {TRACE_CHAIN_OPS} ops at {n} lanes, "
+            f"max_fused_ops {seg}: {r['runs']} kernel(s); trace "
+            f"{r['trace_ms']:.2f} ms, schedule + emit {r['sched_ms']:.2f} ms,"
+            f" nvcc {r['nvcc_s']:.2f} s (setup), first eval "
+            f"{r['first_s']:.2f} s (nvcc included), cache-hit re-dispatch "
+            f"{r['hit_ms']:.3f} ms (median of 5, spread {r['hit_spread']:.1%})"
+            + (f", kernel device {r['ms']:.4f} ms" if "ms" in r else "")
+            + f"; {smi}")
+    whole = chain_rows[(TRACE_N, 0)]
+    seg_row = chain_rows[(TRACE_N, TRACE_CHAIN_SEG)]
+    log(f"phase 28 (c) bound of the chain at {TRACE_N} lanes: "
+        f"{1e3 * 8 * TRACE_N / HBM_BYTES_PER_S:.5f} ms by bytes "
+        f"(4 B read + 4 B written a lane over 3.35 TB/s), "
+        f"{1e3 * 3 * iters * TRACE_N / FP32_FLOPS_PER_S:.4f} ms by "
+        f"operations ({3 * iters} FP32 ops a lane); plain interpreter "
+        f"{chain_plain_ms:.2f} ms; kernel {whole['ms']:.4f} ms whole, "
+        f"{seg_row['ms']:.4f} ms in {seg_row['runs']} kernels")
+    if whole["nvcc_s"] > 30.0:
+        log(f"phase 28 (c): the whole chain's build took "
+            f"{whole['nvcc_s']:.1f} s (> 30 s): the {TRACE_CHAIN_SEG}-entry "
+            f"build took {seg_row['nvcc_s']:.1f} s")
+
+    log("phase 28 (d) one launch a fused run, counted by _build.LAUNCHES: "
+        + ", ".join(f"{name} {k}/{r}" for name, k, r in counted) + ": pass")
+
+    # -- timing of the histogram's kernel, its plain version, bincount ----
+    h3 = trace_hist(tr, v)
+    tr.prepare(h3)  # the native core's current schedule: the histogram's
+    bits, codes = tr._collect_literals(len(plan_h.entries))
+    lit = torch.from_numpy(bits.view(np.int64)).to(dev)
+    del h3
+    hist_ms = timed_ms(lambda: plan_h.run([v.torch()], lit, bits, codes,
+                                          dev), 20, 300.0)
+    h2 = trace_hist(tr, v)
+    hist_plain_ms = timer(lambda: tr.plain_eval(h2), 5, hold_ms=300.0,
+                          plain=True)
+    hist_lib_ms = timer(lambda: torch.bincount(idx, minlength=64), 20,
+                        hold_ms=300.0)
+    del h2
+    hist_bound, hist_by = bound(4 * TRACE_N + 4 * TRACE_HIST_BINS, 0,
+                                int_ops=3 * TRACE_N)
+    log(f"phase 28 (b) histogram kernel {hist_ms:.4f} ms (plain "
+        f"{hist_plain_ms:.4f} ms, torch.bincount {hist_lib_ms:.4f} ms, bound "
+        f"{hist_bound:.5f} ms by {hist_by}: 64 bins of int32 atomics)")
+
+    # -- (e) printf: the same text from both routes -------------------------
+    import io
+    x = tr.LazyArray(np.arange(TRACE_PRINT_N, dtype=np.float32) * 0.5,
+                     device=dev)
+    texts = []
+    for route in ("kernel", "plain"):
+        yp = tr.printf("x={} y={}", x, tr.sin(x) * 2.0) + 1.0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            if route == "kernel":
+                yp.eval()
+                torch.cuda.synchronize()
+            else:
+                tr.plain_eval(yp)
+        texts.append(buf.getvalue())
+        del yp
+    check(texts[0] == texts[1] and texts[0].startswith("x=[0."),
+          f"phase 28 (e): printf differs between the routes: {texts!r}")
+    log(f"phase 28 (e) printf: the kernel route and the plain interpreter "
+        f"print the same {len(texts[0])} characters")
+    launches = LAUNCHES["trace"] - timed[0]
+    tr.reset()  # the plain route's print stays a pending side effect
+
+    # -- (f) the disk cache: a second process without nvcc ------------------
+    env = dict(os.environ,
+               ENOKI_TPU_EXPORT_CACHE=config.trace_export_dir,
+               ENOKI_TPU_COMPILE_CACHE=str(_build.BUILD_DIR
+                                           / "trace_child_build"))
+    import shutil
+    shutil.rmtree(env["ENOKI_TPU_COMPILE_CACHE"], ignore_errors=True)
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke as C; "
+         "C.trace_cache_child()"], env=env, capture_output=True, text=True,
+        timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(child.returncode == 0,
+          f"phase 28 (f): the second process failed:\n{child.stderr[-3000:]}")
+    log(child.stdout.strip() + f" ({time.perf_counter() - t0:.1f} s)")
+    tr.reset()
+    log(f"phase 28 trace: {launches} fused-kernel launches, "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return [dict(name="trace", route="cuda",
+                 source="enoki_tpu_torch/csrc/trace_kernel.cuh",
+                 replaces="enoki_tpu/trace/__init__.py:396",
+                 launches=launches, max_abs_err=max_err,
+                 ms=whole["ms"], plain_ms=chain_plain_ms,
+                 bound_ms=chain_bound, bound_by=chain_by, library_ms=None,
+                 chain_seg_ms=seg_row["ms"], chain_nvcc_s=whole["nvcc_s"],
+                 chain_first_eval_s=whole["first_s"],
+                 chain_hit_ms=whole["hit_ms"], hist_ms=hist_ms,
+                 hist_plain_ms=hist_plain_ms, hist_bound_ms=hist_bound,
+                 hist_library_ms=hist_lib_ms)]
 
 if __name__ == "__main__":
     try:

@@ -23,8 +23,12 @@ Beside the renders: the histogram mini-app's path, a vectorised PCG32
 vectorized method calls), ``ad`` (differentiation helpers on autograd),
 ``runtime`` (introspection, checkpoints), ``cache``, ``config`` and
 ``interop``; ``dist``, the distributed render and train steps over a
-``torch.distributed`` process group (one process a GPU, ``nccl``).
-``trace`` (the lazy runtime) waits for its port.
+``torch.distributed`` process group (one process a GPU, ``nccl``);
+``trace``, the lazy runtime over the port's own native graph core, whose
+schedules run as one generated CUDA kernel per fused run on the card
+(its tape and calls, and the lazy halves of the other layers, wait for
+their port). ``trace`` is imported on first use: it builds its core with
+g++ on a cold cache, which package import should not pay for.
 """
 
 __version__ = "0.4.0"
@@ -39,3 +43,13 @@ cache.enable_default_compile_cache()
 from . import ops, types, struct, ad, runtime, render, interop  # noqa: F401,E402
 from . import dist  # noqa: F401,E402
 from .config import set_log_level, log_level  # noqa: F401,E402
+
+
+def __getattr__(name):
+    if name == "trace":
+        import importlib
+
+        mod = importlib.import_module(".trace", __name__)
+        globals()["trace"] = mod
+        return mod
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -5,10 +5,10 @@ directory, ``_build.BUILD_DIR`` (``enoki_tpu_torch/_build/`` by default),
 keyed by a hash of the source, the shared headers and the flags: an
 unchanged source is loaded as it is. This module chooses that directory
 and bounds it, and resolves the trace export directory of the lazy
-runtime (trace/, which waits for its port) under a version-keyed user
-cache directory:
+runtime under a version-keyed user cache directory, where ``trace``
+keeps the built kernels of its schedules by structural hash:
 
-    ~/.cache/enoki_tpu_torch/export/<version-tag>/   trace export artifacts
+    ~/.cache/enoki_tpu_torch/export/<version-tag>/   trace-<hash>-<tag>.so
 
 The version tag is ``v<version>-torch<torch>-<cuda|cpu>-<trace format>``,
 so a new release of either package, or a move between the card and the

@@ -10,8 +10,9 @@ the reference's fields and environment variables:
                        out-of-range index is undefined by default (as in
                        the reference); with this switch it is dropped,
                        deterministically (``ENOKI_TPU_DEBUG_BOUNDS``)
-* ``max_fused_ops``    the lazy trace's segment length (read by trace/,
-                       which waits for its port; ``ENOKI_TPU_MAX_FUSED_OPS``)
+* ``max_fused_ops``    the lazy trace's segment length: the plain
+                       interpreter's segments and the most entries of one
+                       fused kernel (``ENOKI_TPU_MAX_FUSED_OPS``; 0: no cap)
 * ``trace_export_dir`` ``auto``, a disable word or a directory
                        (``ENOKI_TPU_EXPORT_CACHE``; ``cache.export_dir``)
 * ``cache_max_bytes``  LRU bound of each cache directory

@@ -1,0 +1,554 @@
+// Skeleton of the lazy trace's fused kernels (enoki_tpu_torch/trace/
+// codegen.py). The counterpart of the reference's XLA code generation of
+// a schedule (enoki_tpu/trace/__init__.py:396, _compile_schedule), and of
+// the source paper's PTX trace-JIT (src/cuda/jit.cu:983-1508): codegen
+// cuts a schedule into fused runs and writes, per run, one __global__
+// kernel -- a grid-stride loop over the run's lanes with one C++
+// statement per schedule entry -- between an #include of this file and
+// its launch function. What bounds such a kernel on the card is the bytes
+// it moves: each leaf read once, each exported value written once (a
+// value that no later run, reduction or output reads lives in a register
+// and never reaches memory); the per-lane arithmetic of any realistic
+// program is far below the card's rate.
+//
+// Numbers: every operation gives the bits of the plain version
+// (trace/plain.py) on IEEE operations. So f32 / f64 arithmetic goes
+// through the _rn intrinsics (never contracted into an FMA; FMA itself is
+// a*b + c, two roundings), divisions are IEEE, a float -> integer cast is
+// cvt.rzi (saturating) with NaN -> 0, integers wrap as two's complement
+// (computed unsigned, so no signed overflow is undefined), shifts by the
+// width or more give 0 (the sign for an arithmetic right shift), 16-bit
+// floats are carried in float and rounded after every op
+// (__float2bfloat16_rn / __float2half_rn), and a transcendental of a
+// 16/32-bit float is the double libdevice function rounded once.
+//
+// Everything here compiles as host C++17 too (TK_HD empty, the kernel a
+// plain loop), so that the emitted per-lane code can be held against the
+// plain version where there is no card; a host build must pass
+// -ffp-contract=off.
+
+#pragma once
+
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+
+#ifdef __CUDACC__
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#define TK_HD __device__ __forceinline__
+#define TK_STD
+#else
+#define TK_HD inline
+#define TK_STD std::
+#endif
+
+namespace tk {
+
+// ---------------------------------------------------------------------------
+// storage of the 16-bit floats; in registers they are floats holding a
+// value the 16-bit type represents
+// ---------------------------------------------------------------------------
+
+#ifdef __CUDACC__
+typedef __nv_bfloat16 bf16_t;
+typedef __half f16_t;
+TK_HD float rbf(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+TK_HD float rh(float x) { return __half2float(__float2half_rn(x)); }
+TK_HD float ld_bf16(const void *p, long long i) {
+  return __bfloat162float(static_cast<const bf16_t *>(p)[i]);
+}
+TK_HD float ld_f16(const void *p, long long i) {
+  return __half2float(static_cast<const f16_t *>(p)[i]);
+}
+TK_HD void st_bf16(void *p, long long i, float v) {
+  static_cast<bf16_t *>(p)[i] = __float2bfloat16_rn(v);
+}
+TK_HD void st_f16(void *p, long long i, float v) {
+  static_cast<f16_t *>(p)[i] = __float2half_rn(v);
+}
+TK_HD uint16_t bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+TK_HD uint16_t f16_bits(float v) { return __half_as_ushort(__float2half_rn(v)); }
+TK_HD float bf16_of_bits(uint16_t b) {
+  return __bfloat162float(__ushort_as_bfloat16(b));
+}
+TK_HD float f16_of_bits(uint16_t b) {
+  return __half2float(__ushort_as_half(b));
+}
+#else
+typedef uint16_t bf16_t;
+typedef uint16_t f16_t;
+inline uint32_t fbits(float x) { uint32_t u; std::memcpy(&u, &x, 4); return u; }
+inline float ffrom(uint32_t u) { float x; std::memcpy(&x, &u, 4); return x; }
+// round to nearest even, as PyTorch's and the card's conversions do
+inline uint16_t bf16_bits(float x) {
+  uint32_t u = fbits(x);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return 0x7fc0;
+  return (uint16_t)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+}
+inline float bf16_of_bits(uint16_t b) { return ffrom((uint32_t)b << 16); }
+inline uint16_t f16_bits(float f) {
+  uint32_t x = fbits(f);
+  uint32_t sign = (x >> 16) & 0x8000u, a = x & 0x7fffffffu;
+  if (a > 0x7f800000u) return (uint16_t)(sign | 0x7e00u);
+  if (a >= 0x477ff000u) return (uint16_t)(sign | 0x7c00u);
+  if (a < 0x38800000u) {  // a half subnormal: the FPU rounds at 2^-24
+    float m = ffrom(a) + 0.5f;
+    return (uint16_t)(sign | (fbits(m) - 0x3f000000u));
+  }
+  a += 0xc8000fffu + ((a >> 13) & 1u);
+  return (uint16_t)(sign | (a >> 13));
+}
+inline float f16_of_bits(uint16_t h) {
+  uint32_t sign = (uint32_t)(h & 0x8000u) << 16, e = (h >> 10) & 0x1fu,
+           m = h & 0x3ffu;
+  if (e == 0x1f) return ffrom(sign | 0x7f800000u | (m << 13));
+  if (e == 0) return sign ? -std::ldexp((float)m, -24) : std::ldexp((float)m, -24);
+  return ffrom(sign | ((e + 112u) << 23) | (m << 13));
+}
+inline float rbf(float x) { return bf16_of_bits(bf16_bits(x)); }
+inline float rh(float x) { return f16_of_bits(f16_bits(x)); }
+inline float ld_bf16(const void *p, long long i) {
+  return bf16_of_bits(static_cast<const uint16_t *>(p)[i]);
+}
+inline float ld_f16(const void *p, long long i) {
+  return f16_of_bits(static_cast<const uint16_t *>(p)[i]);
+}
+inline void st_bf16(void *p, long long i, float v) {
+  static_cast<uint16_t *>(p)[i] = bf16_bits(v);
+}
+inline void st_f16(void *p, long long i, float v) {
+  static_cast<uint16_t *>(p)[i] = f16_bits(v);
+}
+#endif
+
+template <typename T> TK_HD T ld(const void *p, long long i) {
+  return static_cast<const T *>(p)[i];
+}
+template <typename T> TK_HD void st(void *p, long long i, T v) {
+  static_cast<T *>(p)[i] = v;
+}
+
+// a literal: its 64-bit pattern in the stream, reinterpreted
+template <typename T> TK_HD T lit(const uint64_t *L, int j) {
+  uint64_t b = L[j];
+  T v;
+  std::memcpy(&v, &b, sizeof(T));  // little-endian: the low bytes
+  return v;
+}
+TK_HD bool lit_b8(const uint64_t *L, int j) { return L[j] != 0; }
+TK_HD float lit_bf16(const uint64_t *L, int j) {
+  return bf16_of_bits((uint16_t)L[j]);
+}
+TK_HD float lit_f16(const uint64_t *L, int j) {
+  return f16_of_bits((uint16_t)L[j]);
+}
+
+// ---------------------------------------------------------------------------
+// IEEE arithmetic, one rounding per operation
+// ---------------------------------------------------------------------------
+
+// the commonest ones also as macros, which the emitted code calls
+// directly (cicc's time on a long kernel falls without their inlining)
+#ifdef __CUDACC__
+#define TK_FADD(a, b) __fadd_rn(a, b)
+#define TK_FSUB(a, b) __fsub_rn(a, b)
+#define TK_FMUL(a, b) __fmul_rn(a, b)
+#define TK_FDIV(a, b) __fdiv_rn(a, b)
+#define TK_FSQRT(a) __fsqrt_rn(a)
+#define TK_DADD(a, b) __dadd_rn(a, b)
+#define TK_DSUB(a, b) __dsub_rn(a, b)
+#define TK_DMUL(a, b) __dmul_rn(a, b)
+#define TK_DDIV(a, b) __ddiv_rn(a, b)
+#define TK_DSQRT(a) __dsqrt_rn(a)
+#else
+#define TK_FADD(a, b) ((float)(a) + (float)(b))
+#define TK_FSUB(a, b) ((float)(a) - (float)(b))
+#define TK_FMUL(a, b) ((float)(a) * (float)(b))
+#define TK_FDIV(a, b) ((float)(a) / (float)(b))
+#define TK_FSQRT(a) std::sqrt((float)(a))
+#define TK_DADD(a, b) ((double)(a) + (double)(b))
+#define TK_DSUB(a, b) ((double)(a) - (double)(b))
+#define TK_DMUL(a, b) ((double)(a) * (double)(b))
+#define TK_DDIV(a, b) ((double)(a) / (double)(b))
+#define TK_DSQRT(a) std::sqrt((double)(a))
+#endif
+
+#ifdef __CUDACC__
+TK_HD float add(float a, float b) { return __fadd_rn(a, b); }
+TK_HD float sub(float a, float b) { return __fsub_rn(a, b); }
+TK_HD float mul(float a, float b) { return __fmul_rn(a, b); }
+TK_HD float div(float a, float b) { return __fdiv_rn(a, b); }
+TK_HD double add(double a, double b) { return __dadd_rn(a, b); }
+TK_HD double sub(double a, double b) { return __dsub_rn(a, b); }
+TK_HD double mul(double a, double b) { return __dmul_rn(a, b); }
+TK_HD double div(double a, double b) { return __ddiv_rn(a, b); }
+TK_HD float sqrt_(float a) { return __fsqrt_rn(a); }
+TK_HD double sqrt_(double a) { return __dsqrt_rn(a); }
+TK_HD float d2f(double a) { return __double2float_rn(a); }
+#else
+inline float add(float a, float b) { return a + b; }
+inline float sub(float a, float b) { return a - b; }
+inline float mul(float a, float b) { return a * b; }
+inline float div(float a, float b) { return a / b; }
+inline double add(double a, double b) { return a + b; }
+inline double sub(double a, double b) { return a - b; }
+inline double mul(double a, double b) { return a * b; }
+inline double div(double a, double b) { return a / b; }
+inline float sqrt_(float a) { return std::sqrt(a); }
+inline double sqrt_(double a) { return std::sqrt(a); }
+inline float d2f(double a) { return (float)a; }
+#endif
+
+// integers wrap: computed on the unsigned type of the same width
+template <typename T> struct U;
+template <> struct U<int32_t> { typedef uint32_t t; };
+template <> struct U<uint32_t> { typedef uint32_t t; };
+template <> struct U<int64_t> { typedef uint64_t t; };
+template <> struct U<uint64_t> { typedef uint64_t t; };
+template <typename T> TK_HD T add(T a, T b) {
+  return (T)((typename U<T>::t)a + (typename U<T>::t)b);
+}
+template <typename T> TK_HD T sub(T a, T b) {
+  return (T)((typename U<T>::t)a - (typename U<T>::t)b);
+}
+template <typename T> TK_HD T mul(T a, T b) {
+  return (T)((typename U<T>::t)a * (typename U<T>::t)b);
+}
+template <typename T> TK_HD T neg(T a) {
+  return (T)((typename U<T>::t)0 - (typename U<T>::t)a);
+}
+TK_HD float neg(float a) { return -a; }
+TK_HD double neg(double a) { return -a; }
+TK_HD bool add(bool a, bool b) { return a || b; }
+TK_HD bool sub(bool a, bool b) { return a != b; }
+TK_HD bool mul(bool a, bool b) { return a && b; }
+
+template <typename T> TK_HD T fma_(T a, T b, T c) { return add(mul(a, b), c); }
+
+// integer division with XLA's x / 0 = -1, x % 0 = x (MIN / -1 = MIN)
+template <typename T> TK_HD T idiv(T a, T b) {
+  if (b == 0) return (T)-1;
+  if ((T)-1 < 0 && b == (T)-1) return neg(a);
+  return a / b;
+}
+template <typename T> TK_HD T irem(T a, T b) {
+  if (b == 0) return a;
+  if ((T)-1 < 0 && b == (T)-1) return 0;
+  return a % b;
+}
+TK_HD bool idiv(bool a, bool) { return a; }
+
+template <typename T> TK_HD T iabs(T a) { return a < 0 ? neg(a) : a; }
+TK_HD uint32_t iabs(uint32_t a) { return a; }
+TK_HD uint64_t iabs(uint64_t a) { return a; }
+
+// floored remainder (jnp.remainder): rem + b where their signs differ
+TK_HD float fmod_(float a, float b) { return TK_STD fmod(a, b); }
+TK_HD double fmod_(double a, double b) { return TK_STD fmod(a, b); }
+template <typename T> TK_HD T fmod_(T a, T b) { return irem(a, b); }
+template <typename T> TK_HD T floor_mod(T r, T b) {
+  return (r != 0 && ((r < 0) != (b < 0))) ? add(r, b) : r;
+}
+
+// jnp.minimum / jnp.maximum: NaN where either is NaN; -0.0 below +0.0
+template <typename T> TK_HD T min_(T a, T b) { return b < a ? b : a; }
+template <typename T> TK_HD T max_(T a, T b) { return b > a ? b : a; }
+template <typename T> TK_HD T fmin_j(T a, T b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  if (a == b) return TK_STD signbit(a) ? a : b;
+  return a < b ? a : b;
+}
+template <typename T> TK_HD T fmax_j(T a, T b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  if (a == b) return TK_STD signbit(a) ? b : a;
+  return a > b ? a : b;
+}
+TK_HD float min_(float a, float b) { return fmin_j(a, b); }
+TK_HD double min_(double a, double b) { return fmin_j(a, b); }
+TK_HD float max_(float a, float b) { return fmax_j(a, b); }
+TK_HD double max_(double a, double b) { return fmax_j(a, b); }
+
+// shifts: a width or more (or a negative amount) gives 0, the sign for
+// an arithmetic right shift
+// (a uint64 amount of 2^63 or more is negative as a long long: out of
+// range, as the plain version's int64 bit pattern is)
+template <typename T> TK_HD T shl(T a, T s) {
+  const long long w = 8 * sizeof(T);
+  long long k = (long long)s;
+  if (k < 0 || k >= w) return 0;
+  return (T)((typename U<T>::t)a << k);
+}
+template <typename T> TK_HD T shr(T a, T s) {
+  const long long w = 8 * sizeof(T);
+  long long k = (long long)s;
+  if (k < 0 || k >= w) return (T)-1 < 0 ? (T)(a < 0 ? -1 : 0) : (T)0;
+  return a >> k;
+}
+
+#ifdef __CUDACC__
+TK_HD uint32_t popc32(uint32_t v) { return __popc(v); }
+TK_HD uint32_t popc64(uint64_t v) { return __popcll(v); }
+TK_HD uint32_t clz32(uint32_t v) { return __clz((int)v); }
+TK_HD uint32_t clz64(uint64_t v) { return __clzll((long long)v); }
+#else
+inline uint32_t popc32(uint32_t v) { return __builtin_popcount(v); }
+inline uint32_t popc64(uint64_t v) { return __builtin_popcountll(v); }
+inline uint32_t clz32(uint32_t v) { return v ? __builtin_clz(v) : 32; }
+inline uint32_t clz64(uint64_t v) { return v ? __builtin_clzll(v) : 64; }
+#endif
+
+template <typename T> TK_HD T sign_(T a) { return a < 0 ? (T)-1 : (T)1; }
+TK_HD uint32_t sign_(uint32_t) { return 1; }
+TK_HD uint64_t sign_(uint64_t) { return 1; }
+TK_HD float sign_(float a) { return TK_STD copysign(1.0f, a); }
+TK_HD double sign_(double a) { return TK_STD copysign(1.0, a); }
+
+// integer power by squaring, wrapping; a negative exponent gives the
+// truncated 1 / a^|b|
+template <typename T> TK_HD T ipow(T a, T b) {
+  if ((T)-1 < 0 && b < 0) {
+    if (a == 1) return 1;
+    if (a == (T)-1) return (b & 1) ? (T)-1 : (T)1;
+    return 0;
+  }
+  typename U<T>::t r = 1, base = (typename U<T>::t)a,
+                   e = (typename U<T>::t)b;
+  for (int k = 0; k < 64; ++k) {
+    if (e & 1) r *= base;
+    base *= base;
+    e >>= 1;
+  }
+  return (T)r;
+}
+
+// cbrt in double, as the plain version takes it: pow(|x|, 1/3) and one
+// Newton step, signed
+TK_HD double cbrt_p(double x) {
+  double a = TK_STD fabs(x);
+  double y = TK_STD pow(a, 1.0 / 3.0);
+  if (y > 0 && TK_STD isfinite(y))
+    y = sub(y, div(sub(mul(mul(y, y), y), a), mul(mul(3.0, y), y)));
+  return TK_STD copysign(y, x);
+}
+
+// the math of one opcode, overloaded by the working type: a float is
+// computed as the plain version computes it (a transcendental in double,
+// rounded once; the 16-bit caller rounds again), an integer is left as
+// it is where the op is a rounding
+#define TK_NATIVE1(name, fn)                                                 \
+  TK_HD float name(float x) { return d2f(TK_STD fn((double)x)); }            \
+  TK_HD double name(double x) { return TK_STD fn(x); }
+TK_NATIVE1(exp_, exp)
+TK_NATIVE1(exp2_, exp2)
+TK_NATIVE1(log_, log)
+TK_NATIVE1(log2_, log2)
+TK_NATIVE1(sin_, sin)
+TK_NATIVE1(cos_, cos)
+TK_NATIVE1(tan_, tan)
+TK_NATIVE1(asin_, asin)
+TK_NATIVE1(acos_, acos)
+TK_NATIVE1(atan_, atan)
+TK_NATIVE1(sinh_, sinh)
+TK_NATIVE1(cosh_, cosh)
+TK_NATIVE1(tanh_, tanh)
+TK_NATIVE1(erf_, erf)
+TK_NATIVE1(erfc_, erfc)
+TK_NATIVE1(lgamma_, lgamma)
+TK_NATIVE1(log1p_, log1p)
+TK_NATIVE1(expm1_, expm1)
+TK_NATIVE1(asinh_, asinh)
+TK_NATIVE1(acosh_, acosh)
+TK_NATIVE1(atanh_, atanh)
+#undef TK_NATIVE1
+TK_HD float atan2_(float a, float b) {
+  return d2f(TK_STD atan2((double)a, (double)b));
+}
+TK_HD double atan2_(double a, double b) { return TK_STD atan2(a, b); }
+TK_HD float pow_(float a, float b) {
+  return d2f(TK_STD pow((double)a, (double)b));
+}
+TK_HD double pow_(double a, double b) { return TK_STD pow(a, b); }
+template <typename T> TK_HD T pow_(T a, T b) { return ipow(a, b); }
+TK_HD float cbrt_(float x) { return d2f(cbrt_p((double)x)); }
+TK_HD double cbrt_(double x) { return cbrt_p(x); }
+// roots: the correctly rounded double root, rounded once (the plain
+// version's ops.router._sqrt_rn / _rsqrt_rn)
+TK_HD float sqrt_r(float x) { return sqrt_(x); }  // the same bits
+TK_HD double sqrt_r(double x) { return sqrt_(x); }
+TK_HD float rsqrt_(float x) { return d2f(div(1.0, sqrt_((double)x))); }
+TK_HD double rsqrt_(double x) { return div(1.0, sqrt_(x)); }
+TK_HD float rcp_(float x) { return div(1.0f, x); }
+TK_HD double rcp_(double x) { return div(1.0, x); }
+TK_HD float floor_(float x) { return TK_STD floor(x); }
+TK_HD double floor_(double x) { return TK_STD floor(x); }
+TK_HD float ceil_(float x) { return TK_STD ceil(x); }
+TK_HD double ceil_(double x) { return TK_STD ceil(x); }
+TK_HD float round_(float x) { return TK_STD rint(x); }  // half to even
+TK_HD double round_(double x) { return TK_STD rint(x); }
+TK_HD float trunc_(float x) { return TK_STD trunc(x); }
+TK_HD double trunc_(double x) { return TK_STD trunc(x); }
+template <typename T> TK_HD T floor_(T x) { return x; }
+template <typename T> TK_HD T ceil_(T x) { return x; }
+template <typename T> TK_HD T round_(T x) { return x; }
+template <typename T> TK_HD T trunc_(T x) { return x; }
+TK_HD float abs_(float x) { return TK_STD fabs(x); }
+TK_HD double abs_(double x) { return TK_STD fabs(x); }
+template <typename T> TK_HD T abs_(T x) { return iabs(x); }
+TK_HD float copysign_(float a, float b) { return TK_STD copysign(a, b); }
+TK_HD double copysign_(double a, double b) { return TK_STD copysign(a, b); }
+TK_HD bool isnan_(float x) { return TK_STD isnan(x); }
+TK_HD bool isnan_(double x) { return TK_STD isnan(x); }
+TK_HD bool isinf_(float x) { return TK_STD isinf(x); }
+TK_HD bool isinf_(double x) { return TK_STD isinf(x); }
+TK_HD bool isfinite_(float x) { return TK_STD isfinite(x); }
+TK_HD bool isfinite_(double x) { return TK_STD isfinite(x); }
+template <typename T> TK_HD bool isnan_(T) { return false; }
+template <typename T> TK_HD bool isinf_(T) { return false; }
+template <typename T> TK_HD bool isfinite_(T) { return true; }
+
+// ---------------------------------------------------------------------------
+// casts: float -> integer truncates and saturates, NaN -> 0
+// ---------------------------------------------------------------------------
+
+#ifdef __CUDACC__
+// cvt.rzi saturates; NaN is taken to 0 here (the 64-bit conversions give
+// 0x8000000000000000 for it on the card)
+TK_HD int32_t f2i32(float x) { return x != x ? 0 : __float2int_rz(x); }
+TK_HD int32_t f2i32(double x) { return x != x ? 0 : __double2int_rz(x); }
+TK_HD uint32_t f2u32(float x) { return x != x ? 0 : __float2uint_rz(x); }
+TK_HD uint32_t f2u32(double x) { return x != x ? 0 : __double2uint_rz(x); }
+TK_HD int64_t f2i64(float x) { return x != x ? 0 : __float2ll_rz(x); }
+TK_HD int64_t f2i64(double x) { return x != x ? 0 : __double2ll_rz(x); }
+TK_HD uint64_t f2u64(float x) { return x != x ? 0 : __float2ull_rz(x); }
+TK_HD uint64_t f2u64(double x) { return x != x ? 0 : __double2ull_rz(x); }
+TK_HD float i2f(int32_t v) { return __int2float_rn(v); }
+TK_HD float i2f(uint32_t v) { return __uint2float_rn(v); }
+TK_HD float i2f(int64_t v) { return __ll2float_rn(v); }
+TK_HD float i2f(uint64_t v) { return __ull2float_rn(v); }
+TK_HD double i2d(int32_t v) { return (double)v; }
+TK_HD double i2d(uint32_t v) { return (double)v; }
+TK_HD double i2d(int64_t v) { return __ll2double_rn(v); }
+TK_HD double i2d(uint64_t v) { return __ull2double_rn(v); }
+#else
+inline int32_t f2i32(double x) {
+  if (x != x) return 0;
+  if (x <= -2147483648.0) return INT32_MIN;
+  if (x >= 2147483647.0) return INT32_MAX;
+  return (int32_t)x;
+}
+inline uint32_t f2u32(double x) {
+  if (x != x || x <= 0) return 0;
+  if (x >= 4294967295.0) return UINT32_MAX;
+  return (uint32_t)x;
+}
+inline int64_t f2i64(double x) {
+  if (x != x) return 0;
+  if (x <= -9223372036854775808.0) return INT64_MIN;
+  if (x >= 9223372036854775808.0) return INT64_MAX;
+  return (int64_t)x;
+}
+inline uint64_t f2u64(double x) {
+  if (x != x || x <= 0) return 0;
+  if (x >= 18446744073709551616.0) return UINT64_MAX;
+  return (uint64_t)x;
+}
+inline int32_t f2i32(float x) { return f2i32((double)x); }
+inline uint32_t f2u32(float x) { return f2u32((double)x); }
+inline int64_t f2i64(float x) { return f2i64((double)x); }
+inline uint64_t f2u64(float x) { return f2u64((double)x); }
+template <typename T> inline float i2f(T v) { return (float)v; }
+template <typename T> inline double i2d(T v) { return (double)v; }
+#endif
+
+// bit reinterpretations of the same width
+template <typename To, typename From> TK_HD To bits(From v) {
+  To r;
+  std::memcpy(&r, &v, sizeof(To));
+  return r;
+}
+
+// the index of a gather (clamped into [0, n)) and of a scatter (negative
+// counts from the end; -1 when it stays out of range and drops)
+template <typename T> TK_HD long long clip_index(T v, long long n) {
+  long long k = (long long)v;
+  if ((T)-1 > 0 && sizeof(T) == 8 && k < 0) return n - 1;
+  return k < 0 ? 0 : (k >= n ? n - 1 : k);
+}
+template <typename T> TK_HD long long scatter_index(T v, long long n) {
+  long long k = (long long)v;
+  if (k < 0) k += n;
+  return (k >= 0 && k < n) ? k : -1;
+}
+
+#ifdef __CUDACC__
+TK_HD void atomic_add(float *p, float v) { atomicAdd(p, v); }
+TK_HD void atomic_add(double *p, double v) { atomicAdd(p, v); }
+TK_HD void atomic_add(int32_t *p, int32_t v) { atomicAdd((int *)p, (int)v); }
+TK_HD void atomic_add(uint32_t *p, uint32_t v) {
+  atomicAdd((unsigned int *)p, (unsigned int)v);
+}
+TK_HD void atomic_add(int64_t *p, int64_t v) {
+  atomicAdd((unsigned long long *)p, (unsigned long long)v);
+}
+TK_HD void atomic_add(uint64_t *p, uint64_t v) {
+  atomicAdd((unsigned long long *)p, (unsigned long long)v);
+}
+TK_HD void atomic_add(bool *p, bool v) {
+  if (v) *p = true;
+}
+TK_HD void atomic_add_bf16(void *p, long long i, float v) {
+  atomicAdd(static_cast<bf16_t *>(p) + i, __float2bfloat16_rn(v));
+}
+TK_HD void atomic_add_f16(void *p, long long i, float v) {
+  atomicAdd(static_cast<f16_t *>(p) + i, __float2half_rn(v));
+}
+#define TK_KERNEL(name) extern "C" __global__ void __launch_bounds__(256) name
+#define TK_LANES(i, n)                                                     \
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;      \
+       i < (n); i += (long long)gridDim.x * blockDim.x)
+#else
+template <typename T> inline void atomic_add(T *p, T v) { *p = add(*p, v); }
+inline void atomic_add_bf16(void *p, long long i, float v) {
+  st_bf16(p, i, rbf(ld_bf16(p, i) + v));
+}
+inline void atomic_add_f16(void *p, long long i, float v) {
+  st_f16(p, i, rh(ld_f16(p, i) + v));
+}
+#define TK_KERNEL(name) static void name
+#define TK_LANES(i, n) for (long long i = 0; i < (n); ++i)
+#endif
+
+}  // namespace tk
+
+// the launch of one fused run: its pointers by value, the literal stream,
+// a grid-stride grid of at most 32 blocks of 256 a multiprocessor (132 on
+// the H100); returns the launch's cudaError_t (0 on the host)
+template <int NP> struct TkPtrs { void *p[NP > 0 ? NP : 1]; };
+
+#ifdef __CUDACC__
+#define TK_LAUNCH(name, NP)                                                 \
+  extern "C" int name##_launch(void *const *ptrs, const uint64_t *L,       \
+                               long long n, void *stream) {                 \
+    TkPtrs<NP> P;                                                           \
+    for (int k = 0; k < NP; ++k) P.p[k] = ptrs[k];                          \
+    long long blocks = (n + 255) / 256;                                     \
+    if (blocks > 132 * 32) blocks = 132 * 32;                               \
+    if (blocks < 1) blocks = 1;                                             \
+    name<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(P, L, n);      \
+    return (int)cudaGetLastError();                                         \
+  }
+#else
+#define TK_LAUNCH(name, NP)                                                 \
+  extern "C" int name##_launch(void *const *ptrs, const uint64_t *L,       \
+                               long long n, void *) {                       \
+    TkPtrs<NP> P;                                                           \
+    for (int k = 0; k < NP; ++k) P.p[k] = ptrs[k];                          \
+    name(P, L, n);                                                          \
+    return 0;                                                               \
+  }
+#endif

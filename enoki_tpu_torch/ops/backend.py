@@ -8,7 +8,8 @@ and ``math_ns(x, impl)`` are that dispatch point: they return the op
 namespace for the element type, so that ``types/`` and ``ops/special.py``
 are written once. Here that namespace is the eager PyTorch one; the lazy
 ``LazyArray`` namespaces of the reference (``_LazyNS``, ``_TraceMath``)
-wait for the port of ``trace/``, and ``is_lazy`` answers for it.
+wait for the lazy halves' port (ROADMAP A8.4); ``is_lazy`` recognises the
+port's ``trace.LazyArray`` and ``require_eager`` refuses it.
 
 Square roots are correctly rounded on every device (``router._sqrt_rn``,
 ``_rsqrt_rn``: PyTorch's CPU float32 and float64 sqrt is not), ``sign``
@@ -26,8 +27,8 @@ from .router import _rsqrt_rn, _sqrt_rn, clamp, copysign, mulsign, sign
 
 
 def is_lazy(x) -> bool:
-    """Whether x is a LazyArray of the port's ``trace`` (False for
-    everything until ``trace/`` is ported)."""
+    """Whether x is a LazyArray of the port's ``trace`` (by its class's
+    module, so that asking imports, and builds, nothing)."""
     return type(x).__module__.startswith("enoki_tpu_torch.trace")
 
 
@@ -78,10 +79,10 @@ _TORCH = _TorchNS()
 
 def require_eager(*xs):
     """Raise ``NotImplementedError`` if any of ``xs`` is a LazyArray: the
-    lazy branches of the reference wait for the port of trace/."""
+    lazy branches of the reference wait for their port (ROADMAP A8.4)."""
     if any(is_lazy(x) for x in xs):
-        raise NotImplementedError("the lazy namespace waits for the port "
-                                  "of trace/")
+        raise NotImplementedError("the lazy namespace over trace.LazyArray "
+                                  "waits for its port (ROADMAP A8.4)")
 
 
 def ns_of(*xs):

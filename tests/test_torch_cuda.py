@@ -1091,3 +1091,119 @@ def test_compile_timings_pay_the_build_once(cuda):
     assert t["cache_hit_s"] < t["compile_s"] / 10
     assert t["trace_s"] is None and t["lower_s"] is None
     assert t["n_eqns"] >= 2
+
+
+# -- the lazy trace: one generated kernel a fused run -------------------------
+
+TRACE_SEEDS = [(0, "float32", False), (3, "float32", True),
+               (301, "float64", False), (303, "float64", True)]
+
+
+def _trace_ulps(got, want):
+    import chip_smoke
+    return chip_smoke.trace_ulps(torch, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,dtype,ieee", TRACE_SEEDS)
+def test_trace_kernel_matches_the_plain_interpreter(cuda, seed, dtype, ieee):
+    import chip_smoke
+    import enoki_tpu_torch.trace as tr
+    tr.reset()
+    out, leaves = chip_smoke.trace_program(tr, seed, dtype, ieee, 1 << 16,
+                                           cuda)
+    (want,) = tr.plain_eval(out)
+    before = LAUNCHES["trace"]
+    got = out.torch()
+    torch.cuda.synchronize()
+    assert LAUNCHES["trace"] == before + 1
+    assert _trace_ulps(got, want) <= (0.0 if ieee else 1.0)
+    cpu, _ = chip_smoke.trace_program(tr, seed, dtype, ieee, 1 << 16, "cpu")
+    if ieee:
+        assert _trace_ulps(got.cpu(), cpu.torch()) == 0.0
+    else:
+        tol = (2e-5, 1e-6) if dtype == "float32" else (1e-12, 1e-14)
+        assert torch.allclose(got.cpu(), cpu.torch(), rtol=tol[0],
+                              atol=tol[1], equal_nan=True)
+    tr.reset()
+
+
+@pytest.mark.cuda
+def test_trace_integers_casts_and_16bit_on_the_card(cuda):
+    import enoki_tpu_torch.trace as tr
+    tr.reset()
+    rng = np.random.default_rng(9)
+    outs = []
+    for dt in ("int32", "uint32", "int64", "uint64"):
+        info = np.iinfo(dt)
+        a = rng.integers(info.min, info.max, 4096, dtype=dt,
+                         endpoint=True)
+        b = rng.integers(-50, 50, 4096).astype(dt)
+        k = rng.integers(-2, 70, 4096).astype(dt)
+        x, y, s = (tr.LazyArray(v, device=cuda) for v in (a, b, k))
+        outs += [x + y, x * y, x / y, x % y, tr.fmod(x, y), x << s, x >> s,
+                 x ^ y, ~x, -x, abs(x), tr.minimum(x, y), tr.popcnt(x),
+                 tr.clz(x), (x < y).cast(dt), x.cast("float32"),
+                 x.cast("float64"), x.cast("bfloat16")]
+    f = tr.LazyArray(np.concatenate([rng.uniform(-3e9, 3e9, 4088),
+                                     [np.nan, np.inf, -np.inf, 0.0, -0.0,
+                                      1e20, -1e20, 2.5]]).astype(np.float32),
+                     device=cuda)
+    outs += [f.cast(dt) for dt in ("int32", "uint32", "int64", "uint64",
+                                   "bool", "bfloat16", "float16")]
+    h = f.cast("bfloat16") * 0.001
+    g = f.cast("float16") * 1e-6
+    outs += [h * h + h, h / (abs(h) + 1.0), g * g - g, tr.sqrt(abs(g)),
+             tr.sin(h), h.bitcast("float16")]
+    want = tr.plain_eval(*outs)
+    tr.eval(*outs)  # one schedule: one kernel, one build
+    got = [o.torch() for o in outs]
+    torch.cuda.synchronize()
+    for k, (g_, w) in enumerate(zip(got, want)):
+        assert _trace_ulps(g_, w) <= (1.0 if k == len(outs) - 2 else 0.0), k
+    tr.reset()
+
+
+@pytest.mark.cuda
+def test_trace_histogram_is_one_kernel_and_exact(cuda):
+    import chip_smoke
+    import enoki_tpu_torch.trace as tr
+    tr.reset()
+    vals = np.random.default_rng(2).normal(32, 12, 1 << 20).astype(
+        np.float32)
+    v = tr.LazyArray(vals, device=cuda)
+    h = chip_smoke.trace_hist(tr, v)
+    (want,) = tr.plain_eval(h)
+    before = LAUNCHES["trace"]
+    got = h.torch()
+    assert LAUNCHES["trace"] == before + 1
+    assert torch.equal(got, want)
+    tr.reset()
+
+
+@pytest.mark.cuda
+def test_trace_reductions_prints_and_no_fallback(cuda, capfd, monkeypatch):
+    import enoki_tpu_torch.trace as tr
+    from enoki_tpu_torch.trace import codegen
+    tr.reset()
+    x = tr.LazyArray(np.arange(1, 1025, dtype=np.float32), device=cuda)
+    y = x / x.hsum() + x.psum() * 0.5
+    (want,) = tr.plain_eval(y)
+    assert _trace_ulps(y.torch(), want) == 0.0
+    z = tr.printf("z={}", x * 2.0) + 1.0
+    tr.plain_eval(z)
+    z.eval()
+    out = capfd.readouterr().out.splitlines()
+    assert len(out) == 2 and out[0] == out[1] and out[0].startswith("z=[")
+    # a kernel that does not build raises; nothing falls back to plain
+    tr.reset()
+
+    def fail(text):
+        raise RuntimeError("nvcc failed to build (test)")
+
+    monkeypatch.setattr(codegen, "_nvcc_build", fail)
+    monkeypatch.setattr(codegen, "_LIBS", {})
+    w = tr.LazyArray(np.ones(8, np.float32), device=cuda)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        (tr.cosh(w) * 3.0 - w).eval()
+    tr.reset()

@@ -56,7 +56,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "ops/hist_kernels.py", "cache.py", "ad/__init__.py",
             "runtime/__init__.py", "runtime/checkpoint.py",
             "dist/__init__.py", "dist/mesh.py", "dist/render.py",
-            "dist/bench_scaling.py"} | {
+            "dist/bench_scaling.py", "trace/__init__.py", "trace/build.py",
+            "trace/plain.py", "trace/codegen.py"} | {
             f"types/{m}.py" for m in TYPES} | {
             f"struct/{m}.py" for m in STRUCT} <= names
     for f in files:
@@ -498,3 +499,97 @@ def test_dist_modules_have_every_function_and_parameter_of_the_reference(
         fields = [s.target.id for s in c.body if isinstance(s, ast.AnnAssign)]
         assert [x.name for x in dataclasses.fields(getattr(port, c.name))] \
             == fields, c.name
+
+
+# -- trace/ (the lazy runtime) -------------------------------------------------
+
+
+def test_trace_imports_neither_jax_nor_the_reference():
+    # a fresh process: importing trace (which builds the port's own core)
+    # loads no module of JAX or of enoki_tpu
+    code = ("import sys, enoki_tpu_torch.trace as T, "
+            "enoki_tpu_torch.trace.codegen, enoki_tpu_torch.trace.plain; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'enoki_tpu')]; assert not bad, bad; "
+            "assert 'libenoki_trace_torch_' in T._lib._name")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=300)
+
+
+def test_trace_native_sources_are_the_ports_own():
+    from enoki_tpu_torch.trace import build
+    for src in build.SOURCES:
+        assert src.parent == PKG / "trace" / "native", src
+        text = src.read_text()
+        includes = [l for l in text.splitlines()
+                    if l.startswith("#include")]
+        assert all("<" in l for l in includes), includes  # system headers
+        assert "enoki_tpu/" not in text.replace("enoki_tpu_torch/", "")
+        assert " et_" not in text and "PyInit__etnative(" not in text
+    # the library goes into the port's build directory, under its own name
+    from enoki_tpu_torch import _build
+    lib = build.build_library()
+    assert lib.parent == _build.BUILD_DIR
+    assert lib.name.startswith("libenoki_trace_torch_")
+
+
+def test_importing_the_package_builds_no_trace_core():
+    code = ("import sys, enoki_tpu_torch as E; "
+            "assert 'enoki_tpu_torch.trace' not in sys.modules; "
+            "assert callable(E.trace.LazyArray); "
+            "assert 'enoki_tpu_torch.trace' in sys.modules")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=300)
+
+
+def _reference_all(path):
+    """The reference trace's ``__all__``: its list plus _MATH_OPS' keys,
+    read with ast."""
+    tree = ast.parse(path.read_text())
+    names, math_ops = [], []
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "_MATH_OPS"
+                for t in node.targets):
+            math_ops = [k.value for k in node.value.keys]
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__"
+                for t in node.targets):
+            names = [e.value for e in node.value.left.elts]
+    return names + math_ops
+
+
+def test_trace_exports_every_name_of_the_reference():
+    import enoki_tpu_torch.trace as T
+    names = _reference_all(REPO / "enoki_tpu" / "trace" / "__init__.py")
+    assert len(names) > 60 and {"LazyArray", "select", "eval", "sqrt",
+                                "backward", "tape_whos"} <= set(names)
+    missing = [n for n in names if not hasattr(T, n)]
+    assert not missing, missing
+    assert set(names) <= set(T.__all__)
+    # the opcode table: the reference's 80 names with their numbers
+    tree = ast.parse((REPO / "enoki_tpu" / "trace" / "__init__.py")
+                     .read_text())
+    (op_class,) = [n for n in tree.body
+                   if isinstance(n, ast.ClassDef) and n.name == "Op"]
+    (table,) = [n for n in op_class.body if isinstance(n, ast.Assign)]
+    ops = [e.id for e in table.targets[0].elts]
+    assert len(ops) == 80
+    assert [getattr(T.Op, name) for name in ops] == list(range(80))
+
+
+@pytest.mark.parametrize("make", ["LazyArray(np)", "arange", "zeros",
+                                  "full", "literal", "linspace"])
+def test_trace_constructors_default_to_cuda(make):
+    import enoki_tpu_torch.trace as T
+    f = {"LazyArray(np)": lambda: T.LazyArray(np.ones(2, np.float32)),
+         "arange": lambda: T.LazyArray.arange(4),
+         "zeros": lambda: T.LazyArray.zeros(4),
+         "full": lambda: T.LazyArray.full(1.0, 4),
+         "literal": lambda: T.LazyArray.literal(1.0),
+         "linspace": lambda: T.LazyArray.linspace(0.0, 1.0, 4)}[make]
+    if torch.cuda.is_available():
+        assert f().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            f()
