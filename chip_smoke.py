@@ -252,6 +252,22 @@ rounding.
            cache-hit and kernel times and bound; (d) one launch a fused
            run; (e) printf's text the same from both routes; (f) a second
            process with the same trace_export_dir runs (a) without nvcc
+  phase 29 the trace's AD tape and calls (trace/tape.py, trace/call.py),
+           every derivative a trace program fused into generated kernels
+           (counted as trace_vjp / trace_jvp), its structures built at
+           setup in two rounds: (a) a FloatD fit at 1024^2 (a sphere's
+           cx, cy, r from a target image, trace functions only), 10
+           gradient steps, each step's gradients bit-equal to the same
+           adjoint program under the plain interpreter on the card, step
+           1 against the CPU within 2^-22 of its terms' sums, the loss
+           falling, steps 2-10 no cache miss and no nvcc; (b) fuzz
+           backward programs at 2^24 lanes and digamma (the port's opcode
+           80) against the plain interpreter; (c) forward_from against
+           the gradient; (d) registry_dispatch over 8 instances at 2^20
+           lanes with a gradient, against the plain interpreter and the
+           CPU; (e) a second process runs the fit's step 1 from the disk
+           cache without nvcc; (f) the forward, adjoint and tangent
+           programs' device times, their plain times and bounds
 
 Run from the root of the repository:  python chip_smoke.py
 Needs one CUDA card; exits non-zero, printing no result, without one or
@@ -1301,6 +1317,7 @@ def run(torch, dev):
     run_dist(torch, dev)
     run_vmap(torch, dev, scenes)
     kernels += run_trace(torch, dev, timer, trace_plans, trace_build_s)
+    kernels += run_tape(torch, dev, timer)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
@@ -5545,6 +5562,589 @@ def run_trace(torch, dev, timer, plans, build_s):
                  chain_hit_ms=whole["hit_ms"], hist_ms=hist_ms,
                  hist_plain_ms=hist_plain_ms, hist_bound_ms=hist_bound,
                  hist_library_ms=hist_lib_ms)]
+
+
+# ---------------------------------------------------------------------------
+# Phase 29: the trace's AD tape and its calls (trace/tape.py, trace/call.py):
+# adjoint and tangent programs fused into the trace's own kernels
+# ---------------------------------------------------------------------------
+
+TAPE_N = 1024                  # the fit's image side (2^20 lanes)
+TAPE_STEPS = 10                # gradient steps of the fit
+TAPE_TRUE = (0.12, -0.08, 0.85)   # the target sphere's (cx, cy, radius)
+TAPE_INIT = (0.0, 0.0, 1.0)
+TAPE_LR = (1e-5, 1e-5, 5e-6)  # gradient-descent rates of (cx, cy, r)
+TAPE_FUZZ_N = 1 << 24          # lanes of (b)'s fuzz backward programs
+# tests/test_torch_trace_fuzz.py's seeds 500-503, and 517: IEEE operations only
+TAPE_FUZZ_SEEDS = (500, 501, 502, 503, 517)
+TAPE_CALLS = 8                 # callees of (d)'s dispatch
+TAPE_CALLS_N = 1 << 20
+
+
+def tape_render(tr, n, cx, cy, r, device, extent=1.2):
+    """examples/lazy_sphere.py's render_lazy in trace functions: the image
+    of a sphere of centre (cx, cy) and radius r lit from (-1, -1, 2); the
+    square root is taken of 1 where the ray misses or grazes, so that the
+    adjoint meets no 0 * inf."""
+    idx = tr.LazyArray.arange(n * n, device=device)
+    col = (idx % n).cast("float32")
+    row = (idx / n).cast("float32")
+    step = 2.0 * extent / (n - 1)
+    ox = col * step - extent - cx
+    oy = row * step - extent - cy
+    c = ox * ox + oy * oy + 1.0 - r * r
+    disc = 4.0 - c * 4.0
+    valid = disc > 0.0
+    t = (tr.sqrt(tr.select(valid, disc, 1.0)) + 2.0) * 0.5
+    nx = tr.select(valid, ox, 0.0)
+    ny = tr.select(valid, oy, 0.0)
+    nz = tr.select(valid, t - 1.0, 0.0)
+    lam = tr.maximum(nx * -1.0 + ny * -1.0 + nz * 2.0, 0.0)
+    return lam * 90.0 + 0.2
+
+
+def tape_fit_loss(tr, n, params, target, device):
+    """The fit's loss, the mean squared difference from ``target``; only
+    the loss is returned, so that no intermediate is an output."""
+    d = tape_render(tr, n, *params, device) - target
+    return (d * d).hsum() * (1.0 / (n * n))
+
+
+def tape_params(tr, p, device, full=0):
+    """The fit's parameters as marked LazyArrays (``full``: each broadcast
+    to that many lanes, so that the gradients hold the terms of the
+    size-1 parameters' sums)."""
+    import torch
+    return [tr.requires_grad(tr.LazyArray(torch.full(
+        (full or 1,), float(v), dtype=torch.float32, device=device)))
+        for v in p]
+
+
+def tape_target(tr, n, device):
+    import torch
+    true = [tr.LazyArray(torch.tensor([v], dtype=torch.float32,
+                                      device=device)) for v in TAPE_TRUE]
+    return tape_render(tr, n, *true, device).torch()
+
+
+def tape_fuzz(tr, seed, n, device, data=True):
+    """A backward fuzz program of tests/test_torch_trace_fuzz.py's recipe
+    at ``n`` lanes: (loss, marked leaves, IEEE operations only?)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    rng.integers(4, 33)  # the CPU test's lane count, replaced by n
+    n_leaves = int(rng.integers(2, 4))
+    leaves = [rng.uniform(-1.5, 1.5, n).astype(np.float32)
+              for _ in range(n_leaves)]
+    depth = int(rng.integers(4, 25))
+    recipe, pool_size = [], n_leaves
+    for _ in range(depth):
+        k = int(rng.integers(len(TRACE_OPS)))
+        recipe.append((k, [int(rng.integers(pool_size))
+                           for _ in range(TRACE_OPS[k][1])]))
+        pool_size += 1
+    xs = [tr.requires_grad(tr.LazyArray(
+        torch.from_numpy(l).to(device) if data
+        else torch.zeros(n, device=device))) for l in leaves]
+    pool = list(xs)
+    for k, slots in recipe:
+        pool.append(TRACE_OPS[k][3](tr, *[pool[s] for s in slots]))
+    return pool[-1].hsum(), xs, all(TRACE_OPS[k][2] for k, _ in recipe)
+
+
+def tape_digamma(tr, x):
+    """The port's opcode 80 (digamma, LGAMMA's derivative) of ``x``."""
+    return tr.LazyArray(x)._unary(tr.Op.DIGAMMA)
+
+
+def digamma_terms(x):
+    """The sum of the magnitudes of the terms that digamma adds at ``x``
+    (numpy float64; ATen's algorithm: the reflection below 0, the
+    recurrence up to 10, log and the asymptotic series)."""
+    x = np.asarray(x, np.float64)
+    with np.errstate(all="ignore"):
+        neg = x < 0
+        s = np.where(neg, np.abs(np.pi / np.tan(np.pi * np.modf(x)[0])), 0.0)
+        z = np.where(neg, 1.0 - x, x)
+        while True:
+            low = z < 10
+            if not low.any():
+                break
+            s = s + np.where(low, 1.0 / np.abs(z), 0.0)
+            z = np.where(low, z + 1.0, z)
+        s = s + np.abs(np.log(z)) + 0.5 / z + 0.1 / (z * z)
+    return np.where(np.isfinite(s), s, np.inf)
+
+
+class TapeInstance:
+    """Instance k of (d)'s registry: a value, and a method of IEEE
+    operations only."""
+
+    def __init__(self, tr, k):
+        self.tr, self.k, self.value = tr, k, 0.5 + 0.25 * k
+
+    def apply(self, mask, x):
+        return x * self.value + self.tr.sqrt(abs(x) + 0.125 * (self.k + 1)) \
+            - self.tr.minimum(x, 0.1 * self.k)
+
+
+def tape_dispatch(tr, device):
+    """(d)'s program, through trace.call's registry functions (dispatch,
+    partition and getter under them): (loss, the marked argument, the
+    getter's values a lane)."""
+    import torch
+    import enoki_tpu_torch.trace.call as tc
+    from enoki_tpu_torch.struct.call import InstanceRegistry
+    reg = InstanceRegistry()
+    for k in range(TAPE_CALLS):
+        reg.register(TapeInstance(tr, k))
+    rng = np.random.default_rng(29)
+    ids = tr.LazyArray(torch.from_numpy(rng.integers(
+        -1, TAPE_CALLS, TAPE_CALLS_N).astype(np.int32)).to(device))
+    x = tr.requires_grad(tr.LazyArray(torch.from_numpy(rng.uniform(
+        -2.0, 2.0, TAPE_CALLS_N).astype(np.float32)).to(device)))
+    out = tc.registry_dispatch(reg, "apply", ids, x)
+    return (out * out).hsum(), x, tc.registry_getter(reg, "value", ids)
+
+
+def schedule_inputs(tr, torch, plan, device):
+    """(data leaves, literal stream on the device, bits, codes) of the
+    native core's current schedule (the one ``tr.prepare`` just made),
+    which ``plan.run`` takes."""
+    import ctypes
+    n = len(plan.entries)
+    buf = (ctypes.c_uint32 * max(n, 1))()
+    nd = tr._lib.ett_schedule_data_ids(buf, n)
+    leaves = [tr._BUFFERS[buf[i]] for i in range(nd)]
+    bits, codes = tr._collect_literals(n)
+    return leaves, torch.from_numpy(bits.view(np.int64)).to(device), bits, \
+        codes
+
+
+def program_bound(plan, leaves):
+    """The least time of a schedule on the card: its data leaves read once
+    and its outputs written once over the memory rate, against its float
+    operations over the FP32 rate and its integer ones over the INT32
+    rate (one operation an entry a lane; literals, leaves, casts,
+    bitcasts, selects and prints count none)."""
+    from enoki_tpu_torch.trace import plain
+    free = (plain.CAST, plain.BITCAST, plain.SELECT, plain.PRINT)
+    nbytes = sum(int(t.nbytes) for t in leaves)
+    for p in set(plan.out_positions) - {plain.SENT}:
+        e = plan.entries[p]
+        nbytes += e[3] * plain.STORAGE[e[2]].itemsize
+    flops = int_ops = 0
+    for e in plan.entries:
+        if e[6] or e[7] or e[1] in free:
+            continue
+        lanes = max([e[3]] + [plan.entries[q][3] for q in e[4]
+                              if q != plain.SENT])
+        if e[2] in plain.FLOATS:
+            flops += lanes
+        else:
+            int_ops += lanes
+    return bound(nbytes, flops, int_ops=int_ops) + (nbytes, flops, int_ops)
+
+
+def tape_structures(torch, tr, dev, pool):
+    """Setup of phase 29: every structure it evaluates, built in ``pool``
+    in two rounds: the forward programs; then, those evaluated on their
+    inputs (a program is recorded on the tape when it runs), the adjoint
+    and tangent programs. Returns (plans, build seconds a source)."""
+    from enoki_tpu_torch.trace import tape
+    plans, seconds = {}, {}
+
+    def build_all(some):
+        texts = {}
+        for p in some.values():
+            texts.setdefault(p.text, p)
+
+        def build(p):
+            t0 = time.perf_counter()
+            p.library()
+            return time.perf_counter() - t0
+        seconds.update(zip(texts, pool.map(build, texts.values())))
+        plans.update(some)
+
+    tr.reset()
+    zeros = torch.zeros(TAPE_N * TAPE_N, device=dev)
+    params = tape_params(tr, TAPE_INIT, dev)
+    losses = {"fit": tape_fit_loss(tr, TAPE_N, params, zeros, dev)}
+    for s in TAPE_FUZZ_SEEDS:
+        losses[f"fuzz{s}"] = tape_fuzz(tr, s, TAPE_FUZZ_N, dev, data=False)[0]
+    losses["dispatch"], _, values = tape_dispatch(tr, dev)
+    first = {name: tr.prepare(loss) for name, loss in losses.items()}
+    first["getter"] = tr.prepare(values)
+    for dt in ("float32", "float64"):
+        first["digamma_" + dt] = tr.prepare(tape_digamma(
+            tr, torch.zeros(TAPE_FUZZ_N, dtype=getattr(torch, dt),
+                            device=dev)))
+    first["target"] = tr.prepare(tape_render(
+        tr, TAPE_N, *[tr.LazyArray(torch.zeros(1, device=dev))
+                      for _ in range(3)], dev))
+    build_all(first)
+    for loss in losses.values():
+        loss.eval()
+    second = {}
+    for name, loss in losses.items():
+        cot = tape.adjoint_program(loss)
+        second[name + "_vjp"] = tr.prepare(*cot.values())
+        del cot
+    t = tape.tangent_program(params[0], losses["fit"])
+    second["fit_jvp"] = tr.prepare(t)
+    del t
+    build_all(second)
+    tr.reset()
+    return plans, seconds
+
+
+def tape_cpu_step(torch, tr, p, target):
+    """Step 1 of the fit on the CPU plain route: (loss, gradients, the sums
+    of their terms' magnitudes, from the same step with the parameters
+    broadcast to every lane)."""
+    tr.clear_gradients()
+    params = tape_params(tr, p, "cpu")
+    loss = tape_fit_loss(tr, TAPE_N, params, target, "cpu")
+    tr.backward(loss)
+    grads = [tr.gradient(q).torch() for q in params]
+    full = tape_params(tr, p, "cpu", full=TAPE_N * TAPE_N)
+    tr.backward(tape_fit_loss(tr, TAPE_N, full, target, "cpu"))
+    terms = [float(tr.gradient(q).torch().double().abs().sum()) for q in full]
+    tr.clear_gradients()
+    return loss.torch(), grads, terms
+
+
+def tape_cache_child(device="cuda"):
+    """Phase 29 (e), in a second process: the fit's first step with the
+    parent's trace_export_dir and a build directory of its own, nvcc
+    refused: its forward and adjoint kernels come from the disk cache.
+    Prints the gradients as float.hex, for the parent to compare."""
+    import torch
+    from enoki_tpu_torch import _build
+    import enoki_tpu_torch.trace as tr
+
+    def no_nvcc():
+        raise RuntimeError("phase 29 (e): nvcc called in the second process")
+
+    _build.find_nvcc = no_nvcc
+    dev = torch.device(device)
+    target = tape_target(tr, TAPE_N, dev)
+    params = tape_params(tr, TAPE_INIT, dev)
+    tr.backward(tape_fit_loss(tr, TAPE_N, params, target, dev))
+    grads = [float(tr.gradient(q).torch()[0]) for q in params]
+    print("phase 29 (e) child grads " + " ".join(g.hex() for g in grads),
+          flush=True)
+
+
+def run_tape_alone(torch):
+    """Phase 29 alone on the card; prints the kernels line."""
+    from enoki_tpu_torch import _build
+    from enoki_tpu_torch.config import config
+    import shutil
+    log(nvidia_smi("name,power.limit"))
+    export = _build.BUILD_DIR / "trace_export"
+    shutil.rmtree(export, ignore_errors=True)
+    config.trace_export_dir = str(export)
+    rows = run_tape(torch, torch.device("cuda"), DeviceTimer(torch))
+    print(json.dumps({"kernels": rows}))
+
+
+def run_tape(torch, dev, timer):
+    """Phase 29: the AD tape and the calls at full width on the card, each
+    derivative program fused into generated kernels and held to its plain
+    interpreter."""
+    import enoki_tpu_torch.trace as tr
+    from enoki_tpu_torch.trace import codegen
+    t_phase = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(16) as pool:
+        plans, build_s = tape_structures(torch, tr, dev, pool)
+    log(f"phase 29 setup: {len(plans)} structures, {len(build_s)} sources "
+        f"built with nvcc at once in {time.perf_counter() - t_phase:.1f} s "
+        f"(each {', '.join(f'{v:.1f}' for v in build_s.values())} s)")
+    nvcc = [0]
+    real = codegen._nvcc_build
+
+    def counted(text):
+        nvcc[0] += 1
+        return real(text)
+
+    codegen._nvcc_build = counted
+    try:
+        rows = _tape_phase(torch, tr, dev, timer, nvcc)
+    finally:
+        codegen._nvcc_build = real
+    log(f"phase 29 took {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+def _tape_phase(torch, tr, dev, timer, nvcc):
+    from enoki_tpu_torch.render import LAUNCHES
+    from enoki_tpu_torch.trace import tape
+    smi = nvidia_smi("name,power.limit")
+    names = ("trace_vjp", "trace_jvp")
+    timed = dict.fromkeys(names, 0)  # launches made to time, not the path's
+
+    def timed_ms(name, fn, reps):
+        before = LAUNCHES[name]
+        ms = timer(fn, reps, hold_ms=300.0)
+        timed[name] += LAUNCHES[name] - before
+        return ms
+
+    # -- (a) the fit: the main path, counted ---------------------------------
+    tr.reset()
+    target = tape_target(tr, TAPE_N, dev)
+    p = np.array(TAPE_INIT, np.float64)
+    for name in names:
+        LAUNCHES[name] = 0
+    losses, walls, vjp_err, jvp_err = [], [], 0.0, 0.0
+    for step in range(TAPE_STEPS):
+        if step == 1:
+            stats1, nvcc1 = tr.cache_stats(), nvcc[0]
+        tr.clear_gradients()
+        params = tape_params(tr, p, dev)
+        t0 = time.perf_counter()
+        loss = tape_fit_loss(tr, TAPE_N, params, target, dev)
+        loss.eval()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        # the same adjoint program through the plain interpreter on the
+        # card (it launches nothing), then through the kernels
+        cot = tape.adjoint_program(loss)
+        want = tr.plain_eval(*[cot[q.index] for q in params])
+        del cot
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        tr.backward(loss, free=step != 0)
+        grads = [tr.gradient(q).torch() for q in params]
+        torch.cuda.synchronize()
+        walls.append((1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t2)))
+        for g, w in zip(grads, want):
+            vjp_err = max(vjp_err, float((g - w).abs().max()))
+            check(torch.equal(g, w), f"phase 29 (a) step {step}: the "
+                  "adjoint's kernels and its plain interpreter differ")
+        losses.append(float(loss.torch()[0]))
+        check(all(bool(torch.isfinite(g).all()) for g in grads),
+              f"phase 29 (a) step {step}: a gradient is not finite")
+        if step == 0:
+            g0 = [float(g[0]) for g in grads]
+            whos, dot = tr.tape_whos(), tr.tape_graphviz()
+            check("segments: 1," in whos and dot.startswith("digraph tape")
+                  and "segment 0" in dot and tr.grad_enabled(params[0]),
+                  f"phase 29 (a): the tape's views on the card:\n{whos}")
+            # (c) forward_from, its tangent program against the plain
+            # interpreter's and against the gradient
+            t = tape.tangent_program(params[0], loss)
+            (t_want,) = tr.plain_eval(t)
+            del t
+            _, t_cx = tr.forward_from(params[0], loss)
+            torch.cuda.synchronize()
+            jvp_err = float((t_cx - t_want).abs().max())
+            check(torch.equal(t_cx, t_want), "phase 29 (c): the tangent's "
+                  "kernels and its plain interpreter differ")
+            loss_cpu, grads_cpu, terms = tape_cpu_step(torch, tr, p,
+                                                       target.cpu())
+            fwd_bwd = abs(float(t_cx[0]) - g0[0])
+            check(fwd_bwd <= 2 * 2 ** -22 * terms[0], "phase 29 (c): "
+                  f"forward_from {float(t_cx[0])!r} against the gradient "
+                  f"{g0[0]!r} (terms {terms[0]:.4g})")
+            cpu_err = [abs(float(g[0]) - float(c[0])) / s
+                       for g, c, s in zip(grads, grads_cpu, terms)]
+            check(max(cpu_err) <= 2 ** -22, "phase 29 (a) step 1 on the card"
+                  f" against the CPU: {cpu_err} of the terms' sums")
+            dloss = abs(losses[0] - float(loss_cpu[0]))
+            check(dloss <= 2 ** -20 * losses[0], "phase 29 (a) the loss on "
+                  f"the card {losses[0]!r} against the CPU "
+                  f"{float(loss_cpu[0])!r}")
+        p = p - np.array(TAPE_LR) * np.array([float(g[0]) for g in grads])
+        del loss, grads, want, params
+    stats = tr.cache_stats()
+    launches = {k: LAUNCHES[k] for k in names}
+    check(stats[1] == stats1[1] and nvcc[0] == nvcc1, "phase 29 (a): steps "
+          f"2-{TAPE_STEPS} missed the cache {stats[1] - stats1[1]} times "
+          f"and called nvcc {nvcc[0] - nvcc1} times")
+    check(losses[-1] < 0.5 * losses[0], f"phase 29 (a): the loss did not "
+          f"fall: {losses[0]:.6g} -> {losses[-1]:.6g}")
+    check(all(v > 0 for v in launches.values()),
+          f"phase 29: a derivative kernel was not launched: {launches}")
+    log(f"phase 29 (a) FloatD fit at {TAPE_N}^2: loss {losses[0]:.6g} -> "
+        f"{losses[-1]:.6g} in {TAPE_STEPS} steps, (cx, cy, r) "
+        f"({p[0]:+.4f}, {p[1]:+.4f}, {p[2]:.4f}), true {TAPE_TRUE}; every "
+        f"step's gradients bit-equal to the adjoint's plain interpreter on "
+        f"the card; step 1 against the CPU within {max(cpu_err):.3g} of the "
+        f"terms' sums (gate 2^-22), the loss within {dloss / losses[0]:.3g} "
+        f"(gate 2^-20); steps 2-{TAPE_STEPS}: no cache miss, no nvcc; "
+        f"launches {launches}")
+    log("phase 29 (a) wall ms a step (forward eval, backward), host clock "
+        "with a synchronise: " + ", ".join(f"({f:.3f}, {b:.3f})"
+                                           for f, b in walls))
+    log(f"phase 29 (c) forward_from(cx) {float(t_cx[0])!r} against the "
+        f"gradient {g0[0]!r}: {fwd_bwd:.3g} (gate 2^-21 of the terms' sum "
+        f"{terms[0]:.6g}); the tangent's kernels bit-equal to its plain "
+        f"interpreter")
+
+    # -- (b) the fuzz backward programs at 2^24 lanes -------------------------
+    worst = {True: 0.0, False: 0.0}
+    for seed in TAPE_FUZZ_SEEDS:
+        tr.clear_gradients()
+        loss, xs, ieee = tape_fuzz(tr, seed, TAPE_FUZZ_N, dev)
+        loss.eval()
+        cot = tape.adjoint_program(loss)
+        reached = [cot.get(x.index) for x in xs]  # None: no cotangent
+        plain = iter(tr.plain_eval(*[c for c in reached if c is not None]))
+        want = [None if c is None else next(plain) for c in reached]
+        del cot, reached
+        tr.backward(loss)
+        for x, w in zip(xs, want):
+            g = tr.gradient(x).torch()
+            w = torch.zeros_like(g) if w is None else w
+            u = trace_ulps(torch, g, w)
+            worst[ieee] = max(worst[ieee], u)
+            vjp_err = max(vjp_err, float((g - w).abs().nan_to_num().max()))
+            check(u <= (0.0 if ieee else 1.0), f"phase 29 (b): fuzz{seed} "
+                  f"{u} ulp from the plain interpreter")
+        del loss, xs, want
+    # digamma: its device function against torch.digamma in float64,
+    # rounded once (the plain interpreter), on the card: float32 within an
+    # ulp; float64 within 16 eps of the sum of its terms' magnitudes (the
+    # card's torch.digamma adds the terms in another order, with FMAs, and
+    # digamma has a root between every two negative integers)
+    rng = np.random.default_rng(80)
+    xs = np.concatenate([rng.uniform(-20.0, 40.0, TAPE_FUZZ_N - 8),
+                         [0.0, -0.0, 1.0, 10.0, -3.0, 1e-8, 1e20, 1.4616]])
+    scale = torch.from_numpy(digamma_terms(xs)).to(dev)
+    dg = {}
+    for dt in ("float32", "float64"):
+        y = tape_digamma(tr, torch.from_numpy(xs).to(dev).to(
+            getattr(torch, dt)))
+        (w,) = tr.plain_eval(y)
+        got = y.torch()
+        dg[dt] = trace_ulps(torch, got, w)
+        if dt == "float32":
+            check(dg[dt] <= 1.0, f"phase 29 (b): digamma float32 {dg[dt]} "
+                  "ulp from the plain interpreter (gate 1)")
+        else:
+            fin = torch.isfinite(w)
+            check(torch.equal(fin, torch.isfinite(got)) and torch.equal(
+                got[~fin].nan_to_num(), w[~fin].nan_to_num()),
+                "phase 29 (b): digamma float64's non-finite lanes differ")
+            rel = float(((got - w).abs()[fin] / (np.finfo(np.float64).eps
+                                                 * scale[fin])).max())
+            dg["terms"] = rel
+            check(rel <= 16.0, f"phase 29 (b): digamma float64 {rel} eps of "
+                  "its terms' sum from the plain interpreter (gate 16)")
+        del y, w, got
+    log(f"phase 29 (b) {len(TAPE_FUZZ_SEEDS)} fuzz backward programs at "
+        f"{TAPE_FUZZ_N} lanes against the plain interpreter on the card: "
+        f"IEEE-only max {worst[True]} ulp (gate 0), with transcendentals max "
+        f"{worst[False]} ulp (gate 1); digamma (opcode 80) at {TAPE_FUZZ_N} "
+        f"lanes in [-20, 40] and at its edges: float32 {dg['float32']} ulp "
+        f"(gate 1), float64 {dg['terms']:.3g} eps of its terms' sum (gate "
+        f"16; {dg['float64']} ulp of the value, near its roots)")
+
+    # -- (d) a dispatch over TAPE_CALLS callees, its gradient -----------------
+    grads_d, values = {}, {}
+    for d in (dev, torch.device("cpu")):
+        tr.clear_gradients()
+        loss, x, v = tape_dispatch(tr, d)
+        values[d.type] = v.torch()
+        loss.eval()
+        if d == dev:
+            cot = tape.adjoint_program(loss)
+            (want,) = tr.plain_eval(cot[x.index])
+            del cot
+        tr.backward(loss)
+        grads_d[d.type] = tr.gradient(x).torch()
+        del loss, x
+    check(torch.equal(grads_d[dev.type], want), "phase 29 (d): the "
+          "dispatch's adjoint kernels and its plain interpreter differ")
+    check(torch.equal(grads_d[dev.type].cpu(), grads_d["cpu"]),
+          "phase 29 (d): the dispatch's gradient on the card and the CPU "
+          "differ")
+    check(torch.equal(values[dev.type].cpu(), values["cpu"]),
+          "phase 29 (d): registry_getter on the card and the CPU differ")
+    log(f"phase 29 (d) registry_dispatch over {TAPE_CALLS} instances at "
+        f"{TAPE_CALLS_N} lanes (one partition: a sort on the card, one read "
+        f"of the instance list), its gradient bit-equal to the plain "
+        f"interpreter's on the card and to the CPU's; registry_getter "
+        f"bit-equal to the CPU's")
+
+    # -- (f) times: the fit's programs alone ---------------------------------
+    tr.clear_gradients()
+    params = tape_params(tr, p, dev)
+    loss = tape_fit_loss(tr, TAPE_N, params, target, dev)
+    plan_f = tr.prepare(loss)
+    inp_f = schedule_inputs(tr, torch, plan_f, dev)
+    fwd_ms = timer(lambda: plan_f.run(*inp_f, dev), 20, hold_ms=300.0)
+    loss.eval()
+    cot = tape.adjoint_program(loss)
+    vals = list(cot.values())
+    del cot
+    plan_b = tr.prepare(*vals)
+    inp_b = schedule_inputs(tr, torch, plan_b, dev)
+    bwd_ms = timed_ms("trace_vjp", lambda: plan_b.run(
+        *inp_b, dev, counter="trace_vjp"), 20)
+    bwd_plain = timer(lambda: tr.plain_eval(*vals), 3, hold_ms=300.0,
+                      plain=True)
+    bwd_bound, bwd_by, bwd_bytes, bwd_flops, _ = program_bound(plan_b,
+                                                               inp_b[0])
+    del vals
+    t = tape.tangent_program(params[0], loss)
+    plan_t = tr.prepare(t)
+    inp_t = schedule_inputs(tr, torch, plan_t, dev)
+    jvp_ms = timed_ms("trace_jvp", lambda: plan_t.run(
+        *inp_t, dev, counter="trace_jvp"), 20)
+    jvp_plain = timer(lambda: tr.plain_eval(t), 3, hold_ms=300.0, plain=True)
+    jvp_bound, jvp_by, jvp_bytes, jvp_flops, _ = program_bound(plan_t,
+                                                               inp_t[0])
+    del t, loss, params
+    tr.clear_tape()
+    log(f"phase 29 (f) the fit at {TAPE_N}^2 on the card: forward program "
+        f"{fwd_ms:.4f} ms ({len(plan_f.runs)} kernel(s)), adjoint "
+        f"{bwd_ms:.4f} ms ({len(plan_b.runs)} kernel(s) and "
+        f"{len(plan_b.steps) - len(plan_b.runs)} reductions between them; "
+        f"plain interpreter {bwd_plain:.3f} ms; bound {bwd_bound:.5f} ms by "
+        f"{bwd_by}: {bwd_bytes} B, {bwd_flops} FP32 operations), tangent "
+        f"{jvp_ms:.4f} ms ({len(plan_t.runs)} kernel(s); plain "
+        f"{jvp_plain:.3f} ms; bound {jvp_bound:.5f} ms by {jvp_by}); device "
+        f"time, DeviceTimer, 20 calls; {smi}")
+
+    # -- (e) the disk cache: a second process builds nothing -----------------
+    from enoki_tpu_torch import _build
+    from enoki_tpu_torch.config import config
+    import shutil
+    env = dict(os.environ,
+               ENOKI_TPU_EXPORT_CACHE=config.trace_export_dir,
+               ENOKI_TPU_COMPILE_CACHE=str(_build.BUILD_DIR
+                                           / "tape_child_build"))
+    shutil.rmtree(env["ENOKI_TPU_COMPILE_CACHE"], ignore_errors=True)
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke as C; "
+         "C.tape_cache_child()"], env=env, capture_output=True, text=True,
+        timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(child.returncode == 0,
+          f"phase 29 (e): the second process failed:\n{child.stderr[-3000:]}")
+    got = child.stdout.strip().splitlines()[-1].split()[-3:]
+    check([float.fromhex(v) for v in got] == g0, "phase 29 (e): the second "
+          f"process's gradients {got} differ from step 1's {g0}")
+    log(f"phase 29 (e) a second process ran the fit's step 1 from the disk "
+        f"cache, nvcc refused: no build, the same gradients "
+        f"({time.perf_counter() - t0:.1f} s)")
+    tr.reset()
+    common = dict(route="cuda",
+                  source="enoki_tpu_torch/csrc/trace_kernel.cuh",
+                  library_ms=None)
+    return [dict(name="trace_vjp",
+                 replaces="enoki_tpu/trace/__init__.py:1571",
+                 launches=launches["trace_vjp"], max_abs_err=vjp_err,
+                 ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bwd_bound,
+                 bound_by=bwd_by, fwd_ms=fwd_ms, **common),
+            dict(name="trace_jvp",
+                 replaces="enoki_tpu/trace/__init__.py:1680",
+                 launches=launches["trace_jvp"], max_abs_err=jvp_err,
+                 ms=jvp_ms, plain_ms=jvp_plain, bound_ms=jvp_bound,
+                 bound_by=jvp_by, **common)]
+
 
 if __name__ == "__main__":
     try:

@@ -365,6 +365,41 @@ TK_NATIVE1(asinh_, asinh)
 TK_NATIVE1(acosh_, acosh)
 TK_NATIVE1(atanh_, atanh)
 #undef TK_NATIVE1
+// digamma (the port's opcode 80, LGAMMA's derivative; CUDA has none), in
+// double as the plain version's torch.digamma computes it
+// (ATen/native/Math.h calc_digamma): the reflection below 0, the
+// recurrence up to 10, then the asymptotic series
+TK_HD double digamma_pos(double x) {
+  double result = 0;
+  while (x < 10) {
+    result = sub(result, div(1.0, x));
+    x = add(x, 1.0);
+  }
+  if (x == 10) return add(result, 2.25175258906672110764);
+  double y = 0;
+  if (x < 1.0e17) {
+    const double A[7] = {8.33333333333333333333E-2, -2.10927960927960927961E-2,
+                         7.57575757575757575758E-3, -4.16666666666666666667E-3,
+                         3.96825396825396825397E-3, -8.33333333333333333333E-3,
+                         8.33333333333333333333E-2};
+    double z = div(1.0, mul(x, x)), p = 0;
+    for (int k = 0; k < 7; ++k) p = add(mul(p, z), A[k]);
+    y = mul(z, p);
+  }
+  return sub(sub(add(result, TK_STD log(x)), div(0.5, x)), y);
+}
+TK_HD double digamma_p(double x) {
+  const double pi = 3.14159265358979323846;
+  if (x == 0) return TK_STD copysign(HUGE_VAL, -x);
+  if (x < 0) {
+    if (x == TK_STD trunc(x)) return TK_STD nan("");
+    double q, r = TK_STD modf(x, &q);
+    return sub(digamma_pos(sub(1.0, x)), div(pi, TK_STD tan(mul(pi, r))));
+  }
+  return digamma_pos(x);
+}
+TK_HD float digamma_(float x) { return d2f(digamma_p((double)x)); }
+TK_HD double digamma_(double x) { return digamma_p(x); }
 TK_HD float atan2_(float a, float b) {
   return d2f(TK_STD atan2((double)a, (double)b));
 }

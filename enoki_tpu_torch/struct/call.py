@@ -16,9 +16,9 @@ Instances are integer ids into a registry. Every callee has the signature
 
 Lanes with an id below 0 (a null pointer) take ``default``, or zeros.
 ``InstanceRegistry`` keeps the objects, stacks their attributes into
-tensors and dispatches their methods. The lazy (``LazyArray``) dispatcher
-of the reference waits for the port of trace/ and raises
-``NotImplementedError``.
+tensors and dispatches their methods; LazyArray ids route to the lazy
+trace's dispatcher (``trace.call``), whatever the strategy. The free
+dispatchers take tensors only.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from typing import Any, Callable, List, Sequence
 import torch
 
 from .._device import resolve_device
-from ..ops.backend import require_eager
+from ..ops.backend import is_lazy, require_eager
 from ..ops.horiz import partition
 from ..ops.router import _asarray, arange, gather, scatter
 from .pytree import gather_struct, select_struct, zeros_like
@@ -138,6 +138,9 @@ class InstanceRegistry:
     def getter(self, attr: str, ids):
         """An attribute per lane; null ids (< 0) read 0
         (ENOKI_CALL_SUPPORT_GETTER, array_call.h:272)."""
+        if is_lazy(ids):
+            from ..trace.call import registry_getter
+            return registry_getter(self, attr, ids)
         ids = _ids(ids)
         return gather(self.stack(attr, ids.device), ids, mask=ids >= 0)
 
@@ -146,8 +149,12 @@ class InstanceRegistry:
         instance's bound method is called as f(mask, *args).
         ``strategy="auto"`` takes the masked tree below
         ``_AUTO_PARTITION_MIN_K`` instances and the partition at or above
-        it."""
+        it; LazyArray ids take the lazy trace's dispatcher (the CUDAArray
+        vcall path, array_call.h:147-165)."""
         funcs = [getattr(o, method) for o in self._instances]
+        if is_lazy(ids):
+            from ..trace.call import dispatch as dispatch_lazy
+            return dispatch_lazy(funcs, ids, *args)
         if strategy == "auto":
             strategy = ("partition"
                         if len(funcs) >= _AUTO_PARTITION_MIN_K

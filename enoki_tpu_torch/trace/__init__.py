@@ -1,5 +1,5 @@
 """Lazy trace-recording arrays over a native C++ graph core (counterpart of
-enoki_tpu/trace/__init__.py, without its tape and its calls).
+enoki_tpu/trace/__init__.py).
 
 The source paper's ``CUDAArray<T>`` (cuda.h:206) is a uint32 handle into a
 C++-owned variable table; every op appends a PTX instruction template to a
@@ -31,9 +31,11 @@ the CUDA card, or raise without one). Every op's operands must share a
 device (scalars coerce to it), and a schedule whose variables span two
 devices raises. 64-bit dtypes are real (float64 and int64 numpy input
 stays 64-bit); uint32 and uint64 are computed as int64 bit patterns and
-leave ``.torch()`` as ``torch.uint32`` / ``torch.uint64``. The tape
-(``requires_grad``, ``backward``, ...) is not ported yet: those names
-raise ``NotImplementedError``.
+leave ``.torch()`` as ``torch.uint32`` / ``torch.uint64``.
+
+The AD tape (``requires_grad``, ``backward``, ``forward_from``, ...) is
+``tape``: derivatives are trace programs, fused into the same kernels.
+The lazy vectorised call is ``trace.call``.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import math
+import sys
 from typing import Optional
 
 import numpy as np
@@ -135,6 +138,9 @@ class Op:
      POPCNT, CBRT, SIGN, COPYSIGN, LOG1P, EXPM1, ASINH, ACOSH, ATANH,
      ERFC, LGAMMA, ISNAN, ISINF, ISFINITE, COMPRESS, FMOD,
      BITCAST, CLZ, PRINT) = range(80)
+    # the port's own, after the reference's 80 (plain.DIGAMMA): LGAMMA's
+    # derivative, recorded only by the tape's programs
+    DIGAMMA = 80
 
 # name -> (opcode, arity, out_kind) for the functional API.
 # out_kind: None = the inputs' promoted dtype, "float" = float-promoted
@@ -218,6 +224,9 @@ _PROBE_DEPTH = 0
 # through the plain interpreter); a rehearsal on the CPU adds "cpu" and
 # builds the kernels with the host's compiler
 _KERNEL_DEVICES = ("cuda",)
+# the _build.LAUNCHES name the fused kernels count under: the tape's
+# adjoint and tangent programs count as "trace_vjp" / "trace_jvp"
+_LAUNCH_NAME = "trace"
 
 
 def _dev_code(device) -> int:
@@ -269,7 +278,11 @@ def reset():
     _SCATTER_TARGET.clear()
     _PENDING_SCATTER.clear()
     _DEVICE.clear()
+    tape.reset()
     clear_cache()
+    callmod = sys.modules.get(__name__ + ".call")
+    if callmod is not None:
+        callmod.clear_partition_cache()
     _lib.ett_reset()
     # the C-side shared-literal cache after the native reset: its ids
     # were dropped wholesale by ett_reset, so no dec-refs here
@@ -385,8 +398,9 @@ def _schedule_device(n, leaves):
 
 def _schedule(ids):
     """Schedule ``ids`` (plus pending side effects) in the native core and
-    find its compiled record: (n entries, key, record, data leaves,
-    device, the entries if they were read). Counts a cache hit or miss."""
+    find its compiled record: (n entries, key, record, data leaf ids, data
+    leaves, device, the entries if they were read). Counts a cache hit or
+    miss."""
     global _CACHE_HITS, _CACHE_MISSES
     from ..config import config
     arr = (ctypes.c_uint32 * max(len(ids), 1))(*ids)
@@ -405,7 +419,8 @@ def _schedule(ids):
             key = (key, sig)
     buf = (ctypes.c_uint32 * max(n, 1))()
     n_data = _lib.ett_schedule_data_ids(buf, n)
-    leaves = [_BUFFERS[buf[i]] for i in range(n_data)]
+    leaf_vids = buf[:n_data]
+    leaves = [_BUFFERS[v] for v in leaf_vids]
     device = _schedule_device(n, leaves)
     ckey = (key, device, config.max_fused_ops)
     comp = _EXE_CACHE.get(ckey)
@@ -419,7 +434,7 @@ def _schedule(ids):
         _EXE_CACHE[ckey] = comp
     else:
         _CACHE_HITS += 1
-    return n, key, comp, leaves, device, entries
+    return n, key, comp, leaf_vids, leaves, device, entries
 
 
 def _plan(comp, key):
@@ -443,7 +458,8 @@ def _run(comp, key, device, leaves, bits, codes):
                 or comp.lit_dev.device != device:
             comp.lit_dev = torch.from_numpy(bits.view(np.int64)).to(device)
             comp.lit_key = lk
-        return plan.run(leaves, comp.lit_dev, bits, codes, device)
+        return plan.run(leaves, comp.lit_dev, bits, codes, device,
+                        counter=_LAUNCH_NAME)
     if device.type != "cpu":
         raise ValueError(f"unsupported device {device}: cuda, or cpu for "
                          "the plain interpreter")
@@ -457,7 +473,7 @@ def _eval_ids(ids):
     ids = [i for i in dict.fromkeys(ids) if not _nat.materialized(i)]
     if not ids and _lib.ett_num_side_effects() == 0:
         return
-    n, key, comp, leaves, device, entries = _schedule(ids)
+    n, key, comp, leaf_vids, leaves, device, entries = _schedule(ids)
     bits, codes = _collect_literals(n)
     buf = (ctypes.c_uint32 * max(n, 1))()
     n_out = _lib.ett_schedule_output_ids(buf, n)
@@ -471,6 +487,14 @@ def _eval_ids(ids):
         for e in entries:
             if e[1] == Op.PRINT:
                 _PRINT_FMT.pop(e[0], None)
+
+    # the AD tape: a program that touches the differentiable frontier is
+    # kept as a segment, so backward() / forward_from() can replay its
+    # derivatives after its values were materialized (autodiff.h:126)
+    ad_active = tape.active()
+    if ad_active:
+        tape.record(comp, key, leaf_vids, leaves, bits, codes, out_vids,
+                    device)
 
     # store outputs; scatter results rebind their TARGET's buffer (the
     # dirty-flag protocol, jit.cu:674,719-730). Two passes: plain slots
@@ -491,6 +515,8 @@ def _eval_ids(ids):
             _BUFFERS[tgt] = r
             _lib.ett_set_materialized(tgt)
             _lib.ett_set_data(tgt)  # literal targets now hold data
+        if ad_active:
+            tape.rebind(tgt, vid)
         _lib.ett_dec_ref_ext(vid)  # release the pending-rebind claim
     _lib.ett_clear_side_effects()
     _PENDING_SCATTER.clear()  # every pending scatter was a schedule root
@@ -528,7 +554,7 @@ def prepare(*arrays):
     ids = [a.index for a in arrays if not a.materialized]
     if not ids:
         return None
-    _, key, comp, _, device, _ = _schedule(ids)
+    _, key, comp, _, _, device, _ = _schedule(ids)
     if device.type not in _KERNEL_DEVICES:
         return None
     return _plan(comp, key)
@@ -586,6 +612,27 @@ def _as_tensor(value, device):
         raise TypeError(f"LazyArray holds {', '.join(_NAMES)}, not "
                         f"{x.dtype}")
     return x.contiguous()
+
+
+def _shared_literal(code, value):
+    """The shared, device-free size-1 literal of ``value`` in ``code``: one
+    native var per (dtype, value), -0.0 keyed apart from +0.0."""
+    if value:
+        k = (code, value)
+    else:
+        k = (code, value, math.copysign(1.0, value)) \
+            if isinstance(value, float) else (code, value)
+    r = _LITERAL_ARRAYS.get(k)
+    if r is not None:
+        return r
+    r = LazyArray.__new__(LazyArray)
+    r.index = _nat.literal(code, _literal_bits(value, code), 1)
+    r._size = 1
+    r._code = code
+    r._dev = -1
+    if value == value and len(_LITERAL_ARRAYS) < (1 << 14):
+        _LITERAL_ARRAYS[k] = r
+    return r
 
 
 class LazyArray(_nat.VarBase):
@@ -730,25 +777,7 @@ class LazyArray(_nat.VarBase):
         if isinstance(other, LazyArray):
             return other
         if isinstance(other, (int, float, bool)):
-            # shared, device-free literal handles, one native var per
-            # (dtype, value); -0.0 keyed apart from +0.0
-            code = self._code
-            if other:
-                k = (code, other)
-            else:
-                k = (code, other, math.copysign(1.0, other)) \
-                    if isinstance(other, float) else (code, other)
-            r = _LITERAL_ARRAYS.get(k)
-            if r is not None:
-                return r
-            r = LazyArray.__new__(LazyArray)
-            r.index = _nat.literal(code, _literal_bits(other, code), 1)
-            r._size = 1
-            r._code = code
-            r._dev = -1
-            if other == other and len(_LITERAL_ARRAYS) < (1 << 14):
-                _LITERAL_ARRAYS[k] = r
-            return r
+            return _shared_literal(self._code, other)
         if isinstance(other, torch.Tensor):
             return LazyArray(other)
         return LazyArray(other, device=self.device)
@@ -846,6 +875,12 @@ class LazyArray(_nat.VarBase):
             # structure probe: a scatter contributes nothing to the result
             # STRUCTURE (scatter()/scatter_add() return self)
             return self
+        callmod = sys.modules.get(__name__ + ".call")
+        if callmod is not None:
+            # a scatter invalidates a cached partition of the target now:
+            # an unrelated eval would clear the dirty flag before the next
+            # partition()
+            callmod._cache_pop(self.index)
         index = self._coerce(index)
         value = self._coerce(value)
         from ..config import config
@@ -1120,23 +1155,12 @@ def lerp(a, b, t):
     return t * b + (a - t * a)
 
 
-# the reference's AD tape over the trace: its own slice of the port
-_TAPE_NAMES = ("requires_grad", "grad_enabled", "gradient", "clear_gradients",
-               "backward", "forward_from", "tape_whos", "tape_graphviz")
-
-
-def _tape_name(name):
-    def f(*args, **kwargs):
-        raise NotImplementedError(
-            f"trace.{name}: the AD tape over the lazy trace waits for its "
-            "port (ROADMAP A8.3)")
-    f.__name__ = name
-    return f
-
-
-for _name in _TAPE_NAMES:
-    globals()[_name] = _tape_name(_name)
-del _name
+# the AD tape (imported last: it builds on everything above)
+from . import tape  # noqa: E402
+from .tape import (_GRAD_ENABLED, _GRADS, _ON_TAPE, _PRODUCER,  # noqa: E402
+                   _TAPE, _VERSION, backward, clear_gradients, clear_tape,
+                   forward_from, grad_enabled, gradient, requires_grad,
+                   tape_graphviz, tape_whos)
 
 __all__ = ["LazyArray", "select", "eval", "whos", "stats", "cache_stats",
            "clear_cache", "reset", "set_log_level", "Op", "requires_grad",

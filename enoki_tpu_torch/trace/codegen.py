@@ -30,7 +30,9 @@ cached in memory by the structural hash and on disk under
 ``cache.export_dir()`` (``config.trace_export_dir``, bounded by
 ``config.cache_max_bytes``; not while prints are live, nor with
 ``max_fused_ops`` set, as in the reference). A corrupt cached library is
-deleted and rebuilt. Each launch adds one to ``_build.LAUNCHES["trace"]``.
+deleted and rebuilt. Each launch adds one to ``_build.LAUNCHES["trace"]``,
+or to ``"trace_vjp"`` / ``"trace_jvp"`` for the tape's adjoint and tangent
+programs (``trace.tape``), which are schedules like any other.
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ from .. import _build
 from . import plain
 from .plain import (ABS, ACOS, ACOSH, ADD, AND, ASIN, ASINH, ATAN, ATAN2,
                     ATANH, BF16, BITCAST, BOOL, CAST, CBRT, CEIL, CLZ,
-                    COPYSIGN, COS, COSH, DIV, EQ, ERF, ERFC, EXP, EXP2, EXPM1,
+                    COPYSIGN, COS, COSH, DIGAMMA, DIV, EQ, ERF, ERFC, EXP,
+                    EXP2, EXPM1,
                     F16, F32, F64, FLOATS, FLOOR, FMA, FMOD, GATHER, GE, GT,
                     HORIZONTAL, I32, I64, IOTA, ISFINITE, ISINF, ISNAN, LE,
                     LGAMMA, LOG, LOG1P, LOG2, LT, MAX, MIN, MOD, MUL, NE,
@@ -74,7 +77,8 @@ _UNARY = {NEG: "tk::neg", ABS: "tk::abs_", FLOOR: "tk::floor_",
           TANH: "tk::tanh_", ERF: "tk::erf_", ERFC: "tk::erfc_",
           LGAMMA: "tk::lgamma_", LOG1P: "tk::log1p_", EXPM1: "tk::expm1_",
           ASINH: "tk::asinh_", ACOSH: "tk::acosh_", ATANH: "tk::atanh_",
-          CBRT: "tk::cbrt_", SIGN: "tk::sign_"}
+          CBRT: "tk::cbrt_", SIGN: "tk::sign_",
+          DIGAMMA: "tk::digamma_"}
 # the commonest float ops as macros (TK_FADD ... in the skeleton): cicc's
 # time on a long kernel falls by a third without their inlining
 _DIRECT = {(ADD, F32): "TK_FADD", (SUB, F32): "TK_FSUB",
@@ -436,9 +440,11 @@ class Plan:
 
     # -- running -------------------------------------------------------------
 
-    def run(self, leaves, lit_dev, bits, codes, device, build=None):
+    def run(self, leaves, lit_dev, bits, codes, device, build=None,
+            counter="trace"):
         """The schedule's outputs (storage tensors) on the card (on the
-        CPU for a host ``build`` of the kernels, in the tests)."""
+        CPU for a host ``build`` of the kernels, in the tests); each launch
+        adds one to ``_build.LAUNCHES[counter]``."""
         lib = self.library(build)
         entries = self.entries
         mat = {}
@@ -481,7 +487,7 @@ class Plan:
             arr = (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs)
             err = getattr(lib, step.name + "_launch")(
                 arr, lit_dev.data_ptr(), step.width, stream)
-            _build.launched(err, "trace")
+            _build.launched(err, counter)
             for p in step.prints:
                 e = entries[p]
                 ops = [get(q) for q in e[4] if q != SENT]

@@ -27,7 +27,8 @@ each result leaves in its storage dtype (``torch.uint32`` /
   give x, as XLA's integer division does (the reference returns a float
   quotient under an integer dtype there);
 * a float of fewer than 64 bits takes its transcendentals in float64,
-  rounded once (ops/backend.py's ``_native``), its square roots through
+  rounded once (ops/backend.py's ``_native``; DIGAMMA, the port's opcode
+  80, too), its square roots through
   ``ops.router._sqrt_rn`` / ``_rsqrt_rn``; a 16-bit op is computed in
   float32 and rounded once.
 """
@@ -64,6 +65,9 @@ SENT = 0xFFFFFFFF
  POPCNT, CBRT, SIGN, COPYSIGN, LOG1P, EXPM1, ASINH, ACOSH, ATANH,
  ERFC, LGAMMA, ISNAN, ISINF, ISFINITE, COMPRESS, FMOD,
  BITCAST, CLZ, PRINT) = range(80)
+# the port's own opcode after the reference's 80: digamma, LGAMMA's
+# derivative, which only the tape's adjoint and tangent programs record
+DIGAMMA = 80
 
 COMPARES = (EQ, NE, LT, LE, GT, GE)
 PREDICATES = (ISNAN, ISINF, ISFINITE)
@@ -487,6 +491,7 @@ ELEMENTWISE = {
     ATANH: _native(torch.atanh),
     ERFC: _native(torch.erfc),
     LGAMMA: _native(torch.lgamma),
+    DIGAMMA: _native(torch.digamma),
     FMOD: _fmod,
     CLZ: _clz_op,
 }

@@ -1207,3 +1207,65 @@ def test_trace_reductions_prints_and_no_fallback(cuda, capfd, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         (tr.cosh(w) * 3.0 - w).eval()
     tr.reset()
+
+
+def _tape_loss(tr, x, w):
+    return (tr.sin(x) * w + x * x * 0.5 + tr.lgamma(x + 1.0)).hsum()
+
+
+@pytest.mark.cuda
+def test_trace_backward_runs_on_generated_kernels(cuda, monkeypatch):
+    # a CUDA segment's adjoint and tangent programs run as fused kernels
+    # (counted as trace_vjp / trace_jvp), never through the plain
+    # interpreter or torch.autograd; the gradients match the CPU's
+    import enoki_tpu_torch.trace as tr
+    from enoki_tpu_torch.trace import plain
+    xs = np.linspace(0.1, 3.0, 1 << 16).astype(np.float32)
+    ws = np.cos(np.arange(1 << 16)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        tr.reset()
+        x = tr.requires_grad(tr.LazyArray(xs, device=dev))
+        w = tr.requires_grad(tr.LazyArray(ws, device=dev))
+        loss = _tape_loss(tr, x, w)
+        loss.eval()
+        if dev != "cpu":
+            def no_plain(*a, **k):
+                raise AssertionError("the plain interpreter ran")
+            monkeypatch.setattr(plain, "run", no_plain)
+            before = dict(LAUNCHES)
+        tr.backward(loss)
+        grads[str(dev)] = [tr.gradient(v).torch() for v in (x, w)]
+        x = tr.requires_grad(tr.LazyArray(xs, device=dev))
+        w = tr.LazyArray(ws, device=dev)
+        _, t = tr.forward_from(x, tr.sin(x) * w + tr.exp(x * 0.25))
+        grads[str(dev)].append(t)
+    torch.cuda.synchronize()
+    assert LAUNCHES["trace_vjp"] > before.get("trace_vjp", 0)
+    assert LAUNCHES["trace_jvp"] > before.get("trace_jvp", 0)
+    for g, c in zip(grads["cuda"], grads["cpu"]):
+        assert g.device.type == "cuda" and not g.requires_grad
+        assert g.grad_fn is None
+        assert torch.allclose(g.cpu(), c, rtol=1e-5, atol=1e-6)
+    tr.reset()
+
+
+@pytest.mark.cuda
+def test_trace_backward_raises_when_its_build_fails(cuda, monkeypatch):
+    import enoki_tpu_torch.trace as tr
+    from enoki_tpu_torch.config import config
+    from enoki_tpu_torch.trace import codegen
+    tr.reset()
+    monkeypatch.setattr(config, "trace_export_dir", "")
+    x = tr.requires_grad(tr.LazyArray(np.ones(64, np.float32), device=cuda))
+    loss = (tr.cosh(x) * 3.0 - x * 0.5).hsum()
+    loss.eval()  # the forward builds
+
+    def fail(text):
+        raise RuntimeError("nvcc failed to build (test)")
+
+    monkeypatch.setattr(codegen, "_nvcc_build", fail)
+    monkeypatch.setattr(codegen, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        tr.backward(loss)
+    tr.reset()

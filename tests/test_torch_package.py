@@ -4,6 +4,7 @@ parameters across from numpy exactly."""
 
 import ast
 import importlib
+import inspect
 import pathlib
 import subprocess
 import sys
@@ -57,7 +58,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "runtime/__init__.py", "runtime/checkpoint.py",
             "dist/__init__.py", "dist/mesh.py", "dist/render.py",
             "dist/bench_scaling.py", "trace/__init__.py", "trace/build.py",
-            "trace/plain.py", "trace/codegen.py"} | {
+            "trace/plain.py", "trace/codegen.py", "trace/tape.py",
+            "trace/call.py"} | {
             f"types/{m}.py" for m in TYPES} | {
             f"struct/{m}.py" for m in STRUCT} <= names
     for f in files:
@@ -508,7 +510,8 @@ def test_trace_imports_neither_jax_nor_the_reference():
     # a fresh process: importing trace (which builds the port's own core)
     # loads no module of JAX or of enoki_tpu
     code = ("import sys, enoki_tpu_torch.trace as T, "
-            "enoki_tpu_torch.trace.codegen, enoki_tpu_torch.trace.plain; "
+            "enoki_tpu_torch.trace.codegen, enoki_tpu_torch.trace.plain, "
+            "enoki_tpu_torch.trace.tape, enoki_tpu_torch.trace.call; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'enoki_tpu')]; assert not bad, bad; "
             "assert 'libenoki_trace_torch_' in T._lib._name")
@@ -576,6 +579,39 @@ def test_trace_exports_every_name_of_the_reference():
     ops = [e.id for e in table.targets[0].elts]
     assert len(ops) == 80
     assert [getattr(T.Op, name) for name in ops] == list(range(80))
+
+
+def test_trace_call_exports_every_function_of_the_reference():
+    import enoki_tpu_torch.trace.call as C
+    tree = ast.parse((REPO / "enoki_tpu" / "trace" / "call.py").read_text())
+    funcs = {n.name: [a.arg for a in n.args.args] for n in tree.body
+             if isinstance(n, ast.FunctionDef)
+             and not n.name.startswith("_")}
+    assert set(funcs) >= {"partition", "dispatch", "getter",
+                          "registry_dispatch", "registry_getter"}
+    for name, args in funcs.items():
+        got = inspect.signature(getattr(C, name))
+        assert [p for p in got.parameters
+                if got.parameters[p].kind != inspect.Parameter.VAR_POSITIONAL
+                ] == args, name
+
+
+def test_trace_tape_names_are_real_functions():
+    import enoki_tpu_torch.trace as T
+    from enoki_tpu_torch.trace import tape
+    for name in ("requires_grad", "grad_enabled", "gradient",
+                 "clear_gradients", "backward", "forward_from", "tape_whos",
+                 "tape_graphviz", "clear_tape"):
+        f = getattr(T, name)
+        assert f is getattr(tape, name) and f.__module__ == tape.__name__
+        assert "NotImplementedError" not in inspect.getsource(f), name
+    ref = ast.parse((REPO / "enoki_tpu" / "trace" / "__init__.py")
+                    .read_text())
+    sigs = {n.name: [a.arg for a in n.args.args] for n in ref.body
+            if isinstance(n, ast.FunctionDef)}
+    for name in ("requires_grad", "gradient", "backward", "forward_from"):
+        assert list(inspect.signature(getattr(T, name)).parameters) \
+            == sigs[name], name
 
 
 @pytest.mark.parametrize("make", ["LazyArray(np)", "arange", "zeros",

@@ -1,7 +1,8 @@
 """The port's lazy trace (enoki_tpu_torch.trace) against the reference's
 (enoki_tpu.trace) on the CPU: the counterparts of the tests of
-tests/test_trace.py that use no tape (the tape is A8.3's), each program
-run through both packages on the same numpy inputs.
+tests/test_trace.py that use no tape (the tape's are
+tests/test_torch_trace_tape.py), each program run through both packages
+on the same numpy inputs.
 
 On the CPU the port evaluates through its plain interpreter (trace/plain.py);
 the fused kernels are held to it by tests/test_torch_trace_codegen.py (a
@@ -745,13 +746,6 @@ def test_constructors_default_to_the_card(make):
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
-
-
-def test_the_tape_waits_for_its_port():
-    x = P.LazyArray(np.ones(2, np.float32), device="cpu")
-    for name in P._TAPE_NAMES:
-        with pytest.raises(NotImplementedError, match="A8.3"):
-            getattr(P, name)(x)
 
 
 def test_plain_eval_changes_nothing():

@@ -15,7 +15,16 @@ skeleton's host half), run over the same inputs as the plain interpreter
   of a value it computes, max_fused_ops entries a run at most;
 * the emitted source and the structural hash are the same on a retrace,
   and a changed literal changes neither (the kernels read the stream);
-* a print fires with the plain version's text.
+* a print fires with the plain version's text;
+* the tape's adjoint and tangent programs (trace/tape.py) are schedules
+  like any other: backward() and forward_from() through the host build's
+  kernels against the plain interpreter, bit-equal on IEEE-only programs,
+  within an ulp with transcendentals (float64: 2, or 4 of the largest
+  value where a rule subtracts the result from 1), sums (atomics on the
+  card) within
+  2^-22 of the sum of the magnitudes of their terms; digamma, the port's
+  opcode 80 (LGAMMA's derivative), bit-equal to torch.digamma in float64
+  on the host (the same algorithm, libm's log and tan).
 
 The __global__ kernels around the same statements are held to the plain
 version on the card (tests/test_torch_cuda.py, chip_smoke.py phase 28).
@@ -368,3 +377,120 @@ def test_the_kernel_text_has_one_kernel_per_run():
     assert plan.text.count("TK_KERNEL(") == len(plan.runs) == 2
     assert plan.text.count("TK_LAUNCH(") == 2
     assert "tk::lit<float>(L," in plan.text
+
+
+# -- the tape's adjoint and tangent programs ---------------------------------
+
+
+def _on_the_kernels(monkeypatch, build):
+    monkeypatch.setattr(P, "_KERNEL_DEVICES", ("cuda", "cpu"))
+    monkeypatch.setattr(codegen, "_nvcc_build", build)
+
+
+def _derivatives(prog, leaves):
+    """(the gradients of backward(hsum(prog)), the tangent of prog from
+    the first leaf) through the current route."""
+    P.reset()
+    xs = [P.requires_grad(L(a)) for a in leaves]
+    P.backward(prog(*xs).hsum())
+    grads = [P.gradient(x).torch() for x in xs]
+    P.reset()
+    xs = [P.requires_grad(L(a)) for a in leaves]
+    _, t = P.forward_from(xs[0], prog(*xs))
+    return grads + [t]
+
+
+def _both_routes(monkeypatch, build, prog, leaves):
+    """The derivatives through the plain interpreter and through the
+    host build's kernels, and the kernels' launches."""
+    want = _derivatives(prog, leaves)
+    _build.LAUNCHES.clear()
+    with monkeypatch.context() as m:
+        _on_the_kernels(m, build)
+        got = _derivatives(prog, leaves)
+    launches = dict(_build.LAUNCHES)
+    return got, want, launches
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("seed", range(4))
+def test_adjoint_and_tangent_programs_are_bit_equal(monkeypatch, build,
+                                                    seed, dtype):
+    rng = np.random.default_rng(90 + seed)
+    n = int(rng.integers(16, 120))
+    leaves = [rng.uniform(-3, 3, n).astype(dtype) for _ in range(3)]
+    recipe = [(int(rng.integers(len(IEEE))), rng.integers(0, 99, 3))
+              for _ in range(int(rng.integers(8, 25)))]
+
+    def prog(*xs):
+        pool = list(xs)
+        for k, picks in recipe:
+            ar, f = IEEE[k]
+            pool.append(f(*[pool[int(p) % len(pool)] for p in picks[:ar]]))
+        return pool[-1] + xs[0] * 0.5  # the tangent reaches the result
+
+    got, want, launches = _both_routes(monkeypatch, build, prog, leaves)
+    for g, w in zip(got, want):
+        bit_equal(g, w)
+    assert launches.get("trace_vjp", 0) >= 1
+    assert launches.get("trace_jvp", 0) >= 1
+
+
+@pytest.mark.parametrize("name", ["sin", "cos", "tanh", "exp", "lgamma",
+                                  "erf", "asinh", "cbrt", "log2", "atan2",
+                                  "pow"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_transcendental_derivatives_within_an_ulp(monkeypatch, build, name,
+                                                  dtype):
+    x = np.linspace(0.2, 2.5, 67).astype(dtype)
+    y = np.linspace(-1.0, 1.0, 67).astype(dtype)
+    f = getattr(P, name)
+    prog = (lambda a, b: f(a, b)) if name in ("atan2", "pow") \
+        else (lambda a, b: f(a) * b)
+    got, want, _ = _both_routes(monkeypatch, build, prog, [x, y])
+    for g, w in zip(got, want):
+        if dtype == np.float32:
+            within_ulp(g, w, 1)
+            continue
+        # float64: the host's libm and PyTorch's differ by an ulp (as in
+        # test_transcendentals_within_an_ulp), which a rule such as tanh's
+        # (1 - tanh x) turns into an ulp of 1: 2 ulp of each value, or 4
+        # of the largest
+        scale = 4 * np.finfo(np.float64).eps * float(w.abs().max())
+        off = (g - w).abs() > scale
+        within_ulp(g[off], w[off], 2)
+
+
+def test_memory_and_reduction_adjoints(monkeypatch, build):
+    rng = np.random.default_rng(5)
+    src = rng.uniform(-2, 2, 40).astype(np.float32)
+    idx = rng.integers(-45, 45, 64).astype(np.int32)
+
+    def prog(a):
+        g = a.gather(L(idx)) * 2.0
+        t = a * 1.0
+        t.scatter_add(L(idx), g * g)
+        u = a * 0.5
+        u.scatter(L(np.arange(-5, 5, dtype=np.int32)),
+                  L(np.ones(10, np.float32)) * a.hmax())
+        packed, _ = (t + u).compress(a > 0.0)
+        return packed * a.psum() + (a * 0.25).hprod() + a.reverse()
+
+    got, want, _ = _both_routes(monkeypatch, build, prog, [src])
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        # sums of several terms: 2^-22 of the terms' magnitudes
+        tol = 2 ** -22 * (w.abs().sum() + g.abs().sum())
+        assert float((g - w).abs().max()) <= float(tol), (g, w)
+
+
+def test_digamma_opcode(monkeypatch, build):
+    for dtype in (np.float32, np.float64):
+        x = np.concatenate([np.linspace(-7.5, 30.0, 301),
+                            [0.0, -0.0, 1.0, 10.0, -2.0, 1e-8, 1e20]])
+        a = L(x.astype(dtype))
+        y = a._unary(P.Op.DIGAMMA)
+        _, (got,), (want,) = both(build, y)
+        bit_equal(got, want)
+        ref = torch.digamma(torch.from_numpy(x)).to(got.dtype)
+        bit_equal(want, ref)

@@ -1,5 +1,5 @@
 """Differential fuzzing of the port's lazy trace (counterpart of
-tests/test_trace_fuzz.py, without its tape and call cases).
+tests/test_trace_fuzz.py).
 
 Random op DAGs are built three times from one recipe -- over the
 reference's LazyArray, over the port's (on the CPU: its plain
@@ -9,6 +9,11 @@ atol 1e-6; float64 rtol 1e-12, atol 1e-14) and with the reference under
 the same gates. Each seed retraces its program with fresh data (a cache
 hit), and scatter / gather rounds mix side effects in. The promotion
 matrix is held to jnp.promote_types, the values to the reference's.
+The same recipes go through the tape: the port's backward() of
+hsum(out) against jax.grad of the eager replay and against the
+reference tape's, under the reference test's gate (rtol 5e-4, atol
+1e-5); and random vectorised calls (trace.call.dispatch) against a
+per-lane simulation and against the reference's dispatch.
 """
 
 import numpy as np
@@ -242,3 +247,108 @@ def test_max_fused_ops_is_bit_equal(seed):
     finally:
         PCFG.max_fused_ops = 0
     assert torch.equal(whole, seg)
+
+
+def _jnp_recipe(rec):
+    """The recipe over jnp arrays, each op as the reference's trace
+    lowers it."""
+    import jax.numpy as jnp
+
+    impl = {"min": jnp.minimum, "max": jnp.maximum,
+            "fma": lambda a, b, c: a * b + c,
+            "sqrt|x|": lambda a: jnp.sqrt(jnp.abs(a) + 0.25),
+            "tanh": jnp.tanh, "sin": jnp.sin,
+            "exp/8": lambda a: jnp.exp(a * 0.125),
+            "sel": lambda a, b: jnp.where(a > b, a, b * 0.5),
+            "scal": lambda a: a * 1.5 + 0.25, "neg": lambda a: -a,
+            "abs": jnp.abs, "add": lambda a, b: a + b,
+            "sub": lambda a, b: a - b, "mul": lambda a, b: a * b}
+
+    def f(ls):
+        pool = list(ls)
+        for k, slots in rec:
+            pool.append(impl[OPS[k][0]](*[pool[s] for s in slots]))
+        return jnp.sum(pool[-1])
+    return f
+
+
+def _tape_grads(tr, rec, leaves):
+    xs = [tr.requires_grad(make(tr)(l)) for l in leaves]
+    pool = list(xs)
+    for k, slots in rec:
+        pool.append(OPS[k][2](tr, *[pool[s] for s in slots]))
+    tr.backward(pool[-1].hsum())
+    return [tr.gradient(x).numpy().astype(np.float64) for x in xs]
+
+
+@pytest.mark.parametrize("seed", range(10))
+def test_fuzz_backward_matches_jax_grad(seed):
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(500 + seed)
+    n = int(rng.integers(4, 33))
+    n_leaves = int(rng.integers(2, 4))
+    leaves = [rng.uniform(-1.5, 1.5, n).astype(np.float32)
+              for _ in range(n_leaves)]
+    rec = recipe(rng, n_leaves, int(rng.integers(4, 25)))
+    got = _tape_grads(P, rec, leaves)
+    ref = _tape_grads(J, rec, leaves)
+    want = jax.grad(_jnp_recipe(rec))([jnp.asarray(l) for l in leaves])
+    for g, r, w in zip(got, ref, want):
+        np.testing.assert_allclose(g, np.asarray(w, np.float64),
+                                   rtol=5e-4, atol=1e-5)
+        np.testing.assert_allclose(g, r, rtol=5e-4, atol=1e-5)
+
+
+def _vcall(tr, chains, ids, x_np, y_np):
+    import importlib
+    tc = importlib.import_module(tr.__name__ + ".call")
+    L = make(tr)
+
+    def make_callee(chain):
+        def f(mask, xx, yy):
+            pool = [xx, yy]
+            out = pool[0]
+            for k, slots in chain:
+                out = OPS[k][2](tr, *[pool[s] for s in slots])
+                pool[0] = out  # feed forward through slot 0
+            return out
+        return f
+
+    out = tc.dispatch([make_callee(c) for c in chains], L(ids), L(x_np),
+                      L(y_np))
+    return out.numpy().astype(np.float64)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_fuzz_vcall_dispatch(seed):
+    rng = np.random.default_rng(900 + seed)
+    n = int(rng.integers(6, 40))
+    k = int(rng.integers(1, 5))
+    ids = rng.integers(-1, k, n).astype(np.int32)  # -1 = null lanes
+    x_np = rng.uniform(-2, 2, n).astype(np.float32)
+    y_np = rng.uniform(-2, 2, n).astype(np.float32)
+    chains = []
+    for _ in range(k):
+        chain = []
+        for _ in range(int(rng.integers(1, 5))):
+            op = int(rng.integers(len(OPS)))
+            chain.append((op, tuple(int(rng.integers(2))
+                                    for _ in range(OPS[op][1]))))
+        chains.append(chain)
+
+    want = np.zeros(n)
+    for i, chain in enumerate(chains):
+        m = ids == i
+        if m.any():
+            pool = [x_np.astype(np.float64), y_np.astype(np.float64)]
+            out = pool[0]
+            for op, slots in chain:
+                out = OPS[op][3](*[pool[s] for s in slots])
+                pool[0] = out
+            want[m] = out[m]
+    got = _vcall(P, chains, ids, x_np, y_np)
+    np.testing.assert_allclose(got, want, rtol=3e-5, atol=1e-6)
+    np.testing.assert_allclose(got, _vcall(J, chains, ids, x_np, y_np),
+                               rtol=3e-5, atol=1e-6)
