@@ -268,6 +268,28 @@ rounding.
            CPU; (e) a second process runs the fit's step 1 from the disk
            cache without nvcc; (f) the forward, adjoint and tangent
            programs' device times, their plain times and bounds
+  phase 30 the lazy halves (ops/, types/, struct/, Vec3 over LazyArray)
+           and the three lazy examples, every program one eval through
+           the trace's kernels, their 55 structures traced and built at
+           setup: (a) examples/lazy_sphere_torch.py at 1024^2, scalar and
+           struct forms bit-equal to the plain interpreter on the card,
+           the second frame a cache hit; (b) lazy_histogram_torch at
+           16M samples, 32 bins, one eval, the counts equal to the plain
+           interpreter's (and at 2^20 to the CPU's) but for samples
+           within 1 ulp of a bin edge, counted, its wall time; (c)
+           lazy_fit_torch at 1024^2, 10 steps, the reference's asserts,
+           the loss falling at every step, every step's gradients
+           bit-equal to the plain interpreter, steps 2-10 no build; (d)
+           the 98 functions of
+           tests/test_unified_surface.py in 16 programs at 2^20 lanes,
+           kernels against the plain interpreter (bit-equal with IEEE
+           operations only, 1 ulp with transcendentals) and lazy against
+           the port's eager (rtol 3e-5 / atol 2e-6 native, 1e-6 poly);
+           (e) lazy PCG32 bit-exact against the eager one, the composite
+           types against their eager selves (phase 24's gates), the
+           struct helpers and a struct-argument dispatch bit-equal to
+           the CPU; then the times of (a)'s sphere and (c)'s adjoint,
+           the phase30_* fields of the trace and trace_vjp rows
 
 Run from the root of the repository:  python chip_smoke.py
 Needs one CUDA card; exits non-zero, printing no result, without one or
@@ -1318,6 +1340,15 @@ def run(torch, dev):
     run_vmap(torch, dev, scenes)
     kernels += run_trace(torch, dev, timer, trace_plans, trace_build_s)
     kernels += run_tape(torch, dev, timer)
+    # phase 30's lazy programs run the trace's kernels: their launches
+    # join the trace's and its adjoints' rows, and the phase30_* fields
+    # (launches, and the times, bound and error of one of its programs)
+    # describe phase 30 alone
+    lazy = run_lazy(torch, dev, timer)
+    for row in kernels:
+        if row["name"] in lazy:
+            row["launches"] += lazy[row["name"]]["phase30_launches"]
+            row.update(lazy[row["name"]])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
@@ -5065,6 +5096,7 @@ def run_hist(torch, dev, timer):
         samples.append((1e3 * (time.perf_counter() - t0) / iters,
                         s.elapsed_time(e) / iters))
     wall_ms, dev_ms = min(samples)
+    PHASE20_APP.update(wall_ms=wall_ms, n=n)
     log("phase 20 mini-app stages, device ms: "
         + ", ".join(f"{k} {v:.4f}" for k, v in stage.items())
         + f" (sum {sum(stage.values()):.4f}); chained iteration, best of 3 "
@@ -6144,6 +6176,733 @@ def _tape_phase(torch, tr, dev, timer, nvcc):
                  launches=launches["trace_jvp"], max_abs_err=jvp_err,
                  ms=jvp_ms, plain_ms=jvp_plain, bound_ms=jvp_bound,
                  bound_by=jvp_by, **common)]
+
+
+# ---------------------------------------------------------------------------
+# Phase 30: the lazy halves -- ops/, types/, struct/ and Vec3 over LazyArray,
+# and the three lazy examples -- fused into the trace's kernels
+# ---------------------------------------------------------------------------
+
+LAZY_N = 1024                  # (a) and (c)'s image side
+LAZY_HIST_N = 1 << 24          # (b): histogram.cpp's 16M samples, nothing cut
+LAZY_HIST_SMALL = 1 << 20      # (b) against the CPU's plain interpreter
+LAZY_FIT_STEPS = 10            # (c)
+LAZY_SWEEP_N = 1 << 20         # lanes of (d) and (e)
+LAZY_POOL = 16                 # nvcc processes the setup runs at once
+# phase 20's eager mini-app, for (b)'s log: (wall ms an iteration, samples)
+PHASE20_APP = {}
+
+# (d)'s programs: (name, IEEE operations only?, [(function of the ops
+# surface, impl or None, the domains of its operands)]): every function of
+# tests/test_unified_surface.py:36-75 and its POLY_FNS (impl="poly"),
+# grouped into programs of at most a few hundred trace ops; erfinv's Giles
+# fit and each Carlson form and elliptic integral (duplication rounds) in
+# programs of their own. Domains: P, S, U, G of the test at n lanes, or a
+# function of them, scaled as the test scales them.
+LAZY_GROUPS = [
+    ("math", False, [
+        ("math.sin", None, "S"), ("math.cos", None, "S"),
+        ("math.tan", None, "U"), ("math.cot", None, "P"),
+        ("math.asin", None, "U"), ("math.acos", None, "U"),
+        ("math.atan", None, "S"), ("math.exp", None, "S"),
+        ("math.exp2", None, "S"), ("math.log", None, "P"),
+        ("math.log2", None, "P"), ("math.log1p", None, "P"),
+        ("math.expm1", None, "S"), ("math.cbrt", None, "S"),
+        ("math.sinh", None, "S"), ("math.cosh", None, "S"),
+        ("math.tanh", None, "S"), ("math.csch", None, "P"),
+        ("math.sech", None, "S"), ("math.coth", None, "P"),
+        ("math.asinh", None, "S"), ("math.acosh", None, "G"),
+        ("math.atanh", None, "U"), ("math.atan2", None, "S", "P"),
+        ("math.pow", None, "P", "S"), ("safe_asin", None, "U"),
+        ("safe_acos", None, "U")]),
+    ("special", False, [
+        ("special.erf", None, "S"), ("special.erfc", None, "S"),
+        ("special.dawson", None, "S"), ("special.erfi", None, "U"),
+        ("special.i0e", None, "S"), ("special.lgamma", None, "P"),
+        ("special.tgamma", None, "P"), ("special.gamma", None, "P")]),
+    ("erfinv", False, [("special.erfinv", None, "U")]),
+    ("router", True, [
+        ("sqrt", None, "P"), ("rsqrt", None, "P"), ("rcp", None, "P"),
+        ("safe_sqrt", None, "S"), ("safe_rsqrt", None, "S"),
+        ("abs_", None, "S"), ("sqr", None, "S"), ("sign", None, "S"),
+        ("isnan", None, "S"), ("isinf", None, "S"), ("isfinite", None, "S"),
+        ("floor", None, lambda d: d["S"] * 3),
+        ("ceil", None, lambda d: d["S"] * 3),
+        ("trunc", None, lambda d: d["S"] * 3),
+        ("round_", None, lambda d: d["S"] * 3),
+        ("round_half_away", None, lambda d: d["S"] * 3),
+        ("reverse", None, "S"),
+        ("math.fmod", None, "S", "P"), ("math.hypot", None, "S", "P"),
+        ("copysign", None, "P", "S"), ("mulsign", None, "P", "S"),
+        ("fmadd", None, "S", "P", "S"), ("fmsub", None, "S", "P", "S"),
+        ("fnmadd", None, "S", "P", "S"), ("fnmsub", None, "S", "P", "S"),
+        ("fmaddsub", None, "S", "P", "S"), ("fmsubadd", None, "S", "P", "S"),
+        ("clamp", None, lambda d: d["S"] * 2, lambda d: d["S"] * 0 - 1,
+         lambda d: d["S"] * 0 + 1),
+        ("lerp", None, "S", "P", lambda d: d["U"] * 0.5 + 0.5)]),
+    ("carlson_rc", True, [("special.carlson_rc", None, "P",
+                           lambda d: d["P"] + 0.3)]),
+    ("carlson_rf", True, [("special.carlson_rf", None, "P",
+                           lambda d: d["P"] + 0.2, lambda d: d["P"] + 0.4)]),
+    ("carlson_rd", True, [("special.carlson_rd", None, "P",
+                           lambda d: d["P"] + 0.2, lambda d: d["P"] + 0.4)]),
+    ("comp_ellint_1", True, [("special.comp_ellint_1", None,
+                              lambda d: d["U"] * 0.6)]),
+    ("comp_ellint_2", True, [("special.comp_ellint_2", None,
+                              lambda d: d["U"] * 0.6)]),
+    ("ellint_1", False, [("special.ellint_1", None, "S",
+                          lambda d: d["U"] * 0.5)]),
+    ("ellint_2", False, [("special.ellint_2", None, "S",
+                          lambda d: d["U"] * 0.5)]),
+    ("ellint_3", False, [("special.ellint_3", None, "S",
+                          lambda d: d["U"] * 0.5, lambda d: d["U"] * 0.3)]),
+    ("poly-trig", True, [(f"math.{f}", "poly", d) for f, d in (
+        ("sin", lambda d: d["S"] * 100), ("cos", lambda d: d["S"] * 100),
+        ("tan", lambda d: d["S"] * 30), ("asin", "U"), ("acos", "U"),
+        ("atan", lambda d: d["S"] * 30))]),
+    ("poly-exp-log", True, [(f"math.{f}", "poly", d) for f, d in (
+        ("exp", lambda d: d["S"] * 30), ("exp2", lambda d: d["S"] * 30),
+        ("log", "P"), ("log2", "P"), ("cbrt", lambda d: d["S"] * 1e4))] +
+     [("math.atan2", "poly", "S", "P"), ("math.pow", "poly", "P", "S")]),
+    ("poly-hyperbolic", True, [(f"math.{f}", "poly", d) for f, d in (
+        ("sinh", lambda d: d["S"] * 30), ("cosh", lambda d: d["S"] * 30),
+        ("tanh", lambda d: d["S"] * 5), ("asinh", lambda d: d["S"] * 1e3),
+        ("acosh", lambda d: d["G"] * 100), ("atanh", "U"))]),
+    ("poly-reciprocal", True, [(f"math.{f}", "poly", d) for f, d in (
+        ("csc", "P"), ("sec", "S"), ("cot", "P"), ("csch", "P"),
+        ("sech", "S"), ("coth", "P"))]),
+]
+
+
+def lazy_domains(n):
+    """tests/test_unified_surface.py:29-32's domains at ``n`` lanes."""
+    return {"P": np.linspace(0.05, 2.5, n).astype(np.float32),
+            "S": np.linspace(-1.4, 1.4, n).astype(np.float32),
+            "U": np.linspace(-0.97, 0.97, n).astype(np.float32),
+            "G": np.linspace(1.05, 4.0, n).astype(np.float32)}
+
+
+def lazy_domain(spec, doms):
+    """An operand's float32 values: ``spec`` a base domain's letter, or a
+    function of the domains."""
+    return (doms[spec] if isinstance(spec, str) else spec(doms)).astype(
+        np.float32)
+
+
+def lazy_function(name):
+    """The port's function ``name`` of the ops surface ("math.sin",
+    "special.erf", "sqrt")."""
+    from enoki_tpu_torch import ops
+    mod, _, attr = name.rpartition(".")
+    return getattr(getattr(ops, mod) if mod else ops, attr)
+
+
+def lazy_group(tr, torch, group, doms, dev):
+    """A (d) program: each member on fresh data leaves of its domains on
+    ``dev``; returns the lazy outputs."""
+    outs = []
+    for name, impl, *specs in group[2]:
+        args = [tr.LazyArray(torch.from_numpy(lazy_domain(s, doms)).to(dev))
+                for s in specs]
+        fn = lazy_function(name)
+        outs.append(fn(*args, impl) if impl else fn(*args))
+    return outs
+
+
+def lazy_examples():
+    """examples/lazy_{sphere,histogram,fit}_torch.py as modules."""
+    import importlib.util
+    import pathlib
+    mods = []
+    for name in ("lazy_sphere_torch", "lazy_histogram_torch",
+                 "lazy_fit_torch"):
+        path = pathlib.Path(__file__).resolve().parent / "examples" / \
+            f"{name}.py"
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        mods.append(mod)
+    return mods
+
+
+def lazy_hist_program(tr, torch, H, n, dev):
+    """(b)'s probit values and their bin indices, clamped as the
+    histogram clamps them (one program)."""
+    g = H.probit(n, dev)
+    idx = ((g - H.LO) * (H.BINS / (H.HI - H.LO))).cast(torch.int32)
+    return g, tr.clamp(idx, 0, H.BINS - 1)
+
+
+def lazy_fit_loss(tr, F, p, target, n, dev):
+    """(c)'s loss as examples/lazy_fit_torch.py's ``fit`` records it."""
+    params = [tr.requires_grad(tr.LazyArray(p[i:i + 1], device=dev))
+              for i in range(3)]
+    return F.loss_of(params, target, n, dev), params
+
+
+def lazy_types_programs(tr, torch, n, dev):
+    """(e)'s type programs over lazy lanes on ``dev``: {name: (outputs,
+    the same function of tensors on ``dev``, gate, mag)}; the gates are
+    phase 24's (``types_gate``)."""
+    from enoki_tpu_torch.types import (Complex, Quaternion, color,
+                                       complex_ as C, matrix_soa as S,
+                                       morton_decode, morton_encode,
+                                       quaternion as Q, sh)
+    rng = np.random.default_rng(30)
+    re = np.linspace(-2.0, 2.0, n).astype(np.float32)
+    im = np.linspace(1.0, 3.0, n).astype(np.float32)
+    comps = rng.normal(size=(4, n)).astype(np.float32)
+    a = rng.normal(size=(4, 4, n)).astype(np.float32)
+    a += 3.0 * np.eye(4, dtype=np.float32)[..., None]
+    v = rng.normal(size=(3, n)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=0)
+    xy = rng.integers(0, 1 << 16, (2, n)).astype(np.uint32)
+    lin = np.linspace(0.0, 1.0, n).astype(np.float32)
+    cases = {}
+
+    def both(name, fn, gate, *arrays, mag=None):
+        lazy = fn(*[tr.LazyArray(torch.from_numpy(x).to(dev))
+                    for x in arrays])
+        eager = fn(*[torch.from_numpy(x).to(dev) for x in arrays])
+        cases[name] = (lazy, eager, gate, mag)
+
+    def cx(f):
+        return lambda r, i: f(Complex(r, i))
+
+    both("complex exp(log(z^2 + 1) / 2)", cx(
+        lambda z: C.exp(C.log(z * z + 1.0) * 0.5)), "norm32", re, im)
+    for name in ("sqrt", "rcp", "conj", "abs_"):
+        both(f"complex.{name}", cx(getattr(C, name)), "exact", re, im)
+    both("complex.arg", cx(C.arg), "ulp2", re, im)
+    both("complex / 3.0", cx(lambda z: z / 3.0), "exact", re, im)
+    for name in ("sin", "cos", "sinh", "cosh", "asin", "atan"):
+        both(f"complex.{name}", cx(getattr(C, name)), "norm8", re, im)
+
+    def qq(f):
+        return lambda *c: f(Quaternion(*c))
+
+    for name in ("normalize", "rcp", "conj", "sqrt"):
+        both(f"quaternion.{name}", qq(getattr(Q, name)), "exact", *comps)
+    both("quaternion.exp", qq(Q.exp), "norm8", *comps)
+    both("quaternion.log(normalize)", qq(lambda q: Q.log(Q.normalize(q))),
+         "norm8", *comps)
+    def to_soa(m):
+        return m if isinstance(m, tuple) else S.from_dense(m)
+
+    both("quaternion.to_matrix(normalize)", qq(
+        lambda q: to_soa(Q.to_matrix(Q.normalize(q)))), "exact", *comps)
+
+    def soa(f):
+        return lambda *e: f(tuple(tuple(e[4 * i + j] for j in range(4))
+                                  for i in range(4)))
+
+    both("matrix_soa inverse, det, m @ inverse(m) 4x4", soa(
+        lambda m: (S.inverse(m), S.det(m), S.matmul(m, S.inverse(m)))),
+        "exact", *a.reshape(16, n))
+    both("sh_eval 4", lambda x, y, z: sh.sh_eval(x, y, z, 4), "exact", *v)
+    both("morton_encode, morton_decode 2-D", lambda x, y: (
+        morton_encode([x, y]), morton_decode(morton_encode([x, y]), 2)),
+        "exact", *xy)
+    both("color.linear_to_srgb, srgb_to_linear", lambda x: (
+        color.linear_to_srgb(x), color.srgb_to_linear(x)), "norm16", lin,
+        mag=1.0)
+    return cases
+
+
+def lazy_pcg_programs(tr, torch, n, dev):
+    """(e)'s PCG32 programs: {name: (lazy outputs, eager outputs)}, each
+    lazy output bit-exact with the eager generator's on the card."""
+    from enoki_tpu_torch.types.random import PCG32
+    out = {}
+    gl, ge = PCG32.create_lazy(n, device=dev), PCG32.create(n, device=dev)
+    ul, gl = gl.next_uint32()
+    ue, ge = ge.next_uint32()
+    fl, gl = gl.next_float32()
+    fe, ge = ge.next_float32()
+    wl, gl = gl.next_uint64()
+    we, ge = ge.next_uint64()
+    out["next_uint32, next_float32, next_uint64"] = (
+        [ul, fl, wl.hi, wl.lo], [ue, fe, we.hi, we.lo])
+    for delta in (100, -100, 12345678901234, 1 << 63):
+        gl = PCG32.create_lazy(n, device=dev).advance(delta)
+        ge = PCG32.create(n, device=dev).advance(delta)
+        ul, _ = gl.next_uint32()
+        ue, _ = ge.next_uint32()
+        out[f"advance({delta})"] = ([gl.state.hi, gl.state.lo, ul],
+                                    [ge.state.hi, ge.state.lo, ue])
+    return out
+
+
+def lazy_struct_program(tr, torch, n, device):
+    """(e)'s struct program on ``device``: the struct helpers and a
+    struct-argument dispatch (trace.call) over a Ray of lazy Vec3s;
+    returns the lazy leaves, evaluated by the caller."""
+    import enoki_tpu_torch.trace.call as tc
+    from torch.utils import _pytree as pytree
+    from enoki_tpu_torch.render.vec import Vec3
+    from enoki_tpu_torch.struct import (concat_structs, gather_struct,
+                                        scatter_struct, select_struct,
+                                        zeros_like)
+    rng = np.random.default_rng(31)
+
+    def leaf(x):
+        return tr.LazyArray(torch.from_numpy(x).to(device))
+
+    o = Vec3(*(leaf(rng.normal(size=n).astype(np.float32))
+               for _ in range(3)))
+    d = Vec3(*(leaf(rng.normal(size=n).astype(np.float32))
+               for _ in range(3)))
+    idx = leaf(rng.integers(0, n, n).astype(np.int32))
+    mask = leaf(rng.random(n) < 0.5)
+    g = gather_struct(o, idx, mask=mask)
+    s = select_struct(mask, o, d)
+    dst = zeros_like(o)
+    scatter_struct(dst, d, leaf(np.arange(n, dtype=np.int32)[::-1].copy()))
+    c = concat_structs({"v": o.x}, {"v": d.y})
+
+    def f0(m, v, w):
+        return Vec3(v.x * w, v.y + w, v.z - w)
+
+    def f1(m, v, w):
+        return Vec3(v.z, v.x * 2.0, v.y * w)
+
+    ids = leaf(rng.integers(0, 2, n).astype(np.int32))
+    r = tc.dispatch([f0, f1], ids, o, d.x)
+    return pytree.tree_leaves((g, s, dst, c, r))
+
+
+def lazy_structures(torch, tr, dev, pool, S, H, F):
+    """Setup of phase 30: every structure it evaluates, traced and
+    prepared in this thread, their sources built with nvcc in ``pool`` at
+    once; (c)'s adjoint program in a second round (a program is recorded
+    on the tape when it runs). Returns {source text: build seconds}."""
+    from enoki_tpu_torch.trace import tape
+    from torch.utils import _pytree as pytree
+    plans = {}
+    doms = lazy_domains(LAZY_SWEEP_N)
+    tr.reset()
+    plans["sphere"] = tr.prepare(S.render_lazy(LAZY_N, device=dev))
+    plans["sphere struct"] = tr.prepare(S.render_lazy_struct(LAZY_N,
+                                                             device=dev))
+    for n in (LAZY_HIST_N, LAZY_HIST_SMALL):
+        plans[f"probit {n}"] = tr.prepare(*lazy_hist_program(tr, torch, H,
+                                                             n, dev))
+    for group in LAZY_GROUPS:
+        plans[group[0]] = tr.prepare(*lazy_group(tr, torch, group, doms,
+                                                 dev))
+    for name, (lazy, _) in lazy_pcg_programs(tr, torch, LAZY_SWEEP_N,
+                                             dev).items():
+        plans[name] = tr.prepare(*lazy)
+    for name, (lazy, _, _, _) in lazy_types_programs(
+            tr, torch, LAZY_SWEEP_N, dev).items():
+        plans[name] = tr.prepare(*[x for x in pytree.tree_leaves(lazy)
+                                   if x.__class__ is tr.LazyArray])
+    target_lazy = F.render(*(tr.LazyArray.full(v, 1, device=dev)
+                             for v in F.TRUE), LAZY_N, dev)
+    plans["fit target"] = tr.prepare(target_lazy)
+    del target_lazy
+    target = tr.LazyArray(torch.zeros(LAZY_N * LAZY_N, device=dev))
+    loss, _ = lazy_fit_loss(tr, F, np.array(F.INIT, np.float32), target,
+                            LAZY_N, dev)
+    plans["fit loss"] = tr.prepare(loss)
+    # last, each followed by a reset: a pending scatter joins every later
+    # schedule
+    plans["struct"] = tr.prepare(*lazy_struct_program(tr, torch,
+                                                      LAZY_SWEEP_N, dev))
+    tr.reset()
+    for n in (LAZY_HIST_N, LAZY_HIST_SMALL):
+        plans[f"histogram {n}"] = tr.prepare(H.histogram(n, dev))
+        tr.reset()
+    seconds = build_trace_plans(plans, pool)
+    # the second round: the fit's adjoint, recorded by its forward's eval
+    target = tr.LazyArray(torch.zeros(LAZY_N * LAZY_N, device=dev))
+    loss, _ = lazy_fit_loss(tr, F, np.array(F.INIT, np.float32), target,
+                            LAZY_N, dev)
+    loss.eval()
+    cot = tape.adjoint_program(loss)
+    second = {"fit adjoint": tr.prepare(*cot.values())}
+    del cot, loss
+    seconds.update(build_trace_plans(second, pool))
+    plans.update(second)
+    for plan in plans.values():
+        plan.library()
+    tr.reset()
+    return plans, seconds
+
+
+def run_lazy_alone(torch):
+    """Phase 30 alone on the card; prints its fields of the trace's rows."""
+    log(nvidia_smi("name,power.limit"))
+    out = run_lazy(torch, torch.device("cuda"), DeviceTimer(torch))
+    print(json.dumps(out))
+
+
+def run_lazy(torch, dev, timer):
+    """Phase 30: the lazy halves at full width on the card, every lazy
+    program one eval through the trace's fused kernels, held to the plain
+    interpreter on the card, to the port's eager route and to the CPU.
+    Returns, by counter name ("trace", "trace_vjp"), the launches of the
+    trace's kernels it made and the times of one of its programs
+    (``lazy_times``), as phase30_* fields of that kernel's row."""
+    import enoki_tpu_torch.trace as tr
+    from enoki_tpu_torch.render import LAUNCHES
+    from enoki_tpu_torch.trace import codegen
+    S, H, F = lazy_examples()
+    t_phase = time.perf_counter()
+    before = {k: LAUNCHES[k] for k in ("trace", "trace_vjp")}
+    with concurrent.futures.ThreadPoolExecutor(LAZY_POOL) as pool:
+        plans, build_s = lazy_structures(torch, tr, dev, pool, S, H, F)
+    t_setup = time.perf_counter() - t_phase
+    log(f"phase 30 setup: {len(plans)} structures, {len(build_s)} sources "
+        f"built with nvcc at once in {t_setup:.1f} s (the longest "
+        f"{max(build_s.values()):.1f} s)")
+    nvcc = [0]
+    real = codegen._nvcc_build
+
+    def counted(text):
+        # a source the setup did not build (a library of one it did is
+        # loaded again under this build function: _LIBS keys on it)
+        nvcc[0] += text not in build_s
+        return real(text)
+
+    codegen._nvcc_build = counted
+    try:
+        _lazy_phase(torch, tr, dev, plans, nvcc, S, H, F)
+    finally:
+        codegen._nvcc_build = real
+    launches = {k: LAUNCHES[k] - v for k, v in before.items()}
+    check(launches["trace"] > 0 and launches["trace_vjp"] > 0,
+          f"phase 30: the trace's kernels were not launched: {launches}")
+    times = lazy_times(torch, tr, dev, timer, plans, S, F)
+    log(f"phase 30 launches of the trace's kernels: {launches}; sources "
+        f"built after the setup: {nvcc[0]}; phase 30 took "
+        f"{time.perf_counter() - t_phase:.1f} s "
+        f"({nvidia_smi('name,power.limit')})")
+    return {k: dict(phase30_launches=v, **times[k])
+            for k, v in launches.items()}
+
+
+def lazy_times(torch, tr, dev, timer, plans, S, F):
+    """Phase 30's own measured fields of the trace's rows, after its
+    launches are counted: (a)'s lazy sphere at LAZY_N^2 for ``trace`` and
+    (c)'s adjoint at the initial guess for ``trace_vjp``, each its kernels'
+    device time, its plain interpreter's on the card, its bound and its
+    largest |kernels - plain|. The structures are the setup's."""
+    from enoki_tpu_torch.trace import tape
+    smi = nvidia_smi("name,power.limit")
+    out = {}
+    tr.reset()
+    img = S.render_lazy(LAZY_N, device=dev)
+    target = F.target_image(LAZY_N, dev)
+    tr.clear_gradients()
+    loss, _ = lazy_fit_loss(tr, F, np.array(F.INIT, np.float32), target,
+                            LAZY_N, dev)
+    loss.eval()
+    cot = tape.adjoint_program(loss)
+    vals = list(cot.values())
+    del cot, loss
+    for name, arrays, key in (("trace", [img], "sphere"),
+                              ("trace_vjp", vals, "fit adjoint")):
+        plan = tr.prepare(*arrays)
+        check(plan.key == plans[key].key, f"phase 30 times: {key} is not "
+              "the structure the setup built")
+        inp = schedule_inputs(tr, torch, plan, dev)
+        got = plan.run(*inp, dev, counter=name)
+        got = got if isinstance(got, (list, tuple)) else [got]
+        want = tr.plain_eval(*arrays)
+        err = max(float((g.double() - w.double()).abs().max())
+                  for g, w in zip(got, want))
+        ms = timer(lambda: plan.run(*inp, dev, counter=name), 20,
+                   hold_ms=300.0)
+        plain_ms = timer(lambda: tr.plain_eval(*arrays), 3, hold_ms=300.0,
+                         plain=True)
+        bound_ms, bound_by, nbytes, flops, _ = program_bound(plan, inp[0])
+        out[name] = dict(phase30_program=key, phase30_ms=ms,
+                         phase30_plain_ms=plain_ms,
+                         phase30_bound_ms=bound_ms,
+                         phase30_bound_by=bound_by,
+                         phase30_max_abs_err=err)
+        log(f"phase 30 times, {key} at {LAZY_N}^2: kernels {ms:.4f} ms "
+            f"({len(plan.runs)} kernel(s)), plain interpreter "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+            f"({nbytes} B, {flops} FP32 operations), max |kernels - plain| "
+            f"{err:.3g}; device time, DeviceTimer, 20 calls; {smi}")
+    del img, vals, target
+    tr.clear_tape()
+    tr.reset()
+    return out
+
+
+def _ulp1(torch, got, want, ieee, what):
+    u = trace_ulps(torch, got, want)
+    check(u == 0.0 if ieee else u <= 1.0, f"{what}: the kernels and the "
+          f"plain interpreter differ by {u} ulp (gate "
+          f"{'bit-equal' if ieee else '1 ulp'})")
+    return u
+
+
+def _lazy_phase(torch, tr, dev, plans, nvcc, S, H, F):
+    from enoki_tpu_torch.render import LAUNCHES
+    from enoki_tpu_torch.trace import tape
+    smi = nvidia_smi("name,power.limit")
+
+    def one_eval(*arrays):
+        n0 = tr.stats()["n_evals"]
+        tr.eval(*arrays)
+        torch.cuda.synchronize()
+        check(tr.stats()["n_evals"] == n0 + 1,
+              "phase 30: a lazy program took more than one eval")
+        return [a.torch() for a in arrays]
+
+    # -- (a) the lazy sphere --------------------------------------------------
+    img = S.render_lazy(LAZY_N, device=dev)
+    (want,) = tr.plain_eval(img)
+    (got,) = one_eval(img)
+    check(torch.equal(got, want), "phase 30 (a): render_lazy's kernels and "
+          "its plain interpreter differ")
+    img_s = S.render_lazy_struct(LAZY_N, device=dev)
+    (want_s,) = tr.plain_eval(img_s)
+    (got_s,) = one_eval(img_s)
+    check(torch.equal(got_s, want_s), "phase 30 (a): render_lazy_struct's "
+          "kernels and its plain interpreter differ")
+    check(bool(torch.allclose(got_s, got, rtol=1e-5, atol=1e-5)),
+          "phase 30 (a): the struct form and the scalar form differ")
+    from enoki_tpu_torch.render import SphereScene, render_fused
+    ref = render_fused(SphereScene.reference(dev), LAZY_N).reshape(-1)
+    fused_err = float((got - ref).abs().max())
+    misses, calls = tr.cache_stats()[1], nvcc[0]
+    t0 = time.perf_counter()
+    (second,) = one_eval(S.render_lazy(LAZY_N, cx=0.05, device=dev))
+    second_ms = 1e3 * (time.perf_counter() - t0)
+    check(tr.cache_stats()[1] == misses and nvcc[0] == calls,
+          "phase 30 (a): the second frame (cx = 0.05) missed the cache")
+    check(not torch.equal(second, got), "phase 30 (a): the second frame is "
+          "the first")
+    log(f"phase 30 (a) render_lazy and render_lazy_struct at {LAZY_N}^2: "
+        f"one eval each, bit-equal to the plain interpreter on the card; "
+        f"struct against scalar max |d| "
+        f"{float((got_s - got).abs().max()):.3g} (rtol 1e-5, atol 1e-5); "
+        f"max |err| against render_fused {fused_err:.3g}; the second frame "
+        f"(cx = 0.05) a cache hit, no nvcc, {second_ms:.2f} ms wall: pass")
+    del img, img_s, got, want, got_s, want_s, second, ref
+
+    # -- (b) the lazy histogram -----------------------------------------------
+    def moved(g_a, i_a, g_b, i_b, what):
+        """The samples whose bin differs between two routes; each must be
+        within 1 ulp of a bin edge: its probit values on the two routes
+        at most 1 ulp apart."""
+        m = i_a != i_b
+        k = int(m.sum())
+        if k:
+            ga, gb = g_a[m].double(), g_b.to(g_a.device)[m].double()
+            sp = torch.abs(torch.nextafter(
+                g_a[m], torch.full_like(g_a[m], float("inf"))).double() - ga)
+            check(bool(((ga - gb).abs() <= sp).all()), f"phase 30 (b) {what}:"
+                  " a sample changed bins without being within 1 ulp of an"
+                  " edge")
+        return k
+
+    def binned(i):
+        return torch.bincount(i.long(), minlength=H.BINS).to(torch.float32)
+
+    tr.reset()
+    n = LAZY_HIST_N
+    hist = H.histogram(n, dev)
+    (want_h,) = tr.plain_eval(hist)
+    (got_h,) = one_eval(hist)
+    check(float(got_h.sum()) == n, f"phase 30 (b): the counts sum to "
+          f"{float(got_h.sum())}, not {n}")
+    g_k, i_k = lazy_hist_program(tr, torch, H, n, dev)
+    gp, ip = tr.plain_eval(g_k, i_k)
+    g_k, i_k = one_eval(g_k, i_k)
+    check(torch.equal(got_h, binned(i_k)) and torch.equal(want_h, binned(ip)),
+          "phase 30 (b): a histogram and its own bin indices disagree")
+    k_plain = moved(g_k, i_k, gp, ip, "kernel against plain")
+    del hist, gp, ip
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        H.histogram(n, dev).torch()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    wall = min(walls)
+    ns = LAZY_HIST_SMALL
+    h_small = H.histogram(ns, dev).torch()
+    g_s, i_s = lazy_hist_program(tr, torch, H, ns, dev)
+    g_s, i_s = one_eval(g_s, i_s)
+    h_cpu = H.histogram(ns, "cpu").torch()
+    g_c, i_c = lazy_hist_program(tr, torch, H, ns, "cpu")
+    tr.eval(g_c, i_c)
+    g_c, i_c = g_c.torch(), i_c.torch()
+    check(torch.equal(h_small.cpu(), binned(i_s).cpu())
+          and torch.equal(h_cpu, binned(i_c)),
+          "phase 30 (b): a histogram at 2^20 and its bin indices disagree")
+    k_cpu = moved(g_s.cpu(), i_s.cpu(), g_c, i_c, "card against the CPU")
+    app = PHASE20_APP.get("wall_ms")
+    app_text = (f"phase 20's eager mini-app (64 bins, the hist kernel) "
+                f"{app:.4f} ms an iteration = "
+                f"{PHASE20_APP['n'] / (app * 1e-3) / 1e9:.3f} G samples/s"
+                if app else "phase 20 did not run in this process")
+    log(f"phase 30 (b) lazy histogram of {n} samples (PCG32 -> erfinv -> "
+        f"clamp -> scatter_add) into {H.BINS} bins: one eval, counts sum "
+        f"to {n}; against the plain interpreter on the card, {k_plain} "
+        f"samples within 1 ulp of a bin edge changed bins, every other "
+        f"count equal; at {ns} against the CPU's plain interpreter, "
+        f"{k_cpu} such samples: pass; one eval {wall:.3f} ms wall (best of "
+        f"3: {', '.join(f'{w:.3f}' for w in walls)}) = "
+        f"{n / (wall * 1e-3) / 1e9:.3f} G samples/s, beside {app_text}; "
+        f"{smi}")
+    del g_k, i_k, got_h, want_h, h_small, g_s, i_s, h_cpu, g_c, i_c
+
+    # -- (c) examples/lazy_fit_torch.py ---------------------------------------
+    tr.reset()
+    at_step1 = {}
+    worst = [0.0]
+
+    def hook(k, loss, params):
+        cot = tape.adjoint_program(loss)
+        want = tr.plain_eval(*[cot[q.index] for q in params])
+        del cot
+
+        def after(grads):
+            for g, w in zip(grads, want):
+                worst[0] = max(worst[0], float((g - w).abs().max()))
+                check(torch.equal(g, w), f"phase 30 (c) step {k}: the "
+                      "gradients' kernels and plain interpreter differ")
+            if k == 0:  # what step 1 built and missed
+                at_step1.update(misses=tr.cache_stats()[1], nvcc=nvcc[0])
+        return after
+
+    out = F.fit(LAZY_N, LAZY_FIT_STEPS, dev, hook=hook)
+    losses = out["losses"]
+    check(losses[-1] < losses[0] * 0.2, f"phase 30 (c): the loss did not "
+          f"fall below 0.2 of the first: {losses[0]:.6g} -> {losses[-1]:.6g}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"phase 30 (c): the loss rose at a step: {losses}")
+    check(out["misses"] <= 6, f"phase 30 (c): {out['misses']} cache misses")
+    check(out["misses"] == at_step1["misses"] and nvcc[0] == at_step1["nvcc"],
+          "phase 30 (c): a step after the first built or missed")
+    tr.reset()
+    t0 = time.perf_counter()
+    timed = F.fit(LAZY_N, LAZY_FIT_STEPS, dev)
+    fit_ms = 1e3 * (time.perf_counter() - t0) / LAZY_FIT_STEPS
+    check(timed["losses"] == losses, "phase 30 (c): a second fit differs")
+    p = out["params"]
+    log(f"phase 30 (c) examples/lazy_fit_torch.py at {LAZY_N}^2, "
+        f"{LAZY_FIT_STEPS} steps: loss {losses[0]:.6g} -> {losses[-1]:.6g} "
+        f"(below 0.2 of the first, falling at every step: "
+        f"{', '.join(f'{v:.6g}' for v in losses)}), {out['misses']} cache "
+        f"misses (at most "
+        f"6), steps 2-{LAZY_FIT_STEPS} no miss and no nvcc; every step's "
+        f"gradients bit-equal to the plain interpreter's on the card; "
+        f"(cx, cy, r) ({p[0]:+.4f}, {p[1]:+.4f}, {p[2]:.4f}), true "
+        f"{F.TRUE}: pass; {fit_ms:.2f} ms wall a step (forward eval, "
+        f"backward, the host loop; a second fit, all cache hits; step "
+        f"walls {[round(f + b, 2) for f, b in timed['walls_ms']]} ms); "
+        f"{smi}")
+    tr.reset()
+
+    # -- (d) the unified surface ----------------------------------------------
+    doms = lazy_domains(LAZY_SWEEP_N)
+    worst_k = {True: 0.0, False: 0.0}
+    worst_e = {"native": 0.0, "poly": 0.0}
+    texts = []
+    for group in LAZY_GROUPS:
+        name, ieee, members = group
+        outs = lazy_group(tr, torch, group, doms, dev)
+        plan = plans[name]
+        wants = tr.plain_eval(*outs)
+        before = LAUNCHES["trace"]
+        gots = one_eval(*outs)
+        launched = LAUNCHES["trace"] - before
+        check(launched == len(plan.runs), f"phase 30 (d) {name}: "
+              f"{launched} launches for {len(plan.runs)} fused runs")
+        for (fname, impl, *specs), got, want in zip(members, gots, wants):
+            what = f"phase 30 (d) {fname}" + (f" {impl}" if impl else "")
+            worst_k[ieee] = max(worst_k[ieee],
+                                _ulp1(torch, got, want, ieee, what))
+            fn = lazy_function(fname)
+            args = [torch.from_numpy(lazy_domain(s, doms)).to(dev)
+                    for s in specs]
+            eager = fn(*args, impl) if impl else fn(*args)
+            check(got.dtype == eager.dtype and got.shape == eager.shape,
+                  f"{what}: lazy {got.dtype} {tuple(got.shape)} against "
+                  f"eager {eager.dtype} {tuple(eager.shape)}")
+            if not got.dtype.is_floating_point:
+                check(torch.equal(got, eager), f"{what}: lazy and eager "
+                      "differ")
+                continue
+            rtol, atol = (1e-6, 1e-30) if impl == "poly" else (3e-5, 2e-6)
+            check(bool(torch.allclose(got, eager, rtol=rtol, atol=atol,
+                                      equal_nan=True)),
+                  f"{what}: lazy and eager on the card beyond rtol {rtol}, "
+                  f"atol {atol}")
+            fin = torch.isfinite(eager)
+            rel = ((got[fin].double() - eager[fin].double()).abs()
+                   / (eager[fin].double().abs() + atol)).max()
+            key = "poly" if impl == "poly" else "native"
+            worst_e[key] = max(worst_e[key], float(rel))
+        texts.append(f"{name} {len(members)} fn / {len(plan.entries)} ops / "
+                     f"{len(plan.runs)} kernel(s)")
+        del outs, gots, wants
+    log(f"phase 30 (d) the unified surface at {LAZY_SWEEP_N} lanes, "
+        f"{sum(len(g[2]) for g in LAZY_GROUPS)} functions in "
+        f"{len(LAZY_GROUPS)} programs ({'; '.join(texts)}): kernels against "
+        f"the plain interpreter on the card, IEEE-only programs max "
+        f"{worst_k[True]} ulp (bit-equal), with transcendentals max "
+        f"{worst_k[False]} ulp (gate 1); lazy against the port's eager on "
+        f"the card, max relative {worst_e['native']:.3g} native (rtol 3e-5, "
+        f"atol 2e-6), {worst_e['poly']:.3g} poly (rtol 1e-6): pass")
+    tr.reset()
+
+    # -- (e) types and structs ------------------------------------------------
+    for name, (lazy, eager) in lazy_pcg_programs(tr, torch, LAZY_SWEEP_N,
+                                                  dev).items():
+        got = one_eval(*lazy)
+        for g, e in zip(got, eager):
+            same = (torch.equal(g, e) if g.dtype == e.dtype
+                    else torch.equal(g.to(torch.int64), e.to(torch.int64)))
+            check(same, f"phase 30 (e) PCG32 {name}: lazy and eager differ")
+    tr.reset()
+    from torch.utils import _pytree as pytree
+    worst_t = {}
+    for name, (lazy, eager, gate, mag) in lazy_types_programs(
+            tr, torch, LAZY_SWEEP_N, dev).items():
+        leaves, spec = pytree.tree_flatten(lazy)
+        lz = [x for x in leaves if x.__class__ is tr.LazyArray]
+        vals = iter(one_eval(*lz))
+        got = pytree.tree_unflatten(
+            [next(vals) if x.__class__ is tr.LazyArray else x
+             for x in leaves], spec)
+        ok, err = types_gate(torch, flat_result(torch, got),
+                             flat_result(torch, eager), gate, mag)
+        worst_t[name] = err
+        check(ok, f"phase 30 (e) {name}: lazy against eager on the card "
+              f"beyond the {gate} gate ({err})")
+    tr.reset()
+    lz_card = lazy_struct_program(tr, torch, LAZY_SWEEP_N, dev)
+    tr.eval(*lz_card)
+    st_card = [v.torch().cpu() for v in lz_card]
+    del lz_card
+    tr.reset()
+    lz_cpu = lazy_struct_program(tr, torch, LAZY_SWEEP_N, "cpu")
+    tr.eval(*lz_cpu)
+    st_cpu = [v.torch() for v in lz_cpu]
+    check(len(st_card) == len(st_cpu) and all(
+        torch.equal(a, b) for a, b in zip(st_card, st_cpu)),
+        "phase 30 (e): the struct helpers and dispatch on the card and the "
+        "CPU differ")
+    tr.reset()
+    log(f"phase 30 (e) at {LAZY_SWEEP_N} lanes: lazy PCG32 (next_uint32, "
+        f"next_float32, next_uint64; advance by 100, -100, 12345678901234, "
+        f"2^63, then a draw) bit-exact against the eager PCG32 on the card; "
+        f"Complex, Quaternion, matrix_soa, sh, morton and color against "
+        f"their eager selves on the card under phase 24's gates ("
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst_t.items())
+        + f"); gather_struct, select_struct, scatter_struct, concat_structs"
+        f" and a struct-argument trace.call.dispatch bit-equal to the CPU: "
+        f"pass")
 
 
 if __name__ == "__main__":

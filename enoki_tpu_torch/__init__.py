@@ -25,9 +25,10 @@ vectorized method calls), ``ad`` (differentiation helpers on autograd),
 ``interop``; ``dist``, the distributed render and train steps over a
 ``torch.distributed`` process group (one process a GPU, ``nccl``);
 ``trace``, the lazy runtime over the port's own native graph core, whose
-schedules run as one generated CUDA kernel per fused run on the card
-(its tape and calls, and the lazy halves of the other layers, wait for
-their port). ``trace`` is imported on first use: it builds its core with
+schedules run as one generated CUDA kernel per fused run on the card,
+with its AD tape and vectorised calls; the other layers take its
+``LazyArray`` through their lazy halves (one source, every backend).
+``trace`` is imported on first use: it builds its core with
 g++ on a cold cache, which package import should not pay for.
 """
 

@@ -22,8 +22,9 @@ render's CUDA backward. The kernels' Functions have no ``jvp`` or ``vmap``
 rule (their reference counterparts are ``custom_vjp``s, which ``jax.jvp``
 refuses too), so ``forward`` does not reach them, and ``whos`` /
 ``graphviz`` raise on a function that launches one (a ctypes launch needs
-a real data pointer), naming it. The lazy (``LazyArray``) branch waits for
-the port of trace/.
+a real data pointer), naming it. A ``trace.LazyArray`` differentiates on
+the trace's own tape (``trace.requires_grad`` / ``backward`` /
+``forward_from``), as in the reference.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """enoki_tpu_torch.ops -- the flat functional op set (counterpart of
-enoki_tpu/ops), ported whole but for the lazy (``LazyArray``) halves that
-wait for the port of ``trace/``: ``from enoki_tpu_torch import ops`` and
+enoki_tpu/ops), ported whole, lazy halves included (every routed function
+takes a ``trace.LazyArray`` and records into the trace): ``from
+enoki_tpu_torch import ops`` and
 call ``ops.select`` / ``ops.sincos`` / ``ops.carlson_rf`` /
 ``ops.histogram`` as with the reference. ``ops.reverse`` is the router's
 (last axis), ``ops.horiz.reverse`` the horizontal one (first axis).

@@ -1,15 +1,17 @@
 """Backend-generic op dispatch for composite types (counterpart of
-enoki_tpu/ops/backend.py), its eager half.
+enoki_tpu/ops/backend.py).
 
 The reference's composite types are generic over the execution backend:
 every op routes through L2 free functions that dispatch on the element
 type (array_math.h:121-150's 5-way dispatch macro). ``ns_of(*elements)``
 and ``math_ns(x, impl)`` are that dispatch point: they return the op
-namespace for the element type, so that ``types/`` and ``ops/special.py``
-are written once. Here that namespace is the eager PyTorch one; the lazy
-``LazyArray`` namespaces of the reference (``_LazyNS``, ``_TraceMath``)
-wait for the lazy halves' port (ROADMAP A8.4); ``is_lazy`` recognises the
-port's ``trace.LazyArray`` and ``require_eager`` refuses it.
+namespace for the element type, so that ``types/``, ``render/vec.py`` and
+``ops/special.py`` are written once. For tensors that namespace is the
+eager PyTorch one; for the port's ``trace.LazyArray`` it is the trace's
+functional API (``_LazyNS``, ``_TraceMath``), which records opcodes that
+one later eval fuses (on the card into the trace's CUDA kernels, on the
+CPU through its plain interpreter). ``is_lazy`` recognises a LazyArray
+without importing the trace (which builds its native core).
 
 Square roots are correctly rounded on every device (``router._sqrt_rn``,
 ``_rsqrt_rn``: PyTorch's CPU float32 and float64 sqrt is not), ``sign``
@@ -23,13 +25,8 @@ from __future__ import annotations
 import torch
 
 from . import math as M
-from .router import _rsqrt_rn, _sqrt_rn, clamp, copysign, mulsign, sign
-
-
-def is_lazy(x) -> bool:
-    """Whether x is a LazyArray of the port's ``trace`` (by its class's
-    module, so that asking imports, and builds, nothing)."""
-    return type(x).__module__.startswith("enoki_tpu_torch.trace")
+from .router import _is_lazy as is_lazy  # noqa: F401
+from .router import _rsqrt_rn, _sqrt_rn, _trace, clamp, copysign, mulsign, sign
 
 
 def _native(fn):
@@ -77,19 +74,23 @@ class _TorchNS:
 _TORCH = _TorchNS()
 
 
-def require_eager(*xs):
-    """Raise ``NotImplementedError`` if any of ``xs`` is a LazyArray: the
-    lazy branches of the reference wait for their port (ROADMAP A8.4)."""
-    if any(is_lazy(x) for x in xs):
-        raise NotImplementedError("the lazy namespace over trace.LazyArray "
-                                  "waits for its port (ROADMAP A8.4)")
+class _LazyNS:
+    """Lazy namespace: the trace's functional API (records opcodes; one
+    downstream eval fuses everything)."""
+
+    def __getattr__(self, name):
+        fn = getattr(_trace(), name)
+        setattr(self, name, fn)  # cache for the next lookup
+        return fn
+
+
+_LAZY = _LazyNS()
 
 
 def ns_of(*xs):
-    """The op namespace for the given element tensors (the array_router
-    dispatch point)."""
-    require_eager(*xs)
-    return _TORCH
+    """The op namespace for the given elements (the array_router dispatch
+    point): lazy if any element is a LazyArray."""
+    return _LAZY if any(is_lazy(x) for x in xs) else _TORCH
 
 
 class _EagerMath:
@@ -147,13 +148,58 @@ class _EagerMath:
         return torch.broadcast_tensors(*xs)
 
 
+class _TraceMath:
+    """Lazy math: trace opcodes. The impl selector does not apply: a
+    lazy transcendental is the trace's own opcode (the float64 function
+    rounded once, on the card as in the plain interpreter), as the
+    reference's lazy backend takes the device's own route
+    (cuda.h:433-453). ``*_native`` / ``*_ref`` resolve to the same
+    opcodes, so that generic code addressing "the library's function"
+    works on the trace too."""
+
+    def __getattr__(self, name):
+        base = name
+        for suffix in ("_native", "_ref"):
+            if base.endswith(suffix):
+                base = base[:-len(suffix)]
+        fn = getattr(_trace(), base)
+        setattr(self, name, fn)  # cache for the next lookup
+        return fn
+
+    hypot = staticmethod(M.hypot)  # its primitives take LazyArrays
+    mulsign = staticmethod(mulsign)  # the router's lazy branch
+
+    @staticmethod
+    def sincosh(x):
+        tr = _trace()
+        return tr.sinh(x), tr.cosh(x)
+
+    @staticmethod
+    def full_like(x, value, dtype=None):
+        """A literal of x's length and dtype (or ``dtype``) on x's device;
+        a device-free size-1 ``x`` gives a device-free scalar literal."""
+        tr = _trace()
+        dtype = dtype or x.dtype
+        if x.device is None:
+            return x._coerce(value).cast(dtype)
+        return tr.LazyArray.literal(value, len(x), dtype, device=x.device)
+
+    @staticmethod
+    def broadcast(*xs):
+        # the trace broadcasts size-1 operands itself (the 1-or-equal
+        # rule, jit.cu:776-782); nothing to materialise
+        return xs
+
+
+_TRACE_MATH = _TraceMath()
 _EAGER_NATIVE = _EagerMath("native")
 
 
 def math_ns(x, impl: str = "native"):
-    """Math-function namespace for element ``x``: ops.math(impl=...) for
-    eager tensors. The dispatch point that makes types/ and ops/special.py
-    backend-generic; the trace's namespace for a LazyArray waits for the
-    port of trace/."""
-    require_eager(x)
+    """Math-function namespace for element ``x``: the trace's opcodes for
+    a LazyArray, ops.math(impl=...) for eager tensors. The dispatch point
+    that makes types/ and ops/special.py backend-generic (Complex<FloatC>
+    instantiates from the same source as Complex<FloatP>)."""
+    if is_lazy(x):
+        return _TRACE_MATH
     return _EAGER_NATIVE if impl == "native" else _EagerMath(impl)

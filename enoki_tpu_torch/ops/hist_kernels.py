@@ -17,8 +17,13 @@ card is not.
 
 AD: a counting histogram is piecewise constant in ``index``; with
 ``weights`` the VJP with respect to the weights is a gather of the bin
-cotangent, in plain PyTorch as in the reference. The lazy (``LazyArray``)
-branch of the reference waits for the port of ``trace/``.
+cotangent, in plain PyTorch as in the reference.
+
+A LazyArray ``index`` or ``weights`` records the reference's lazy route
+instead (``_hist_lazy``): a trace ``scatter_add`` into a zero float32
+target, out-of-range lanes sent to a dropped slot, which the trace's
+fused kernel runs with atomic adds on the card; its gradients flow
+through the trace's tape. It does not reach the ``hist`` kernel.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .router import scatter_add
+from .router import _is_lazy, _lazy_device, _lift_arr, _trace, scatter_add
 
 # csrc/hist.cu has two routes. Up to SMALL_BINS bins each of a block's
 # 256 threads keeps a private row of counters in shared memory; above, each
@@ -118,6 +123,22 @@ class _HistogramFn(_build.KernelFunction):
                             lambda *a: _HistogramFn.apply(*a))
 
 
+def _hist_lazy(index, bins, weights):
+    """The lazy histogram: ``scatter_add`` of the weights (or 1) into a
+    zero float32 LazyArray of ``bins`` on the operands' device, the lanes
+    out of range redirected to the dropped slot ``bins``."""
+    tr = _trace()
+    dev = _lazy_device(index, weights)
+    index = _lift_arr(index, dev)
+    if index.dtype.is_floating_point:
+        index = index.cast(torch.int32)  # the eager route's cast
+    target = tr.LazyArray.zeros(bins, torch.float32, device=dev)
+    w = target._coerce(1.0) if weights is None else _lift_arr(weights, dev)
+    ok = (index >= 0) & (index < bins)
+    target.scatter_add(tr.select(ok, index, bins), tr.select(ok, w, 0.0))
+    return target
+
+
 def histogram(index, bins: int, weights=None, impl: str = "kernel"):
     """``hist[b] = sum_i (index_i == b) * weights_i`` -> (bins,) float32.
 
@@ -134,6 +155,8 @@ def histogram(index, bins: int, weights=None, impl: str = "kernel"):
     if impl not in ("kernel", "pallas", "fused"):
         raise ValueError(f"impl must be 'kernel', 'pallas' or 'fused', got "
                          f"{impl!r}")
+    if _is_lazy(index) or _is_lazy(weights):
+        return _hist_lazy(index, bins, weights)
     index = index.detach().to(torch.int32).reshape(-1).contiguous()
     if weights is None:
         return _HistogramFn.apply(index, None, bins, impl)

@@ -4,9 +4,11 @@ enoki_tpu/ops/horiz.py), ported whole.
 Reductions, prefix sums, mask reductions, the dot-product family and the
 two static-shape packers: ``compress`` returns ``(packed, count)`` with
 the selected lanes first and ``fill`` after them, and ``partition``
-stable-sorts lanes by an instance key. The reference's lazy
-``LazyArray`` branch of each function is left out: it waits for the port
-of ``trace/``.
+stable-sorts lanes by an instance key. Over a ``trace.LazyArray`` the
+reductions, prefix sums, mask reductions (their ``_nested`` forms too:
+a LazyArray is flat), the dot-product family, ``reverse`` and
+``compress`` record trace ops; the trace runs them between its fused
+kernels as these eager functions. A lazy ``compress`` zero-fills.
 
 Dtypes are the reference's, where PyTorch's differ: a sum, product or
 prefix sum of bool, int8, int16 or int32 is int32 (PyTorch gives int64),
@@ -20,8 +22,9 @@ from __future__ import annotations
 
 import torch
 
-from .router import (_UNSIGNED, _asarray, _on_bits, _operands, _rsqrt_rn,
-                     _signed_view, abs_, sqrt)
+from .router import (_UNSIGNED, _asarray, _is_lazy, _lazy_device,
+                     _lift_arr, _on_bits, _operands, _rsqrt_rn,
+                     _signed_view, _trace, abs_, sqrt)
 
 _HALF = (torch.float16, torch.bfloat16)
 _SMALL_SIGNED = (torch.bool, torch.int8, torch.int16, torch.int32)
@@ -116,25 +119,40 @@ def _truth(mask):
 
 
 def hsum(x, axis=None):
-    """Sum over ``axis`` (all axes by default)."""
+    """Sum over ``axis`` (all axes by default); a LazyArray records HSUM,
+    a size-1 LazyArray."""
+    if _is_lazy(x):
+        return x.hsum()
     return _sum(x, axis)
 
 
 def hprod(x, axis=None):
+    if _is_lazy(x):
+        return x.hprod()
     return _prod(x, axis)
 
 
 def hmax(x, axis=None):
+    if _is_lazy(x):
+        return x.hmax()
     return _extreme(torch.amax, x, axis)
 
 
 def hmin(x, axis=None):
+    if _is_lazy(x):
+        return x.hmin()
     return _extreme(torch.amin, x, axis)
 
 
 def hmean(x, axis=None):
     """Mean over ``axis``; integers and bool promote to float32 and the
-    16-bit floats are averaged in float32, as ``jnp.mean`` does."""
+    16-bit floats are averaged in float32, as ``jnp.mean`` does. A
+    LazyArray: its sum times 1/n (NaN for an empty one), integers cast to
+    float32 first."""
+    if _is_lazy(x):
+        if not x.dtype.is_floating_point:
+            x = x.cast(torch.float32)
+        return x.hsum() * ((1.0 / len(x)) if len(x) else float("nan"))
     x = _asarray(x)
     out = x.dtype if x.dtype.is_floating_point else torch.float32
     acc = torch.float64 if out == torch.float64 else torch.float32
@@ -142,63 +160,75 @@ def hmean(x, axis=None):
 
 
 def hsum_nested(x):
-    """Reduce across *all* axes."""
-    return _sum(x)
+    """Reduce across *all* axes (a LazyArray is flat: its hsum)."""
+    return hsum(x)
 
 
 def hprod_nested(x):
-    return _prod(x)
+    return hprod(x)
 
 
 def hmax_nested(x):
-    return _extreme(torch.amax, x, None)
+    return hmax(x)
 
 
 def hmin_nested(x):
-    return _extreme(torch.amin, x, None)
+    return hmin(x)
 
 
 def all_nested(mask):
     """all() across every nesting level."""
-    return torch.all(_truth(mask))
+    return all_(mask)
 
 
 def any_nested(mask):
-    return torch.any(_truth(mask))
+    return any_(mask)
 
 
 def none_nested(mask):
-    return ~torch.any(_truth(mask))
+    return none(mask)
 
 
 def count_nested(mask):
-    return torch.sum(_truth(mask), dtype=torch.int32)
+    return count(mask)
 
 
 def psum(x, axis=-1):
     """Inclusive prefix sum along ``axis``."""
+    if _is_lazy(x):
+        return x.psum()
     return _cumsum(_asarray(x), axis)
 
 
 def all_(mask, axis=None):
+    if _is_lazy(mask):
+        return mask.all()
     return torch.all(_truth(mask), **_dims(axis))
 
 
 def any_(mask, axis=None):
+    if _is_lazy(mask):
+        return mask.any()
     return torch.any(_truth(mask), **_dims(axis))
 
 
 def none(mask, axis=None):
+    if _is_lazy(mask):
+        return ~mask.any()
     return ~torch.any(_truth(mask), **_dims(axis))
 
 
 def count(mask, axis=None):
     """Number of true lanes, int32."""
+    if _is_lazy(mask):
+        return mask.count()
     return torch.sum(_truth(mask), dtype=torch.int32, **_dims(axis))
 
 
 def dot(a, b, axis=-1):
     """Sum of a*b over ``axis``."""
+    if _is_lazy(a) or _is_lazy(b):
+        return (a * b).hsum()
     return _sum(a * b, axis)
 
 
@@ -218,13 +248,17 @@ def squared_norm(a, axis=-1):
 def normalize(a, axis=-1):
     """a * rsqrt(sum(a*a, axis)), the rsqrt taken in float64 on an IEEE
     root and rounded once (``_rsqrt_rn``), so that the CPU and the card
-    agree."""
+    agree. A LazyArray takes the trace's rsqrt of its hsum."""
+    if _is_lazy(a):
+        return a * _trace().rsqrt((a * a).hsum())
     return a * _rsqrt_rn(_sum(a * a, axis, keepdim=True))
 
 
 def reverse(x, axis=0):
     """The order along ``axis`` reversed (the first axis by default;
     ``ops.reverse`` is the router's, on the last axis)."""
+    if _is_lazy(x):
+        return x.reverse()
     return _on_bits(lambda v: v.flip(axis), _asarray(x))
 
 
@@ -248,7 +282,16 @@ def compress(x, mask, fill=0):
     Returns ``(packed, count)``: ``packed`` has x's (static) shape, its
     first ``count`` lanes are the selected values and the rest ``fill``;
     ``count`` is an int32 0-d tensor, left on the device (no host sync).
-    Each selected lane's slot is the exclusive prefix sum of the mask."""
+    Each selected lane's slot is the exclusive prefix sum of the mask.
+
+    With a LazyArray ``x`` or ``mask`` both go on the trace (an eager one
+    as a data leaf) and the trace's COMPRESS records: both results are
+    lazy, and ``fill`` must be 0 (the trace zero-fills)."""
+    if _is_lazy(x) or _is_lazy(mask):
+        if fill != 0:
+            raise ValueError("lazy compress zero-fills (fill must be 0)")
+        dev = _lazy_device(x, mask)
+        return _lift_arr(x, dev).compress(_lift_arr(mask, dev))
     x, mask = _operands(x, mask)
     mask = _truth(mask)
     m = mask.to(torch.int32)

@@ -1,5 +1,5 @@
 """Transcendental math (counterpart of enoki_tpu/ops/math.py), ported
-whole but for its lazy half.
+whole.
 
 Parity target: the reference's branch-free, range-reduced polynomial
 transcendentals (array_math.h:445-1381) with the published accuracy
@@ -26,10 +26,17 @@ with a tensor takes the tensor's dtype and device, as a weakly typed
 scalar does in the reference; Python numbers alone make float32 tensors
 on the CUDA card, or raise without one.
 
-Every kernel is written against a primitive namespace (``_EPrim``), so
-that the same source can later instantiate for the port's ``LazyArray``:
-the reference's lazy (``_LPrim``) instantiation waits for the port of
-``trace/``.
+Every kernel is written against a primitive namespace (``_EPrim`` /
+``_LPrim``), so that the same source instantiates for tensors and for the
+port's ``trace.LazyArray``: ``sin(lazy_x, impl="poly")`` records the whole
+Cody-Waite reduction and polynomial as trace opcodes, which fuse into the
+surrounding lazy program at eval, and ``impl`` means the same on both.
+The lazy ``"native"`` route is the trace's own opcode (the float64
+function rounded once), which may differ from PyTorch's float32 function
+by an ulp; the lazy ``"poly"`` route is the same IEEE arithmetic as the
+eager one. A Python number beside a LazyArray stays a literal of its
+dtype; a tensor or numpy operand beside one becomes a data leaf (on the
+LazyArray's device, for numpy).
 """
 
 from __future__ import annotations
@@ -42,8 +49,9 @@ import torch
 
 from . import polys as P
 from . import polys64 as P64
-from .router import (_asarray, _maximum as _max, _minimum as _min,
-                     _sqrt_rn, _to_float, copysign as _copysign,
+from .router import (_asarray, _is_lazy, _lazy_device, _lift_arr,
+                     _maximum as _max, _minimum as _min, _sqrt_rn,
+                     _to_float, _trace, copysign as _copysign,
                      frexp as _frexp, ldexp as _ldexp, mulsign as _mulsign)
 
 _NATIVE = "native"
@@ -58,13 +66,19 @@ def _is_number(v):
 
 def _f(x):
     """x as a tensor (a Python value made on the card, ``router.
-    _asarray``), integers taken as float32."""
+    _asarray``), integers taken as float32; a LazyArray stays one, its
+    integers cast to float32."""
+    if _is_lazy(x):
+        return x if x.dtype.is_floating_point else x.cast(torch.float32)
     return _to_float(_asarray(x))
 
 
 def _scalar(x, v):
     """The Python number ``v`` as a 0-d tensor of x's dtype, on its device
-    (``jnp.asarray(v, x.dtype)``)."""
+    (``jnp.asarray(v, x.dtype)``); beside a LazyArray a literal of its
+    dtype."""
+    if _is_lazy(x):
+        return x._coerce(v)
     return torch.full((), v, dtype=x.dtype, device=x.device)
 
 
@@ -72,7 +86,10 @@ def _floats(*vs):
     """Every operand as a float tensor: tensors (integers as float32) as
     they are; a Python number in the tensors' promoted dtype on the first
     one's device, as a weakly typed scalar; Python numbers alone as float32
-    on the card."""
+    on the card. With a LazyArray among them, every operand is put on the
+    trace (``_lazy_floats``)."""
+    if any(_is_lazy(v) for v in vs):
+        return _lazy_floats(*vs)
     ts = [_f(v) for v in vs if not _is_number(v)]
     if not ts:
         return tuple(_f(v) for v in vs)
@@ -80,6 +97,27 @@ def _floats(*vs):
     it = iter(ts)
     return tuple(torch.full((), v, dtype=dtype, device=ts[0].device)
                  if _is_number(v) else next(it) for v in vs)
+
+
+def _lazy_floats(*vs):
+    """Every operand as a float LazyArray: LazyArrays (integers cast to
+    float32) as they are, a Python number a literal of the first
+    LazyArray's dtype, a tensor or numpy operand a data leaf (numpy on the
+    LazyArray's device) cast to that dtype, as the reference lifts them
+    (``_prim2``, ``special._dispatch_many``)."""
+    dev = _lazy_device(*vs)
+    ref = _f(next(v for v in vs if _is_lazy(v)))
+    out = []
+    for v in vs:
+        if _is_lazy(v):
+            v = _f(v)
+        elif _is_number(v):
+            v = ref._coerce(float(v))
+        else:
+            v = _lift_arr(v, dev)
+            v = v if v.dtype == ref.dtype else v.cast(ref.dtype)
+        out.append(v)
+    return tuple(out)
 
 
 def _maximum(a, b):
@@ -105,7 +143,8 @@ def _bf16_safe(fn):
 
     @functools.wraps(fn)
     def wrapped(x, impl=_NATIVE, **kw):
-        x = _asarray(x)
+        if not _is_lazy(x):
+            x = _asarray(x)
         if x.dtype in _16BIT:
             out = fn(x.to(torch.float32), impl, **kw)
             if isinstance(out, tuple):
@@ -163,17 +202,37 @@ class _EPrim:
     fmod_native = staticmethod(torch.fmod)
 
 
+class _LPrim:
+    """The trace's instance: primitives record opcodes; ``*_native`` is the
+    trace's opcode for the same function."""
+
+    def __getattr__(self, name):
+        tr = _trace()
+        fn = getattr(tr, name[:-7] if name.endswith("_native") else name)
+        setattr(self, name, fn)  # cache
+        return fn
+
+    @staticmethod
+    def where(m, a, b):
+        return _trace().select(m, a, b)
+
+    full_like = staticmethod(_scalar)
+
+
 _EP = _EPrim()
+_LP = _LPrim()
 
 
 def _prim(x):
-    """(ns, x): the primitive namespace, x float-coerced."""
-    return _EP, _f(x)
+    """(ns, x): the primitive namespace for x's backend, x float-coerced."""
+    return (_LP if _is_lazy(x) else _EP), _f(x)
 
 
 def _prim2(a, b):
-    """(ns, a, b): two operands on one device and dtype (``_floats``)."""
-    return (_EP,) + _floats(a, b)
+    """(ns, a, b): two operands on one device and dtype (``_floats``);
+    both on the trace if either is a LazyArray."""
+    a, b = _floats(a, b)
+    return (_LP if _is_lazy(a) else _EP), a, b
 
 
 # ---------------------------------------------------------------------------

@@ -90,7 +90,8 @@ def poly10(x, c0, c1, c2, c3, c4, c5, c6, c7, c8, c9, c10):
 
 def horner(x, coeffs):
     """Horner fallback for arbitrary-degree polynomials (coeffs low->high)."""
-    acc = torch.full_like(x, _c(x, coeffs[-1]))
+    acc = (torch.full_like(x, _c(x, coeffs[-1]))
+           if isinstance(x, torch.Tensor) else x._coerce(_c(x, coeffs[-1])))
     for c in reversed(coeffs[:-1]):
         acc = acc * x + _c(x, c)
     return acc

@@ -21,8 +21,9 @@ two 16-bit neighbours of x (x itself where it is representable), and its
 mean over the random bits is x. Which neighbour a given seed picks differs
 from the reference, whose kernel draws from its device's own generator.
 None of them has a gradient (the reference's is a bit cast): outputs are
-detached. The lazy (``LazyArray``) branches of the reference wait for the
-port of ``trace/``.
+detached. ``round_``, ``round_half_away``, ``floor``, ``ceil`` and
+``trunc`` also take a ``trace.LazyArray`` and record the trace's
+ROUND / FLOOR / CEIL / TRUNC opcodes.
 """
 
 from __future__ import annotations
@@ -32,19 +33,26 @@ import math
 import torch
 
 from .. import _build
-from .router import _sqrt_rn
+from .router import _is_lazy, _sqrt_rn, _trace
 
 _M32 = 0xFFFFFFFF
 
 
 def round_(x):
     """Round half to even."""
+    if _is_lazy(x):
+        return _trace().round(x)
     return torch.round(x)
 
 
 def round_half_away(x):
     # NOT trunc(x + 0.5): adding 0.5 first double-rounds (e.g. the largest
     # f32 below 0.5 would round to 1). Compare the exact fractional part.
+    if _is_lazy(x):
+        tr = _trace()
+        t = tr.trunc(x)
+        bump = (abs(x - t) >= 0.5).cast(x.dtype)
+        return t + tr.select(x >= 0.0, bump, -bump)
     t = torch.trunc(x)
     frac = x - t  # exact: x and t share the exponent range
     bump = (frac.abs() >= 0.5).to(x.dtype)
@@ -52,14 +60,20 @@ def round_half_away(x):
 
 
 def floor(x):
+    if _is_lazy(x):
+        return _trace().floor(x)
     return torch.floor(x)
 
 
 def ceil(x):
+    if _is_lazy(x):
+        return _trace().ceil(x)
     return torch.ceil(x)
 
 
 def trunc(x):
+    if _is_lazy(x):
+        return _trace().trunc(x)
     return torch.trunc(x)
 
 

@@ -1,10 +1,16 @@
 """Core ops (counterpart of enoki_tpu/ops/router.py), ported whole.
 
 Every public function of the reference, with its name, argument order
-and defaults, as plain PyTorch on tensors. The reference's lazy
-``LazyArray`` branch of each function is left out: it waits for the port
-of ``trace/``. Tensors are updated functionally, as in the reference:
-``scatter`` and ``scatter_add`` return a new tensor.
+and defaults, as plain PyTorch on tensors, and its lazy branch: given a
+``trace.LazyArray`` operand, a function records trace ops instead ("one
+source, every backend", the route macros of array_router.h:23-158) and
+returns a LazyArray. Lifted operands follow the trace's device rule: a
+numpy array or list beside a LazyArray becomes a data leaf on that
+LazyArray's device, a tensor keeps its own (an operand on another device
+raises when the op is recorded), and a Python number stays a literal of
+the LazyArray's dtype. Tensors are updated functionally, as in the
+reference: ``scatter`` and ``scatter_add`` return a new tensor; a lazy
+``scatter`` records into its target and returns it.
 
 Dtypes follow the reference with JAX's 64-bit types off: a Python int
 becomes int32 and a Python float float32 where the reference calls
@@ -21,6 +27,7 @@ Python values alone makes it on the CUDA card, or raises without one.
 from __future__ import annotations
 
 import math
+import sys
 
 import numpy as np
 import torch
@@ -132,6 +139,59 @@ def _to_float(x):
 
 
 # ---------------------------------------------------------------------------
+# The lazy route: LazyArray operands record trace ops
+# ---------------------------------------------------------------------------
+
+
+def _is_lazy(x) -> bool:
+    """Whether x is a LazyArray of the port's ``trace`` (by its class's
+    module, so that asking imports, and builds, nothing)."""
+    return type(x).__module__.startswith("enoki_tpu_torch.trace")
+
+
+def _lazy_any(*xs):
+    return any(_is_lazy(x) for x in xs)
+
+
+def _trace():
+    import enoki_tpu_torch.trace as tr
+    return tr
+
+
+def _lazy_device(*xs):
+    """The device of the first LazyArray among ``xs`` that has one (a
+    device-free scalar literal has none): where lifted leaves go."""
+    return next((x.device for x in xs
+                 if _is_lazy(x) and x.device is not None), None)
+
+
+def _lift(v, device=None):
+    """``v`` onto the trace: a LazyArray as it is, a Python number as it is
+    (the trace's ops coerce it to a literal of the other operand's dtype),
+    anything else a data leaf (``_lift_arr``)."""
+    if _is_lazy(v) or isinstance(v, (bool, int, float)):
+        return v
+    return _lift_arr(v, device)
+
+
+def _lift_arr(v, device=None):
+    """``v`` as a LazyArray: a LazyArray as it is, a tensor a 1-D data leaf
+    on its own device, numpy values or a Python number (bool, int32 or
+    float32, as ``jnp.asarray`` makes it) a 1-D data leaf on ``device``,
+    the device of the LazyArray beside it."""
+    if _is_lazy(v):
+        return v
+    tr = _trace()
+    if isinstance(v, torch.Tensor):
+        return tr.LazyArray(torch.atleast_1d(v))
+    for kind, dtype in _SCALAR_DTYPE[:3]:
+        if isinstance(v, kind):
+            return tr.LazyArray(torch.tensor([v], dtype=dtype,
+                                             device=resolve_device(device)))
+    return tr.LazyArray(np.atleast_1d(np.asarray(v)), device=device)
+
+
+# ---------------------------------------------------------------------------
 # Constructors
 # ---------------------------------------------------------------------------
 
@@ -195,7 +255,19 @@ def linspace(start, stop, num, dtype=torch.float32, device=None):
 
 def meshgrid(x, y):
     """``meshgrid(x, y)`` with 'xy' indexing, flattened: x varies fastest.
-    Returns ``(xs, ys)`` of length ``len(x) * len(y)``."""
+    Returns ``(xs, ys)`` of length ``len(x) * len(y)``.
+
+    LazyArray inputs: the index patterns enter as int32 data leaves on the
+    inputs' device and the expansion is a pair of lazy gathers."""
+    if _lazy_any(x, y):
+        dev = _lazy_device(x, y)
+        x, y = _lift_arr(x, dev), _lift_arr(y, dev)
+        nx, ny = len(x), len(y)
+        lane = torch.arange(nx * ny, dtype=torch.int32,
+                            device=resolve_device(dev))
+        LazyArray = _trace().LazyArray
+        return (x.gather(LazyArray(lane % nx)),
+                y.gather(LazyArray(lane // nx)))
     xs, ys = torch.meshgrid(x, y, indexing="xy")
     return xs.reshape(-1), ys.reshape(-1)
 
@@ -207,11 +279,19 @@ def meshgrid(x, y):
 
 def select(mask, a, b):
     """``select(mask, a, b)``: lanewise mask ? a : b."""
+    if _lazy_any(mask, a, b):
+        dev = _lazy_device(mask, a, b)
+        return _trace().select(_lift_arr(mask, dev), _lift(a, dev),
+                               _lift(b, dev))
     return torch.where(mask, a, b)
 
 
 def masked_assign(x, mask, value):
     """Functional form of ``masked(x, m) = v``: returns the new tensor."""
+    if _lazy_any(x, mask, value):
+        dev = _lazy_device(x, mask, value)
+        return _trace().select(_lift_arr(mask, dev), _lift(value, dev),
+                               _lift(x, dev))
     return torch.where(mask, value, x)
 
 
@@ -249,13 +329,38 @@ def _odd_lanes(a, b, c):
     return torch.arange(n, device=device) % 2 == 1
 
 
+def _odd_lanes_lazy(a, b, c):
+    """The odd-lane mask over the widest of the operands (an eager one
+    included), as a lazy bool array on their device."""
+    def w(v):
+        if _is_lazy(v):
+            return len(v)
+        s = tuple(v.shape) if isinstance(v, torch.Tensor) else ()
+        return s[-1] if s else 1
+
+    n = max(w(v) for v in (a, b, c))
+    lane = _trace().LazyArray.arange(n, device=_lazy_device(a, b, c))
+    return (lane & 1) == 1
+
+
+def _lazy_abc(a, b, c):
+    dev = _lazy_device(a, b, c)
+    return tuple(_lift(v, dev) for v in (a, b, c))
+
+
 def fmaddsub(a, b, c):
     """Even lanes a*b-c, odd lanes a*b+c."""
+    if _lazy_any(a, b, c):
+        a, b, c = _lazy_abc(a, b, c)
+        return _trace().select(_odd_lanes_lazy(a, b, c), a * b + c, a * b - c)
     return torch.where(_odd_lanes(a, b, c), a * b + c, a * b - c)
 
 
 def fmsubadd(a, b, c):
     """Even lanes a*b+c, odd lanes a*b-c."""
+    if _lazy_any(a, b, c):
+        a, b, c = _lazy_abc(a, b, c)
+        return _trace().select(_odd_lanes_lazy(a, b, c), a * b - c, a * b + c)
     return torch.where(_odd_lanes(a, b, c), a * b - c, a * b + c)
 
 
@@ -271,6 +376,8 @@ def rcp(x):
 
 def rsqrt(x):
     """Reciprocal square root."""
+    if _lazy_any(x):
+        return _trace().rsqrt(x)
     return torch.rsqrt(x)
 
 
@@ -380,6 +487,8 @@ def _clz(v, w):
 
 def popcnt(x):
     """Set bits of each element, in x's dtype."""
+    if _lazy_any(x):
+        return _trace().popcnt(x)
     x = _asarray(x)
     w, _ = _width(x.dtype)
     v = _bits(x)
@@ -390,6 +499,8 @@ def popcnt(x):
 
 def lzcnt(x):
     """Leading zero bits of each element at x's width, in x's dtype."""
+    if _lazy_any(x):
+        return _trace().clz(x)
     x = _asarray(x)
     w, _ = _width(x.dtype)
     return _from_bits(_clz(_bits(x), w), x.dtype)
@@ -397,6 +508,10 @@ def lzcnt(x):
 
 def tzcnt(x):
     """Trailing zero bits: w - 1 - lzcnt(x & -x), and w for x == 0."""
+    if _lazy_any(x):
+        tr = _trace()
+        w = x.dtype.itemsize * 8
+        return tr.select(x == 0, w, (w - 1) - tr.clz(x & (-x)))
     x = _asarray(x)
     w, _ = _width(x.dtype)
     v = _bits(x)
@@ -407,6 +522,8 @@ def tzcnt(x):
 def log2i(x):
     """Integer log2: the position of the highest set bit, w - 1 -
     lzcnt(x); -1 in x's dtype (all bits set) for x == 0."""
+    if _lazy_any(x):
+        return (x.dtype.itemsize * 8 - 1) - _trace().clz(x)
     x = _asarray(x)
     w, _ = _width(x.dtype)
     return _from_bits((w - 1) - _clz(_bits(x), w), x.dtype)
@@ -470,6 +587,8 @@ def rol(x, k):
 
 def reinterpret(x, dtype):
     """Bit-level reinterpret cast to a dtype of the same width."""
+    if _lazy_any(x):
+        return x.bitcast(dtype)
     return x.view(dtype)
 
 
@@ -489,6 +608,14 @@ def _float_layout(x):
 def ldexp(x, e):
     """x * 2^e via direct exponent-field arithmetic (finite x, moderate
     e). Zero inputs stay zero, inf/NaN propagate unchanged."""
+    if _lazy_any(x, e):
+        dev = _lazy_device(x, e)
+        x, mbits, itype, _, _ = _float_layout(_lift_arr(x, dev))
+        bits = x.bitcast(itype)
+        scaled = (bits + (_lift_arr(e, dev).cast(itype) << mbits)).bitcast(
+            x.dtype)
+        tr = _trace()
+        return tr.select((x == 0.0) | ~tr.isfinite(x), x, scaled)
     x, mbits, itype, _, _ = _float_layout(x)
     if not isinstance(e, torch.Tensor):
         e = torch.as_tensor(e, device=x.device)
@@ -502,6 +629,15 @@ def frexp(x):
     x == mantissa * 2**exponent; (0, 0) for x == 0. The exponent has the
     integer dtype of x's width."""
     x, mbits, itype, emask, bias = _float_layout(x)
+    if _lazy_any(x):
+        bits = x.bitcast(itype)
+        exp = ((bits >> mbits) & emask) - (bias - 1)
+        mant_bits = (bits & ~(emask << mbits)) | ((bias - 1) << mbits)
+        mant = mant_bits.bitcast(x.dtype)
+        zero = x == 0.0
+        tr = _trace()
+        return (tr.select(zero, x._coerce(0.0), mant),
+                tr.select(zero, exp._coerce(0), exp))
     bits = x.view(itype)
     exp = ((bits >> mbits) & emask) - (bias - 1)
     mant_bits = (bits & ~(emask << mbits)) | ((bias - 1) << mbits)
@@ -525,7 +661,21 @@ def gather(source, index, mask=None, fill=0):
     """``gather(source, index, mask)`` along the first axis. Masked-off
     lanes produce ``fill``; out-of-range indices clamp, and masked lanes
     are forced in range first so the clamp cannot hide a real one under a
-    valid mask."""
+    valid mask.
+
+    LazyArray operands record a trace gather (the index clamped into
+    range, as here)."""
+    if _lazy_any(source, index, mask):
+        dev = _lazy_device(source, index, mask)
+        tr = _trace()
+        source, index = _lift_arr(source, dev), _lift_arr(index, dev)
+        if mask is not None:
+            mask = _lift_arr(mask, dev)
+            index = tr.select(mask, index, 0)
+        out = source.gather(index)
+        if mask is not None:
+            out = tr.select(mask, out, _lift(fill, dev))
+        return out
     if mask is not None:
         index = torch.where(mask, index, 0)
     out = source[index.long().clamp(0, source.shape[0] - 1)]
@@ -570,7 +720,18 @@ def scatter(target, value, index, mask=None):
     """``scatter(target, value, index, mask)``: a new tensor with
     ``value`` written at ``index`` along the first axis. Which of two
     lanes with the same index wins is not defined (nor is it in the
-    reference). Lanes that ``_dropped_slot`` names write nothing."""
+    reference). Lanes that ``_dropped_slot`` names write nothing.
+
+    LazyArray target or operands: a lazy scatter into the target (which
+    goes dirty), masked-off lanes sent to a dropped slot past its end; the
+    target itself is returned, updated lazily in place."""
+    if _lazy_any(target, value, index, mask):
+        dev = _lazy_device(target, value, index, mask)
+        target = _lift_arr(target, dev)
+        index, value = _lift_arr(index, dev), _lift(value, dev)
+        if mask is not None:
+            index = _trace().select(_lift_arr(mask, dev), index, len(target))
+        return target.scatter(index, value)
     n = target.shape[0]
     index, value = _lanes(target, value, _dropped_slot(index, n, mask))
     return _padded(target).index_put_((index,), value)[:n]
@@ -588,7 +749,19 @@ def scatter_add(target, value, index, mask=None):
     materialise it. On a CUDA card ``index_add_`` of floats uses atomic
     adds, whose order changes from run to run: a float result may differ
     in the last bits between two runs. ``ops.histogram`` is the
-    reproducible route for a small dense target."""
+    reproducible route for a small dense target.
+
+    LazyArray target or operands: a lazy conflict-safe scatter_add into the
+    target (atomic adds on the card), masked-off and negative in-mask
+    lanes sent to a dropped slot; the target is returned."""
+    if _lazy_any(target, value, index, mask):
+        dev = _lazy_device(target, value, index, mask)
+        target = _lift_arr(target, dev)
+        index, value = _lift_arr(index, dev), _lift(value, dev)
+        if mask is not None:
+            oob = (index < index._coerce(0)) | ~_lift_arr(mask, dev)
+            index = _trace().select(oob, index._coerce(len(target)), index)
+        return target.scatter_add(index, value)
     n = target.shape[0]
     index, value = _lanes(target, value, _dropped_slot(index, n, mask))
     return _padded(target).index_add_(0, index, value)[:n]
@@ -633,7 +806,21 @@ def clamp(x, lo, hi):
     promotes an integer x to float32, NaN in x stays NaN, -0.0 clamped at
     0 becomes +0.0 (``torch.clamp`` keeps -0.0), and lo > hi gives hi. A
     Python bound is a 0-d tensor, which does not widen x's float
-    dtype."""
+    dtype. Over a LazyArray a float bound promotes an integer x the same
+    way."""
+    if _lazy_any(x, lo, hi):
+        dev = _lazy_device(x, lo, hi)
+        x = _lift_arr(x, dev)
+
+        def isfloat(v):
+            if isinstance(v, float):
+                return True
+            dt = getattr(v, "dtype", None)
+            return isinstance(dt, torch.dtype) and dt.is_floating_point
+
+        if not x.dtype.is_floating_point and (isfloat(lo) or isfloat(hi)):
+            x = x.cast(torch.float32)
+        return _trace().clamp(x, _lift(lo, dev), _lift(hi, dev))
     lo, hi = (torch.as_tensor(v, device=x.device) for v in (lo, hi))
     return _minimum(_maximum(x, lo), hi)
 
@@ -647,6 +834,8 @@ def lerp(a, b, t):
 def sign(x):
     """copysign(1, x): sign(+-0) is +-1 and sign(+-NaN) is +-1, unlike
     ``torch.sign``; an integer x gives -1 or 1 in its dtype."""
+    if _lazy_any(x):
+        return _trace().sign(x)
     x = _asarray(x)
     one = torch.ones_like(x)
     if x.dtype.is_floating_point:
@@ -657,6 +846,9 @@ def sign(x):
 def copysign(a, b):
     """|a| with the sign bit of b, in the promoted float dtype (integers
     promote to float32, as in the reference)."""
+    if _lazy_any(a, b):
+        dev = _lazy_device(a, b)
+        return _trace().copysign(_lift_arr(a, dev), _lift(b, dev))
     a, b = _operands(a, b)
     dt = torch.promote_types(a.dtype, b.dtype)
     if not dt.is_floating_point:
@@ -668,6 +860,16 @@ def mulsign(a, b):
     """a with its sign bit flipped where b's sign bit is set (a * sign(b)
     for floats, -0.0 included). For integers, -a where b < 0, in the
     promoted integer dtype, as in the reference."""
+    if _lazy_any(a, b):
+        tr = _trace()
+        dev = _lazy_device(a, b)
+        a, b = _lift_arr(a, dev), _lift_arr(b, dev)
+        if not b.dtype.is_floating_point:
+            # integers have no sign bit: -a where b < 0, the integer
+            # dtype kept
+            return tr.select(b < 0, -a, a)
+        # a * copysign(1, b): follows the sign bit (mulsign(-0.0) flips)
+        return a * tr.copysign(b._coerce(1.0), b)
     a, b = _operands(a, b)
     dt = torch.promote_types(a.dtype, b.dtype)
     if not dt.is_floating_point:
@@ -684,6 +886,11 @@ def cross(a, b, axis=-1):
         from ..render.vec import cross3
 
         return cross3(a, b)
+    if _lazy_any(a, b):
+        # a LazyArray is 1-D: there is no component axis to cross over
+        raise TypeError(
+            "cross over the lazy backend takes Vec3 component structs "
+            "(render.vec.Vec3 of LazyArrays), not flat 1-D arrays")
     a, b = torch.broadcast_tensors(*_operands(a, b))
     a0, a1, a2 = a.unbind(axis)
     b0, b1, b2 = b.unbind(axis)
@@ -693,18 +900,24 @@ def cross(a, b, axis=-1):
 
 def copysign_neg(a, b):
     """copysign(a, -b)."""
+    if _lazy_any(a, b):
+        return copysign(a, -_lift_arr(b, _lazy_device(a, b)))
     a, b = _operands(a, b)
     return copysign(a, _negate(b))
 
 
 def mulsign_neg(a, b):
     """mulsign(a, -b)."""
+    if _lazy_any(a, b):
+        return mulsign(a, -_lift_arr(b, _lazy_device(a, b)))
     a, b = _operands(a, b)
     return mulsign(a, _negate(b))
 
 
 def abs_(x):
     """|x|; an unsigned x is its own magnitude."""
+    if _lazy_any(x):
+        return abs(x)
     x = _asarray(x)
     return x if x.dtype in _UNSIGNED else torch.abs(x)
 
@@ -719,14 +932,20 @@ def sqr(x):
 
 
 def isnan(x):
+    if _lazy_any(x):
+        return _trace().isnan(x)
     return torch.isnan(x)
 
 
 def isinf(x):
+    if _lazy_any(x):
+        return _trace().isinf(x)
     return torch.isinf(x)
 
 
 def isfinite(x):
+    if _lazy_any(x):
+        return _trace().isfinite(x)
     return torch.isfinite(x)
 
 
@@ -735,6 +954,9 @@ def isdenormal(x):
     IEEE answer: PyTorch and the card keep subnormals, while the
     reference on XLA's CPU backend flushes f32 subnormals and answers
     False there."""
+    if _lazy_any(x):
+        a = abs(x)
+        return (a < torch.finfo(x.dtype).tiny) & (a > 0.0)
     x = _asarray(x)
     a = torch.abs(x)
     return (a < torch.finfo(x.dtype).tiny) & (a > 0)
@@ -744,7 +966,10 @@ def allclose(a, b, rtol=None, atol=None, equal_nan=False):
     """A Python bool: ``|a - b| <= atol + rtol*|b|`` everywhere, in the
     promoted dtype (integers compare as float32). The defaults depend on
     it, as in the reference: 1e-5 / 1e-8 for float64, 1e-3 / 1e-5
-    otherwise."""
+    otherwise. LazyArrays are evaluated first: the verdict is a host
+    value."""
+    if _lazy_any(a, b):
+        a, b = (v.torch() if _is_lazy(v) else v for v in (a, b))
     a, b = _operands(a, b)
     dt = torch.promote_types(a.dtype, b.dtype)
     if rtol is None:
@@ -813,7 +1038,16 @@ class _SafeSqrt(torch.autograd.Function):
 
 def safe_sqrt(x):
     """sqrt(max(x, 0)), correctly rounded, with a zero (not infinite)
-    gradient at x <= 0."""
+    gradient at x <= 0.
+
+    Over a LazyArray the value is the clamped branch, selected: the tape
+    then sends a zero cotangent into the branch not taken, as the custom
+    derivative does here. The clamp is the input dtype's tiny, and NaN
+    stays NaN (the branch not taken is ``x * 0``, not a literal 0)."""
+    if _lazy_any(x):
+        tr = _trace()
+        return tr.select(x > 0.0, tr.sqrt(tr.maximum(
+            x, torch.finfo(x.dtype).tiny)), x * 0.0)
     return _SafeSqrt.apply(x)
 
 
@@ -844,6 +1078,9 @@ class _SafeRsqrt(torch.autograd.Function):
 def safe_rsqrt(x):
     """rsqrt(max(x, finfo.tiny)) of x's float dtype: finite everywhere,
     with a zero gradient at x <= 0. The root is ``_rsqrt_rn``'s."""
+    if _lazy_any(x):
+        tr = _trace()
+        return tr.rsqrt(tr.maximum(x, torch.finfo(x.dtype).tiny))
     return _SafeRsqrt.apply(_to_float(_asarray(x)))
 
 
@@ -881,13 +1118,35 @@ class _SafeArc(torch.autograd.Function):
     vmap = _elementwise_vmap(lambda x, fn, sign: _SafeArc.apply(x, fn, sign))
 
 
+def _below_one(dtype):
+    """The largest value below 1 in ``dtype``: a clamp to it changes no
+    value inside (-1, 1) and keeps asin' and acos' finite."""
+    one = torch.ones((), dtype=dtype)
+    return float(torch.nextafter(one, torch.zeros((), dtype=dtype)))
+
+
 def safe_asin(x):
-    """asin(clamp(x, -1, 1)), with a zero gradient outside (-1, 1)."""
+    """asin(clamp(x, -1, 1)), with a zero gradient outside (-1, 1).
+
+    Over a LazyArray: asin of x clamped below 1 in magnitude where
+    |x| < 1, and the exact +-pi/2 (whose derivative is 0) elsewhere."""
+    if _lazy_any(x):
+        tr = _trace()
+        c = _below_one(x.dtype)
+        return tr.select(abs(x) < 1.0, tr.asin(tr.clamp(x, -c, c)),
+                         tr.copysign(x * 0.0 + 1.5707963267948966, x))
     return _SafeArc.apply(_to_float(_asarray(x)), torch.asin, 1)
 
 
 def safe_acos(x):
-    """acos(clamp(x, -1, 1)), with a zero gradient outside (-1, 1)."""
+    """acos(clamp(x, -1, 1)), with a zero gradient outside (-1, 1); over
+    a LazyArray as ``safe_asin`` is."""
+    if _lazy_any(x):
+        tr = _trace()
+        c = _below_one(x.dtype)
+        return tr.select(abs(x) < 1.0, tr.acos(tr.clamp(x, -c, c)),
+                         tr.select(x > 0.0, x * 0.0,
+                                   x * 0.0 + 3.141592653589793))
     return _SafeArc.apply(_to_float(_asarray(x)), torch.acos, -1)
 
 
@@ -909,6 +1168,8 @@ def repeat(x, count):
 
 def reverse(x):
     """The order of the last axis reversed; a 0-d x as it is."""
+    if _lazy_any(x):
+        return x.reverse()
     x = _asarray(x)
     return _on_bits(lambda v: v.flip(-1), x) if x.ndim else x
 
@@ -960,7 +1221,17 @@ def range_packets(n, width, dim=1, device=None):
 def extract(value, mask):
     """``value`` at the first set lane of ``mask`` (flattened), as a
     size-1 tensor; element 0 when no lane is set. An index past the first
-    axis clamps, as the reference's indexing does. No host sync."""
+    axis clamps, as the reference's indexing does. No host sync.
+    LazyArray operands stay lazy (a trace compress and gather)."""
+    if _lazy_any(value, mask):
+        dev = _lazy_device(value, mask)
+        tr = _trace()
+        value, mask = _lift_arr(value, dev), _lift_arr(mask, dev)
+        packed, _ = value.compress(mask)
+        zero = tr.LazyArray.zeros(1, torch.int32, device=value.device or dev)
+        # no lane set: compress zero-fills, but the contract reads
+        # element 0 of value
+        return tr.select(mask.any(), packed.gather(zero), value.gather(zero))
     value, mask = _operands(value, mask)
     first = torch.argmax(mask.reshape(-1).to(torch.int32))
     return value[first.clamp(max=value.shape[0] - 1)][None]
@@ -978,7 +1249,14 @@ def binary_search(start, end, pred, device=None):
     floor(log2(end - start)) + 1 trips. ``pred`` receives int32 index
     tensors on ``device`` (None: the CUDA card, or raise), a 0-d one on
     the first trip, as start and end are host ints. The result is int32
-    on ``device``: ``start`` for end <= start."""
+    on ``device``: ``start`` for end <= start.
+
+    The first trip is also the backend probe: a ``pred`` over LazyArray
+    state (the trace's ops take a tensor index) returns a LazyArray, and
+    the search records trace ops from there on. A ``pred`` that refuses a
+    tensor index is called again with a LazyArray literal, unless it
+    recorded a trace side effect before it refused (a second call would
+    record it twice): that raises."""
     device = resolve_device(device)
 
     def i32(v):
@@ -989,7 +1267,34 @@ def binary_search(start, end, pred, device=None):
     if not iters:
         return i32(start)
     mid0 = (start + end) >> 1
-    cond = pred(i32(mid0))
+    tr = sys.modules.get("enoki_tpu_torch.trace")
+    effects = tr._lib.ett_num_side_effects() if tr is not None else 0
+    try:
+        cond = pred(i32(mid0))
+    except Exception as refused:
+        if tr is None:
+            raise
+        if tr._lib.ett_num_side_effects() != effects:
+            raise RuntimeError(
+                "binary_search: the predicate recorded trace side effects "
+                "before it refused a tensor index; make it take both index "
+                "types, or free of side effects, so that the probe call "
+                "can be its first trip") from refused
+        try:
+            cond = pred(tr.LazyArray.literal(mid0, 1, torch.int32, device))
+        except Exception:
+            raise refused
+    if _is_lazy(cond):
+        tr = _trace()
+        # the probe's cond is trip 1 (scalar bounds)
+        lo = tr.select(cond, min(mid0 + 1, end), start)
+        hi = tr.select(cond, end, mid0)
+        for _ in range(iters - 1):
+            mid = (lo + hi) >> 1
+            cond = pred(mid)
+            lo = tr.select(cond, tr.minimum(mid + 1, hi), lo)
+            hi = tr.select(cond, hi, mid)
+        return lo + hi * 0
     lo = torch.where(cond, i32(min(mid0 + 1, end)), i32(start))
     hi = torch.where(cond, i32(end), i32(mid0))
     for _ in range(iters - 1):
@@ -1003,5 +1308,8 @@ def binary_search(start, end, pred, device=None):
 def sqrt(x):
     """Square root, correctly rounded (``_sqrt_rn``), as ``safe_sqrt``
     is: PyTorch's CPU float32 sqrt is 1 ulp off on about 0.6% of inputs.
-    Integers give float32."""
+    Integers give float32; a LazyArray records the trace's sqrt (correctly
+    rounded on both routes)."""
+    if _lazy_any(x):
+        return _trace().sqrt(x)
     return _sqrt_rn(_to_float(_asarray(x)))

@@ -1,5 +1,5 @@
 """Special functions (counterpart of enoki_tpu/ops/special.py), ported
-whole but for its lazy half: the error-function family, Bessel i0e,
+whole: the error-function family, Bessel i0e,
 Dawson/erfi, the gamma family, the Carlson symmetric forms and the
 Legendre elliptic integrals.
 
@@ -27,9 +27,14 @@ functions are different approximations, so a comparison of the two
 packages goes through ``"poly"``.
 
 Every function reaches its op namespace through ``_dispatch`` /
-``_dispatch_many`` over ``backend.math_ns``, the place where the lazy
-(``LazyArray``) instantiation of the reference plugs in once ``trace/``
-is ported. Square roots are correctly rounded (``router._sqrt_rn``), and a
+``_dispatch_many`` over ``backend.math_ns``, so that the same source
+instantiates for ``trace.LazyArray``: over a LazyArray every function
+records trace opcodes that fuse into the surrounding program (all of
+special.h works on CUDAArray<float> in the source paper). As in the
+reference, the lazy namespace is the trace's opcodes whatever ``impl``
+says (erf, erfc and lgamma have opcodes of their own), and the lazy
+``erfinv`` and ``i0e`` take the polynomial route for ``"native"`` too.
+Square roots are correctly rounded (``router._sqrt_rn``), and a
 division by a number that is not a power of two divides by a tensor that
 holds it (``_c``): PyTorch's CUDA kernels multiply by the reciprocal of a
 Python number instead, and compute a Python number divided by a tensor as
@@ -55,10 +60,10 @@ _POLY = "poly"
 # ---------------------------------------------------------------------------
 # Backend dispatch ("one source, every backend"): every function below is
 # written against a generic op namespace `ns` -- ops.backend.math_ns -- so
-# that the same polynomial/iterative source can instantiate for the lazy
-# trace once it is ported (the reference's architectural headline: all of
-# special.h works on CUDAArray<float> because everything routes through
-# L2 free functions, array_router.h:23-158).
+# that the same polynomial/iterative source instantiates for the lazy
+# trace (the reference's architectural headline: all of special.h works
+# on CUDAArray<float> because everything routes through L2 free
+# functions, array_router.h:23-158).
 # ---------------------------------------------------------------------------
 
 
@@ -70,7 +75,8 @@ def _dispatch(x, impl=_POLY):
 
 def _dispatch_many(impl, *xs):
     """Multi-operand dispatch: every operand a float tensor on one device,
-    a Python number in the tensors' dtype (``math._floats``)."""
+    a Python number in the tensors' dtype (``math._floats``); with a
+    LazyArray among them, all of them on the trace."""
     out = _floats(*xs)
     return B.math_ns(out[0], impl), out
 
@@ -360,8 +366,9 @@ _ERFINV_P2 = (2.83297682, 1.00167406, 0.00943887047, -0.0076224613,
 
 def erfinv(x, impl=_NATIVE):
     """Inverse error function; erfinv(+-1) = +-inf."""
+    lazy = B.is_lazy(x)
     ns, x = _dispatch(x, impl if impl != _NATIVE else _POLY)
-    if impl == _NATIVE:
+    if impl == _NATIVE and not lazy:
         return torch.special.erfinv(x)
     # the Giles fit composes from generic ops (the reference's lazy
     # impl="native" reroutes here too)
@@ -434,8 +441,9 @@ def _chbevl(x, coeffs):
 
 
 def i0e(x, impl=_NATIVE):
+    lazy = B.is_lazy(x)
     ns, x = _dispatch(x, impl)
-    if impl == _NATIVE:
+    if impl == _NATIVE and not lazy:
         return torch.special.i0e(x)
     a = ns.abs(x)
     if x.dtype == torch.float64:

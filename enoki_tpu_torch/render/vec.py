@@ -1,9 +1,10 @@
 """SoA 2/3-vectors for the render pipeline (counterpart of
 enoki_tpu/render/vec.py).
 
-Each component is a full tensor, so every vector op is elementwise. Eager
-torch only: the lazy ``LazyArray`` dispatch of the reference waits for the
-port of ``trace/``.
+Each component is a full tensor, so every vector op is elementwise. The
+components may be ``trace.LazyArray``s (Vector3fC): the operators record
+into the trace, and ``norm3``, ``normalize3``, ``unit_angle`` and
+``unit_angle_z`` take the trace's sqrt, rsqrt, asin and select.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import math
 import torch
 
 from .._device import resolve_device
-from ..ops.router import _plain_rsqrt, _plain_sqrt, copysign, mulsign
+from ..ops.router import (_is_lazy, _plain_rsqrt, _plain_sqrt, _trace,
+                          copysign, mulsign)
 from ..struct.pytree import register
 
 
@@ -58,8 +60,13 @@ class Vec3:
         ``jnp.result_type(x, 1.0)`` promotes); ``y`` and ``z`` take ``x``'s
         dtype. Tensors keep their device; Python numbers go to
         ``resolve_device(device)``: the card unless the caller asks for the
-        CPU. The eager branch of the reference's ``Vec3.of``: its lift of
-        lazy components waits for the port of ``trace/``."""
+        CPU. With a LazyArray among them, the others are lifted beside it
+        (``ref * 0.0 + v``: full-length LazyArrays of its dtype)."""
+        lazy = [v for v in (x, y, z) if _is_lazy(v)]
+        if lazy:
+            ref = lazy[0]
+            return Vec3(*(v if _is_lazy(v) else ref * 0.0 + v
+                          for v in (x, y, z)))
         device = x.device if isinstance(x, torch.Tensor) else \
             resolve_device(device)
         xt = torch.as_tensor(x, device=device)
@@ -114,11 +121,21 @@ def cross3(a: Vec3, b: Vec3) -> Vec3:
 
 
 def norm3(a: Vec3):
-    return _plain_sqrt(dot3(a, a))
+    d = dot3(a, a)
+    return _trace().sqrt(d) if _is_lazy(d) else _plain_sqrt(d)
 
 
 def normalize3(a: Vec3) -> Vec3:
-    return a * _plain_rsqrt(dot3(a, a))
+    d = dot3(a, a)
+    return a * (_trace().rsqrt(d) if _is_lazy(d) else _plain_rsqrt(d))
+
+
+def _asin_select(d):
+    """(asin, select) for the lazy or the eager operand ``d``."""
+    if _is_lazy(d):
+        tr = _trace()
+        return tr.asin, tr.select
+    return torch.asin, torch.where
 
 
 def unit_angle(a: Vec3, b: Vec3):
@@ -126,12 +143,14 @@ def unit_angle(a: Vec3, b: Vec3):
     Hatch's formulation, enoki_tpu/render/vec.py:106-117): accurate for
     nearly parallel and nearly antiparallel inputs, where acos(dot) loses
     all precision. ``torch.asin`` and ``torch.where`` stand in for the
-    reference's ``ns.asin`` and ``ns.select``."""
+    reference's ``ns.asin`` and ``ns.select`` (the trace's over
+    LazyArrays)."""
     d = dot3(a, b)
+    asin, select = _asin_select(d)
     s = mulsign(a.x, d), mulsign(a.y, d), mulsign(a.z, d)
     diff = Vec3(b.x - s[0], b.y - s[1], b.z - s[2])
-    temp = 2.0 * torch.asin(0.5 * norm3(diff))
-    return torch.where(d >= 0.0, temp, math.pi - temp)
+    temp = 2.0 * asin(0.5 * norm3(diff))
+    return select(d >= 0.0, temp, math.pi - temp)
 
 
 def unit_angle_z(v: Vec3):
@@ -139,6 +158,6 @@ def unit_angle_z(v: Vec3):
     (enoki_tpu/render/vec.py:120-127): use wherever acos(v.z) is
     tempting."""
     zc = v.z - copysign(v.z * 0.0 + 1.0, v.z)
-    temp = 2.0 * torch.asin(0.5 * _plain_sqrt(v.x * v.x + v.y * v.y
-                                             + zc * zc))
-    return torch.where(v.z >= 0.0, temp, math.pi - temp)
+    asin, select = _asin_select(zc)
+    temp = 2.0 * asin(0.5 * norm3(Vec3(v.x, v.y, zc)))
+    return select(v.z >= 0.0, temp, math.pi - temp)

@@ -23,7 +23,8 @@ and so work through the kernels. ``kernel_printf`` (a print inside a
 Pallas kernel body) is not ported: the port's only Python-written device
 code is the per-scene emitter ``render/sdf_trace.py``, where a thread is a
 pixel, and what a thread would print is not decided (ROADMAP, queue A).
-The lazy trace's own cache statistics wait for the port of trace/.
+``cache_stats`` counts live tensors; the lazy trace's kernel cache hits
+and misses are ``trace.cache_stats()``, as in the reference.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """enoki_tpu_torch.struct -- structured vectorization (counterpart of
 enoki_tpu/struct): struct support, masks, vectorize, vectorized method
-calls. Eager tensors; the lazy halves wait for the port of trace/."""
+calls, over tensors and over ``trace.LazyArray`` leaves."""
 
 from .pytree import (  # noqa: F401
     enoki_struct, width, zeros_like, full_like, select_struct,

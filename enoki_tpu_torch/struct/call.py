@@ -17,8 +17,11 @@ Instances are integer ids into a registry. Every callee has the signature
 Lanes with an id below 0 (a null pointer) take ``default``, or zeros.
 ``InstanceRegistry`` keeps the objects, stacks their attributes into
 tensors and dispatches their methods; LazyArray ids route to the lazy
-trace's dispatcher (``trace.call``), whatever the strategy. The free
-dispatchers take tensors only.
+trace's dispatcher (``trace.call``), whatever the strategy. Of the free
+dispatchers, ``dispatch_masked`` takes LazyArray ids and arguments as it
+takes tensors (its select tree records into the trace), and
+``dispatch_partition`` hands LazyArray ids to ``trace.call.dispatch``.
+Arguments and results may be structs of either.
 """
 
 from __future__ import annotations
@@ -28,14 +31,15 @@ from typing import Any, Callable, List, Sequence
 import torch
 
 from .._device import resolve_device
-from ..ops.backend import is_lazy, require_eager
+from ..ops.backend import is_lazy
 from ..ops.horiz import partition
 from ..ops.router import _asarray, arange, gather, scatter
 from .pytree import gather_struct, select_struct, zeros_like
 
 
 def _ids(ids):
-    require_eager(ids)
+    if is_lazy(ids):
+        return ids if ids.dtype == torch.int32 else ids.cast(torch.int32)
     return _asarray(ids).to(torch.int32)
 
 
@@ -59,8 +63,15 @@ def dispatch_partition(funcs: Sequence[Callable], ids, *args, default=None):
     """Sort-based dispatch (array_call.h:147-165): partition the lanes by
     id, gather the arguments (and ``default``) through the permutation,
     run each callee under its segment's mask, and gather the results back
-    through the inverse permutation, a scatter of ``arange``."""
+    through the inverse permutation, a scatter of ``arange``. LazyArray
+    ids go to the lazy trace's dispatcher, ``default`` blended in on the
+    null lanes."""
     ids = _ids(ids)
+    if is_lazy(ids):
+        from ..trace.call import dispatch as dispatch_lazy
+        out = dispatch_lazy(funcs, ids, *args)
+        return out if default is None else select_struct(ids < 0, default,
+                                                         out)
     _, _, perm = partition(torch.clamp_min(ids, 0), len(funcs))
     perm_ids = gather(ids, perm)
     gathered = tuple(gather_struct(a, perm) for a in args)

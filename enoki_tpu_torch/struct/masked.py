@@ -8,16 +8,18 @@ methods return the updated tensor: inactive lanes keep their values.
     x = masked(x, m).add(v)         # masked(x, m) += v
     x = masked(x, m).mul(v)
 
-Eager tensors only: the lazy (``LazyArray``) branch waits for the port of
-trace/ and raises ``NotImplementedError``.
+A LazyArray value or operand records into the trace: the proxy's select
+and min / max take the trace's ops, a Python number stays a literal of
+the value's dtype, and an eager value with a lazy operand is lifted onto
+the operand's device (the lazy operand leads).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.backend import require_eager
-from ..ops.router import _maximum, _minimum, _operands, select
+from ..ops.router import (_is_lazy, _lazy_device, _lift_arr, _maximum,
+                          _minimum, _operands, _trace, select)
 
 
 class Masked:
@@ -27,7 +29,6 @@ class Masked:
     __slots__ = ("value", "mask")
 
     def __init__(self, value, mask):
-        require_eager(value, mask)
         self.value = value
         self.mask = mask
 
@@ -63,10 +64,26 @@ class Masked:
     def div(self, v):
         return self._sel(self.value / self._operand(v))
 
+    def _lazy(self, v):
+        """(value, operand) on the trace when either is a LazyArray, else
+        None."""
+        if not (_is_lazy(self.value) or _is_lazy(v)):
+            return None
+        dev = _lazy_device(self.value, v)
+        value = _lift_arr(self.value, dev)
+        return value, (v if isinstance(v, (int, float)) else
+                       _lift_arr(v, dev))
+
     def min(self, v):
+        lazy = self._lazy(v)
+        if lazy is not None:
+            return self._sel(_trace().minimum(*lazy))
         return self._sel(_minimum(*_operands(self.value, v)))
 
     def max(self, v):
+        lazy = self._lazy(v)
+        if lazy is not None:
+            return self._sel(_trace().maximum(*lazy))
         return self._sel(_maximum(*_operands(self.value, v)))
 
 

@@ -810,8 +810,24 @@ class LazyArray(_nat.VarBase):
     def cast(self, dtype):
         return self._unary(Op.CAST, _code_of(dtype))
 
-    # jnp-style alias so generic (eager/lazy) code can call .astype
+    # jnp- and torch-style aliases, so that source written for tensors
+    # (the port's eager ops) instantiates for LazyArrays as it stands:
+    # ``.astype(dt)``, ``.to(dt)`` and ``.bool()`` cast, ``.view(dt)``
+    # reinterprets the bits
     astype = cast
+
+    def to(self, dtype):
+        """``cast`` (a device or other argument is not a dtype: raise)."""
+        if not isinstance(dtype, torch.dtype):
+            raise TypeError("LazyArray.to takes a dtype; a LazyArray's "
+                            "device is fixed when it is made")
+        return self.cast(dtype)
+
+    def bool(self):
+        return self.cast(torch.bool)
+
+    def view(self, dtype):
+        return self.bitcast(dtype)
 
     def bitcast(self, dtype):
         """Reinterpret the bits as ``dtype`` (same itemsize)."""

@@ -1,5 +1,6 @@
 """enoki_tpu_torch.types -- composite math types (counterpart of
-enoki_tpu/types, ported whole but for the lazy halves).
+enoki_tpu/types, ported whole, lazy halves included: each type also
+instantiates over ``trace.LazyArray`` elements).
 
 Complex, Quaternion, Matrix (trailing axes and SoA), homogeneous
 transforms, sRGB color, spherical harmonics, Morton codes, the PCG32

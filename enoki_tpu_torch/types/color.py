@@ -5,8 +5,8 @@ srgb_to_linear (:58), the exact piecewise IEC 61966-2-1 curves, with
 ``pow`` through ``ops.math`` (``impl="native"`` PyTorch's, ``"poly"`` the
 reference's polynomials). Integer inputs are taken as float32, and every
 constant takes the input's dtype, as a weakly typed scalar does in the
-reference. The reference's lazy branch waits for the port of trace/
-(``backend.math_ns`` raises for a LazyArray).
+reference. A ``trace.LazyArray`` input records the curves into the trace
+(``backend.math_ns`` gives the trace's opcodes, whatever ``impl``).
 """
 
 from __future__ import annotations

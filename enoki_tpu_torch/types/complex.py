@@ -12,8 +12,13 @@ Every function routes its math through ``ops.backend.math_ns`` and takes
 device of the complex number beside it, as a weakly typed scalar does in
 the reference. ``from_jnp_complex`` / ``to_jnp_complex`` are
 ``from_torch_complex`` / ``to_torch_complex`` here, over
-``torch.complex64``. The reference's lazy branches (parts that are
-LazyArrays) wait for the port of trace/ and raise ``NotImplementedError``.
+``torch.complex64``.
+
+The parts may be ``trace.LazyArray``s (Complex<FloatC>): the same source
+then records into the trace, and one eval fuses the whole chain. A
+Python operand beside lazy parts is a literal of their dtype (so that
+``z / 3.0`` is one IEEE division on both routes), and a tensor or numpy
+operand a data leaf.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import math
 import torch
 
 from ..ops import backend as B
-from ..ops.math import _f, _scalar
+from ..ops.math import _f, _lazy_floats, _scalar
 from ..struct.pytree import register
 
 
@@ -37,7 +42,13 @@ class Complex:
 
     @staticmethod
     def of(re, im=0.0) -> "Complex":
-        B.require_eager(re, im)
+        if B.is_lazy(re) or B.is_lazy(im):
+            g = B.math_ns(re if B.is_lazy(re) else im)
+            like = _f(re if B.is_lazy(re) else im)
+            re, im = (g.full_like(like, float(v)) if isinstance(
+                v, (int, float)) else p for v, p in zip(
+                    (re, im), _lazy_floats(re, im)))
+            return Complex(re, im)
         re = _f(re)
         if isinstance(im, torch.Tensor):
             im = im.to(re.dtype)
@@ -99,15 +110,19 @@ def _real(x, like: Complex):
     """A real operand: a tensor as it is, a Python number as a 0-d tensor
     of ``like``'s dtype and device (a weak type). A division by it is then
     one IEEE division on every device (PyTorch's CUDA kernels multiply by
-    the reciprocal of a Python divisor)."""
-    B.require_eager(x)
-    return x if isinstance(x, torch.Tensor) else _scalar(like.re, x)
+    the reciprocal of a Python divisor). Beside lazy parts a Python number
+    is a literal of their dtype; a LazyArray stays one."""
+    if isinstance(x, torch.Tensor) or B.is_lazy(x):
+        return x
+    return _scalar(like.re, x)
 
 
 def _c(x, like: Complex) -> Complex:
     if isinstance(x, Complex):
         return x
     x = _real(x, like)
+    if B.is_lazy(x):
+        return Complex(x, x * 0.0)
     return Complex(x, torch.zeros_like(x))
 
 

@@ -4,9 +4,10 @@ enoki_tpu/types/matrix_soa.py).
 The reference's actual structure: ``Matrix<T, N>`` is an array of arrays
 (matrix.h:33). Entries are a row-major tuple of tuples of scalar tensors
 (or Python numbers), and every op is straight-line elementwise code with
-no (N, N) axis; ``types/matrix.py`` is the dense form. The reference's
-lazy entries (LazyArrays, ``Matrix<CUDAArray<float>>``) wait for the port
-of trace/.
+no (N, N) axis; ``types/matrix.py`` is the dense form. The entries may
+be ``trace.LazyArray``s (``Matrix<CUDAArray<float>>``): every op then
+records into the trace, and a whole product or inverse fuses into one
+program at eval.
 
 The same analytic det / inverse as the dense module (matrix.h:247-388),
 the cofactor expressions written over scalar entries.
@@ -17,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import backend as B
+from ..ops.math import _lazy_floats
 from ..ops.router import _asarray, _operands
 
 
@@ -162,7 +164,8 @@ def inverse_transpose(m):
 
 # ---------------------------------------------------------------------------
 # Homogeneous transforms in SoA form (transform.h:20-130 over Matrix<T,4>
-# with scalar entries; the dense builders live in types/transform.py)
+# with scalar entries, tensors or LazyArrays; the dense builders live in
+# types/transform.py)
 # ---------------------------------------------------------------------------
 
 
@@ -171,7 +174,8 @@ def _like(x):
 
 
 def translate(tx, ty, tz):
-    """4x4 translation; the components are scalar tensors."""
+    """4x4 translation; the components are scalar tensors or
+    LazyArrays."""
     z = _like(tx)
     o = z + 1.0
     return ((o, z, z, tx),
@@ -191,10 +195,13 @@ def scale(sx, sy, sz):
 
 def rotate(ax, ay, az, angle):
     """Axis-angle rotation (unit axis), Rodrigues form (transform.h:38).
-    A Python angle goes to the axis' device."""
-    B.require_eager(ax, ay, az, angle)
-    g = B.math_ns(angle)
-    s, c = g.sincos(_operands(angle, ax, ay, az)[0])
+    A Python angle goes to the axis' device; beside LazyArrays every
+    operand goes on the trace."""
+    if any(B.is_lazy(v) for v in (ax, ay, az, angle)):
+        angle, ax, ay, az = _lazy_floats(angle, ax, ay, az)
+    else:
+        angle = _operands(angle, ax, ay, az)[0]
+    s, c = B.math_ns(angle).sincos(angle)
     t = 1.0 - c
     z = _like(s)
     o = z + 1.0

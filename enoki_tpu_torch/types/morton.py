@@ -10,8 +10,10 @@ Coordinates are uint32; with D dimensions only the low floor(32/D) bits of
 each coordinate are representable (the reference's contract with a 32-bit
 Value). PyTorch has no shifts for UInt32: the cascade runs on the bit
 patterns in int64, masked to 32 bits, and the codes and coordinates come
-back as uint32. The reference's lazy branch (a LazyArray coordinate) waits
-for the port of trace/ and raises ``NotImplementedError``.
+back as uint32. With a ``trace.LazyArray`` coordinate or code the cascade
+records into the trace over uint32 lanes (an int32 one cast first, whose
+``>>`` would smear the sign; an eager member of a mixed list lifted to a
+data leaf), and the results are uint32 LazyArrays.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Sequence, Tuple
 import torch
 
 from ..ops import backend as B
-from ..ops.router import _asarray, _from_bits
+from ..ops.router import _asarray, _from_bits, _lazy_device, _lift_arr
 
 _M32 = 0xFFFFFFFF
 
@@ -81,7 +83,13 @@ def _u32_bits(c, like=None):
 def morton_encode(coords: Sequence) -> torch.Tensor:
     """Interleave N uint32 coordinate arrays into Morton codes
     (morton.h:135-143). ``coords[0]`` holds the least-significant bits."""
-    B.require_eager(*coords)
+    if any(B.is_lazy(c) for c in coords):
+        dev = _lazy_device(*coords)
+        coords = [_lift_arr(c, dev).cast(torch.uint32) for c in coords]
+        out = _scatter_bits(coords[0], len(coords))
+        for i in range(1, len(coords)):
+            out = out | (_scatter_bits(coords[i], len(coords)) << i)
+        return out
     like = next((c.device for c in coords if isinstance(c, torch.Tensor)),
                 None)
     coords = [_u32_bits(c, like) for c in coords]
@@ -95,7 +103,9 @@ def morton_encode(coords: Sequence) -> torch.Tensor:
 def morton_decode(value, dim: int) -> Tuple[torch.Tensor, ...]:
     """De-interleave Morton codes into ``dim`` uint32 coordinate arrays
     (morton.h:146-150)."""
-    B.require_eager(value)
+    if B.is_lazy(value):
+        value = value.cast(torch.uint32)
+        return tuple(_gather_bits(value >> i, dim) for i in range(dim))
     value = _u32_bits(value)
     return tuple(_from_bits(_gather_bits(value >> i, dim), torch.uint32)
                  for i in range(dim))

@@ -7,9 +7,10 @@ conversion (:197), quaternion <-> matrix (:226-261), slerp (:308),
 axis-angle ``rotate`` (:331).
 
 A Python operand takes the dtype and device of the quaternion beside it.
-The reference's lazy branches (components that are LazyArrays, and the
-SoA matrices of ``to_matrix`` / ``from_matrix`` over them) wait for the
-port of trace/ and raise ``NotImplementedError``.
+The components may be ``trace.LazyArray``s (Quaternion<FloatC>): every
+function then records into the trace, and ``to_matrix`` gives the SoA
+row-major tuple form of ``types/matrix_soa`` (Matrix<CUDAArray>), whose
+entries stay lazy; ``from_matrix`` takes that form back.
 """
 
 from __future__ import annotations
@@ -40,8 +41,10 @@ class Quaternion:
         """Four components broadcast to one shape, in their common float
         dtype (integers as float32; Python numbers take the tensors' dtype,
         and go to the card when all four are numbers)."""
-        B.require_eager(x, y, z, w)
         vs = M._floats(x, y, z, w)
+        if B.is_lazy(vs[0]):
+            # the trace broadcasts a size-1 component itself
+            return Quaternion(*vs)
         dtype = functools.reduce(torch.promote_types, (v.dtype for v in vs))
         return Quaternion(*torch.broadcast_tensors(*(v.to(dtype)
                                                      for v in vs)))
@@ -96,9 +99,11 @@ register(Quaternion)
 def _real(o, like: Quaternion):
     """A real operand: a tensor as it is, a Python number as a 0-d tensor
     of ``like``'s dtype and device (a division by it is then one IEEE
-    division on every device)."""
-    B.require_eager(o)
-    return o if isinstance(o, torch.Tensor) else M._scalar(like.w, o)
+    division on every device); beside lazy components a literal of their
+    dtype."""
+    if isinstance(o, torch.Tensor) or B.is_lazy(o):
+        return o
+    return M._scalar(like.w, o)
 
 
 def real(q: Quaternion):
@@ -197,18 +202,20 @@ def rotate_vector(q: Quaternion, vx, vy, vz):
 
 def from_axis_angle(ax, ay, az, angle, impl="native") -> Quaternion:
     """``rotate(axis, angle)`` (quaternion.h:331): the axis must be unit.
-    A Python angle goes to the axis' device."""
-    B.require_eager(ax, ay, az, angle)
-    ang = _operands(angle, ax, ay, az)[0]
+    A Python angle goes to the axis' device; beside LazyArrays every
+    operand goes on the trace."""
+    if any(B.is_lazy(v) for v in (ax, ay, az, angle)):
+        ang, ax, ay, az = M._lazy_floats(angle, ax, ay, az)
+    else:
+        ang = _operands(angle, ax, ay, az)[0]
     s, c = M.sincos(ang * 0.5, impl)
     return Quaternion(ax * s, ay * s, az * s, c + (ax * s) * 0.0)
 
 
 def to_matrix(q: Quaternion):
     """quat_to_matrix (quaternion.h:226): a dense (..., 3, 3) rotation
-    matrix. (The reference gives quaternions of LazyArrays the SoA form of
-    types/matrix_soa; that waits for trace/.)"""
-    B.require_eager(q.x)
+    matrix; for quaternions of LazyArrays the SoA row-major tuple form of
+    types/matrix_soa, whose entries stay on the trace."""
     x, y, z, w = q.x, q.y, q.z, q.w
     xx, yy, zz = x * x, y * y, z * z
     xy, xz, yz = x * y, x * z, y * z
@@ -218,6 +225,9 @@ def to_matrix(q: Quaternion):
         [2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)],
         [2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)],
     ]
+    if B.is_lazy(x):
+        from . import matrix_soa
+        return matrix_soa.matrix(rows)
     return torch.stack([torch.stack(r, -1) for r in rows], -2)
 
 
@@ -225,9 +235,8 @@ def from_matrix(m) -> Quaternion:
     """matrix_to_quat (quaternion.h:240-261): branch-free Shepperd's method
     with lane masks (a select over the four cases). Takes a dense
     (..., 3, 3) tensor or the SoA tuple form (types/matrix_soa)."""
-    if isinstance(m, tuple):  # SoA row-major tuples
+    if isinstance(m, tuple):  # SoA row-major tuples (possibly lazy)
         (m00, m01, m02), (m10, m11, m12), (m20, m21, m22) = m
-        B.require_eager(m00)
     else:
         m = m if isinstance(m, torch.Tensor) else M._f(m)
         m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]

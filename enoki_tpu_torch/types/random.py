@@ -17,9 +17,16 @@ What each draw returns:
   distance_u64                       a ``U64``
 
 The bounded draws and ``shuffle`` read their loop condition on the host,
-one synchronisation per round: they are for small sizes. The lazy
-(``LazyArray``) generator of the reference (``create_lazy``) waits for the
-port of ``trace/``.
+one synchronisation per round: they are for small sizes.
+
+``PCG32.create_lazy(n, ..., device)`` is the generator over lazy trace
+lanes (the reference's PCG32<UInt64C>): state and increment are uint64
+``trace.LazyArray``s, the seeding, the draws and ``advance`` (a static
+squaring chain over the host-known delta) record trace ops that fuse
+with their consumers, and the sequences are bit-exact with the eager
+generator. Its ``next_uint32`` gives uint32 LazyArrays and
+``next_uint64`` a lazy ``U64``. The bounded draws, ``shuffle`` and
+``distance`` read values on the host and are eager only.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch.utils._pytree as pytree
 
 from . import u64 as U
 from .._device import resolve_device
+from ..ops.router import _is_lazy
 
 PCG32_DEFAULT_STATE = 0x853C49E6748FEA9B
 PCG32_DEFAULT_STREAM = 0xDA3E39CB94B95BDB
@@ -73,11 +81,29 @@ class PCG32(NamedTuple):
         return PCG32._seed(st, seq)
 
     @staticmethod
+    def create_lazy(n: int, initstate: int = PCG32_DEFAULT_STATE,
+                    initseq: Optional[int] = None,
+                    device=None) -> "PCG32":
+        """PCG32 over ``n`` lazy trace lanes on ``device`` (None: the card,
+        or raise), seeded as ``create``: the whole seed and draw pipeline
+        records into the trace and fuses with its consumers."""
+        from ..trace import LazyArray
+
+        lane = LazyArray.arange(n, torch.uint64, device)
+        if initseq is None:
+            seq = U.U64(lane + PCG32_DEFAULT_STREAM)
+        else:
+            seq = U.U64(lane * 0 + (initseq & ((1 << 64) - 1)))
+        st = U.U64(lane * 0 + (initstate & ((1 << 64) - 1)))
+        return PCG32._seed(st, seq)
+
+    @staticmethod
     def _seed(initstate: U.U64, initseq: U.U64) -> "PCG32":
         """seed(): state = 0; inc = (initseq << 1) | 1; round;
         state += initstate; round."""
         inc = U.U64(U.shl(initseq, 1).v | 1)
-        gen = PCG32(U.U64(torch.zeros_like(inc.v)), inc)
+        zero = inc.v * 0 if _is_lazy(inc.v) else torch.zeros_like(inc.v)
+        gen = PCG32(U.U64(zero), inc)
         _, gen = gen.next_uint32()
         gen = PCG32(U.add(gen.state, initstate), gen.inc)
         _, gen = gen.next_uint32()
@@ -92,7 +118,10 @@ class PCG32(NamedTuple):
         return self.state.v.device
 
     def _const(self, value: int) -> U.U64:
-        """A 64-bit constant that broadcasts against the lanes."""
+        """A 64-bit constant that broadcasts against the lanes (lazy: a
+        uint64 literal)."""
+        if _is_lazy(self.state.v):
+            return U.U64(self.state.v._coerce(value & ((1 << 64) - 1)))
         return U.from_py(value, (), self.device)
 
     # -- core output function ---------------------------------------------
@@ -103,9 +132,9 @@ class PCG32(NamedTuple):
         new_state = U.add(U.mul(oldstate, self._const(PCG32_MULT)), self.inc)
         # xorshifted = uint32(((oldstate >> 18) ^ oldstate) >> 27)
         xs = U.shr(U.xor(U.shr(oldstate, 18), oldstate), 27).lo
-        rot = U.shr(oldstate, 59).v
-        # a 32-bit rotate held in 64 bits: cut back to 32 (rot = 0 shifts
-        # by 0 on both sides and gives xs)
+        rot = U.shr(oldstate, 59).lo
+        # a 32-bit rotate (held in 64 bits eagerly: cut back to 32; rot = 0
+        # shifts by 0 on both sides and gives xs)
         out = ((xs >> rot) | (xs << ((32 - rot) & 31))) & _M32
         return out, new_state
 
@@ -116,6 +145,13 @@ class PCG32(NamedTuple):
         if mask is not None:
             new_state = U.where(mask, new_state, self.state)
         return out, PCG32(new_state, self.inc)
+
+    def _eager_only(self, what):
+        if _is_lazy(self.state.v):
+            raise NotImplementedError(
+                f"{what} reads values on the host and is eager only; use "
+                "next_uint32 / next_uint64 / next_float32 on a lazy "
+                "generator")
 
     def next_uint64(self, mask=None) -> Tuple[U.U64, "PCG32"]:
         """Two draws, the low word first."""
@@ -132,12 +168,15 @@ class PCG32(NamedTuple):
     def next_float64(self, mask=None):
         """[0, 1) with 32 mantissa bits."""
         bits, gen = self.next_uint32(mask)
+        if _is_lazy(bits):
+            bits = bits.cast(torch.uint64)
         pattern = (bits << 20) | 0x3FF0000000000000
         return pattern.view(torch.float64) - 1.0, gen
 
     def next_uint32_bounded(self, bound: int, mask=None):
         """Unbiased bounded sampling: lanes redraw until they clear the
         rejection threshold. ``bound`` is a Python int."""
+        self._eager_only("next_uint32_bounded")
         threshold = ((~bound + 1) & _M32) % bound
         active = (torch.ones(self.shape, dtype=torch.bool, device=self.device)
                   if mask is None else mask)
@@ -177,6 +216,7 @@ class PCG32(NamedTuple):
 
     def distance_u64(self, other: "PCG32") -> U.U64:
         """Brown's bit-by-bit distance algorithm, 64 rounds."""
+        self._eager_only("distance")
         cur_mult = self._const(PCG32_MULT)
         cur_plus = self.inc
         cur_state = other.state
@@ -196,6 +236,7 @@ class PCG32(NamedTuple):
     def next_uint64_bounded(self, bound: int, mask=None):
         """Unbiased bounded 64-bit sampling; ``bound`` is a Python int
         below 2**63."""
+        self._eager_only("next_uint64_bounded")
         threshold = self._const(((~bound + 1) & ((1 << 64) - 1)) % bound)
         active = (torch.ones(self.shape, dtype=torch.bool, device=self.device)
                   if mask is None else mask)
@@ -211,6 +252,7 @@ class PCG32(NamedTuple):
         """Fisher-Yates shuffle of ``x`` along its first axis with lane
         0's stream; returns a new tensor. Each of the n - 1 steps reads its
         index on the host."""
+        self._eager_only("shuffle")
         x = x.clone()
         gen = self
         for i in range(x.shape[0] - 1, 0, -1):

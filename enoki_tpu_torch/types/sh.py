@@ -16,8 +16,9 @@ Convention (the reference's and Sloan's):
 
 The constants K_l^m are Python floats (double), as in the reference. A
 division by the recurrence's integer l - m divides by a 0-d tensor (one
-IEEE division on every device). The reference's lazy branch waits for the
-port of trace/ and raises ``NotImplementedError``.
+IEEE division on every device; over LazyArrays a literal, the same one
+division). With a ``trace.LazyArray`` component every operand goes on the
+trace and all coefficients are LazyArrays that one eval fuses.
 """
 
 from __future__ import annotations
@@ -47,8 +48,8 @@ def sh_eval(x, y, z, order: int):
     """
     if order > 9:
         raise ValueError("sh_eval(): order too high (max 9, sh.h:37)")
-    B.require_eager(x, y, z)
-    # one promotion decision for all three components
+    # one promotion decision for all three components (all on the trace
+    # when one is a LazyArray: every coefficient then comes back lazy)
     vs = _floats(x, y, z)
     dt = functools.reduce(torch.promote_types, (v.dtype for v in vs))
     x, y, z = (v.to(dt) for v in vs)

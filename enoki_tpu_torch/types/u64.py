@@ -18,8 +18,12 @@ values in [0, 2**32)), ``u64``, ``from_py``, ``from_u32``, ``to_py``,
 A 32-bit operand (``add_u32``, ``mul_u64_u32``, ``from_u32``) may be an
 int64 tensor in [0, 2**32), an int32 bit pattern, or a Python int.
 
-The lazy (``LazyArray``) components of the reference wait for the port of
-``trace/``.
+Lazy (the UInt64C analog, which the reference's PCG32<UInt64C> rides):
+``v`` may be one uint64 ``trace.LazyArray`` instead. The trace's 64-bit
+codes are real, so its ``>>`` is logical and its compares unsigned with
+no masking; ``.hi`` / ``.lo`` are then lazy uint32 arrays, and a 32-bit
+operand is widened to uint64 (an int32 one as its bit pattern).
+``from_py(..., like=lazy)`` makes a literal beside a lazy component.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from .._device import resolve_device
+from ..ops.router import _is_lazy
 
 _M32 = 0xFFFFFFFF
 _M64 = (1 << 64) - 1
@@ -51,12 +56,16 @@ class U64(NamedTuple):
 
     @property
     def hi(self):
-        """Upper 32 bits, int64 in [0, 2**32)."""
+        """Upper 32 bits, int64 in [0, 2**32) (lazy: uint32)."""
+        if _is_lazy(self.v):
+            return (self.v >> 32).cast(torch.uint32)
         return (self.v >> 32) & _M32
 
     @property
     def lo(self):
-        """Lower 32 bits, int64 in [0, 2**32)."""
+        """Lower 32 bits, int64 in [0, 2**32) (lazy: uint32)."""
+        if _is_lazy(self.v):
+            return self.v.cast(torch.uint32)
         return self.v & _M32
 
     @property
@@ -68,6 +77,8 @@ def _u32(x):
     """A 32-bit operand as an int64 tensor (or Python int) in [0, 2**32)."""
     if isinstance(x, int):
         return x & _M32
+    if _is_lazy(x):
+        return x.cast(torch.uint64) & _M32
     return x.to(torch.int64) & _M32
 
 
@@ -79,8 +90,13 @@ def u64(hi, lo) -> U64:
     return U64((hi << 32) | lo)
 
 
-def from_py(value: int, shape=(), device=None) -> U64:
-    """A 64-bit constant on ``device`` (cuda by default)."""
+def from_py(value: int, shape=(), device=None, like=None) -> U64:
+    """A 64-bit constant on ``device`` (cuda by default); beside a lazy
+    ``like`` a uint64 literal of its length on its device."""
+    if like is not None and _is_lazy(like):
+        from ..trace import LazyArray
+        return U64(LazyArray.literal(value & _M64, len(like), torch.uint64,
+                                     device=like.device))
     return U64(torch.full(tuple(shape), _signed(value), dtype=torch.int64,
                           device=resolve_device(device)))
 
@@ -91,6 +107,8 @@ def from_u32(x) -> U64:
 
 def to_py(x: U64) -> np.ndarray:
     """Host-side conversion to a numpy uint64 array (for tests)."""
+    if _is_lazy(x.v):
+        return x.v.torch().cpu().view(torch.int64).numpy().view(np.uint64)
     return x.v.detach().cpu().numpy().view(np.uint64)
 
 
@@ -133,7 +151,9 @@ def shr(a: U64, k: int) -> U64:
     if k == 0:
         return a
     if k >= 64:
-        return U64(torch.zeros_like(a.v))
+        return U64(a.v * 0 if _is_lazy(a.v) else torch.zeros_like(a.v))
+    if _is_lazy(a.v):
+        return U64(a.v >> k)
     return U64((a.v >> k) & ((1 << (64 - k)) - 1))
 
 
@@ -141,7 +161,7 @@ def shl(a: U64, k: int) -> U64:
     if k == 0:
         return a
     if k >= 64:
-        return U64(torch.zeros_like(a.v))
+        return U64(a.v * 0 if _is_lazy(a.v) else torch.zeros_like(a.v))
     return U64(a.v << k)
 
 
@@ -152,12 +172,15 @@ def shr_dyn(a: U64, k) -> U64:
     k = _u32(k)
     if isinstance(k, int):
         return shr(a, k)
+    if _is_lazy(a.v) or _is_lazy(k):
+        return U64(a.v >> k)
     rest = ((a.v >> 1) & _I64_MAX) >> torch.clamp_min(k - 1, 0)
     return U64(torch.where(k == 0, a.v, rest))
 
 
 def where(mask, a: U64, b: U64) -> U64:
-    return U64(torch.where(mask, a.v, b.v))
+    from ..ops.router import select
+    return U64(select(mask, a.v, b.v))
 
 
 def eq(a: U64, b: U64):
@@ -170,12 +193,16 @@ def ne(a: U64, b: U64):
 
 def lt(a: U64, b: U64):
     """Unsigned ``a < b``: flipping the sign bit maps unsigned order onto
-    int64's."""
+    int64's (a lazy uint64 compares unsigned as it is)."""
+    if _is_lazy(a.v) or _is_lazy(b.v):
+        return a.v < b.v
     return (a.v ^ _SIGN) < (b.v ^ _SIGN)
 
 
 def ge(a: U64, b: U64):
     """Unsigned ``a >= b``."""
+    if _is_lazy(a.v) or _is_lazy(b.v):
+        return a.v >= b.v
     return (a.v ^ _SIGN) >= (b.v ^ _SIGN)
 
 

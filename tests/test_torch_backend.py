@@ -136,12 +136,21 @@ def test_full_like_keeps_device_and_dtype_and_broadcast_broadcasts():
     assert a.shape == b.shape == (3, 4)
 
 
-def test_lazy_namespaces_wait_for_trace():
-    class FakeLazy:
-        pass
-    FakeLazy.__module__ = "enoki_tpu_torch.trace"
-    assert B.is_lazy(FakeLazy())
-    with pytest.raises(NotImplementedError, match="trace"):
-        B.math_ns(FakeLazy())
-    with pytest.raises(NotImplementedError, match="trace"):
-        B.ns_of(_x(), FakeLazy())
+def test_lazy_namespaces_route_to_the_trace():
+    import enoki_tpu_torch.trace as tr
+    lx = tr.LazyArray(np.linspace(-1, 1, 8).astype(np.float32),
+                      device="cpu")
+    assert B.is_lazy(lx) and not B.is_lazy(_x())
+    assert B.ns_of(_x(), lx) is B._LAZY and B.ns_of(_x()) is B._TORCH
+    assert B.math_ns(lx) is B._TRACE_MATH
+    assert B.math_ns(lx, "poly") is B._TRACE_MATH
+    out = B.math_ns(lx).sin(lx)
+    assert isinstance(out, tr.LazyArray) and out.device.type == "cpu"
+    full = B.math_ns(lx).full_like(lx, 2.5)
+    assert full.device.type == "cpu" and len(full) == len(lx)
+    np.testing.assert_array_equal(full.numpy(), np.full(8, 2.5, np.float32))
+    # a schedule whose arrays span two devices raises: a leaf on a device
+    # of its own (the meta device here) beside the CPU array
+    other = tr.LazyArray(torch.ones(8, device="meta"))
+    with pytest.raises(ValueError, match="two devices"):
+        B.ns_of(lx, other).maximum(lx, other)

@@ -214,13 +214,19 @@ def test_complex_sqrt_real_axis_grad():
     np.testing.assert_allclose(xt.grad.item(), 0.25, rtol=1e-6)
 
 
-def test_complex_lazy_parts_wait_for_trace(monkeypatch):
-    from enoki_tpu_torch.ops import backend
-    monkeypatch.setattr(backend, "is_lazy", lambda x: isinstance(x, str))
-    with pytest.raises(NotImplementedError):
-        Complex.of("lazy")
-    with pytest.raises(NotImplementedError):
-        C.exp(Complex("lazy", "lazy"))
+def test_complex_of_lazy_parts_stays_lazy():
+    import enoki_tpu_torch.trace as tr
+    re = np.linspace(-2.0, 2.0, 16).astype(np.float32)
+    z = Complex.of(tr.LazyArray(re, device="cpu"))
+    assert isinstance(z.re, tr.LazyArray) and isinstance(z.im, tr.LazyArray)
+    assert len(z.im) == len(re) and z.im.device.type == "cpu"
+    w = C.exp(z * 2.0 + 1.0) / 3.0
+    assert not w.re.materialized
+    e = C.exp(Complex.of(_t(re)) * 2.0 + 1.0) / 3.0
+    np.testing.assert_allclose(w.re.numpy(), e.re.numpy(), rtol=2e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(w.im.numpy(), e.im.numpy(), rtol=2e-6,
+                               atol=1e-6)
 
 
 # -- quaternion --------------------------------------------------------------

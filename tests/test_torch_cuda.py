@@ -1269,3 +1269,95 @@ def test_trace_backward_raises_when_its_build_fails(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         tr.backward(loss)
     tr.reset()
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+LAZY_GROUP_NAMES = ["math", "special", "erfinv", "router", "carlson_rc",
+                    "carlson_rf", "carlson_rd", "comp_ellint_1",
+                    "comp_ellint_2", "ellint_1", "ellint_2", "ellint_3",
+                    "poly-trig", "poly-exp-log", "poly-hyperbolic",
+                    "poly-reciprocal"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", LAZY_GROUP_NAMES)
+def test_lazy_sweep_kernels_match_the_plain_interpreter(cuda, group,
+                                                        monkeypatch):
+    # chip_smoke.py phase 30 (d)'s programs at 2^16 lanes: the lazy ops
+    # surface on the card runs the trace's kernels only, held to the plain
+    # interpreter (bit-equal with IEEE operations only, 1 ulp with
+    # transcendentals)
+    import enoki_tpu_torch.trace as tr
+    from enoki_tpu_torch.trace import plain
+    C = _chip_smoke()
+    (g,) = [g for g in C.LAZY_GROUPS if g[0] == group]
+    tr.reset()
+    outs = C.lazy_group(tr, torch, g, C.lazy_domains(1 << 16), cuda)
+    want = tr.plain_eval(*outs)
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain interpreter ran")
+
+    monkeypatch.setattr(plain, "run", no_plain)
+    before = LAUNCHES["trace"]
+    tr.eval(*outs)
+    got = [o.torch() for o in outs]
+    torch.cuda.synchronize()
+    assert LAUNCHES["trace"] > before
+    for (name, *_), x, w in zip(g[2], got, want):
+        assert x.device.type == "cuda"
+        u = C.trace_ulps(torch, x, w)
+        assert u == 0.0 if g[1] else u <= 1.0, (name, u)
+    tr.reset()
+
+
+@pytest.mark.cuda
+def test_lazy_examples_on_the_card(cuda, tmp_path):
+    # the three lazy examples small on the card: the sphere bit-equal to
+    # the plain interpreter, the histogram one eval summing to n, the fit's
+    # loss falling with at most 6 cache misses
+    import enoki_tpu_torch.trace as tr
+    S, H, F = _chip_smoke().lazy_examples()
+    tr.reset()
+    img = S.render_lazy(128, device=cuda)
+    (want,) = tr.plain_eval(img)
+    assert torch.equal(img.torch(), want)
+    counts = H.main(1 << 16, device=cuda)
+    assert float(counts.sum()) == 1 << 16
+    tr.reset()
+    out = F.main(128, 20, device=cuda)
+    assert out["losses"][-1] < 0.2 * out["losses"][0]
+    tr.reset()
+
+
+@pytest.mark.cuda
+def test_lazy_ops_raise_when_their_build_fails(cuda, monkeypatch):
+    # a lazy ops program on the card whose build fails raises: no route
+    # falls back to eager code or the plain interpreter
+    import enoki_tpu_torch.trace as tr
+    from enoki_tpu_torch import ops
+    from enoki_tpu_torch.config import config
+    from enoki_tpu_torch.trace import codegen
+    tr.reset()
+    monkeypatch.setattr(config, "trace_export_dir", "")
+
+    def fail(text):
+        raise RuntimeError("nvcc failed to build (test)")
+
+    monkeypatch.setattr(codegen, "_nvcc_build", fail)
+    monkeypatch.setattr(codegen, "_LIBS", {})
+    x = tr.LazyArray(np.linspace(0.1, 0.9, 64).astype(np.float32),
+                     device=cuda)
+    y = ops.special.erfinv(ops.math.sin(x, "poly") * 0.5)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        y.eval()
+    tr.reset()

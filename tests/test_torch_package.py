@@ -255,6 +255,66 @@ def test_haversine_example_imports_neither_jax_nor_the_reference():
         assert mod.split(".")[0] not in ("jax", "jaxlib", "enoki_tpu"), mod
 
 
+LAZY_EXAMPLES = ("lazy_sphere_torch", "lazy_histogram_torch",
+                 "lazy_fit_torch")
+
+
+@pytest.mark.parametrize("name", LAZY_EXAMPLES)
+def test_lazy_example_imports_neither_jax_nor_the_reference(name):
+    for mod in _imported_modules(REPO / "examples" / f"{name}.py"):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "enoki_tpu"), mod
+
+
+def _example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, REPO / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture
+def _fresh_trace():
+    import enoki_tpu_torch.trace as tr
+    tr.reset()
+    yield tr
+    tr.reset()
+
+
+def test_lazy_sphere_example_runs_small_on_the_cpu(_fresh_trace, tmp_path,
+                                                   capsys):
+    """At 64^2, as tests/test_examples.py runs the reference's: one eval a
+    frame, the second frame a cache hit, the struct form equal to the
+    scalar one, the image within a few ulp of render_fused."""
+    out = _example("lazy_sphere_torch").main(64, device="cpu",
+                                             out_dir=tmp_path)
+    assert out["second_hit"] and out["struct_err"] == 0.0
+    assert out["fused_err"] < 1e-3
+    from enoki_tpu_torch.render.io import read_ppm
+    img = read_ppm(tmp_path / "sphere_lazy.ppm")
+    assert img.shape == (64, 64) and 0 < img.max() <= 255
+    assert "wrote sphere_lazy.ppm" in capsys.readouterr().out
+
+
+def test_lazy_histogram_example_runs_small_on_the_cpu(_fresh_trace, capsys):
+    mod = _example("lazy_histogram_torch")
+    counts = mod.main(4096, device="cpu")
+    assert counts.shape == (mod.BINS,) and float(counts.sum()) == 4096
+    # a normal histogram: the middle bins hold the most
+    mid = counts[mod.BINS // 2 - 4: mod.BINS // 2 + 4].sum()
+    assert float(mid) > 0.6 * 4096
+    assert "one eval" in capsys.readouterr().out
+
+
+def test_lazy_fit_example_runs_small_on_the_cpu(_fresh_trace, capsys):
+    """At 64^2 and the example's 40 steps, with the reference's asserts
+    (in main): the loss falls below 0.2 of the first, at most 6 misses."""
+    out = _example("lazy_fit_torch").main(64, 40, device="cpu")
+    assert len(out["losses"]) == 40 and out["misses"] <= 6
+    assert "recovered" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("impl", ["native", "poly"])
 def test_haversine_example_runs_small_on_the_cpu(impl, capsys):
     import importlib.util
