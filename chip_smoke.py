@@ -5209,6 +5209,210 @@ def trace_hist(tr, values, bins=TRACE_HIST_BINS):
     return h
 
 
+# SCATTER_ADD's routes (trace/codegen.py): the target's codes, and sizes at
+# each side of each route's threshold (codegen.ROW_SLOTS, BLOCK_BYTES)
+SCATTER_CODES = ("int32", "uint32", "int64", "float32", "float64")
+SCATTER_SIZES = (1, 8, 9, 32, 64, 96, 97, 4096, 8192, 8193, 65536)
+SCATTER_N = 1 << 16            # lanes of phase 28 (b)'s route cases
+# several targets in one run: the routes in the order of the targets, the
+# shared memory given out over all of them
+SCATTER_SEVERAL = {
+    "rows-rows-block": ([("float32", 8), ("float32", 32), ("float64", 200)],
+                        [1, 1, 2]),
+    "rows-full": ([("float32", 96), ("float32", 96)], [1, 3]),
+    "rows-then-block": ([("float32", 64), ("float32", 64)], [1, 2]),
+    "block-full": ([("int64", 4096), ("float64", 4096), ("float32", 8192),
+                    ("int32", 8192)], [2, 2, 2, 3]),
+}
+# phase 28 (b)'s timed float weights at TRACE_N lanes: the slots of a
+# target of each route, the indices normal around the middle slot (the
+# histogram's shape)
+SCATTER_TIMED = (64, 4096, 65536)
+# the timed weights' gate, in units of float32's roundoff (2^-24) of the
+# sum of the magnitudes of a slot's terms, against the slot's float64 sum
+# (weights_gate)
+WEIGHTS_UNITS = 16
+
+
+def scatter_route(dtype, size):
+    """The route a lone SCATTER_ADD target of ``dtype`` and ``size`` slots
+    takes under codegen's thresholds: 1 (a row a thread), 2 (a copy a
+    block) or 3 (global atomics)."""
+    from enoki_tpu_torch.trace import _code_of, codegen
+    code = _code_of(dtype)
+    if size <= codegen.ROW_SLOTS.get(code, 0):
+        return 1
+    width = np.dtype(dtype).itemsize
+    return 2 if width in (4, 8) and size * width <= codegen.BLOCK_BYTES \
+        else 3
+
+
+def scatter_case(dtype, size, lanes, seed, exact=False):
+    """(base, index, value) numpy arrays of a SCATTER_ADD of ``lanes``
+    lanes into ``size`` slots: about half the indices negative (counting
+    from the end), a tenth out of range either way (dropped); values and
+    base random, ints wide enough to wrap; where the target has 8 slots
+    or more, its last two slots are hit by nothing and the two before by
+    0 alone (-0.0 for floats), and those four slots' bases are -0.0, +0.0,
+    -0.0, +0.0 in a float target. Floats are normal(0, 4), or with
+    ``exact`` quarters from -8 to 8, whose sums of up to 2^21 terms are
+    exact in float32 in any order: every route then gives the same bits."""
+    rng = np.random.default_rng(seed)
+    dt = np.dtype(dtype)
+
+    def draw(k):
+        if dt.kind == "f" and exact:
+            return (rng.integers(-32, 32, k, endpoint=True) / 4).astype(dt)
+        if dt.kind == "f":
+            return rng.normal(0.0, 4.0, k).astype(dt)
+        info = np.iinfo(dt)
+        lo, hi = max(info.min, -2 ** 62), min(info.max, 2 ** 62)
+        return rng.integers(lo, hi, k, dtype=dt, endpoint=True)
+
+    base = draw(size)
+    hit = size - 4 if size >= 8 else size
+    idx = rng.integers(0, hit, lanes).astype(np.int64)
+    idx = np.where(rng.random(lanes) < 0.5, idx - size, idx)
+    out = rng.random(lanes) < 0.1
+    idx = np.where(out, np.where(rng.random(lanes) < 0.5,
+                                 size + rng.integers(0, 9, lanes),
+                                 -size - 1 - rng.integers(0, 9, lanes)), idx)
+    val = draw(lanes)
+    if size >= 8:
+        zero = np.array([-0.0 if dt.kind == "f" else 0]).astype(dt)
+        extra = rng.integers(size - 4, size - 2, max(lanes // 50, 2))
+        idx = np.concatenate([idx, extra])
+        val = np.concatenate([val, np.repeat(zero, extra.size)])
+        if dt.kind == "f":
+            base[size - 4:] = np.array([-0.0, 0.0, -0.0, 0.0], dt)
+        order = rng.permutation(idx.size)
+        idx, val = idx[order], val[order]
+    return base, idx.astype(np.int32), val
+
+
+def scatter_seed(dtype, size):
+    return size * 7 + len(dtype)
+
+
+def scatter_timed_case(size, n, seed=29, spread="normal"):
+    """(base, index, value) of a timed weighted SCATTER_ADD: ``n`` float32
+    weights, normal(0, 1), into a zero base, at int32 indices drawn by
+    ``spread``: "normal", normal(size / 2, size * 12 / 64) (phase 28's
+    histogram scaled; the ones below 0 count from the end, the ones at
+    ``size`` or above drop); "uniform" over the slots; "cyclic", lane i at
+    slot i % size (every slot as often, a warp's lanes on distinct
+    slots)."""
+    rng = np.random.default_rng(seed)
+    if spread == "normal":
+        idx = rng.normal(size / 2, size * 12 / 64, n).astype(np.int32)
+    elif spread == "uniform":
+        idx = rng.integers(0, size, n, dtype=np.int32)
+    else:
+        idx = (np.arange(n, dtype=np.int64) % size).astype(np.int32)
+    return (np.zeros(size, np.float32), idx,
+            rng.standard_normal(n).astype(np.float32))
+
+
+def scatter_program(tr, base, idx, val, device, chained=False):
+    """The target ``base`` with ``val`` added at ``idx`` (lazily) on
+    ``device`` (None: the module's default, as enoki_tpu.trace has it);
+    with ``chained``, in two SCATTER_ADDs of half the lanes each, the
+    second into the first's result."""
+    kw = {} if device is None else {"device": device}
+    t = tr.LazyArray(base, **kw)
+    h = len(idx) // 2 if chained else len(idx)
+    for part in ((slice(0, h), slice(h, None)) if chained
+                 else (slice(None),)):
+        t.scatter_add(tr.LazyArray(idx[part], **kw),
+                      tr.LazyArray(val[part], **kw))
+    return t
+
+
+def scatter_kept(torch, n, idx, val):
+    """The slots (int64, negative ones counted from the end) and values of
+    the lanes of a SCATTER_ADD into ``n`` slots that are not dropped."""
+    k = idx.to(torch.int64)
+    k = torch.where(k < 0, k + n, k)
+    keep = (k >= 0) & (k < n)
+    return k[keep], val[keep]
+
+
+def scatter_terms(torch, base, idx, val):
+    """Per slot: the sum of the magnitudes of its terms (the base and each
+    value added there, as float64), and whether a value other than -0.0
+    (or an integer 0) reached it."""
+    n = base.shape[0]
+    k, v = scatter_kept(torch, n, idx, val)
+    mag = base.to(torch.float64).abs().index_add(
+        0, k, v.to(torch.float64).abs())
+    moves = (v != 0) | ~torch.signbit(v) if v.dtype.is_floating_point \
+        else v != 0
+    touched = torch.zeros(n, dtype=torch.bool, device=base.device)
+    touched[k[moves]] = True
+    return mag, touched
+
+
+def scatter_gate(torch, got, want, base, idx, val):
+    """A SCATTER_ADD's result against another's on the same inputs that
+    adds each slot's terms in another order: integers exactly; floats
+    within four units of the type's roundoff (2^-22 for float32) of the
+    sum of the magnitudes of each slot's terms, and a slot that nothing
+    but -0.0 reached keeps the base's bits. Returns (ok, the largest
+    difference)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False, float("inf")
+    if not got.dtype.is_floating_point:
+        same = bool(torch.equal(got, want))
+        return same, 0.0 if same else float("inf")
+    mag, touched = scatter_terms(torch, base, idx, val)
+    u = 2.0 ** -24 if got.dtype == torch.float32 else 2.0 ** -53
+    diff = (got.double() - want.double()).abs()
+    ok = bool((diff <= 4 * u * mag).all()) and keeps_base(
+        torch, got, base, touched)
+    return ok, float(diff.max()) if diff.numel() else 0.0
+
+
+def keeps_base(torch, got, base, touched):
+    """Whether the float slots not ``touched`` hold their base's bits."""
+    bits = {4: torch.int32, 8: torch.int64}[got.element_size()]
+    return bool(torch.equal(got[~touched].view(bits),
+                            base[~touched].view(bits)))
+
+
+def scatter_exact(torch, got, want, base, idx, val):
+    """Whether a SCATTER_ADD's result has the bits of another's on the
+    same inputs (scatter_case's exact values sum alike in any order), and
+    the slots that nothing but -0.0 reached keep the base's bits."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    bits = {1: torch.uint8, 4: torch.int32, 8: torch.int64}[
+        got.element_size()]
+    same = bool(torch.equal(got.view(bits), want.view(bits)))
+    if not got.dtype.is_floating_point:
+        return same
+    return same and keeps_base(torch, got, base,
+                               scatter_terms(torch, base, idx, val)[1])
+
+
+def weights_gate(torch, got, base, idx, val):
+    """Timed float32 weights (scatter_timed_case) against each slot's
+    float64 sum: within WEIGHTS_UNITS units of roundoff, 2^-20, of the
+    sum of the magnitudes of its terms. A float32 sum of a slot's terms
+    in a random order, as global atomics add them, comes near 2^-22 of
+    those magnitudes on some slot of 65,536, while a lost lane or a lost
+    block's partial sum moves a slot by far more than 2^-20 (PERF.md §6,
+    the weights gate, has the readings of both). Returns (ok, the largest |error|,
+    the largest error over its limit)."""
+    k, v = scatter_kept(torch, base.shape[0], idx, val)
+    exact = base.double().index_add(0, k, v.double())
+    limit = WEIGHTS_UNITS * 2.0 ** -24 * scatter_terms(
+        torch, base, idx, val)[0]
+    err = (got.double() - exact).abs()
+    ratio = torch.where(err == 0, torch.zeros_like(err), err / limit)
+    return (bool((err <= limit).all()), float(err.max()),
+            float(ratio.max()))
+
+
 def trace_structures(torch, dev):
     """Setup of phase 28: every structure the phase evaluates, traced once
     and prepared (schedule, fused runs, generated source) in this thread;
@@ -5230,6 +5434,12 @@ def trace_structures(torch, dev):
                 plans[f"chain{n}-{seg}"] = tr.prepare(trace_chain(tr, data))
             finally:
                 config.max_fused_ops = 0
+    # (b)'s SCATTER_ADDs, each alone: its scatter stays a pending side
+    # effect of every later schedule until the trace is reset
+    for name, make in scatter_structures(torch, dev, data=False):
+        tr.reset()
+        plans[name] = tr.prepare(*make(tr))
+    tr.reset()
     # last: its scatter stays a pending side effect of every later schedule
     x = tr.LazyArray(torch.empty(TRACE_N, device=dev))
     plans["hist"] = tr.prepare(trace_hist(tr, x))
@@ -5238,6 +5448,194 @@ def trace_structures(torch, dev):
         f"scheduled in {time.perf_counter() - t0:.2f} s; "
         f"{len({p.text for p in plans.values()})} distinct sources")
     return plans
+
+
+def scatter_structures(torch, dev, data=True):
+    """Phase 28 (b)'s SCATTER_ADD programs: [(name, make)], ``make(tr)``
+    the arrays to evaluate (``data``: the seeded inputs, else uninitialised
+    ones of the timed cases: the same structure)."""
+    out = []
+
+    def case(dtype, size, chained=False):
+        def make(tr):
+            arrays = scatter_case(dtype, size, SCATTER_N,
+                                  scatter_seed(dtype, size), exact=True)
+            return [scatter_program(tr, *arrays, dev, chained)]
+        return make
+
+    for dtype in SCATTER_CODES:
+        for size in SCATTER_SIZES:
+            out.append((f"scatter-{dtype}-{size}", case(dtype, size)))
+    out.append(("scatter-chained", case("float32", 64, chained=True)))
+    for name, (targets, _) in SCATTER_SEVERAL.items():
+        def make(tr, targets=targets):
+            return [scatter_program(tr, *scatter_case(
+                dt, n, SCATTER_N, k + 3, exact=True), dev)
+                for k, (dt, n) in enumerate(targets)]
+        out.append((f"scatter-{name}", make))
+    for size in SCATTER_TIMED:
+        def make(tr, size=size):
+            if data:
+                arrays = [torch.from_numpy(a).to(dev)
+                          for a in scatter_timed_case(size, TRACE_N)]
+            else:
+                arrays = [torch.empty(k, dtype=dt, device=dev) for k, dt in (
+                    (size, torch.float32), (TRACE_N, torch.int32),
+                    (TRACE_N, torch.float32))]
+            return [scatter_program(tr, *arrays, dev)]
+        out.append((f"scatter-timed-{size}", make))
+    return out
+
+
+def trace_launcher(torch, tr, dev, arrays):
+    """(plan, a function that runs the kernels of evaluating ``arrays``
+    once and evaluates nothing in the trace): for timing. The native
+    core's schedule is theirs until the next one is made."""
+    import ctypes
+    plan = tr.prepare(*arrays)
+    n = len(plan.entries)
+    bits, codes = tr._collect_literals(n)
+    buf = (ctypes.c_uint32 * max(n, 1))()
+    leaves = [tr._BUFFERS[buf[i]]
+              for i in range(tr._lib.ett_schedule_data_ids(buf, n))]
+    lit = torch.from_numpy(bits.view(np.int64)).to(dev)
+    return plan, lambda: plan.run(leaves, lit, bits, codes, dev)
+
+
+def scatter_on(torch, tr, dev, arrays, chained=False):
+    """(plan, the kernels' results, the plain interpreter's, launches) of
+    the SCATTER_ADD cases ``arrays`` ((base, idx, val) each) evaluated in
+    one schedule on ``dev``, the trace reset before and after. A uint32
+    target's plain results are the CPU's: the plain interpreter's scatter
+    indexes the target's dtype, which PyTorch's CUDA build cannot do for
+    uint32 (ROADMAP §C, C12)."""
+    from enoki_tpu_torch.render import LAUNCHES
+    want = None
+    if any(a[0].dtype == np.uint32 for a in arrays):
+        tr.reset()
+        cpu = [scatter_program(tr, *a, "cpu", chained) for a in arrays]
+        want = [w.to(dev) for w in tr.plain_eval(*cpu)]
+        del cpu
+    tr.reset()
+    ts = [scatter_program(tr, *a, dev, chained) for a in arrays]
+    plan = tr.prepare(*ts)
+    if want is None:
+        want = tr.plain_eval(*ts)
+    before = LAUNCHES["trace"]
+    tr.eval(*ts)
+    got = [t.torch() for t in ts]
+    torch.cuda.synchronize()
+    launched = LAUNCHES["trace"] - before
+    del ts
+    tr.reset()
+    return plan, got, want, launched
+
+
+def run_scatter(torch, dev, timer, timed_ms, smi):
+    """Phase 28 (b)'s SCATTER_ADD routes on the card: each route at each
+    side of its thresholds, several targets in one run, two SCATTER_ADDs
+    into one target, bit-equal to the plain interpreter on values whose
+    sums are exact in any order; each route timed at TRACE_N lanes of
+    random float32 weights beside its plain version, torch.bincount and
+    its bound, held to the float64 sum (weights_gate), route 1 twice,
+    bitwise. Returns (launches, runs, rows)."""
+    import enoki_tpu_torch.trace as tr
+    from enoki_tpu_torch.render import LAUNCHES
+
+    launches = runs = 0
+    by_route = {1: [], 2: [], 3: []}
+
+    def held(name, arrays, routes, chained=False):
+        nonlocal launches, runs
+        plan, got, want, launched = scatter_on(torch, tr, dev, arrays,
+                                               chained)
+        got_routes = [plan.runs[0].routes[p] for p in plan.runs[0].targets]
+        check(len(plan.runs) == 1 and got_routes == routes,
+              f"phase 28 (b): {name} took {len(plan.runs)} runs, routes "
+              f"{got_routes} (want {routes})")
+        launches += launched
+        runs += len(plan.runs)
+        for g, w, a in zip(got, want, arrays):
+            check(scatter_exact(torch, g, w, *(
+                torch.from_numpy(x).to(dev) for x in a)),
+                f"phase 28 (b): {name}: the kernel's bits differ from the "
+                f"plain interpreter's")
+        return plan
+
+    for dtype in SCATTER_CODES:
+        for size in SCATTER_SIZES:
+            route = scatter_route(dtype, size)
+            held(f"{dtype} into {size}", [scatter_case(
+                dtype, size, SCATTER_N, scatter_seed(dtype, size),
+                exact=True)], [route])
+            by_route[route].append(f"{dtype}/{size}")
+    plan = held("two into one float32 target of 64",
+                [scatter_case("float32", 64, SCATTER_N,
+                              scatter_seed("float32", 64), exact=True)],
+                [scatter_route("float32", 64)],
+                chained=True)
+    check(len(plan.runs[0].alias) == 1, "phase 28 (b): the two "
+          "SCATTER_ADDs into one target do not share its copy")
+    for name, (targets, routes) in SCATTER_SEVERAL.items():
+        held(name, [scatter_case(dt, n, SCATTER_N, k + 3, exact=True)
+                    for k, (dt, n) in enumerate(targets)], routes)
+    log(f"phase 28 (b) SCATTER_ADD routes at {SCATTER_N} lanes, one kernel "
+        f"a program, bit-equal to the plain interpreter (floats in quarters "
+        f"from -8 to 8, whose sums are exact in any order; slots "
+        f"that only -0.0 reached keep their base's bits): route 1 (a row a "
+        f"thread) {', '.join(by_route[1])}; route 2 (a copy a block) "
+        f"{', '.join(by_route[2])}; route 3 (global atomics) "
+        f"{', '.join(by_route[3])}; several targets in one run "
+        f"({', '.join(SCATTER_SEVERAL)}) and two SCATTER_ADDs into one "
+        f"target: pass")
+
+    rows = []
+    for size in SCATTER_TIMED:
+        route = scatter_route("float32", size)
+        tr.reset()
+        base, idx, val = (torch.from_numpy(a).to(dev)
+                          for a in scatter_timed_case(size, TRACE_N))
+        t = scatter_program(tr, base, idx, val, dev)
+        plan, run = trace_launcher(torch, tr, dev, [t])
+        check(list(plan.runs[0].routes.values()) == [route],
+              f"phase 28 (b): the timed target of {size} slots took routes "
+              f"{list(plan.runs[0].routes.values())}, not {route}")
+        before = LAUNCHES["trace"]
+        (first,) = run()[:1]
+        (again,) = run()[:1]
+        torch.cuda.synchronize()
+        launches += LAUNCHES["trace"] - before
+        runs += 2 * len(plan.runs)
+        ok, err, share = weights_gate(torch, first, base, idx, val)
+        check(ok, f"phase 28 (b): timed route {route}: the kernel is "
+              f"{share:.3g} of its limit from the float64 sum (max "
+              f"{err:.3g})")
+        same = torch.equal(first.view(torch.int32), again.view(torch.int32))
+        if route == 1:
+            check(same, "phase 28 (b): route 1 gave other bits on a second "
+                  "run of the same float32 weights")
+        ms = timed_ms(run, 20, 300.0)
+        plain_ms = timer(lambda: tr.plain_eval(t), 3, hold_ms=300.0,
+                         plain=True)
+        k, w = scatter_kept(torch, size, idx, val)
+        lib_ms = timer(lambda: torch.bincount(k, weights=w, minlength=size),
+                       20, hold_ms=300.0)
+        b, by = bound(8 * TRACE_N + 8 * size, TRACE_N, int_ops=3 * TRACE_N)
+        rows.append(dict(route=route, slots=size, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=b, bound_by=by,
+                         max_abs_err=err, gate_share=share,
+                         repeatable=bool(same)))
+        log(f"phase 28 (b) route {route}, {TRACE_N} float32 weights into "
+            f"{size} slots: kernel {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+            f"torch.bincount {lib_ms:.4f} ms, bound {b:.5f} ms by {by}); "
+            f"max |err| against the float64 sum {err:.3g}, {share:.3g} of "
+            f"its limit ({WEIGHTS_UNITS} x 2^-24 of the slot's magnitudes); "
+            f"two runs "
+            f"{'bitwise equal' if same else 'differ in their last bits'}; "
+            f"{smi}")
+        del t, first, again
+    tr.reset()
+    return launches, runs, rows
 
 
 def build_trace_plans(plans, pool):
@@ -5523,13 +5921,8 @@ def run_trace(torch, dev, timer, plans, build_s):
         + ", ".join(f"{name} {k}/{r}" for name, k, r in counted) + ": pass")
 
     # -- timing of the histogram's kernel, its plain version, bincount ----
-    h3 = trace_hist(tr, v)
-    tr.prepare(h3)  # the native core's current schedule: the histogram's
-    bits, codes = tr._collect_literals(len(plan_h.entries))
-    lit = torch.from_numpy(bits.view(np.int64)).to(dev)
-    del h3
-    hist_ms = timed_ms(lambda: plan_h.run([v.torch()], lit, bits, codes,
-                                          dev), 20, 300.0)
+    hist_ms = timed_ms(trace_launcher(torch, tr, dev, [trace_hist(tr, v)])[1],
+                       20, 300.0)
     h2 = trace_hist(tr, v)
     hist_plain_ms = timer(lambda: tr.plain_eval(h2), 5, hold_ms=300.0,
                           plain=True)
@@ -5540,7 +5933,13 @@ def run_trace(torch, dev, timer, plans, build_s):
                                 int_ops=3 * TRACE_N)
     log(f"phase 28 (b) histogram kernel {hist_ms:.4f} ms (plain "
         f"{hist_plain_ms:.4f} ms, torch.bincount {hist_lib_ms:.4f} ms, bound "
-        f"{hist_bound:.5f} ms by {hist_by}: 64 bins of int32 atomics)")
+        f"{hist_bound:.5f} ms by {hist_by}: 64 int32 bins, route "
+        f"{list(plan_h.runs[0].routes.values())[0]}); {smi}")
+    del v
+    n_launched, n_runs, scatter_rows = run_scatter(torch, dev, timer,
+                                                   timed_ms, smi)
+    check(n_launched == n_runs, f"phase 28 (d): the SCATTER_ADD programs "
+          f"launched {n_launched} kernels for {n_runs} runs")
 
     # -- (e) printf: the same text from both routes -------------------------
     import io
@@ -5593,7 +5992,7 @@ def run_trace(torch, dev, timer, plans, build_s):
                  chain_first_eval_s=whole["first_s"],
                  chain_hit_ms=whole["hit_ms"], hist_ms=hist_ms,
                  hist_plain_ms=hist_plain_ms, hist_bound_ms=hist_bound,
-                 hist_library_ms=hist_lib_ms)]
+                 hist_library_ms=hist_lib_ms, scatter_routes=scatter_rows)]
 
 
 # ---------------------------------------------------------------------------
@@ -6718,6 +7117,9 @@ def _lazy_phase(torch, tr, dev, plans, nvcc, S, H, F):
     check(torch.equal(got_h, binned(i_k)) and torch.equal(want_h, binned(ip)),
           "phase 30 (b): a histogram and its own bin indices disagree")
     k_plain = moved(g_k, i_k, gp, ip, "kernel against plain")
+    # both routes take libdevice's float64 log, so no sample moves at all
+    check(k_plain == 0, f"phase 30 (b): {k_plain} samples changed bins "
+          "between the kernel and the plain interpreter on the card")
     del hist, gp, ip
     walls = []
     for _ in range(3):

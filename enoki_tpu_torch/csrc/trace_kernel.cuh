@@ -558,6 +558,226 @@ inline void atomic_add_f16(void *p, long long i, float v) {
 #define TK_LANES(i, n) for (long long i = 0; i < (n); ++i)
 #endif
 
+// ---------------------------------------------------------------------------
+// SCATTER_ADD into a small target: the sums kept in shared memory
+// ---------------------------------------------------------------------------
+//
+// One global atomic add a lane serialises in L2 where many lanes hit few
+// slots: a histogram of 16M normal samples into 64 bins put most adds on
+// some 25 addresses, 4.49 ms on the H100, about 0.27 ns an add, one
+// address after another. So codegen.py gives each SCATTER_ADD target of
+// a run one of three routes when it writes the source, by the target's
+// size and type (codegen.ROW_SLOTS, BLOCK_BYTES, ACC_SMEM):
+//  1. RowAcc, for float32 targets of up to codegen.ROW_SLOTS slots: a
+//     private row per thread in shared memory, slot-major and thread-minor
+//     (rows[j * 256 + tid], so a warp's 32 adds hit 32 banks whatever
+//     the slots), added to without atomics. After the lanes the block
+//     sums each slot over its threads in a fixed order into its row of
+//     `part` (global scratch, a row a block); the block that draws the
+//     last ticket sums the rows in a fixed order (runs of consecutive
+//     blocks, then the runs' sums) and adds them into the target
+//     (csrc/hist.cu's route 1, csrc/pixel_sum.cuh's ticket). No
+//     atomic touches a value, and the grid depends on the lane count
+//     alone, so a float target is bitwise the same from run to run.
+//  2. BlockAcc, for 32- and 64-bit int and float targets of at most
+//     codegen.BLOCK_BYTES: one
+//     copy of the target a block, added to with shared-memory atomics;
+//     after the lanes one global atomic a slot the block touched.
+//  3. A global atomic a lane (the code of the run's statement) for larger
+//     targets, 16-bit floats (rounded after every add, which must stay)
+//     and bool.
+// A private sum starts at 0, or at -0.0 for a float: a slot that gets
+// nothing, or only -0.0, then adds -0.0 or nothing to the target, which
+// leaves every bit of the target's base as it was, and a slot hit once by
+// v gives base + v, the plain interpreter's one add.
+//
+// On the host each route is the plain sequential add into the target.
+
+template <typename T> TK_HD T acc_zero() { return (T)0; }
+template <> TK_HD float acc_zero<float>() { return -0.0f; }
+template <> TK_HD double acc_zero<double>() { return -0.0; }
+template <typename T> TK_HD bool acc_empty(T v) { return v == (T)0; }
+TK_HD bool acc_empty(float v) { return bits<uint32_t>(v) == 0x80000000u; }
+TK_HD bool acc_empty(double v) {
+  return bits<uint64_t>(v) == 0x8000000000000000ull;
+}
+
+#ifdef __CUDACC__
+constexpr int kThreads = 256;  // threads a block, every trace kernel
+
+// a load from a buffer that nothing writes while the kernel runs (every
+// input of a run): through the read-only path, which lets the compiler
+// issue the loads of a thread's next lanes ahead of its shared-memory adds
+template <typename T> TK_HD T ldg(const void *p, long long i) {
+  if constexpr (sizeof(T) == 8) {
+    return bits<T>(__ldg(static_cast<const unsigned long long *>(p) + i));
+  } else if constexpr (sizeof(T) == 4) {
+    return bits<T>(__ldg(static_cast<const unsigned int *>(p) + i));
+  } else {
+    return static_cast<const T *>(p)[i];
+  }
+}
+
+template <typename T, int N> struct RowAcc {
+  static_assert(N >= 1 && N <= kThreads, "a row a thread: 1-256 slots");
+  static_assert(sizeof(T) == 4, "a block's row of part holds 32-bit sums");
+  T *rows, *target;
+  __device__ __forceinline__ RowAcc(void *tgt, unsigned char *sm, int off)
+      : rows(reinterpret_cast<T *>(sm + off) + threadIdx.x),
+        target(static_cast<T *>(tgt)) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) rows[j * kThreads] = acc_zero<T>();
+  }
+  __device__ __forceinline__ void put(long long j, T v) {
+    rows[j * kThreads] = tk::add(rows[j * kThreads], v);
+  }
+  // each slot's sum over the block's threads into the block's row of
+  // part: a warp a slot, 8 rows a lane in order, then a butterfly
+  __device__ __forceinline__ void to_part(uint32_t *part, int width,
+                                          int off) const {
+    const int lane = threadIdx.x & 31;
+    const T *all = rows - threadIdx.x;
+    for (int j = threadIdx.x >> 5; j < N; j += kThreads / 32) {
+      const T *r = all + j * kThreads + lane;
+      T s = r[0];
+#pragma unroll
+      for (int m = 1; m < kThreads / 32; ++m) s = tk::add(s, r[32 * m]);
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1)
+        s = tk::add(s, __shfl_xor_sync(0xffffffffu, s, d));
+      if (lane == 0)
+        part[(long long)blockIdx.x * width + off + j] = bits<uint32_t>(s);
+    }
+  }
+  // in the last block: the blocks' rows (from L2: this SM's L1 may hold
+  // no other block's row) cut into Q runs of consecutive blocks, each run
+  // summed in block order by a thread of its own, then the Q sums in
+  // order, added into the target; the rows' shared memory, free by now,
+  // holds the runs' sums
+  __device__ __forceinline__ void flush(const uint32_t *part, int width,
+                                        int off) {
+    constexpr int Q = kThreads / N;
+    T *sums = rows - threadIdx.x;
+    const int j = threadIdx.x % N, q = threadIdx.x / N;
+    if (q < Q) {
+      const unsigned long long B = gridDim.x;
+      const unsigned hi = (unsigned)(B * (q + 1) / Q);
+      T s = acc_zero<T>();
+#pragma unroll 4
+      for (unsigned b = (unsigned)(B * q / Q); b < hi; ++b)
+        s = tk::add(s, bits<T>(__ldcg(part + (long long)b * width + off + j)));
+      sums[q * N + j] = s;
+    }
+    __syncthreads();
+    if (threadIdx.x < N) {
+      T s = sums[threadIdx.x];
+      for (int k = 1; k < Q; ++k) s = tk::add(s, sums[k * N + threadIdx.x]);
+      target[threadIdx.x] = tk::add(target[threadIdx.x], s);
+    }
+  }
+};
+
+template <typename T, int N> struct BlockAcc {
+  T *copy, *target;
+  __device__ __forceinline__ BlockAcc(void *tgt, unsigned char *sm, int off)
+      : copy(reinterpret_cast<T *>(sm + off)), target(static_cast<T *>(tgt)) {
+    for (int j = threadIdx.x; j < N; j += kThreads) copy[j] = acc_zero<T>();
+  }
+  __device__ __forceinline__ void put(long long j, T v) {
+    atomic_add(copy + j, v);
+  }
+  __device__ __forceinline__ void flush() const {
+    for (int j = threadIdx.x; j < N; j += kThreads) {
+      const T v = copy[j];
+      if (!acc_empty(v)) atomic_add(target + j, v);
+    }
+  }
+};
+
+TK_HD void sync() { __syncthreads(); }
+
+// whether this block is the last of the grid to get here (every thread
+// calls it, after its block's rows are written); the last one sets the
+// ticket back to 0 for the stream's next launch
+__device__ __forceinline__ bool last_block(unsigned *ticket) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    if (last) *ticket = 0u;
+  }
+  __syncthreads();
+  return last;
+}
+
+// the grid of a run that accumulates: as many blocks as the card holds at
+// once (its shared memory bounds them: 2-8 an SM), fewer where the lanes
+// are fewer; `fit` caches the blocks an SM holds (0: not asked yet)
+inline int acc_blocks(const void *kernel, int smem, int unroll, long long n,
+                      int *fit) {
+  int dev = 0, sms = 0, f = fit ? *fit : 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (f <= 0) {
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&f, kernel, kThreads, smem);
+    cudaGetLastError();  // a refusal shows at the launch, which returns it
+    if (f > 0 && fit) *fit = f;
+  }
+  const long long need = (n + (long long)kThreads * unroll - 1) /
+                         ((long long)kThreads * unroll);
+  const long long cap = (long long)sms * (f > 0 ? f : 1);
+  return (int)(need < 1 ? 1 : (need < cap ? need : cap));
+}
+
+// the lanes of a run that accumulates, `lane(i)` for each: unroll lanes at
+// a time a thread, 256 apart (each of the unroll loads coalesced)
+#define TK_LANES_BY(lane, n, unroll)                                         \
+  do {                                                                       \
+    const long long s_ = (long long)gridDim.x * blockDim.x * (unroll);       \
+    long long i_ = (long long)blockIdx.x * blockDim.x * (unroll) +           \
+                   threadIdx.x;                                              \
+    for (; i_ + (long long)((unroll) - 1) * blockDim.x < (n); i_ += s_) {    \
+      _Pragma("unroll") for (int u_ = 0; u_ < (unroll); ++u_)                \
+          lane(i_ + (long long)u_ * blockDim.x);                             \
+    }                                                                        \
+    _Pragma("unroll 1") for (int u_ = 0; u_ < (unroll); ++u_) {              \
+      if (i_ + (long long)u_ * blockDim.x < (n))                             \
+        lane(i_ + (long long)u_ * blockDim.x);                               \
+    }                                                                        \
+  } while (0)
+#define TK_SMEM(sm) extern __shared__ __align__(16) unsigned char sm[]
+#else
+template <typename T> inline T ldg(const void *p, long long i) {
+  return ld<T>(p, i);
+}
+
+template <typename T, int N> struct RowAcc {
+  T *target;
+  RowAcc(void *tgt, unsigned char *, int) : target(static_cast<T *>(tgt)) {}
+  void put(long long j, T v) { atomic_add(target + j, v); }
+  void to_part(uint32_t *, int, int) const {}
+  void flush(const uint32_t *, int, int) const {}
+};
+
+template <typename T, int N> struct BlockAcc {
+  T *target;
+  BlockAcc(void *tgt, unsigned char *, int) : target(static_cast<T *>(tgt)) {}
+  void put(long long j, T v) { atomic_add(target + j, v); }
+  void flush() const {}
+};
+
+inline void sync() {}
+inline bool last_block(unsigned *) { return false; }
+
+#define TK_LANES_BY(lane, n, unroll) \
+  for (long long i_ = 0; i_ < (n); ++i_) lane(i_)
+#define TK_SMEM(sm) unsigned char *sm = nullptr
+#endif
+
 }  // namespace tk
 
 // the launch of one fused run: its pointers by value, the literal stream,
@@ -577,6 +797,32 @@ template <int NP> struct TkPtrs { void *p[NP > 0 ? NP : 1]; };
     name<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(P, L, n);      \
     return (int)cudaGetLastError();                                         \
   }
+// the launch of a run that accumulates (routes 1 and 2 above): SMEM bytes
+// of dynamic shared memory, the grid of tk::acc_blocks (name_blocks(n),
+// which the caller reads to size `part`: a row of route 1's slots a
+// block), the stream's ticket (0 between launches)
+#define TK_ACC_LAUNCH(name, NP, SMEM, UNROLL)                               \
+  extern "C" int name##_blocks(long long n) {                               \
+    static int fit[16];                                                     \
+    int dev = 0;                                                            \
+    cudaGetDevice(&dev);                                                    \
+    return tk::acc_blocks((const void *)name, SMEM, UNROLL, n,              \
+                          dev >= 0 && dev < 16 ? &fit[dev] : nullptr);      \
+  }                                                                         \
+  extern "C" int name##_launch(void *const *ptrs, const uint64_t *L,       \
+                               long long n, void *stream, uint32_t *part,   \
+                               unsigned *ticket) {                          \
+    TkPtrs<NP> P;                                                           \
+    for (int k = 0; k < NP; ++k) P.p[k] = ptrs[k];                          \
+    if (SMEM > 48 * 1024) {                                                 \
+      const cudaError_t e = cudaFuncSetAttribute(                           \
+          name, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);         \
+      if (e != cudaSuccess) return (int)e;                                  \
+    }                                                                       \
+    name<<<(unsigned)name##_blocks(n), 256, SMEM, (cudaStream_t)stream>>>(  \
+        P, L, n, part, ticket);                                             \
+    return (int)cudaGetLastError();                                         \
+  }
 #else
 #define TK_LAUNCH(name, NP)                                                 \
   extern "C" int name##_launch(void *const *ptrs, const uint64_t *L,       \
@@ -584,6 +830,16 @@ template <int NP> struct TkPtrs { void *p[NP > 0 ? NP : 1]; };
     TkPtrs<NP> P;                                                           \
     for (int k = 0; k < NP; ++k) P.p[k] = ptrs[k];                          \
     name(P, L, n);                                                          \
+    return 0;                                                               \
+  }
+#define TK_ACC_LAUNCH(name, NP, SMEM, UNROLL)                               \
+  extern "C" int name##_blocks(long long) { return 1; }                     \
+  extern "C" int name##_launch(void *const *ptrs, const uint64_t *L,       \
+                               long long n, void *, uint32_t *part,         \
+                               unsigned *ticket) {                          \
+    TkPtrs<NP> P;                                                           \
+    for (int k = 0; k < NP; ++k) P.p[k] = ptrs[k];                          \
+    name(P, L, n, part, ticket);                                            \
     return 0;                                                               \
   }
 #endif

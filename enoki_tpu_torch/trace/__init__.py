@@ -552,8 +552,8 @@ def prepare(*arrays):
     concurrently. It counts as an eval in ``cache_stats``; the eval that
     follows is a hit."""
     ids = [a.index for a in arrays if not a.materialized]
-    if not ids:
-        return None
+    if not ids and _lib.ett_num_side_effects() == 0:
+        return None  # as _eval_ids: pending scatters are evaluated too
     _, key, comp, _, _, device, _ = _schedule(ids)
     if device.type not in _KERNEL_DEVICES:
         return None

@@ -9,7 +9,9 @@ can evaluate: the elementwise opcodes, IOTA, literals (read from the
 literal stream at run time, so a changed constant reuses the kernel),
 CAST, BITCAST, SELECT, GATHER / REVERSE from a buffer materialised before
 the run, SCATTER / SCATTER_ADD into a copy of the target made before it
-(atomics for the add), and PRINT, whose operands become outputs of the
+(a SCATTER_ADD into the run's own SCATTER_ADD that nothing else reads
+adds into the same copy; the add takes one of three routes, below), and
+PRINT, whose operands become outputs of the
 kernel printed by the host after the launch. A size-1 operand is read at
 index 0. HSUM ... COUNT, PSUM and COMPRESS end a run and run between
 kernels as the port's own eager ops (``plain.horizontal``, on
@@ -23,7 +25,18 @@ a kernel of the 10,444-op chain's 7,833 (CUDA 12.9).
 
 Each run becomes one ``__global__`` kernel on ``csrc/trace_kernel.cuh``: a
 grid-stride loop over the lanes, one C++ statement per entry, a typed load
-per input and a store per value that anything outside the run reads. All
+per input and a store per value that anything outside the run reads. A
+SCATTER_ADD target takes a route by its size and type when the source is
+written (``Run.assign_routes``): a private row a thread in shared memory,
+summed by the last block in a fixed order (float32 targets of at most
+``ROW_SLOTS`` slots), a copy a block in shared memory (32- and 64-bit int
+and float targets of at most ``BLOCK_BYTES``), or a global atomic a lane,
+the run's shared memory at most ``ACC_SMEM``; a run with a target of the
+first two has a prologue and an epilogue around its lanes, takes
+``ACC_UNROLL`` lanes a thread at a time where it is short, and launches
+with ``TK_ACC_LAUNCH`` (its shared memory, a grid of the blocks the card
+holds at once, a row of scratch a block for the first route and the
+stream's ticket). All
 of a schedule's kernels go into one source, built by ``_build`` with nvcc
 for sm_90a (no fast math; the arithmetic through the _rn intrinsics) and
 cached in memory by the structural hash and on disk under
@@ -66,6 +79,30 @@ CT = ["float", "double", "int32_t", "uint32_t", "bool", "float", "int64_t",
 MAX_POINTERS = 256
 # the most entries of one kernel, whatever config.max_fused_ops says
 MAX_KERNEL_ENTRIES = 1024
+
+# The routes of a SCATTER_ADD target (csrc/trace_kernel.cuh): 1, a private
+# row a thread in shared memory (float32 targets of at most ROW_SLOTS[code]
+# slots: its fixed order makes a float sum repeatable); 2, a copy a block
+# in shared memory (32- and 64-bit int and float targets of at most
+# BLOCK_BYTES); 3, a global atomic a lane (the rest). A run's private
+# copies share ACC_SMEM bytes a block, given out in the order of its
+# targets; a target that no longer fits takes the next route. The
+# thresholds are the H100's crossovers at 16M lanes, each from the worst
+# of three spreads of the indices (kernel_variants.py --scatter-only,
+# PERF.md §6, the thresholds).
+ROUTE_ROWS, ROUTE_BLOCK, ROUTE_ATOMIC = 1, 2, 3
+ROW_SLOTS = {F32: 96}
+BLOCK_BYTES = 32 * 1024
+ACC_SMEM = 96 * 1024
+ACC_THREADS = 256
+# lanes a thread takes at once in a run that accumulates (8 loads of a
+# thread in flight: 0.060 ms against 0.098 one at a time, PERF.md §6, the
+# thresholds), where the run has at most ACC_UNROLL_ENTRIES entries: each lane
+# taken at once is the run's body again, and nvcc's time grows with the
+# square of a kernel's length
+ACC_UNROLL = 8
+ACC_UNROLL_ENTRIES = 32
+_WIDE = {I32: 4, U32: 4, F32: 4, I64: 8, U64: 8, F64: 8}
 
 _UNARY = {NEG: "tk::neg", ABS: "tk::abs_", FLOOR: "tk::floor_",
           CEIL: "tk::ceil_", ROUND: "tk::round_", TRUNC: "tk::trunc_",
@@ -198,7 +235,14 @@ class Run:
         self.inputs = []      # positions read from memory (leaves, earlier)
         self.outputs = []     # positions stored (read outside the run)
         self.targets = []     # scatter positions (their target's copy)
+        self.alias = {}       # a SCATTER_ADD adding into an earlier one's copy
         self.prints = []      # PRINT positions, printed after the launch
+        self.routes = {}      # SCATTER_ADD target -> its route
+        self.smem = {}        # target of route 1 or 2 -> its shared offset
+        self.part = {}        # target of route 1 -> its offset in a row
+        self.smem_bytes = 0
+        self.part_width = 0   # words of a block's row of route 1's sums
+        self.unroll = 1
 
     @property
     def name(self):
@@ -207,6 +251,45 @@ class Run:
     @property
     def pointers(self):
         return self.inputs + self.outputs + self.targets
+
+    @property
+    def accumulates(self):
+        """Whether a target of the run adds in shared memory (route 1 or
+        2): the run's kernel then has a prologue and an epilogue."""
+        return bool(self.smem)
+
+    def assign_routes(self, entries):
+        """Give each SCATTER_ADD target its route and its place in shared
+        memory (rows of route 1 first, then copies of route 2, 8-byte
+        aligned); run when the run is whole."""
+        def smem_bytes(route, size, code):
+            return ACC_THREADS * 4 * size if route == ROUTE_ROWS \
+                else -(-size * _WIDE[code] // 8) * 8
+
+        used = 0
+        for p in self.targets:
+            op, code, size = entries[p][1], entries[p][2], entries[p][3]
+            if op != SCATTER_ADD:
+                continue
+            self.routes[p] = ROUTE_ATOMIC
+            for route, ok in ((ROUTE_ROWS, size <= ROW_SLOTS.get(code, 0)),
+                              (ROUTE_BLOCK, code in _WIDE and smem_bytes(
+                                  ROUTE_BLOCK, size, code) <= BLOCK_BYTES)):
+                if ok and used + smem_bytes(route, size, code) <= ACC_SMEM:
+                    self.routes[p] = route
+                    used += smem_bytes(route, size, code)
+                    break
+        for want in (ROUTE_ROWS, ROUTE_BLOCK):
+            for p, route in self.routes.items():
+                if route == want:
+                    self.smem[p] = self.smem_bytes
+                    self.smem_bytes += smem_bytes(route, entries[p][3],
+                                                  entries[p][2])
+                    if route == ROUTE_ROWS:
+                        self.part[p] = self.part_width
+                        self.part_width += entries[p][3]
+        if self.smem and len(self.members) <= ACC_UNROLL_ENTRIES:
+            self.unroll = ACC_UNROLL
 
 
 class Plan:
@@ -240,6 +323,11 @@ class Plan:
     def _plan(self):
         entries = self.entries
         home = [None] * len(entries)   # a Run, "leaf", "lit" or "eager"
+        readers = [0] * len(entries)
+        for e in entries:
+            for p in set(e[4]) - {SENT}:
+                readers[p] += 1
+        outs = set(self.out_positions)
         cur = None
         for i, e in enumerate(entries):
             op = e[1]
@@ -260,15 +348,23 @@ class Plan:
                 continue
             lanes = self._lane_size(i)
             new = cur is None
+            # a SCATTER_ADD into the run's own SCATTER_ADD that nothing
+            # else reads adds into the same copy (and its private sums)
+            chained = not new and op == SCATTER_ADD \
+                and home[dps[0]] is cur \
+                and entries[dps[0]][1] == SCATTER_ADD \
+                and readers[dps[0]] == 1 and dps[0] not in outs
             if not new:
                 w = cur.width
                 new = (lanes != 1 and w != 1 and lanes != w) \
                     or (op in (GATHER, REVERSE, SCATTER, SCATTER_ADD)
-                        and home[dps[0]] is cur) \
+                        and home[dps[0]] is cur and not chained) \
                     or any(home[p] is cur and entries[p][1] in (
-                        SCATTER, SCATTER_ADD) for p in dps) \
+                        SCATTER, SCATTER_ADD)
+                           for p in (dps[1:] if chained else dps)) \
                     or len(cur.members) >= self.cap \
                     or len(cur.pointers) + len(dps) + 1 > MAX_POINTERS
+                chained = chained and not new
             if new:
                 cur = Run(len(self.runs), lanes)
                 self.runs.append(cur)
@@ -288,7 +384,9 @@ class Plan:
                     continue  # copied into the target before the launch
                 if p not in cur.inputs:
                     cur.inputs.append(p)
-            if op in (SCATTER, SCATTER_ADD):
+            if chained:
+                cur.alias[i] = cur.alias.get(dps[0], dps[0])
+            elif op in (SCATTER, SCATTER_ADD):
                 cur.targets.append(i)
             if op == PRINT:
                 cur.prints.append(i)
@@ -307,6 +405,7 @@ class Plan:
         for r in self.runs:
             r.outputs = [p for p in r.members if p in needed
                          and entries[p][1] not in (SCATTER, SCATTER_ADD)]
+            r.assign_routes(entries)
 
     # -- the source --------------------------------------------------------
 
@@ -329,6 +428,9 @@ class Plan:
         slot = {p: k for k, p in enumerate(r.pointers)}
         body = []
         names = {}
+        # a run that accumulates reads its inputs through the read-only
+        # path (nothing writes them while it runs)
+        ld = "tk::ldg" if r.accumulates else "tk::ld"
 
         def value(p, reader=None):
             """The expression of position ``p`` read in this run."""
@@ -346,7 +448,7 @@ class Plan:
                 names[p] = f"l{p}"
                 return names[p]
             idx = "0" if size == 1 else "i"
-            load = _LOAD.get(code, f"tk::ld<{CT[code]}>")
+            load = _LOAD.get(code, f"{ld}<{CT[code]}>")
             body.append(f"    const {CT[code]} x{p} = "
                         f"{load}(P.p[{slot[p]}], {idx});")
             names[p] = f"x{p}"
@@ -369,7 +471,7 @@ class Plan:
                 if src[6]:
                     ex = value(dps[0])
                 else:
-                    load = _LOAD.get(code, f"tk::ld<{CT[code]}>")
+                    load = _LOAD.get(code, f"{ld}<{CT[code]}>")
                     ex = (f"{load}(P.p[{slot[dps[0]]}], "
                           f"tk::clip_index({ix}, {src[3]}LL))")
             elif op == REVERSE:
@@ -377,15 +479,18 @@ class Plan:
                 if src[6] or src[3] == 1:
                     ex = value(dps[0])
                 else:
-                    load = _LOAD.get(code, f"tk::ld<{CT[code]}>")
+                    load = _LOAD.get(code, f"{ld}<{CT[code]}>")
                     ex = f"{load}(P.p[{slot[dps[0]]}], {size - 1}LL - i)"
             elif op in (SCATTER, SCATTER_ADD):
                 ix = value(dps[1])
                 v = cvt(value(dps[2]), codes[2], code)
-                ptr = f"P.p[{slot[i]}]"
+                tgt = r.alias.get(i, i)
+                ptr = f"P.p[{slot[tgt]}]"
                 if op == SCATTER:
                     store = (f"{_STORE[code]}({ptr}, j, {v})" if code in
                              _STORE else f"tk::st<{CT[code]}>({ptr}, j, {v})")
+                elif tgt in r.smem:
+                    store = f"a{tgt}.put(j, {v})"
                 elif code in (BF16, F16):
                     kind = "bf16" if code == BF16 else "f16"
                     store = f"tk::atomic_add_{kind}({ptr}, j, {v})"
@@ -412,11 +517,33 @@ class Plan:
                     body.append(f"    if (i == 0) {st.format('0')};")
         # the lane count is an argument, so that one structure at two
         # sizes is one source (the hash tells them apart)
-        return ([f"TK_KERNEL({r.name})(const TkPtrs<{len(r.pointers)}> P, "
-                 f"const uint64_t *__restrict__ L, long long n) {{",
-                 "  TK_LANES(i, n) {"] + body
-                + ["  }", "}", f"TK_LAUNCH({r.name}, {len(r.pointers)})",
-                   ""])
+        head = (f"TK_KERNEL({r.name})(const TkPtrs<{len(r.pointers)}> P, "
+                f"const uint64_t *__restrict__ L, long long n")
+        if not r.accumulates:
+            return ([head + ") {", "  TK_LANES(i, n) {"] + body
+                    + ["  }", "}", f"TK_LAUNCH({r.name}, {len(r.pointers)})",
+                       ""])
+        # the private sums: made (and zeroed) before the lanes, added into
+        # the targets after them
+        lines = [head + ", uint32_t *__restrict__ part, unsigned *ticket) {",
+                 "  TK_SMEM(sm);"]
+        for p, off in r.smem.items():
+            kind = "RowAcc" if r.routes[p] == ROUTE_ROWS else "BlockAcc"
+            lines.append(f"  tk::{kind}<{CT[entries[p][2]]}, "
+                         f"{entries[p][3]}> a{p}(P.p[{slot[p]}], sm, {off});")
+        lines += ["  tk::sync();", "  auto lane = [&](long long i) {"] + body
+        lines += ["  };", f"  TK_LANES_BY(lane, n, {r.unroll});",
+                  "  tk::sync();"]
+        lines += [f"  a{p}.flush();" for p in r.smem if p not in r.part]
+        lines += [f"  a{p}.to_part(part, {r.part_width}, {off});"
+                  for p, off in r.part.items()]
+        if r.part:
+            lines.append("  if (tk::last_block(ticket)) {")
+            lines += [f"    a{p}.flush(part, {r.part_width}, {off});"
+                      for p, off in r.part.items()]
+            lines.append("  }")
+        return lines + ["}", f"TK_ACC_LAUNCH({r.name}, {len(r.pointers)}, "
+                             f"{r.smem_bytes}, {r.unroll})", ""]
 
     # -- building ------------------------------------------------------------
 
@@ -426,7 +553,9 @@ class Plan:
         from .. import cache
         if self.key is None or self.max_ops or not cache.export_dir():
             return None
-        return f"trace-{self.key:016x}-{_codegen_digest()[:8]}.so"
+        h = hashlib.sha256(_codegen_digest().encode())
+        h.update(self.text.encode())  # the routes: the text, not the hash
+        return f"trace-{self.key:016x}-{h.hexdigest()[:8]}.so"
 
     def library(self, build=None):
         """The built kernels: from memory, from the disk cache, or built
@@ -435,7 +564,7 @@ class Plan:
         if self._lib is None:
             self._lib = _load(self.text, self.disk_name(),
                               build or _nvcc_build,
-                              [r.name + "_launch" for r in self.runs])
+                              [(r.name, r.accumulates) for r in self.runs])
         return self._lib
 
     # -- running -------------------------------------------------------------
@@ -484,9 +613,22 @@ class Plan:
                 base = get(e[4][0])
                 mat[p] = base.expand(e[3]).clone()
                 ptrs.append(mat[p].data_ptr())
+            for p, root in step.alias.items():
+                mat[p] = mat[root]
             arr = (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs)
-            err = getattr(lib, step.name + "_launch")(
-                arr, lit_dev.data_ptr(), step.width, stream)
+            launch = getattr(lib, step.name + "_launch")
+            if not step.accumulates:
+                err = launch(arr, lit_dev.data_ptr(), step.width, stream)
+            else:
+                part = ticket = None
+                if stream is not None and step.part_width:
+                    blocks = getattr(lib, step.name + "_blocks")(step.width)
+                    part = torch.empty(blocks * step.part_width,
+                                       dtype=torch.int32, device=device)
+                    ticket = _build.ticket(lit_dev.device, stream)
+                err = launch(arr, lit_dev.data_ptr(), step.width, stream,
+                             None if part is None else part.data_ptr(),
+                             None if ticket is None else ticket.data_ptr())
             _build.launched(err, counter)
             for p in step.prints:
                 e = entries[p]
@@ -515,17 +657,23 @@ def _nvcc_build(text):
     return _build.build_generated("trace", text)
 
 
-def _bind(path, launches):
+def _bind(path, runs):
+    """Load a library with the entry points of ``runs`` ((name, whether
+    the run accumulates) each)."""
     lib = ctypes.CDLL(str(path))
-    for name in launches:
-        f = getattr(lib, name)
-        f.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                      ctypes.c_void_p]
+    P = ctypes.c_void_p
+    for name, acc in runs:
+        f = getattr(lib, name + "_launch")
+        f.argtypes = [P, P, ctypes.c_longlong, P] + [P, P] * acc
         f.restype = ctypes.c_int
+        if acc:
+            f = getattr(lib, name + "_blocks")
+            f.argtypes = [ctypes.c_longlong]
+            f.restype = ctypes.c_int
     return lib
 
 
-def _load(text, disk_name, build, launches):
+def _load(text, disk_name, build, runs):
     """Load the library of ``text``: one already loaded, the disk cache's
     (a corrupt one is deleted and rebuilt) or a new build, which then
     goes into the disk cache."""
@@ -538,12 +686,12 @@ def _load(text, disk_name, build, launches):
     path = os.path.join(d, disk_name) if d else None
     if path and os.path.exists(path):
         try:
-            lib = _bind(path, launches)
+            lib = _bind(path, runs)
         except (OSError, AttributeError):
             os.remove(path)
     if lib is None:
         built = build(text)
-        lib = _bind(built, launches)
+        lib = _bind(built, runs)
         if path:
             os.makedirs(d, exist_ok=True)
             tmp = f"{path}.{_build._unique()}.tmp"

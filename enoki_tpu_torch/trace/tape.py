@@ -48,7 +48,9 @@ the port's own opcode 80, digamma (``plain.DIGAMMA``). Deliberate
 differences (ROADMAP §C, the tape and calls): a SCATTER's value takes
 the cotangent at its slot under the interpreter's wrap-then-drop index
 rule, every one of duplicate writes included; a float SCATTER_ADD, and
-the adjoint of a GATHER, add with atomics on the card.
+the adjoint of a GATHER, add with atomics on the card into a target too
+large for a private row a thread (``codegen.ROW_SLOTS``: float32 targets,
+which add in a fixed order).
 """
 
 from __future__ import annotations

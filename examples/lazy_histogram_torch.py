@@ -5,8 +5,9 @@ PCG32<UInt64C> generation, the probit transform (erfinv,
 histogram.cpp:37-47), the clamp to the bins and the conflict-safe
 scatter_add are all recorded into one trace and evaluated once (the
 source paper fuses the same pipeline into one PTX kernel, docs/gpu.rst).
-On the card that eval runs the trace's generated CUDA kernels, the
-scatter_add with atomic adds; on the CPU its plain interpreter.
+On the card that eval runs the trace's generated CUDA kernel, the
+scatter_add into a private row of the 32 bins a thread in shared memory
+(trace/codegen.py's route 1); on the CPU its plain interpreter.
 
 Run: python examples/lazy_histogram_torch.py [n]
 Needs a CUDA card unless main() is called with device="cpu".

@@ -110,6 +110,23 @@ other. The variants:
                a warp instead of the block scan, and without the append;
                each split render bit-equal to the one-pass render, pass 1
                to plain; pass 1, the tail and the split forward timed
+  scatter      the lazy trace's SCATTER_ADD into a target (the generated
+               kernels of trace/codegen.py on csrc/trace_kernel.cuh) at
+               16M lanes, the indices normal around the middle slot
+               (phase 28's histogram scaled), uniform, or cyclic (lane i
+               at slot i % size): float32 weights into 8-192 slots by
+               routes 1 (a row a thread) and 2 (a copy a block), and by
+               3 (a global atomic a lane) for normal indices; float32
+               weights into 1024-24576 slots and float64 into 4096 and
+               12288 by routes 2 and 3; int32 counts into 64 slots by
+               each route and into 4096 and 24576 uniform ones by routes
+               2 and 3; route 1 at 64 slots with 1, 4 or 16 lanes a
+               thread at a time instead of 8, route 2 at 4096 with 1;
+               each held to its reference before it is timed (counts
+               equal to the plain interpreter's, weights within
+               chip_smoke.weights_gate of the float64 sum, its reading
+               printed); the shipped thresholds (codegen.ROW_SLOTS,
+               BLOCK_BYTES) come from these times
   hist         a row per thread with the next chunks' loads in flight
                while the current ones are added (shipped: 8 chunks when
                counting, 4 weighted), the same with 4 when counting, not
@@ -118,7 +135,10 @@ other. The variants:
 
 --sdf-only times the sdf_fwd family's variants alone, --bwd-only the SDF
 backward pair's, --sphere-only the sphere kernels', --split-only the
-split march's. --ab OTHER_ROOT
+split march's, --scatter-only the trace's SCATTER_ADD routes;
+--scatter-gate reads the weights gate of phase 28 (b)'s three timed
+SCATTER_ADDs alone (one kernel each, by its shipped route). --ab
+OTHER_ROOT
 times the sdf_fwd family, sdf_tail, the split forward's device time
 (torch.profiler), the chained fwd+bwd step with split 16 and without,
 the backward kernels (sdf_bwd, sdf_bwd_ad,
@@ -1784,6 +1804,128 @@ def run_variants(torch, dev, timer, C):
              "hist_partial_kernelILb0E", "hist_partial_kernelILb1E")))
 
 
+# (dtype, slots, the spread of the indices (chip_smoke.scatter_timed_case),
+# the routes to time, the lanes a thread takes at once)
+SPREADS = ("normal", "uniform", "cyclic")
+SCATTER_VARIANTS = (
+    [("float32", n, "normal", (1, 2, 3), 8) for n in (8, 32, 64, 96, 128,
+                                                       192)]
+    + [("float32", n, sp, (1, 2), 8) for sp in SPREADS[1:]
+       for n in (8, 32, 64, 96, 128, 192)]
+    + [("float32", n, sp, (2, 3), 8) for sp in SPREADS
+       for n in (1024, 4096, 8192, 16384, 24576)]
+    + [("float64", n, sp, (2, 3), 8) for sp in SPREADS for n in (4096,
+                                                                   12288)]
+    + [("int32", 64, "normal", (1, 2, 3), 8)]
+    + [("int32", n, "uniform", (2, 3), 8) for n in (4096, 24576)]
+    + [("float32", 64, "normal", (1,), u) for u in (1, 4, 16)]
+    + [("float32", 4096, "normal", (2,), 1)])
+
+
+def gate_variants(C):
+    """phase 28 (b)'s timed weights (chip_smoke.SCATTER_TIMED), each by the
+    route codegen gives it: the weights gate's readings."""
+    from enoki_tpu_torch.trace import codegen
+    return [("float32", n, "normal", (C.scatter_route("float32", n),),
+             codegen.ACC_UNROLL) for n in C.SCATTER_TIMED]
+
+
+def forced_plan(torch, C, tr, dev, arrays, route, unroll):
+    """(plan, run) of evaluating ``arrays`` with every SCATTER_ADD target
+    on ``route`` and ``unroll`` lanes a thread at a time (the codegen
+    thresholds set for it while the source is written; no disk cache)."""
+    import ctypes
+
+    from enoki_tpu_torch.trace import codegen
+    consts = {"ACC_UNROLL": unroll,
+              "ROW_SLOTS": dict.fromkeys((codegen.F32, codegen.I32,
+                                          codegen.U32), 227 if route == 1
+                                         else 0),
+              "BLOCK_BYTES": 0 if route == 3 else 227 * 1024,
+              "ACC_SMEM": 0 if route == 3 else 227 * 1024}
+    ids = [tr._PENDING_SCATTER.get(a.index, a.index) for a in arrays]
+    n = tr._lib.ett_schedule((ctypes.c_uint32 * len(ids))(*ids), len(ids))
+    entries, outs = tr._read_schedule(n)
+    buf = (ctypes.c_uint32 * max(n, 1))()
+    leaves = [tr._BUFFERS[buf[i]]
+              for i in range(tr._lib.ett_schedule_data_ids(buf, n))]
+    bits, codes = tr._collect_literals(n)
+    saved = {k: getattr(codegen, k) for k in consts}
+    try:
+        for k, v in consts.items():
+            setattr(codegen, k, v)
+        plan = codegen.Plan(entries, outs, {}, 0, None)
+    finally:
+        for k, v in saved.items():
+            setattr(codegen, k, v)
+    lit = torch.from_numpy(bits.view(np.int64)).to(dev)
+    return plan, lambda: plan.run(leaves, lit, bits, codes, dev)
+
+
+def run_scatter_variants(torch, dev, timer, C, gate_only=False):
+    """Each variant held to its reference before it is timed: int32 counts
+    equal to the plain interpreter's, float weights within
+    chip_smoke.weights_gate of the float64 sum (its reading printed).
+    ``gate_only``: the gate variants, read and not timed; every reading is
+    printed before a failure exits."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import enoki_tpu_torch.trace as tr
+    variants = []
+    for dtype, size, spread, routes, unroll in (
+            gate_variants(C) if gate_only else SCATTER_VARIANTS):
+        tr.reset()
+        base, idx, val = C.scatter_timed_case(size, HIST_N, spread=spread)
+        if dtype == "int32":
+            val = np.ones(HIST_N, np.int32)
+        base = base.astype(dtype)
+        val = val.astype(dtype)
+        arrays = [torch.from_numpy(a).to(dev) for a in (base, idx, val)]
+        t = C.scatter_program(tr, *arrays, dev)
+        want = tr.plain_eval(t)[0] if dtype == "int32" else None
+        for route in routes:
+            plan, run = forced_plan(torch, C, tr, dev, [t], route, unroll)
+            got = list(plan.runs[0].routes.values())
+            if got != [route]:
+                sys.exit(f"scatter {dtype} {size}: route {got}, not {route}")
+            variants.append(((dtype, size, spread, route,
+                              plan.runs[0].unroll), plan, run, want, arrays))
+        del t
+    with ThreadPoolExecutor(16) as ex:
+        list(ex.map(lambda v: v[1].library(), variants))
+    times, readings, failed = {}, {}, []
+    for order in (variants, variants[::-1]) if not gate_only else (
+            variants,):
+        for key, plan, run, want, arrays in order:
+            if key not in readings:
+                (got,) = run()[:1]
+                torch.cuda.synchronize()
+                if want is not None:
+                    ok, share = bool(torch.equal(got, want)), 0.0
+                    text = "equal to the plain interpreter" if ok else \
+                        "differs from the plain interpreter"
+                else:
+                    ok, err, share = C.weights_gate(torch, got, *arrays)
+                    text = (f"{share:.4g} of the weights gate from the "
+                            f"float64 sum (max |err| {err:.4g})")
+                readings[key] = text
+                if not ok:
+                    failed.append(key)
+                    print(f"scatter {key}: FAIL, {text}", flush=True)
+            if not gate_only and key not in failed:
+                times.setdefault(key, []).append(
+                    timer(run, 20, hold_ms=400.0))
+    for key, text in readings.items():
+        dtype, size, spread, route, unroll = key
+        ms = " / ".join(f"{t:.4f}" for t in times.get(key, []))
+        print(f"scatter {dtype} into {size} slots ({spread}), route {route}, "
+              f"{unroll} lane(s) a thread at once: "
+              + (f"{ms} ms; " if ms else "") + text)
+    tr.reset()
+    if failed:
+        sys.exit(f"scatter: {len(failed)} variant(s) failed their gate")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ab", metavar="OTHER_ROOT",
@@ -1796,6 +1938,11 @@ def main():
                     help="time the sphere kernels' variants alone")
     ap.add_argument("--split-only", action="store_true",
                     help="time the split march's variants alone")
+    ap.add_argument("--scatter-only", action="store_true",
+                    help="time the trace's SCATTER_ADD routes alone")
+    ap.add_argument("--scatter-gate", action="store_true",
+                    help="read the weights gate of phase 28 (b)'s timed "
+                         "SCATTER_ADDs alone")
     ap.add_argument("--time-root", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time_root:
@@ -1808,10 +1955,12 @@ def main():
         sys.exit("kernel_variants: needs a CUDA card")
     print(C.nvidia_smi("name,power.limit"))
     dev, timer = torch.device("cuda"), C.DeviceTimer(torch)
-    only = [args.sdf_only, args.bwd_only, args.sphere_only, args.split_only]
+    only = [args.sdf_only, args.bwd_only, args.sphere_only, args.split_only,
+            args.scatter_only, args.scatter_gate]
     if sum(only) > 1:
         sys.exit("kernel_variants: at most one of --sdf-only, --bwd-only, "
-                 "--sphere-only and --split-only")
+                 "--sphere-only, --split-only, --scatter-only and "
+                 "--scatter-gate")
     if args.bwd_only or not any(only):
         run_bwd_variants(torch, dev, timer, C)
     if args.sdf_only or not any(only):
@@ -1820,6 +1969,10 @@ def main():
         run_sphere_variants(torch, dev, timer, C)
     if args.split_only or not any(only):
         run_split_variants(torch, dev, timer, C)
+    if args.scatter_only or not any(only):
+        run_scatter_variants(torch, dev, timer, C)
+    if args.scatter_gate:
+        run_scatter_variants(torch, dev, timer, C, gate_only=True)
     if not any(only):
         run_variants(torch, dev, timer, C)
     if args.ab:

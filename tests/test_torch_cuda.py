@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+# SCATTER_ADD's routes (each side of each route's threshold) as phase 28 (b)
+# runs them
+from chip_smoke import SCATTER_CODES, SCATTER_SIZES, SCATTER_TIMED
 from enoki_tpu_torch import _build, ops as R
 from enoki_tpu_torch.ops import hist_kernels as H, rounding as RD
 from enoki_tpu_torch.render import (LAUNCHES, Vec3, generic as G,
@@ -1178,6 +1181,125 @@ def test_trace_histogram_is_one_kernel_and_exact(cuda):
     got = h.torch()
     assert LAUNCHES["trace"] == before + 1
     assert torch.equal(got, want)
+    tr.reset()
+
+
+def _scatter_on_the_card(cuda, arrays, chained=False):
+    """(plan, the kernels' results, the plain interpreter's) of the
+    SCATTER_ADD cases ``arrays`` ((base, idx, val) each) in one eval."""
+    import chip_smoke
+    import enoki_tpu_torch.trace as tr
+    plan, got, want, launched = chip_smoke.scatter_on(torch, tr, cuda,
+                                                      arrays, chained)
+    assert launched == 1 and len(plan.runs) == 1
+    for g, w, a in zip(got, want, arrays):
+        assert chip_smoke.scatter_exact(torch, g, w, *(
+            torch.from_numpy(x).to(cuda) for x in a))
+    return plan, got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", SCATTER_SIZES)
+@pytest.mark.parametrize("dtype", SCATTER_CODES)
+def test_trace_scatter_route_matches_the_plain_interpreter(cuda, dtype, size):
+    # bit-equal to the plain interpreter (float values in quarters, whose
+    # sums are exact in any order), and a slot only -0.0 reached keeps
+    # its base's bits; route 1 gives the same bits twice
+    import chip_smoke
+    case = chip_smoke.scatter_case(dtype, size, 1 << 16,
+                                   chip_smoke.scatter_seed(dtype, size),
+                                   exact=True)
+    route = chip_smoke.scatter_route(dtype, size)
+    plan, (got,), _ = _scatter_on_the_card(cuda, [case])
+    assert list(plan.runs[0].routes.values()) == [route]
+    if route == 1:
+        _, (again,), _ = _scatter_on_the_card(cuda, [case])
+        assert torch.equal(bits_of(got), bits_of(again))
+
+
+def bits_of(t):
+    return t.view({4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+@pytest.mark.cuda
+def test_trace_scatter_several_targets_and_a_shared_copy(cuda):
+    import chip_smoke
+    for targets, routes in chip_smoke.SCATTER_SEVERAL.values():
+        cases = [chip_smoke.scatter_case(dt, n, 1 << 16, k + 3, exact=True)
+                 for k, (dt, n) in enumerate(targets)]
+        plan, _, _ = _scatter_on_the_card(cuda, cases)
+        run = plan.runs[0]
+        assert [run.routes[p] for p in run.targets] == routes
+    for dtype in ("int32", "float32", "float64"):
+        case = chip_smoke.scatter_case(dtype, 64, 1 << 16, 11, exact=True)
+        plan, _, _ = _scatter_on_the_card(cuda, [case], chained=True)
+        assert len(plan.runs[0].alias) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", SCATTER_TIMED)
+def test_trace_scatter_weights_within_their_gate(cuda, size):
+    # random float32 weights at 2^20 lanes (phase 28 (b)'s timed cases,
+    # smaller) by each route, within chip_smoke.weights_gate of the
+    # float64 sum; route 1 gives the same bits twice
+    import chip_smoke
+    import enoki_tpu_torch.trace as tr
+    tr.reset()
+    base, idx, val = (torch.from_numpy(a).to(cuda) for a in
+                      chip_smoke.scatter_timed_case(size, 1 << 20))
+    t = chip_smoke.scatter_program(tr, base, idx, val, cuda)
+    plan, run = chip_smoke.trace_launcher(torch, tr, cuda, [t])
+    route = chip_smoke.scatter_route("float32", size)
+    assert list(plan.runs[0].routes.values()) == [route]
+    (first,), (again,) = run()[:1], run()[:1]
+    ok, err, share = chip_smoke.weights_gate(torch, first, base, idx, val)
+    assert ok, (err, share)
+    if route == 1:
+        assert torch.equal(bits_of(first), bits_of(again))
+    del t
+    tr.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 2047, 2048, 2049, 5000,
+                               (1 << 20) + 17])
+def test_trace_scatter_takes_every_lane_once(cuda, n):
+    # lanes around the multiples of an unrolled block (256 x 8) and of the
+    # grid: counts into route 1 (float32) and route 2 (int64) targets
+    idx = (np.arange(n) % 97).astype(np.int32)
+    for dtype, slots in (("float32", 96), ("int64", 97)):
+        case = (np.zeros(slots, dtype), idx, np.ones(n, dtype))
+        plan, (got,), _ = _scatter_on_the_card(cuda, [case])
+        assert plan.runs[0].unroll == 8
+        assert got.cpu().numpy().tolist() == np.bincount(
+            idx[idx < slots], minlength=slots).tolist()
+
+
+@pytest.mark.cuda
+def test_trace_scatter_refused_launch_raises(cuda, monkeypatch):
+    # a route whose launch the card refuses (route 1 rows of 240 slots:
+    # 240 KiB of shared memory, above the 227 KiB a block may have)
+    # raises; nothing falls back to the atomics or the plain interpreter
+    import chip_smoke
+    import enoki_tpu_torch.trace as tr
+    from enoki_tpu_torch.config import config
+    from enoki_tpu_torch.trace import codegen, plain
+    monkeypatch.setattr(codegen, "ROW_SLOTS", {codegen.F32: 240})
+    monkeypatch.setattr(codegen, "ACC_SMEM", 240 * 1024)
+    monkeypatch.setattr(config, "trace_export_dir", "")
+    tr.reset()
+    case = chip_smoke.scatter_case("float32", 240, 4096, 5)
+    t = chip_smoke.scatter_program(tr, *case, cuda)
+    assert list(tr.prepare(t).runs[0].routes.values()) == [1]
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain interpreter ran")
+
+    monkeypatch.setattr(plain, "run", no_plain)
+    before = LAUNCHES["trace"]
+    with pytest.raises(RuntimeError, match="trace launch failed"):
+        t.torch()
+    assert LAUNCHES["trace"] == before
     tr.reset()
 
 
