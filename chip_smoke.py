@@ -245,7 +245,11 @@ rounding.
            bit-equal, those with transcendentals within 1 ulp, two of
            them against the CPU plain interpreter too; (b) 16M values ->
            cast(int32) -> scatter_add into 64 bins in one eval, counts
-           equal to the plain interpreter's and torch.bincount's; (c) the
+           equal to the plain interpreter's and torch.bincount's, every
+           SCATTER_ADD route case bit-equal to the plain interpreter on
+           the card, and the plain interpreter's lane sweep (every
+           storage code through every op that reads other lanes) bitwise
+           equal on the card and the CPU; (c) the
            10,444-op chain of tools/jit_overhead.py at 2^16 and 2^24,
            whole (kernels of at most 1,024 entries) and at max_fused_ops
            512, bit-equal, with its trace, schedule, nvcc, first-eval,
@@ -290,6 +294,12 @@ rounding.
            struct helpers and a struct-argument dispatch bit-equal to
            the CPU; then the times of (a)'s sphere and (c)'s adjoint,
            the phase30_* fields of the trace and trace_vjp rows
+  phase 31 runtime.kernel_printf in a scene function: the composed scene
+           of examples/composed_torch.py at 1024^2, 64 steps, printing a
+           parameter and the distance in sdf_fn and the ray's origin in
+           ray_fn; generic_fwd's device printf (fd 1, the thread of pixel
+           (0, 0)) a prefix of the plain route's lines on the card, the
+           rest of them equal to its last, ts bit-equal
 
 Run from the root of the repository:  python chip_smoke.py
 Needs one CUDA card; exits non-zero, printing no result, without one or
@@ -1108,8 +1118,11 @@ def run(torch, dev):
     def build_scene(name):
         # the scene's first use: one trace, then one nvcc
         t_start = time.perf_counter()
-        scenes[name][0].kernels.lib
+        (print_scene if name == "printing" else scenes[name])[0].kernels.lib
         return time.perf_counter() - t_start
+
+    # phase 31's scene, whose kernel prints
+    print_scene = printing_scene()
 
     # sdf_tail's refill schedules, for phase 12
     schedules = list(tail_schedule_sources().values())
@@ -1123,14 +1136,15 @@ def run(torch, dev):
     trace_plans = trace_structures(torch, dev)
     n_texts = len({p.text for p in trace_plans.values()})
     with concurrent.futures.ThreadPoolExecutor(
-            len(libs) + len(scenes) + len(schedules) + n_texts) as pool:
+            len(libs) + len(scenes) + 1 + len(schedules) + n_texts) as pool:
         # one nvcc per source, all at once
         built = pool.map(_build.build, libs)
         variants = pool.map(
             lambda t: _build.build_generated("sdf_render", t), schedules)
-        scene_times = pool.map(build_scene, scenes)
+        scene_times = pool.map(build_scene, [*scenes, "printing"])
         trace_build_s = build_trace_plans(trace_plans, pool)
-        first_use = dict(zip(scenes, scene_times))
+        first_use = dict(zip([*scenes, "printing"], scene_times))
+        print_build_s = first_use.pop("printing")
         list(built)
         list(variants)
     for plan in trace_plans.values():
@@ -1349,6 +1363,7 @@ def run(torch, dev):
         if row["name"] in lazy:
             row["launches"] += lazy[row["name"]]["phase30_launches"]
             row.update(lazy[row["name"]])
+    run_kernel_printf(torch, dev, print_scene, print_build_s)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
@@ -1890,7 +1905,7 @@ def one_cpu_thread(torch, on=True):
     """PyTorch's CPU transcendentals in the calling thread alone: its CPU
     build (MKL's vector math) may compute the first such call after its
     thread pool is built at a lower accuracy in one worker's chunk
-    (float32-like in float64; ROADMAP §C), which would not be the CPU's
+    (float32-like in float64; docs/port.md), which would not be the CPU's
     answer to hold the card to."""
     n = torch.get_num_threads()
     if on:
@@ -5210,8 +5225,15 @@ def trace_hist(tr, values, bins=TRACE_HIST_BINS):
 
 
 # SCATTER_ADD's routes (trace/codegen.py): the target's codes, and sizes at
-# each side of each route's threshold (codegen.ROW_SLOTS, BLOCK_BYTES)
-SCATTER_CODES = ("int32", "uint32", "int64", "float32", "float64")
+# each side of each route's threshold (codegen.ROW_SLOTS, BLOCK_BYTES). A
+# bool target has no SCATTER_ADD: its cases hold the refusal (TypeError,
+# as JAX's x.at[i].add of a bool array)
+SCATTER_CODES = ("int32", "uint32", "int64", "uint64", "float32", "float64",
+                 "bfloat16", "float16", "bool")
+# the largest magnitude up to which every quarter is exact in a 16-bit
+# float (2^(p - 2) for p significand bits): the bound of scatter_case's
+# exact sums there
+SCATTER_EXACT_SUM = {"bfloat16": 64.0, "float16": 512.0}
 SCATTER_SIZES = (1, 8, 9, 32, 64, 96, 97, 4096, 8192, 8193, 65536)
 SCATTER_N = 1 << 16            # lanes of phase 28 (b)'s route cases
 # several targets in one run: the routes in the order of the targets, the
@@ -5238,33 +5260,43 @@ def scatter_route(dtype, size):
     """The route a lone SCATTER_ADD target of ``dtype`` and ``size`` slots
     takes under codegen's thresholds: 1 (a row a thread), 2 (a copy a
     block) or 3 (global atomics)."""
+    import torch
     from enoki_tpu_torch.trace import _code_of, codegen
     code = _code_of(dtype)
     if size <= codegen.ROW_SLOTS.get(code, 0):
         return 1
-    width = np.dtype(dtype).itemsize
+    width = getattr(torch, dtype).itemsize
     return 2 if width in (4, 8) and size * width <= codegen.BLOCK_BYTES \
         else 3
 
 
 def scatter_case(dtype, size, lanes, seed, exact=False):
-    """(base, index, value) numpy arrays of a SCATTER_ADD of ``lanes``
-    lanes into ``size`` slots: about half the indices negative (counting
-    from the end), a tenth out of range either way (dropped); values and
-    base random, ints wide enough to wrap; where the target has 8 slots
-    or more, its last two slots are hit by nothing and the two before by
-    0 alone (-0.0 for floats), and those four slots' bases are -0.0, +0.0,
+    """(base, index, value) of a SCATTER_ADD of ``lanes`` lanes into
+    ``size`` slots: about half the indices negative (counting from the
+    end), a tenth out of range either way (dropped); values and base
+    random, ints wide enough to wrap; where the target has 8 slots or
+    more, its last two slots are hit by nothing and the two before by 0
+    alone (-0.0 for floats), and those four slots' bases are -0.0, +0.0,
     -0.0, +0.0 in a float target. Floats are normal(0, 4), or with
     ``exact`` quarters from -8 to 8, whose sums of up to 2^21 terms are
-    exact in float32 in any order: every route then gives the same bits."""
+    exact in float32 in any order: every route then gives the same bits;
+    in a 16-bit float the lanes after those that bring a slot's sum of
+    magnitudes, its base's included, to ``SCATTER_EXACT_SUM`` add +0.0,
+    and with ``exact`` a uint64 value is a small integer. numpy arrays,
+    but a bfloat16 base and value (numpy has no bfloat16) are CPU tensors
+    (``scatter_tensors`` puts all three on a device)."""
     rng = np.random.default_rng(seed)
-    dt = np.dtype(dtype)
+    dt = np.dtype("float32" if dtype == "bfloat16" else dtype)
 
     def draw(k):
         if dt.kind == "f" and exact:
             return (rng.integers(-32, 32, k, endpoint=True) / 4).astype(dt)
         if dt.kind == "f":
             return rng.normal(0.0, 4.0, k).astype(dt)
+        if dt.kind == "b":
+            return rng.random(k) < 0.5
+        if dt == np.uint64 and exact:
+            return rng.integers(0, 1000, k, endpoint=True).astype(dt)
         info = np.iinfo(dt)
         lo, hi = max(info.min, -2 ** 62), min(info.max, 2 ** 62)
         return rng.integers(lo, hi, k, dtype=dt, endpoint=True)
@@ -5287,7 +5319,39 @@ def scatter_case(dtype, size, lanes, seed, exact=False):
             base[size - 4:] = np.array([-0.0, 0.0, -0.0, 0.0], dt)
         order = rng.permutation(idx.size)
         idx, val = idx[order], val[order]
+    if exact and dtype in SCATTER_EXACT_SUM:
+        val = _exact_sums(base, idx, val, SCATTER_EXACT_SUM[dtype])
+    if dtype == "bfloat16":
+        import torch
+        base, val = (torch.from_numpy(a).to(torch.bfloat16)
+                     for a in (base, val))
     return base, idx.astype(np.int32), val
+
+
+def _exact_sums(base, idx, val, bound):
+    """``val`` with +0.0 in each lane that would bring the sum of the
+    magnitudes of its slot's terms (base first, then the lanes in order)
+    above ``bound``: every partial sum of quarters is then exact."""
+    n = base.size
+    slot = np.where(idx < 0, idx + n, idx)
+    kept = (slot >= 0) & (slot < n)
+    order = np.argsort(np.where(kept, slot, n), kind="stable")
+    s, v = np.where(kept, slot, n)[order], np.abs(val[order]).astype(
+        np.float64)
+    run = np.cumsum(v)
+    first = np.searchsorted(s, s, side="left")
+    before = np.concatenate([[0.0], run])[first]
+    within = run - before + np.abs(np.append(base, 0.0)[s]) <= bound
+    out = val.copy()
+    out[order[~within & (s < n)]] = 0.0
+    return out
+
+
+def scatter_tensors(torch, arrays, device):
+    """A case's arrays (numpy, or scatter_case's bfloat16 tensors) as
+    tensors on ``device``."""
+    return [(a if isinstance(a, torch.Tensor) else torch.from_numpy(a))
+            .to(device) for a in arrays]
 
 
 def scatter_seed(dtype, size):
@@ -5318,13 +5382,18 @@ def scatter_program(tr, base, idx, val, device, chained=False):
     ``device`` (None: the module's default, as enoki_tpu.trace has it);
     with ``chained``, in two SCATTER_ADDs of half the lanes each, the
     second into the first's result."""
-    kw = {} if device is None else {"device": device}
-    t = tr.LazyArray(base, **kw)
+
+    def lazy(a):
+        if device is None:
+            return tr.LazyArray(a)
+        import torch
+        return tr.LazyArray(*scatter_tensors(torch, [a], device))
+
+    t = lazy(base)
     h = len(idx) // 2 if chained else len(idx)
     for part in ((slice(0, h), slice(h, None)) if chained
                  else (slice(None),)):
-        t.scatter_add(tr.LazyArray(idx[part], **kw),
-                      tr.LazyArray(val[part], **kw))
+        t.scatter_add(lazy(idx[part]), lazy(val[part]))
     return t
 
 
@@ -5365,7 +5434,7 @@ def scatter_gate(torch, got, want, base, idx, val):
         same = bool(torch.equal(got, want))
         return same, 0.0 if same else float("inf")
     mag, touched = scatter_terms(torch, base, idx, val)
-    u = 2.0 ** -24 if got.dtype == torch.float32 else 2.0 ** -53
+    u = torch.finfo(got.dtype).eps / 2  # the roundoff, 2^-24 in float32
     diff = (got.double() - want.double()).abs()
     ok = bool((diff <= 4 * u * mag).all()) and keeps_base(
         torch, got, base, touched)
@@ -5374,7 +5443,8 @@ def scatter_gate(torch, got, want, base, idx, val):
 
 def keeps_base(torch, got, base, touched):
     """Whether the float slots not ``touched`` hold their base's bits."""
-    bits = {4: torch.int32, 8: torch.int64}[got.element_size()]
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        got.element_size()]
     return bool(torch.equal(got[~touched].view(bits),
                             base[~touched].view(bits)))
 
@@ -5385,7 +5455,7 @@ def scatter_exact(torch, got, want, base, idx, val):
     the slots that nothing but -0.0 reached keep the base's bits."""
     if got.dtype != want.dtype or got.shape != want.shape:
         return False
-    bits = {1: torch.uint8, 4: torch.int32, 8: torch.int64}[
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[
         got.element_size()]
     same = bool(torch.equal(got.view(bits), want.view(bits)))
     if not got.dtype.is_floating_point:
@@ -5450,10 +5520,24 @@ def trace_structures(torch, dev):
     return plans
 
 
+def scatter_refused(tr, dev, case):
+    """Whether a SCATTER_ADD of ``case`` into a bool target raises
+    TypeError when it is recorded, as JAX's x.at[i].add refuses a bool
+    array (the trace is reset after)."""
+    try:
+        scatter_program(tr, *case, dev)
+    except TypeError:
+        return True
+    finally:
+        tr.reset()
+    return False
+
+
 def scatter_structures(torch, dev, data=True):
     """Phase 28 (b)'s SCATTER_ADD programs: [(name, make)], ``make(tr)``
     the arrays to evaluate (``data``: the seeded inputs, else uninitialised
-    ones of the timed cases: the same structure)."""
+    ones of the timed cases: the same structure); a bool target has none
+    (scatter_refused)."""
     out = []
 
     def case(dtype, size, chained=False):
@@ -5464,7 +5548,7 @@ def scatter_structures(torch, dev, data=True):
         return make
 
     for dtype in SCATTER_CODES:
-        for size in SCATTER_SIZES:
+        for size in SCATTER_SIZES if dtype != "bool" else ():
             out.append((f"scatter-{dtype}-{size}", case(dtype, size)))
     out.append(("scatter-chained", case("float32", 64, chained=True)))
     for name, (targets, _) in SCATTER_SEVERAL.items():
@@ -5505,22 +5589,13 @@ def trace_launcher(torch, tr, dev, arrays):
 def scatter_on(torch, tr, dev, arrays, chained=False):
     """(plan, the kernels' results, the plain interpreter's, launches) of
     the SCATTER_ADD cases ``arrays`` ((base, idx, val) each) evaluated in
-    one schedule on ``dev``, the trace reset before and after. A uint32
-    target's plain results are the CPU's: the plain interpreter's scatter
-    indexes the target's dtype, which PyTorch's CUDA build cannot do for
-    uint32 (ROADMAP §C, C12)."""
+    one schedule on ``dev``, the plain interpreter run there too, the
+    trace reset before and after."""
     from enoki_tpu_torch.render import LAUNCHES
-    want = None
-    if any(a[0].dtype == np.uint32 for a in arrays):
-        tr.reset()
-        cpu = [scatter_program(tr, *a, "cpu", chained) for a in arrays]
-        want = [w.to(dev) for w in tr.plain_eval(*cpu)]
-        del cpu
     tr.reset()
     ts = [scatter_program(tr, *a, dev, chained) for a in arrays]
     plan = tr.prepare(*ts)
-    if want is None:
-        want = tr.plain_eval(*ts)
+    want = tr.plain_eval(*ts)
     before = LAUNCHES["trace"]
     tr.eval(*ts)
     got = [t.torch() for t in ts]
@@ -5556,18 +5631,22 @@ def run_scatter(torch, dev, timer, timed_ms, smi):
         launches += launched
         runs += len(plan.runs)
         for g, w, a in zip(got, want, arrays):
-            check(scatter_exact(torch, g, w, *(
-                torch.from_numpy(x).to(dev) for x in a)),
-                f"phase 28 (b): {name}: the kernel's bits differ from the "
-                f"plain interpreter's")
+            check(scatter_exact(torch, g, w, *scatter_tensors(torch, a, dev)),
+                  f"phase 28 (b): {name}: the kernel's bits differ from the "
+                  f"plain interpreter's")
         return plan
 
     for dtype in SCATTER_CODES:
         for size in SCATTER_SIZES:
+            case = scatter_case(dtype, size, SCATTER_N,
+                                scatter_seed(dtype, size), exact=True)
+            if dtype == "bool":
+                check(scatter_refused(tr, dev, case),
+                      f"phase 28 (b): a SCATTER_ADD into a bool target of "
+                      f"{size} was not refused")
+                continue
             route = scatter_route(dtype, size)
-            held(f"{dtype} into {size}", [scatter_case(
-                dtype, size, SCATTER_N, scatter_seed(dtype, size),
-                exact=True)], [route])
+            held(f"{dtype} into {size}", [case], [route])
             by_route[route].append(f"{dtype}/{size}")
     plan = held("two into one float32 target of 64",
                 [scatter_case("float32", 64, SCATTER_N,
@@ -5587,7 +5666,7 @@ def run_scatter(torch, dev, timer, timed_ms, smi):
         f"{', '.join(by_route[2])}; route 3 (global atomics) "
         f"{', '.join(by_route[3])}; several targets in one run "
         f"({', '.join(SCATTER_SEVERAL)}) and two SCATTER_ADDs into one "
-        f"target: pass")
+        f"target: pass; a bool target refused (TypeError) at every size")
 
     rows = []
     for size in SCATTER_TIMED:
@@ -5636,6 +5715,135 @@ def run_scatter(torch, dev, timer, timed_ms, smi):
         del t, first, again
     tr.reset()
     return launches, runs, rows
+
+
+# phase 28 (b)'s sweep of the plain interpreter, card against CPU: every
+# storage code (trace/plain.py's STORAGE, in its order) through every op
+# that reads other lanes than its own
+LANE_CODES = ("float32", "float64", "int32", "uint32", "bool", "bfloat16",
+              "int64", "uint64", "float16")
+LANE_OPS = ("SCATTER", "SCATTER_ADD", "GATHER", "REVERSE", "COMPRESS",
+            "PSUM", "HSUM", "HPROD", "HMIN", "HMAX", "ALL", "ANY", "COUNT")
+LANE_N = 1 << 16
+
+
+def lane_values(rng, dtype, n, op):
+    """``n`` values of ``dtype`` whose every reduction is exact in any
+    order: floats in quarters from -8 to 8 with a twentieth -0.0 (HPROD:
+    +-1 with a few +-2 and +-0.5), integers over their whole range with a
+    tenth 0, bools half true. numpy, but bfloat16 a CPU tensor, as
+    scatter_case's."""
+    if dtype == "bool":
+        return rng.random(n) < 0.5
+    dt = np.dtype("float32" if dtype == "bfloat16" else dtype)
+    if dt.kind == "f":
+        if op == "HPROD":
+            v = rng.choice([1.0, -1.0, 2.0, -2.0, 0.5, -0.5], n, p=[
+                0.46, 0.46, 0.02, 0.02, 0.02, 0.02]).astype(dt)
+        else:
+            v = (rng.integers(-32, 32, n, endpoint=True) / 4).astype(dt)
+            v[rng.random(n) < 0.05] = -0.0
+        if dtype == "bfloat16":
+            import torch
+            return torch.from_numpy(v).to(torch.bfloat16)
+        return v
+    info = np.iinfo(dt)
+    v = rng.integers(info.min, info.max, n, dtype=dt, endpoint=True)
+    v[rng.random(n) < 0.1] = 0
+    return v
+
+
+def lane_case(torch, tr, dtype, op, n, device, seed=0):
+    """The plain interpreter's result of ``op`` over ``n`` lanes of
+    ``dtype`` on ``device`` (``trace.plain_eval``), or "refused" where the
+    op raises TypeError when it is recorded (a SCATTER_ADD into a bool
+    target, as JAX refuses it). The same ``seed`` gives the same inputs on
+    every device. SCATTER writes each kept slot once (which write of two
+    wins is not specified), SCATTER_ADD takes scatter_case's exact
+    values."""
+    rng = np.random.default_rng([seed, LANE_CODES.index(dtype),
+                                 LANE_OPS.index(op)])
+
+    def lazy(a):
+        return tr.LazyArray(*scatter_tensors(torch, [a], device))
+
+    tr.reset()
+    try:
+        if op in ("SCATTER", "SCATTER_ADD"):
+            if op == "SCATTER_ADD":
+                base, idx, val = scatter_case(dtype, n // 16, n, seed + 1,
+                                              exact=True)
+            else:
+                base = lane_values(rng, dtype, n, op)
+                val = lane_values(rng, dtype, n, op)
+                idx = rng.permutation(n)
+                idx = np.where(rng.random(n) < 0.5, idx - n, idx)
+                out = rng.random(n) < 0.1
+                idx = np.where(out, n + rng.integers(0, 9, n), idx)
+            t = lazy(base)
+            try:
+                (t.scatter_add if op == "SCATTER_ADD" else t.scatter)(
+                    lazy(idx.astype(np.int32)), lazy(val))
+            except TypeError:
+                return "refused"
+            (got,) = tr.plain_eval(t)
+            return got
+        x = lazy(lane_values(rng, dtype, n, op))
+        if op == "GATHER":
+            y = x.gather(lazy(rng.integers(-n // 8, n + n // 8, n).astype(
+                np.int32)))
+        elif op == "COMPRESS":
+            y = x.compress(lazy(rng.random(n) < 0.3))[0]
+        else:
+            y = getattr(x, {"REVERSE": "reverse", "PSUM": "psum",
+                            "HSUM": "hsum", "HPROD": "hprod",
+                            "HMIN": "hmin", "HMAX": "hmax", "ALL": "all",
+                            "ANY": "any", "COUNT": "count"}[op])()
+        (got,) = tr.plain_eval(y)
+        return got
+    finally:
+        tr.reset()
+
+
+def lane_same(torch, got, want):
+    """Whether two lane_case results are the same: both refused, or the
+    same dtype, shape and bits (compared on the CPU)."""
+    if isinstance(got, str) or isinstance(want, str):
+        return got == want
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        got.element_size()]
+    return bool(torch.equal(got.cpu().view(bits), want.cpu().view(bits)))
+
+
+def run_lane_sweep(torch, dev, n=None):
+    """Phase 28 (b)'s sweep: ``lane_case`` of every code of LANE_CODES and
+    op of LANE_OPS on ``dev`` and on the CPU, held bitwise; a case that
+    raises on ``dev`` fails the phase with its error. Returns the number
+    of cases."""
+    import enoki_tpu_torch.trace as tr
+    n = LANE_N if n is None else n
+    cpu = torch.device("cpu")
+    bad, t0 = [], time.perf_counter()
+    for dtype in LANE_CODES:
+        for op in LANE_OPS:
+            try:
+                got = lane_case(torch, tr, dtype, op, n, dev)
+            except Exception as e:  # noqa: BLE001 - reported below
+                bad.append(f"{dtype} {op}: {type(e).__name__}: {e}")
+                continue
+            if not lane_same(torch, got, lane_case(torch, tr, dtype, op, n,
+                                                   cpu)):
+                bad.append(f"{dtype} {op}: differs from the CPU")
+    check(not bad, "phase 28 (b) lane sweep: " + "; ".join(bad))
+    cases = len(LANE_CODES) * len(LANE_OPS)
+    log(f"phase 28 (b) lane sweep: trace.plain_eval of {', '.join(LANE_OPS)} "
+        f"over {n} lanes of each of {', '.join(LANE_CODES)} "
+        f"({cases} cases; a bool SCATTER_ADD refused on both devices) "
+        f"bitwise equal on {dev.type} and on the CPU in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return cases
 
 
 def build_trace_plans(plans, pool):
@@ -5938,6 +6146,7 @@ def run_trace(torch, dev, timer, plans, build_s):
     del v
     n_launched, n_runs, scatter_rows = run_scatter(torch, dev, timer,
                                                    timed_ms, smi)
+    run_lane_sweep(torch, dev)
     check(n_launched == n_runs, f"phase 28 (d): the SCATTER_ADD programs "
           f"launched {n_launched} kernels for {n_runs} runs")
 
@@ -7305,6 +7514,134 @@ def _lazy_phase(torch, tr, dev, plans, nvcc, S, H, F):
         + f"); gather_struct, select_struct, scatter_struct, concat_structs"
         f" and a struct-argument trace.call.dispatch bit-equal to the CPU: "
         f"pass")
+
+
+# ---------------------------------------------------------------------------
+# Phase 31: runtime.kernel_printf in a scene's generic_fwd
+# ---------------------------------------------------------------------------
+
+
+def printing_scene():
+    """(render, sdf_fn, ray_fn, parameters) of examples/composed_torch.py's
+    12-parameter scene with runtime.kernel_printf on a parameter and the
+    distance in sdf_fn and on the ray's origin in ray_fn (the orthographic
+    camera)."""
+    import importlib.util
+    import pathlib
+    from enoki_tpu_torch.render import generic as G
+    from enoki_tpu_torch.runtime import kernel_printf
+    path = pathlib.Path(__file__).resolve().parent / "examples" / \
+        "composed_torch.py"
+    spec = importlib.util.spec_from_file_location("composed_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+
+    def sdf_fn(p, pv):
+        d = example.scene_sdf(p, pv)
+        kernel_printf("sdf radius={} d={}", pv[8], d)
+        return d
+
+    def ray_fn(px, py, pv):
+        o, d = G.ortho_camera(px, py, pv)
+        kernel_printf("ray o=({}, {}, {})", o.x, o.y, o.z)
+        return o, d
+
+    render, _ = G.make_sdf_renderer(sdf_fn, 12, ray_fn=ray_fn)
+    return render, sdf_fn, ray_fn, example.PARAMS
+
+
+def printing_plain(torch, dev, scene, n, steps):
+    """Phase 31's plain half on ``dev``: (the lines the plain route prints
+    from the host, the distance evaluations of the kernel's thread of
+    pixel (0, 0), the plain version's ts)."""
+    import io
+    from enoki_tpu_torch.render import generic as G
+    _, sdf_fn, ray_fn, params = scene
+    p = torch.from_numpy(params).to(dev)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, ts = G.generic_fwd_plain(sdf_fn, ray_fn, p, n, steps, EXTENT)
+        evals = int(G.generic_march_counts(sdf_fn, ray_fn, p, n, steps,
+                                           EXTENT)[0, 0])
+    return buf.getvalue().splitlines(), evals, ts
+
+
+def prints_follow(kernel, plain, evals, steps):
+    """The gate of phase 31: the kernel's lines are a prefix of the plain
+    route's, one from the ray and one an evaluation of the march's thread
+    of pixel (0, 0); the plain march's lines after them (a frozen lane
+    evaluates its last t again) all equal its last."""
+    k = len(kernel)
+    return (len(plain) == 1 + steps and k == 1 + evals
+            and kernel == plain[:k]
+            and all(line == plain[-1] for line in plain[k:]))
+
+
+def capture_fd1(torch, fn):
+    """(fn(), what the process wrote to its C stdout, fd 1, while fn ran:
+    a kernel's device printf, which the CUDA runtime writes there at a
+    synchronisation). Python's stdout is flushed before and restored
+    after, so that no line of this script goes into the capture."""
+    import ctypes
+    import tempfile
+    libc = ctypes.CDLL(None)
+    sys.stdout.flush()
+    libc.fflush(None)
+    saved = os.dup(1)
+    with tempfile.TemporaryFile() as f:
+        os.dup2(f.fileno(), 1)
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+            libc.fflush(None)
+        finally:
+            os.dup2(saved, 1)
+            os.close(saved)
+        f.seek(0)
+        return out, f.read().decode()
+
+
+def run_kernel_printf_alone(torch):
+    """Phase 31 alone on the card: the printing scene built, then run."""
+    scene = printing_scene()
+    t0 = time.perf_counter()
+    scene[0].kernels.lib
+    run_kernel_printf(torch, torch.device("cuda"), scene,
+                      time.perf_counter() - t0)
+
+
+def run_kernel_printf(torch, dev, scene, build_s):
+    """Phase 31: the composed scene with kernel_printf (printing_scene) at
+    N^2, STEPS steps, plain configuration, at its reference parameters:
+    generic_fwd's printed lines (fd 1) against the plain route's on the
+    card (prints_follow), the kernel's ts bit-equal to the plain
+    version's."""
+    from enoki_tpu_torch.render import LAUNCHES, generic as G
+    t0 = time.perf_counter()
+    render, _, _, params = scene
+    plain, evals, ts_p = printing_plain(torch, dev, scene, N, STEPS)
+    p = torch.from_numpy(params).to(dev)
+    before = LAUNCHES["generic_fwd"]
+    (_, ts_k), text = capture_fd1(
+        torch, lambda: G.generic_fwd(render.kernels, p, N, STEPS, EXTENT))
+    kernel = text.splitlines()
+    launched = LAUNCHES["generic_fwd"] - before
+    same_ts = torch.equal(ts_k.view(torch.int32), ts_p.view(torch.int32))
+    ok = launched == 1 and same_ts and prints_follow(kernel, plain, evals,
+                                                     STEPS)
+    log(f"phase 31 kernel_printf in the composed scene at {N}^2, {STEPS} "
+        f"steps: generic_fwd printed {len(kernel)} lines (1 from user_ray, "
+        f"{len(kernel) - 1} from user_sdf: pixel (0, 0) evaluates the "
+        f"distance {evals} times), the plain route {len(plain)}; the "
+        f"kernel's lines a prefix of the plain route's, text-equal, the "
+        f"rest equal to its last; ts bit-equal to the plain version's; "
+        f"the scene built in {build_s:.2f} s (trace + nvcc, in the setup's "
+        f"pool); phase 31 took {time.perf_counter() - t0:.2f} s: "
+        f"{'pass' if ok else 'FAIL'}")
+    for line in kernel:
+        log(f"phase 31 kernel line: {line}")
+    check(ok, f"phase 31: generic_fwd's prints {kernel!r} against the plain "
+          f"route's {plain!r} (launches {launched}, ts bit-equal {same_ts})")
 
 
 if __name__ == "__main__":

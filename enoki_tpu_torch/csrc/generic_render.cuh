@@ -261,6 +261,29 @@ constexpr int kBwdPixels = 4;
 constexpr int kWarpCols = 8, kBlockCols = 16, kBlockRows = 8;
 constexpr int kFwdThreads = kBlockCols * kBlockRows;
 
+}  // namespace
+
+namespace gen {
+
+// The thread that runs a scene's prints (generic_num.cuh): the one of pixel
+// (0, 0) of the launch, in generic_fwd's footprint. It prints each time it
+// evaluates user_ray or user_sdf, up to its own exit from the march: one
+// line a block would be thousands of blocks times the steps, far past the
+// device printf buffer. generic_bwd runs neither function.
+GEN_HD bool print_pixel() {
+#ifdef __CUDA_ARCH__
+  int col, row;
+  tile_pixel<kWarpCols, kBlockCols, kBlockRows>(&col, &row);
+  return col == 0 && row == 0;
+#else
+  return false;
+#endif
+}
+
+}  // namespace gen
+
+namespace {
+
 template <bool kRelaxed>
 __global__ void __launch_bounds__(kFwdThreads)
 generic_fwd_kernel(const float* __restrict__ params,
@@ -353,6 +376,11 @@ int generic_bwd_reduce_launch(const float* partial, int num_rows, float* dp,
 }  // extern "C"
 
 #else  // a host compiler: the same per-pixel functions in two loops
+
+namespace gen {
+// no host thread prints (generic_num.cuh)
+GEN_HD bool print_pixel() { return false; }
+}  // namespace gen
 
 extern "C" {
 

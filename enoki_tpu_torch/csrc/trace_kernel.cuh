@@ -533,9 +533,6 @@ TK_HD void atomic_add(int64_t *p, int64_t v) {
 TK_HD void atomic_add(uint64_t *p, uint64_t v) {
   atomicAdd((unsigned long long *)p, (unsigned long long)v);
 }
-TK_HD void atomic_add(bool *p, bool v) {
-  if (v) *p = true;
-}
 TK_HD void atomic_add_bf16(void *p, long long i, float v) {
   atomicAdd(static_cast<bf16_t *>(p) + i, __float2bfloat16_rn(v));
 }
@@ -584,8 +581,9 @@ inline void atomic_add_f16(void *p, long long i, float v) {
 //     copy of the target a block, added to with shared-memory atomics;
 //     after the lanes one global atomic a slot the block touched.
 //  3. A global atomic a lane (the code of the run's statement) for larger
-//     targets, 16-bit floats (rounded after every add, which must stay)
-//     and bool.
+//     targets and 16-bit floats (rounded after every add, which must
+//     stay). A bool target has no SCATTER_ADD (LazyArray.scatter_add
+//     refuses it, as JAX does).
 // A private sum starts at 0, or at -0.0 for a float: a slot that gets
 // nothing, or only -0.0, then adds -0.0 or nothing to the target, which
 // leaves every bit of the target's base as it was, and a slot hit once by

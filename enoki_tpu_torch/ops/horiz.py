@@ -103,8 +103,11 @@ def _cumsum(x, axis):
     counts in int32, every other dtype keeps its own (wrapping)."""
     if x.dtype == torch.bool:
         return torch.cumsum(x, axis, dtype=torch.int32)
-    if x.dtype in _HALF:
-        return torch.cumsum(x, axis, dtype=torch.float32).to(x.dtype)
+    if x.dtype.is_floating_point:
+        # a running sum from +0.0, as XLA's scan starts it: a leading -0.0
+        # gives +0.0 (the card's scan starts from the first lane itself)
+        wide = torch.float32 if x.dtype in _HALF else x.dtype
+        return (torch.cumsum(x, axis, dtype=wide) + 0.0).to(x.dtype)
     return _on_bits(lambda v: torch.cumsum(v, axis, dtype=v.dtype), x)
 
 

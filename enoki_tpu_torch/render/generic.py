@@ -43,7 +43,7 @@ from ..ops.router import _plain_rsqrt, linspace
 from . import sdf_trace
 from .implicit import implicit_t_vjp
 from .sdf_kernels import cone_t0, march_tile, pixel_step, tile_pixels
-from .sdf_trace import full_like, ones_like, rsqrt, zeros_like
+from .sdf_trace import _no_prints, full_like, ones_like, rsqrt, zeros_like
 from .vec import Vec3
 
 AMBIENT, GAIN, LIGHT = 0, 1, slice(2, 5)
@@ -78,7 +78,7 @@ def _shade(o, d, t, hit, pvec, sdf_fn):
     in pvec and t, which needs second derivatives of ``sdf_fn``); a miss
     shades to exactly the ambient term."""
     p = o + d * t
-    with torch.enable_grad():
+    with torch.enable_grad(), _no_prints():
         xs = [c if c.requires_grad else c.detach().requires_grad_(True)
               for c in (p.x, p.y, p.z)]
         s = sdf_fn(Vec3(*xs), pvec)
@@ -117,6 +117,8 @@ def _cone_t0_generic(sdf_fn, ray_fn, params, n, n_steps, extent, s, eps,
 
 
 def _rays(ray_fn, params, n, extent):
+    """(ray_fn's (o, d), px) over the pixel grid: flat lane 0 of every
+    tensor is pixel (0, 0), the one the kernel's prints come from."""
     px, py = tile_pixels(n, extent, params.device)
     return ray_fn(px, py, params), px
 
@@ -146,7 +148,7 @@ def generic_march_counts(sdf_fn, ray_fn, params, n: int, n_steps: int,
     and one more, the evaluation that found the lane frozen, whose distance
     is the hit test's, or at the step cap the hit test's own. Nothing on a
     render's path calls this: it replays the march to count it."""
-    with torch.no_grad():
+    with torch.no_grad(), _no_prints():
         (o, d), px = _rays(ray_fn, params, n, extent)
         t = torch.zeros_like(px) if t0 is None else t0
         adv = torch.zeros_like(px, dtype=torch.int32)
@@ -158,6 +160,7 @@ def generic_march_counts(sdf_fn, ray_fn, params, n: int, n_steps: int,
     return adv + 1
 
 
+@_no_prints()
 def generic_bwd_plain(sdf_fn, ray_fn, params, g, ts, n: int,
                       extent: float = 1.2):
     """Plain version of the generic_bwd kernel: the cotangent dp[n_params]
@@ -165,7 +168,8 @@ def generic_bwd_plain(sdf_fn, ray_fn, params, g, ts, n: int,
     ``ts``, by autograd through ``_shade`` (in pvec and t) plus
     ``implicit_t_vjp`` of the SDF at the frozen root, the rays inside the
     differentiated function (a camera parameter may live in pvec). A miss
-    adds its ``g`` to the ambient slot and nothing else."""
+    adds its ``g`` to the ambient slot and nothing else. It prints
+    nothing, as the kernel."""
     px, py = tile_pixels(n, extent, params.device)
     hit = ts >= 0.0
     t = torch.where(hit, ts, -1.0 - ts)
@@ -379,7 +383,8 @@ class _MarchImplicit(torch.autograd.Function):
             o, dd = ray_fn(px, py, a[0])
             return sdf_fn(o + dd * tv, a[0])
 
-        (dpv,) = implicit_t_vjp(f, [pv], t, t_bar, hit)
+        with _no_prints():  # the backward kernel prints nothing
+            (dpv,) = implicit_t_vjp(f, [pv], t, t_bar, hit)
         return (dpv,) + (None,) * 7
 
 
@@ -454,7 +459,8 @@ def make_sdf_renderer(sdf_fn, n_params: int, eps: float = 1e-4,
         px, py = torch.meshgrid(ax, ax, indexing="xy")
         t, hit = _MarchImplicit.apply(params, px, py, sdf_fn, ray_fn,
                                       n_steps, eps, t_max)
-        o, dd = ray_fn(px, py, params)
+        with _no_prints():  # the march printed the ray
+            o, dd = ray_fn(px, py, params)
         return _shade(o, dd, t, hit, params, sdf_fn)
 
     render.kernels = kernels

@@ -20,10 +20,14 @@ needs a real data pointer): they raise an error that names it.
 ``vectorization_report`` / ``assert_vectorized`` and ``dump_hlo(...,
 stage="optimized")`` run the function once under ``torch.profiler`` instead,
 and so work through the kernels. ``kernel_printf`` (a print inside a
-Pallas kernel body) is not ported: the port's only Python-written device
-code is the per-scene emitter ``render/sdf_trace.py``, where a thread is a
-pixel, and what a thread would print is not decided (ROADMAP, queue A).
-``cache_stats`` counts live tensors; the lazy trace's kernel cache hits
+Pallas kernel body) is ``render.sdf_trace.kernel_printf``: the port writes
+device code from Python in two places, the per-scene emitter
+``render/sdf_trace.py`` (the bodies that ``make_sdf_renderer`` closes
+over ``sdf_fn`` and ``ray_fn``, the reference's Pallas bodies a user
+reaches) and the lazy trace's ``trace/codegen.py``, whose prints are
+``trace.printf`` from the host after the launch. In a traced scene
+function it is a ``printf`` of the thread of pixel (0, 0), once an
+evaluation; on tensors a print from the host. ``cache_stats`` counts live tensors; the lazy trace's kernel cache hits
 and misses are ``trace.cache_stats()``, as in the reference.
 """
 
@@ -43,6 +47,7 @@ import torch.utils._pytree as pytree
 from .._device import resolve_device
 from ..ad import trace_graph
 from ..config import config, set_log_level, log_level, log  # noqa: F401
+from ..render.sdf_trace import kernel_printf  # noqa: F401
 
 label = torch.profiler.record_function
 

@@ -946,7 +946,14 @@ class LazyArray(_nat.VarBase):
 
     def scatter_add(self, index, value):
         """Conflict-safe accumulation (atom.global.add analog, cuda.h:893),
-        with scatter's index rule."""
+        with scatter's index rule. A bool target raises ``TypeError``, as
+        JAX's ``x.at[i].add`` does for bool, the reference's route; the
+        reference raises when it evaluates the scatter, this when it is
+        recorded."""
+        if self._code == _BOOL:
+            raise TypeError("scatter_add does not accept dtype bool: a "
+                            "bool target has no addition (JAX's "
+                            "x.at[i].add refuses it too)")
         self._scatter_op(Op.SCATTER_ADD, index, value)
         return self
 

@@ -520,6 +520,11 @@ def horizontal(op, code, x, mask=None):
     """HSUM ... COMPRESS of the storage tensor ``x`` (the port's eager
     ops, ``ops.horiz``), in storage dtypes; the reductions keep a
     1-element result."""
+    if code == U64 and op in (COMPRESS, PSUM):
+        # through the int64 view of the bits (PyTorch has no uint64
+        # index_put_ or cumsum; a prefix sum wraps alike)
+        return horizontal(op, I64, x.view(torch.int64), mask).view(
+            torch.uint64)
     if op == COMPRESS:
         return horiz.compress(x, mask.to(torch.bool))[0]
     if op == PSUM:
@@ -546,22 +551,37 @@ def scatter_into(target, code, index, value, add):
     still out of range is dropped; ``value`` and ``index`` broadcast."""
     n = target.shape[0]
     idx = index.to(torch.int64)
+    # the unsigned values through the signed view of their bits: PyTorch's
+    # CUDA build indexes no uint32 / uint64 tensor
+    signed = {torch.uint32: torch.int32, torch.uint64: torch.int64}.get(
+        value.dtype)
+    if signed is not None:
+        value = value.view(signed)
     idx, value = torch.broadcast_tensors(idx, value)
     idx = torch.where(idx < 0, idx + n, idx)
     keep = (idx >= 0) & (idx < n)
     idx, value = idx[keep], value[keep]
     if code == U32:
         w = to_work(target, code)
-        v = value.to(torch.int64)
+        v = value.to(torch.int64) & M32
         w = w.index_add_(0, idx, v) if add else w.index_put_((idx,), v)
         target.copy_(to_storage(w & M32, code))
     elif code == U64:
         t = target.view(torch.int64)
-        v = value.view(torch.int64) if value.dtype == torch.uint64 \
-            else value.to(torch.int64)
+        v = value.to(torch.int64)
         t.index_add_(0, idx, v) if add else t.index_put_((idx,), v)
-    elif code == BOOL and add:
-        target.index_put_((idx,), value.to(torch.bool), accumulate=True)
+    elif add and target.dtype in (torch.float16, torch.bfloat16):
+        # PyTorch's CUDA index_add_ of 16-bit floats adds two slots at a
+        # time, +0.0 into the neighbour, which turns a neighbour's -0.0
+        # into +0.0; one add at a time leaves -0.0 where the base is -0.0
+        # and nothing but -0.0 is added, as here
+        v = value.to(target.dtype)
+        moved = torch.zeros_like(target, dtype=torch.bool).index_fill_(
+            0, idx[~(torch.signbit(v) & (v == 0))], True)
+        keeps = torch.signbit(target) & (target == 0) & ~moved
+        target.index_add_(0, idx, v)
+        target.copy_(torch.where(keeps, torch.zeros_like(target).neg_(),
+                                 target))
     elif add:
         target.index_add_(0, idx, value.to(target.dtype))
     else:

@@ -45,7 +45,7 @@ are ``reduce_max``'s (the cotangent shared among the tied lanes) and
 the other lanes without a division, so zeros need no special case). A
 16-bit op's derivative is computed in its dtype. LGAMMA's derivative is
 the port's own opcode 80, digamma (``plain.DIGAMMA``). Deliberate
-differences (ROADMAP §C, the tape and calls): a SCATTER's value takes
+differences (docs/port.md, the tape and calls): a SCATTER's value takes
 the cotangent at its slot under the interpreter's wrap-then-drop index
 rule, every one of duplicate writes included; a float SCATTER_ADD, and
 the adjoint of a GATHER, add with atomics on the card into a target too

@@ -6,7 +6,7 @@ bfloat16 are both exposed; the conversions round to nearest even, and the
 bit casts are views of the same 16 bits.
 
 XLA's CPU backend flushes float32 subnormals, PyTorch and the card keep
-them (ROADMAP §C): a float32 subnormal rounds to a bfloat16
+them (docs/port.md): a float32 subnormal rounds to a bfloat16
 subnormal here, to 0 in the reference on the CPU.
 """
 

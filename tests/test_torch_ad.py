@@ -11,7 +11,7 @@ the gradients and JVPs of expressions of several terms within 2^-21
 add the partial products in their own orders), a gradient that sums n
 lanes within 2^-22 * sum|terms|;
 safe_sqrt exact (both roots are correctly rounded); safe_rsqrt, safe_asin
-and safe_acos within the router's gates (ROADMAP §C, the op layer's tolerances):
+and safe_acos within the router's gates (docs/port.md, the op layer's tolerances):
 2 ulp for the values and the asin / acos tangents, 8 ulp for safe_rsqrt's
 tangent, which cubes its root (XLA's CPU rsqrt and libm asin / acos are
 not correctly rounded; the port's are taken in float64 and rounded once).

@@ -15,7 +15,7 @@ Tolerances:
     exact unit quaternion (its four roundings: the squared norm's, half
     of it through the root, the root's and the product's; measured 2.06);
     within 8 ulp, both sides' bounds, of the reference's, which takes
-    XLA's CPU rsqrt, whose bits depend on the host (ROADMAP §C);
+    XLA's CPU rsqrt, whose bits depend on the host (docs/port.md);
   * where a native function is inside (``impl="native"``; ``arg``, and
     so ``log``, ``pow`` and the inverse trigonometry, through atan2; the
     quaternion log, pow, slerp and euler's pitch through the float64

@@ -7,7 +7,7 @@ eager route is ``Tensor.to``, the lazy one the trace's CAST opcode on a
 CPU ``trace.LazyArray``, and both are held to ``enoki_tpu``'s eager
 ``astype`` and its lazy CAST. The dtypes are the reference's 32-bit lane
 set with float16; uint32 is ``torch.uint32`` (PyTorch converts it, and
-the port's ops take it, ROADMAP §C).
+the port's ops take it, docs/port.md).
 """
 
 import itertools

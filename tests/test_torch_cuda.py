@@ -14,6 +14,7 @@ import torch
 
 # SCATTER_ADD's routes (each side of each route's threshold) as phase 28 (b)
 # runs them
+import chip_smoke
 from chip_smoke import SCATTER_CODES, SCATTER_SIZES, SCATTER_TIMED
 from enoki_tpu_torch import _build, ops as R
 from enoki_tpu_torch.ops import hist_kernels as H, rounding as RD
@@ -1193,8 +1194,8 @@ def _scatter_on_the_card(cuda, arrays, chained=False):
                                                       arrays, chained)
     assert launched == 1 and len(plan.runs) == 1
     for g, w, a in zip(got, want, arrays):
-        assert chip_smoke.scatter_exact(torch, g, w, *(
-            torch.from_numpy(x).to(cuda) for x in a))
+        assert chip_smoke.scatter_exact(
+            torch, g, w, *chip_smoke.scatter_tensors(torch, a, cuda))
     return plan, got, want
 
 
@@ -1206,9 +1207,13 @@ def test_trace_scatter_route_matches_the_plain_interpreter(cuda, dtype, size):
     # sums are exact in any order), and a slot only -0.0 reached keeps
     # its base's bits; route 1 gives the same bits twice
     import chip_smoke
+    import enoki_tpu_torch.trace as tr
     case = chip_smoke.scatter_case(dtype, size, 1 << 16,
                                    chip_smoke.scatter_seed(dtype, size),
                                    exact=True)
+    if dtype == "bool":  # refused, as JAX refuses it
+        assert chip_smoke.scatter_refused(tr, cuda, case)
+        return
     route = chip_smoke.scatter_route(dtype, size)
     plan, (got,), _ = _scatter_on_the_card(cuda, [case])
     assert list(plan.runs[0].routes.values()) == [route]
@@ -1218,7 +1223,55 @@ def test_trace_scatter_route_matches_the_plain_interpreter(cuda, dtype, size):
 
 
 def bits_of(t):
-    return t.view({4: torch.int32, 8: torch.int64}[t.element_size()])
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        t.element_size()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["scatter", "scatter_add"])
+@pytest.mark.parametrize("dtype", ["uint32", "uint64"])
+def test_plain_scatter_into_an_unsigned_target_on_the_card(cuda, dtype, op):
+    # C12: the plain interpreter's SCATTER / SCATTER_ADD into a uint32 or
+    # uint64 target runs on the card (it indexed the unsigned values,
+    # which PyTorch's CUDA build cannot) and equals the CPU's result;
+    # negative indices count from the end, out-of-range ones drop, and an
+    # overwrite writes each kept slot once (which of two writes wins is
+    # not specified)
+    import enoki_tpu_torch.trace as tr
+    base, idx, val = chip_smoke.scatter_case(dtype, 97, 1 << 12, 3)
+    if op == "scatter":
+        rng = np.random.default_rng(3)
+        idx = rng.permutation(97)
+        idx = np.where(rng.random(97) < 0.5, idx - 97, idx)
+        idx = np.concatenate([idx, 97 + rng.integers(0, 9, 10),
+                              -98 - rng.integers(0, 9, 10)]).astype(np.int32)
+        val = val[:idx.size]
+
+    def plain_on(device):
+        tr.reset()
+        t = tr.LazyArray(base, device=device)
+        getattr(t, op)(tr.LazyArray(idx, device=device),
+                       tr.LazyArray(val, device=device))
+        (out,) = tr.plain_eval(t)
+        tr.reset()
+        return out
+
+    got, want = plain_on(cuda), plain_on("cpu")
+    assert got.dtype == want.dtype
+    assert torch.equal(bits_of(got.cpu()), bits_of(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", chip_smoke.LANE_OPS)
+@pytest.mark.parametrize("dtype", chip_smoke.LANE_CODES)
+def test_lane_op_of_the_plain_interpreter_on_the_card(cuda, dtype, op):
+    # phase 28 (b)'s lane sweep at 2^12: trace.plain_eval of each op that
+    # reads other lanes, on the card and on the CPU, bitwise
+    import enoki_tpu_torch.trace as tr
+    got = chip_smoke.lane_case(torch, tr, dtype, op, 1 << 12, cuda)
+    want = chip_smoke.lane_case(torch, tr, dtype, op, 1 << 12,
+                                torch.device("cpu"))
+    assert chip_smoke.lane_same(torch, got, want), (got, want)
 
 
 @pytest.mark.cuda

@@ -394,7 +394,7 @@ def test_types_exports_every_name_of_the_reference():
         "enoki_tpu_torch.types")
 
 
-# the reference's from_jnp_complex / to_jnp_complex, renamed (ROADMAP §C)
+# the reference's from_jnp_complex / to_jnp_complex, renamed (docs/port.md)
 RENAMED = {"from_jnp_complex": "from_torch_complex",
            "to_jnp_complex": "to_torch_complex"}
 
@@ -484,11 +484,9 @@ def test_ad_and_runtime_export_every_name_of_the_reference(module):
     port = importlib.import_module(f"enoki_tpu_torch.{module}")
     names = _reference_names(REPO / "enoki_tpu" / module / "__init__.py") \
         - NOT_SURFACE
-    # kernel_printf waits for a print node of the scene emitter (ROADMAP A)
-    queued = {"kernel_printf"} if module == "runtime" else set()
     assert {"whos", "checkpoint", "detach" if module == "ad" else "label"} \
         <= names
-    missing = sorted(n for n in names - queued if not hasattr(port, n))
+    missing = sorted(n for n in names if not hasattr(port, n))
     assert not missing, missing
 
 
@@ -517,9 +515,9 @@ def test_the_package_exports_the_references_top_level():
 
 # dist/: the reference's functions that have no counterpart (XLA's HLO
 # text parsers; the port records its collectives where it issues them,
-# ROADMAP C), and the parameters the port adds to the reference's (the
+# docs/port.md), and the parameters the port adds to the reference's (the
 # device of its entry points and the world's rendezvous directory;
-# ROADMAP C)
+# docs/port.md)
 DIST_NOT_PORTED = {"_shape_bytes", "_allreduce_shapes",
                    "_parse_hlo_computations"}
 DIST_ADDED = {"make_mesh": ["device"], "init_distributed": ["device"],

@@ -136,7 +136,9 @@ def test_enable_compile_cache_sets_the_build_directory(tmp_path,
 def test_runtime_exports_the_log_functions():
     runtime.set_log_level(0)
     assert runtime.log_level() == 0 and runtime.config is config
-    assert not hasattr(runtime, "kernel_printf")  # queued, ROADMAP A
+    # the reference's in-kernel print: a print node of the scene emitter
+    from enoki_tpu_torch.render import sdf_trace
+    assert runtime.kernel_printf is sdf_trace.kernel_printf
 
 
 # -- checkpoints (tests/test_ad_runtime.py:136-159) ------------------------

@@ -42,7 +42,7 @@ def _one_thread():
     """Each test in one CPU thread. PyTorch's CPU build (MKL's vector math)
     may compute the first transcendental call after its thread pool is
     built at a lower accuracy in one worker thread's chunk (float32-like
-    in float64: atan 1.6e7 ulp; sin float32 2.5e3 ulp; ROADMAP §C), a
+    in float64: atan 1.6e7 ulp; sin float32 2.5e3 ulp; docs/port.md), a
     fault of PyTorch's CPU path and not of the port; the gates hold the
     functions, computed in the calling thread."""
     n = torch.get_num_threads()

@@ -11,7 +11,7 @@ included, for integer, bit, compare, select, cast, gather / scatter and
 literal results; float results within 1 ulp of the reference's, or the
 reference test's own rtol / atol against numpy; results below the
 smallest normal compare as zeros (XLA's CPU backend flushes them).
-Deliberate differences (ROADMAP §C, the lazy trace): the port keeps
+Deliberate differences (docs/port.md, the lazy trace): the port keeps
 float64 and int64 input 64-bit, its bfloat16 `.numpy()` is float32, and
 the export cache's artifact is the built kernel library, which only the
 card builds (here a host build stands in for nvcc).

@@ -6,7 +6,7 @@ to the expected values (exact, or the reference test's tolerance).
 
 The port's partition sorts on the ids' device and reads the instance
 list to the host in one transfer; its permutations are int32 tensors on
-that device (ROADMAP §C, the tape and calls).
+that device (docs/port.md, the tape and calls).
 """
 
 import importlib

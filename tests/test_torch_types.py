@@ -8,7 +8,7 @@ Tolerances:
     casts): exact, dtype included;
   * the float16 / bfloat16 conversions: bit-equal to the reference's on
     float32 inputs that are not subnormal (XLA's CPU backend flushes
-    those, PyTorch keeps them: ROADMAP §C);
+    those, PyTorch keeps them: docs/port.md);
   * color: ``impl="poly"`` bit-equal to the reference's (IEEE arithmetic
     only); ``impl="native"`` (PyTorch's pow) within 4 ulp of the
     reference's (measured 4 with linear_to_srgb, 1 with srgb_to_linear:
@@ -268,7 +268,7 @@ def test_enum_arrays_match_the_reference(cls):
 
 def test_enum_storage_beyond_32_bits_is_int64_and_uint64_raises():
     # the reference needs jax_enable_x64 here; the port has int64 and no
-    # uint64 (ROADMAP §C)
+    # uint64 (docs/port.md)
     assert _storage_dtype([-1, 1 << 40]) == torch.int64
     arr = enum_array(list(Wide), Wide, device=CPU)
     assert arr.dtype == torch.int64

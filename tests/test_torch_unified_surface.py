@@ -31,7 +31,7 @@ from enoki_tpu_torch import ops as PO
 def _fresh():
     """Fresh traces, and each test in one CPU thread (PyTorch's CPU
     transcendentals may be computed coarsely in a pool worker's first
-    chunk, ROADMAP §C)."""
+    chunk, docs/port.md)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     J.reset()
