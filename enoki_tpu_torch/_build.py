@@ -20,11 +20,19 @@ and denormal handling for approximations and break parity with the
 reference. ``-Xptxas -v`` makes ptxas report each kernel's registers and
 spills; the report is kept beside the library, ``_build/<name>-<hash>.log``
 (``build_log``).
+
+Spans and counters: ``span`` opens a ``torch.profiler`` annotation
+``enoki.<name>`` while the profiler records, and costs one check of the
+profiler's state otherwise; ``launch`` makes every kernel launch of the
+port, in its span ``enoki.launch.<kernel>``, and counts it in
+``LAUNCHES``; ``timed`` counts each build phase and its seconds in
+``BUILDS`` / ``BUILD_SECONDS``. docs/torch/render.md lists them.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -32,6 +40,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -73,9 +82,10 @@ def _compile(src: Path, digest: str, name: str) -> Path:
     # build beside the target and rename, so that a concurrent process or
     # thread never loads a half-written library
     tmp = out.with_name(f"{out.stem}.{_unique()}.tmp.so")
-    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR),
-                           "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
+    with timed("compile"):
+        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR),
+                               "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed to build {src} "
@@ -94,11 +104,12 @@ def build_log(lib: Path) -> str:
 
 def _digest(source: bytes) -> str:
     """Hash of a source, the shared headers ``csrc/*.cuh`` and the flags."""
-    h = hashlib.sha256(source)
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
-        h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()
+    with timed("digest"):
+        h = hashlib.sha256(source)
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            h.update(header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return h.hexdigest()
 
 
 def set_build_dir(path) -> Path:
@@ -193,12 +204,13 @@ SIGNATURES = {
 def _bind(path: Path, name: str) -> ctypes.CDLL:
     """Load a built library; every entry point returns an int (a
     cudaError_t for the launches)."""
-    lib = ctypes.CDLL(str(path))
-    for fn, argtypes in SIGNATURES[name].items():
-        f = getattr(lib, fn)
-        f.argtypes = list(argtypes)
-        f.restype = ctypes.c_int
-    return lib
+    with timed("bind"):
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
+        return lib
 
 
 @functools.cache
@@ -218,8 +230,48 @@ def load_generated(name: str, text: str) -> ctypes.CDLL:
 # What every kernel wrapper shares
 # ---------------------------------------------------------------------------
 
-# kernel launches since the last reset_launch_counts(), by kernel name; a
-# wrapper adds one right after each launch it made, and nowhere else
+# the port's spans that closed while the profiler recorded, the newest
+# SPANS.maxlen of them: (name, start, end, thread), start and end in ns of
+# the Unix time that the profiler's events carry (its clock), so that a
+# reader sets them beside the device operations of the same trace
+SPANS: collections.deque = collections.deque(maxlen=1 << 16)
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    """``torch.profiler.record_function(name)``, kept in ``SPANS`` as it
+    closes. The kept interval lies inside the annotation's, so that it
+    leaves out the annotation's own cost."""
+
+    __slots__ = ("name", "record", "start")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.record = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        self.record.__enter__()
+        self.start = time.time_ns()
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        self.record.__exit__(*exc)
+        SPANS.append((self.name, self.start, end, threading.get_ident()))
+
+
+def span(name: str):
+    """The span ``enoki.<name>`` while ``torch.profiler`` records (whoever
+    turned it on: ``runtime.profiler_trace``, a user's own ``profile``, a
+    traced benchmark run); otherwise one shared null context, so that a
+    span off the profiler costs one check of its state."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Span("enoki." + name)
+
+
+# kernel launches since the last reset_launch_counts(), by kernel name;
+# ``launch`` adds one after each launch that returned no error, and
+# nothing else does
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -227,11 +279,48 @@ def reset_launch_counts():
     LAUNCHES.clear()
 
 
-def launched(err: int, kernel: str):
-    """Raise if a launch returned a CUDA error, else count it."""
+def launch(kernel: str, entry, *args):
+    """Launch ``kernel`` through its C entry point ``entry`` (a bound
+    ctypes function that returns a cudaError_t) with ``args``, in the span
+    ``enoki.launch.<kernel>`` (the arguments' conversion and the
+    launch); raise if the launch returned an error, else count it."""
+    with span("launch." + kernel):
+        err = entry(*args)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
     LAUNCHES[kernel] += 1
+
+
+# the build's phases since the process started, by phase: calls and host
+# seconds. "trace" (a scene's trace), "compile" (nvcc: a real build
+# only), "bind" (dlopen and the signatures), "digest" (the hash of a
+# source and the headers)
+BUILDS: collections.Counter = collections.Counter()
+BUILD_SECONDS: collections.Counter = collections.Counter()
+_BUILDS_LOCK = threading.Lock()   # builds run in thread pools too
+
+
+class timed:
+    """``with timed(phase) as t``: the block in the span
+    ``enoki.build.<phase>``, counted in ``BUILDS[phase]`` and its host
+    seconds added to ``BUILD_SECONDS[phase]`` and kept in ``t.seconds``,
+    whether the profiler records or not."""
+
+    def __init__(self, phase: str):
+        self.phase, self.seconds = phase, None
+
+    def __enter__(self):
+        self._span = span("build." + self.phase)
+        self._span.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self._t0
+        with _BUILDS_LOCK:
+            BUILDS[self.phase] += 1
+            BUILD_SECONDS[self.phase] += self.seconds
+        self._span.__exit__(*exc)
 
 
 # calls of the looping vmap rules (``loop_vmap``), by Function name: one a

@@ -83,14 +83,12 @@ def hist(index, bins: int, weights=None):
     out = torch.empty(bins, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.hist_partial_launch(
-            index.data_ptr(),
+        _build.launch(
+            "hist", lib.hist_partial_launch, index.data_ptr(),
             None if weights is None else weights.data_ptr(), n, bins,
             partial.data_ptr(), stream)
-        _build.launched(err, "hist")
-        err = lib.hist_reduce_launch(partial.data_ptr(), rows, bins,
-                                     out.data_ptr(), stream)
-        _build.launched(err, "hist_reduce")
+        _build.launch("hist_reduce", lib.hist_reduce_launch,
+                      partial.data_ptr(), rows, bins, out.data_ptr(), stream)
     return out
 
 

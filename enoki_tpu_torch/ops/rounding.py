@@ -212,11 +212,11 @@ def stochastic_round_cuda(x, seed: int, dtype=torch.bfloat16):
         return out  # a zero-size grid is a launch error
     lib = _build.load("stochastic_round")
     with torch.cuda.device(x.device):
-        err = lib.stochastic_round_launch(
-            x.data_ptr(), out.data_ptr(), n, seed & ((1 << 64) - 1),
+        _build.launch(
+            "stochastic_round", lib.stochastic_round_launch, x.data_ptr(),
+            out.data_ptr(), n, seed & ((1 << 64) - 1),
             int(dtype == torch.float16),
             torch.cuda.current_stream().cuda_stream)
-    _build.launched(err, "stochastic_round")
     return out
 
 

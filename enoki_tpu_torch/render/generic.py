@@ -32,8 +32,6 @@ its plain PyTorch version here (``generic_fwd_plain``,
 
 from __future__ import annotations
 
-import time
-
 import torch
 from torch import nn
 
@@ -107,8 +105,9 @@ def _cone_t0_generic(sdf_fn, ray_fn, params, n, n_steps, extent, s, eps,
         o, dd = ray_fn(px, py, params)
         return lambda t: sdf_fn(o + dd * t, params)
 
-    return cone_t0(dist_factory, n, n_steps, extent, s, eps, t_max, margin,
-                   device=params.device)
+    with _build.span("render.prepass"):
+        return cone_t0(dist_factory, n, n_steps, extent, s, eps, t_max,
+                       margin, device=params.device)
 
 
 # ---------------------------------------------------------------------------
@@ -210,24 +209,24 @@ class SceneKernels:
         self._traced = None
         self._lib = None
         self.trace_seconds = None   # the scene's one trace
-        self.load_seconds = None    # nvcc (or finding the built file) + load
+        self.load_seconds = None    # digest, nvcc (where it builds) and bind
 
     @property
     def traced(self) -> sdf_trace.TracedScene:
         if self._traced is None:
-            t0 = time.perf_counter()
-            self._traced = sdf_trace.trace_scene(self.sdf_fn, self.ray_fn,
-                                                 self.n_params)
-            self.trace_seconds = time.perf_counter() - t0
+            with _build.timed("trace") as t:
+                self._traced = sdf_trace.trace_scene(self.sdf_fn, self.ray_fn,
+                                                     self.n_params)
+            self.trace_seconds = t.seconds
         return self._traced
 
     @property
     def lib(self):
         if self._lib is None:
             source = self.traced.source
-            t0 = time.perf_counter()
+            before = sum(_build.BUILD_SECONDS.values())
             self._lib = _build.load_generated("generic_render", source)
-            self.load_seconds = time.perf_counter() - t0
+            self.load_seconds = sum(_build.BUILD_SECONDS.values()) - before
             if self._lib.generic_n_params() != self.n_params:
                 raise RuntimeError("generic_render library built for another "
                                    "parameter count")
@@ -259,12 +258,11 @@ def generic_fwd(kernels: SceneKernels, params, n: int, n_steps: int,
     ts = torch.empty_like(img)
     relaxed = relax != 1.0 or unimodal
     with torch.cuda.device(dev):
-        err = lib.generic_fwd_launch(
-            params.data_ptr(), t0_ptr, img.data_ptr(), ts.data_ptr(), n,
-            n_steps, pixel_step(n, extent), extent, eps, t_max, relax,
-            1.0 - 1.0 / relax, int(relaxed), int(unimodal),
-            torch.cuda.current_stream().cuda_stream)
-    _build.launched(err, "generic_fwd")
+        _build.launch(
+            "generic_fwd", lib.generic_fwd_launch, params.data_ptr(), t0_ptr,
+            img.data_ptr(), ts.data_ptr(), n, n_steps, pixel_step(n, extent),
+            extent, eps, t_max, relax, 1.0 - 1.0 / relax, int(relaxed),
+            int(unimodal), torch.cuda.current_stream().cuda_stream)
     return img, ts
 
 
@@ -287,13 +285,12 @@ def generic_bwd(kernels: SceneKernels, params, g, ts, n: int,
     dp = torch.empty(kernels.n_params, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.generic_bwd_partial_launch(
-            params.data_ptr(), g.data_ptr(), ts.data_ptr(),
-            partial.data_ptr(), n, pixel_step(n, extent), extent, stream)
-        _build.launched(err, "generic_bwd")
-        err = lib.generic_bwd_reduce_launch(partial.data_ptr(), rows,
-                                            dp.data_ptr(), stream)
-        _build.launched(err, "generic_bwd_reduce")
+        _build.launch(
+            "generic_bwd", lib.generic_bwd_partial_launch, params.data_ptr(),
+            g.data_ptr(), ts.data_ptr(), partial.data_ptr(), n,
+            pixel_step(n, extent), extent, stream)
+        _build.launch("generic_bwd_reduce", lib.generic_bwd_reduce_launch,
+                      partial.data_ptr(), rows, dp.data_ptr(), stream)
     return dp
 
 
@@ -332,12 +329,13 @@ class _GenericRenderFn(_build.KernelFunction):
 
     @staticmethod
     def backward(ctx, g, _ts_bar):
-        params, ts = ctx.saved_tensors
-        p = params.detach().to(torch.float32).contiguous()
-        dp = _generic_bwd_call(p, g.to(torch.float32).contiguous(), ts,
-                               ctx.kernels, ctx.n, ctx.extent)
-        # the cotangent's dtype is the primal's
-        return (dp.to(params.dtype),) + (None,) * 9
+        with _build.span("render.backward"):
+            params, ts = ctx.saved_tensors
+            p = params.detach().to(torch.float32).contiguous()
+            dp = _generic_bwd_call(p, g.to(torch.float32).contiguous(), ts,
+                                   ctx.kernels, ctx.n, ctx.extent)
+            # the cotangent's dtype is the primal's
+            return (dp.to(params.dtype),) + (None,) * 9
 
     vmap = _build.loop_vmap("_GenericRenderFn",
                             lambda *a: _GenericRenderFn.apply(*a))
@@ -432,26 +430,30 @@ def make_sdf_renderer(sdf_fn, n_params: int, eps: float = 1e-4,
 
     def render(params, n=1024, n_steps=64, extent=1.2, tile=128,
                tile_c=None, coarse=0, bands=1, relax=1.0, unimodal=False):
-        tile_c = tile_c or tile
-        if n % tile or n % tile_c:
-            raise ValueError("image size must be divisible by the tile size")
-        if bands < 1:
-            raise ValueError(f"bands must be >= 1, got {bands}")
-        if coarse:
-            if ray_fn is not ortho_camera:
-                raise ValueError(
-                    "the cone prepass is only conservative for parallel "
-                    "(orthographic) rays; pass coarse=0 for custom cameras")
-            if n % coarse:
-                raise ValueError(f"image size must be divisible by the cone "
-                                 f"prepass block, got n={n}, coarse={coarse}")
-        if tuple(params.shape) != (n_params,):
-            raise ValueError(f"params must have shape ({n_params},), got "
-                             f"{tuple(params.shape)}")
-        img, _ = _GenericRenderFn.apply(params, kernels, n, n_steps,
-                                        extent, coarse, relax, unimodal, eps,
-                                        t_max)
-        return img
+        with _build.span("render.forward"):
+            tile_c = tile_c or tile
+            if n % tile or n % tile_c:
+                raise ValueError("image size must be divisible by the tile "
+                                 "size")
+            if bands < 1:
+                raise ValueError(f"bands must be >= 1, got {bands}")
+            if coarse:
+                if ray_fn is not ortho_camera:
+                    raise ValueError(
+                        "the cone prepass is only conservative for parallel "
+                        "(orthographic) rays; pass coarse=0 for custom "
+                        "cameras")
+                if n % coarse:
+                    raise ValueError(f"image size must be divisible by the "
+                                     f"cone prepass block, got n={n}, "
+                                     f"coarse={coarse}")
+            if tuple(params.shape) != (n_params,):
+                raise ValueError(f"params must have shape ({n_params},), "
+                                 f"got {tuple(params.shape)}")
+            img, _ = _GenericRenderFn.apply(params, kernels, n, n_steps,
+                                            extent, coarse, relax, unimodal,
+                                            eps, t_max)
+            return img
 
     def render_plain(params, n=1024, n_steps=64, extent=1.2):
         params = params.to(torch.float32)

@@ -501,9 +501,11 @@ def cone_t0(dist_factory, n: int, n_steps: int, extent: float, s: int,
 def _cone_t0(pvec, n, n_steps, extent, s, eps=1e-4, t_max=10.0,
              margin=1e-3):
     """cone_t0 over the sphere scene's hoisted orthographic SDF."""
-    scene = vec_to_scene(pvec.detach(), SDFScene)
-    return cone_t0(lambda px, py: sdf_ortho_dist(px, py, scene), n, n_steps,
-                   extent, s, eps, t_max, margin, device=pvec.device)
+    with _build.span("render.prepass"):
+        scene = vec_to_scene(pvec.detach(), SDFScene)
+        return cone_t0(lambda px, py: sdf_ortho_dist(px, py, scene), n,
+                       n_steps, extent, s, eps, t_max, margin,
+                       device=pvec.device)
 
 
 # ---------------------------------------------------------------------------
@@ -553,11 +555,10 @@ def sdf_fwd(params, n: int, n_steps: int, extent: float = 1.2, t0=None,
             # holds them
             w = torch.tensor(relax, dtype=dtype).item()
             back = torch.tensor(1.0 - 1.0 / relax, dtype=dtype).item()
-            err = lib.sdf_fwd_relax_launch(*head, w, back, int(unimodal),
-                                           stream)
+            _build.launch(kernel, lib.sdf_fwd_relax_launch, *head, w, back,
+                          int(unimodal), stream)
         else:
-            err = lib.sdf_fwd_launch(*head, stream)
-    _build.launched(err, kernel)
+            _build.launch(kernel, lib.sdf_fwd_launch, *head, stream)
     return img, ts
 
 
@@ -594,11 +595,11 @@ def sdf_fwd_split_list(params, n: int, split: int, extent: float = 1.2,
     pairs = torch.empty((n * n, 2), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sdf_fwd_split_launch(
-            params.data_ptr(), t0_ptr, img.data_ptr(), ts.data_ptr(),
-            cont.data_ptr(), pairs.data_ptr(), counters.data_ptr(), n, split,
+        _build.launch(
+            "sdf_fwd_split", lib.sdf_fwd_split_launch, params.data_ptr(),
+            t0_ptr, img.data_ptr(), ts.data_ptr(), cont.data_ptr(),
+            pairs.data_ptr(), counters.data_ptr(), n, split,
             pixel_step(n, extent), extent, stream)
-    _build.launched(err, "sdf_fwd_split")
     return img, ts, cont, pairs, counters
 
 
@@ -633,11 +634,11 @@ def sdf_tail(params, pairs, counters, img, ts, n: int, n_steps: int,
     lib = _build.load("sdf_render")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sdf_tail_launch(
-            params.data_ptr(), pairs.data_ptr(), counters.data_ptr(),
-            img.data_ptr(), ts.data_ptr(), n, n_steps - split,
-            pixel_step(n, extent), extent, stream)
-    _build.launched(err, "sdf_tail")
+        _build.launch(
+            "sdf_tail", lib.sdf_tail_launch, params.data_ptr(),
+            pairs.data_ptr(), counters.data_ptr(), img.data_ptr(),
+            ts.data_ptr(), n, n_steps - split, pixel_step(n, extent),
+            extent, stream)
     return img, ts
 
 
@@ -704,12 +705,12 @@ def sdf_bwd(params, g, ts, n: int, extent: float = 1.2,
     dp = torch.empty(N_PARAMS, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"{name}_launch")(
-            params.data_ptr(), g.data_ptr(), ts.data_ptr(),
-            partial.data_ptr(), _build.ticket(dev, stream).data_ptr(),
-            dp.data_ptr(), n, pixel_step(n, extent), extent,
-            int(bwd_vector_loads(g, ts, n)), stream)
-        _build.launched(err, name)
+        _build.launch(
+            name, getattr(lib, f"{name}_launch"), params.data_ptr(),
+            g.data_ptr(), ts.data_ptr(), partial.data_ptr(),
+            _build.ticket(dev, stream).data_ptr(), dp.data_ptr(), n,
+            pixel_step(n, extent), extent, int(bwd_vector_loads(g, ts, n)),
+            stream)
     return dp
 
 
@@ -747,10 +748,11 @@ class _SDFRenderFn(_build.KernelFunction):
 
     @staticmethod
     def backward(ctx, g, _ts_bar):
-        params, ts = ctx.saved_tensors
-        dp = _sdf_bwd_call(params.detach(), g, ts, ctx.n, ctx.extent,
-                           ctx.bwd_kernel)
-        return (dp,) + (None,) * 9
+        with _build.span("render.backward"):
+            params, ts = ctx.saved_tensors
+            dp = _sdf_bwd_call(params.detach(), g, ts, ctx.n, ctx.extent,
+                               ctx.bwd_kernel)
+            return (dp,) + (None,) * 9
 
     vmap = _build.loop_vmap("_SDFRenderFn",
                             lambda *a: _SDFRenderFn.apply(*a))
@@ -758,33 +760,34 @@ class _SDFRenderFn(_build.KernelFunction):
 
 def _render_sdf(params, n, n_steps, extent, tile, tile_c, coarse, dtype,
                 bands, relax, unimodal, split, bwd_kernel):
-    fwd_kernel_name(dtype)  # raises on another march dtype
-    if bwd_kernel not in BWD_KERNELS:
-        raise ValueError(f"bwd_kernel must be one of {BWD_KERNELS}, got "
-                         f"{bwd_kernel!r}")
-    if bands < 1:
-        raise ValueError(f"bands must be >= 1, got {bands}")
-    if split:
-        if (dtype != torch.float32 or bands != 1 or relax != 1.0
-                or unimodal):
-            raise ValueError("split composes only with the plain march "
-                             "(f32, bands=1, relax=1, not unimodal)")
-        if not 0 < split < n_steps or (n_steps - split) % 2:
-            raise ValueError(f"split must satisfy 0 < split < n_steps with "
-                             f"an even n_steps - split, got split={split}, "
-                             f"n_steps={n_steps}")
-    tile_c = tile_c or tile
-    if n % tile or n % tile_c:
-        raise ValueError("image size must be divisible by the tile size")
-    if coarse and n % coarse:
-        raise ValueError(f"image size must be divisible by the cone "
-                         f"prepass block, got n={n}, coarse={coarse}")
-    if tuple(params.shape) != (N_PARAMS,):
-        raise ValueError(f"params must have shape ({N_PARAMS},), got "
-                         f"{tuple(params.shape)}")
-    img, _ = _SDFRenderFn.apply(params, n, n_steps, extent, coarse, dtype,
-                                relax, unimodal, split, bwd_kernel)
-    return img
+    with _build.span("render.forward"):
+        fwd_kernel_name(dtype)  # raises on another march dtype
+        if bwd_kernel not in BWD_KERNELS:
+            raise ValueError(f"bwd_kernel must be one of {BWD_KERNELS}, got "
+                             f"{bwd_kernel!r}")
+        if bands < 1:
+            raise ValueError(f"bands must be >= 1, got {bands}")
+        if split:
+            if (dtype != torch.float32 or bands != 1 or relax != 1.0
+                    or unimodal):
+                raise ValueError("split composes only with the plain march "
+                                 "(f32, bands=1, relax=1, not unimodal)")
+            if not 0 < split < n_steps or (n_steps - split) % 2:
+                raise ValueError(f"split must satisfy 0 < split < n_steps "
+                                 f"with an even n_steps - split, got "
+                                 f"split={split}, n_steps={n_steps}")
+        tile_c = tile_c or tile
+        if n % tile or n % tile_c:
+            raise ValueError("image size must be divisible by the tile size")
+        if coarse and n % coarse:
+            raise ValueError(f"image size must be divisible by the cone "
+                             f"prepass block, got n={n}, coarse={coarse}")
+        if tuple(params.shape) != (N_PARAMS,):
+            raise ValueError(f"params must have shape ({N_PARAMS},), got "
+                             f"{tuple(params.shape)}")
+        img, _ = _SDFRenderFn.apply(params, n, n_steps, extent, coarse, dtype,
+                                    relax, unimodal, split, bwd_kernel)
+        return img
 
 
 def render_sdf_cuda(params, n: int = 1024, n_steps: int = 64,

@@ -118,10 +118,10 @@ def sphere_fwd(params, n: int, extent: float = 1.2, dtype=torch.float32):
     img = torch.empty((n, n), dtype=dtype, device=params.device)
     with torch.cuda.device(params.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"{kernel}_launch")(
-            params.data_ptr(), img.data_ptr(), n, pixel_step(n, extent),
-            extent, int(fwd_vector_stores(img, n)), stream)
-    _build.launched(err, kernel)
+        _build.launch(kernel, getattr(lib, f"{kernel}_launch"),
+                      params.data_ptr(), img.data_ptr(), n,
+                      pixel_step(n, extent), extent,
+                      int(fwd_vector_stores(img, n)), stream)
     return img
 
 
@@ -143,12 +143,12 @@ def sphere_bwd(params, g, n: int, extent: float = 1.2):
     dp = torch.empty(N_PARAMS, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sphere_bwd_launch(
-            params.data_ptr(), g.data_ptr(), partial.data_ptr(),
+        _build.launch(
+            "sphere_bwd", lib.sphere_bwd_launch, params.data_ptr(),
+            g.data_ptr(), partial.data_ptr(),
             _build.ticket(dev, stream).data_ptr(), dp.data_ptr(), n,
             pixel_step(n, extent), extent, int(bwd_vector_loads(g, n)),
             stream)
-        _build.launched(err, "sphere_bwd")
     return dp
 
 
@@ -174,9 +174,10 @@ class _SphereRenderFn(_build.KernelFunction):
 
     @staticmethod
     def backward(ctx, g):
-        (params,) = ctx.saved_tensors
-        return (_sphere_bwd_call(params.detach(), g, ctx.n, ctx.extent),
-                None, None, None)
+        with _build.span("render.backward"):
+            (params,) = ctx.saved_tensors
+            return (_sphere_bwd_call(params.detach(), g, ctx.n, ctx.extent),
+                    None, None, None)
 
     vmap = _build.loop_vmap("_SphereRenderFn",
                             lambda *a: _SphereRenderFn.apply(*a))
@@ -193,12 +194,13 @@ def render_sphere_cuda(params, n: int = 1024, extent: float = 1.2,
     divide ``n`` as in the reference and changes nothing else: the CUDA
     kernels set their own launch geometry.
     """
-    if n % tile:
-        raise ValueError("image size must be divisible by the tile size")
-    if tuple(params.shape) != (N_PARAMS,):
-        raise ValueError(f"params must have shape ({N_PARAMS},), got "
-                         f"{tuple(params.shape)}")
-    return _SphereRenderFn.apply(params, n, extent, dtype)
+    with _build.span("render.forward"):
+        if n % tile:
+            raise ValueError("image size must be divisible by the tile size")
+        if tuple(params.shape) != (N_PARAMS,):
+            raise ValueError(f"params must have shape ({N_PARAMS},), got "
+                             f"{tuple(params.shape)}")
+        return _SphereRenderFn.apply(params, n, extent, dtype)
 
 
 class SphereRender(nn.Module):

@@ -616,9 +616,10 @@ class Plan:
             for p, root in step.alias.items():
                 mat[p] = mat[root]
             arr = (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs)
-            launch = getattr(lib, step.name + "_launch")
+            entry = getattr(lib, step.name + "_launch")
             if not step.accumulates:
-                err = launch(arr, lit_dev.data_ptr(), step.width, stream)
+                _build.launch(counter, entry, arr, lit_dev.data_ptr(),
+                              step.width, stream)
             else:
                 part = ticket = None
                 if stream is not None and step.part_width:
@@ -626,10 +627,10 @@ class Plan:
                     part = torch.empty(blocks * step.part_width,
                                        dtype=torch.int32, device=device)
                     ticket = _build.ticket(lit_dev.device, stream)
-                err = launch(arr, lit_dev.data_ptr(), step.width, stream,
-                             None if part is None else part.data_ptr(),
-                             None if ticket is None else ticket.data_ptr())
-            _build.launched(err, counter)
+                _build.launch(counter, entry, arr, lit_dev.data_ptr(),
+                              step.width, stream,
+                              None if part is None else part.data_ptr(),
+                              None if ticket is None else ticket.data_ptr())
             for p in step.prints:
                 e = entries[p]
                 ops = [get(q) for q in e[4] if q != SENT]
