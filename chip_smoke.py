@@ -87,7 +87,12 @@ rounding.
            (the SASS instructions an iteration of its march loop issues
            times its warps' iterations, as phase 16 derives it; held
            below the measured time) with its busy-lane and block shares and
-           ptxas's registers and spills; sdf_tail's two floors (its
+           ptxas's registers and spills; sdf_fwd at DENSE_N^2 (dense_floor:
+           one launch counted in _build.ROUTES as the dense route, img and
+           ts bit-equal to sdf_fwd_plain on the card and to the one-pixel
+           route, bf16's two routes bit-equal), each route timed with its
+           issue floor, the kernels line's sdf_fwd_dense entry (time,
+           plain time, bound); sdf_tail's two floors (its
            survivors' evaluations packed 32 to a warp, and 32 consecutive
            survivors a warp in the card's list and in row-major order),
            the shipped tail against its three refill schedules, the split
@@ -325,6 +330,7 @@ import numpy as np
 N = 1024
 STEPS = 64
 EXTENT = 1.2
+DENSE_N = 16384  # the benchmark's sphere cells: 1024^2 at 16 x 16 samples
 SEEDS = (None, 1, 2)          # reference scene + two seeded ones
 # the backward's sizes: float4 loads at N and 1000 (a row is whole
 # float4s), single floats at 257; the last segment of a row is partly
@@ -778,18 +784,24 @@ def tail_schedule_sources(steps=2):
         for below in TAIL_SCHEDULES}
 
 
-def fwd_footprint(source="generic_render.cuh"):
+def fwd_footprint(source="generic_render.cuh", dense=False):
     """A march kernel's footprint, read from its source in csrc/
     (generic_fwd's skeleton, or sdf_render.cu for sdf_fwd): (warp
     columns, block columns, block rows). A warp takes a cols x (32 /
     cols) tile of pixels, a block a block columns x block rows rectangle
-    of them (common.cuh's tile_pixel)."""
+    of them (common.cuh's tile_pixel). With ``dense``, sdf_fwd_dense's
+    (sdf_render.cu): (patch columns, patch rows, warps a block). A thread
+    takes a patch, a warp's threads 32 columns x patch columns x patch
+    rows rows, and a block stacks its warps down."""
     import re
 
     from enoki_tpu_torch import _build
     text = (_build.CSRC_DIR / source).read_text()
-    found = re.search(r"constexpr int kWarpCols = (\d+), kBlockCols = (\d+), "
-                      r"kBlockRows = (\d+);", text)
+    found = re.search(
+        r"constexpr int kPatchCols = (\d+), kPatchRows = (\d+), "
+        r"kDenseWarps = (\d+);" if dense else
+        r"constexpr int kWarpCols = (\d+), kBlockCols = (\d+), "
+        r"kBlockRows = (\d+);", text)
     check(found is not None, f"{source} names no footprint")
     return tuple(int(v) for v in found.groups())
 
@@ -1012,6 +1024,124 @@ def warp_evaluations(counts, cols):
     return int(tile_max(counts, cols, 32 // cols).sum().item())
 
 
+def dense_warp_iterations(adv, n_steps, patch):
+    """The loop iterations sdf_fwd_dense's warps run for a march of
+    ``adv`` advances a pixel, a warp on 32 columns x ``patch`` (= patch
+    columns x patch rows) rows of them: a thread's loop runs while one of
+    its rays advances, up to the cap of n_steps - 1 iterations, so a
+    warp's runs min(its largest advance count + 1, n_steps - 1) (its
+    distances' last evaluation, after the loop, is not counted)."""
+    return int(tile_max(adv, 32, patch).add(1).clamp(max=n_steps - 1)
+               .sum().item())
+
+
+def forced_route(K, route):
+    """A context in which ``K.sdf_fwd`` (``K`` sdf_kernels) takes
+    ``route``, "dense" or "pixel", for the z-carry march at every n:
+    ``K.DENSE_MIN_N`` patched."""
+    from unittest import mock
+    return mock.patch.object(K, "DENSE_MIN_N",
+                             0 if route == "dense" else 1 << 30)
+
+
+def dense_floor(torch, K, p, timer, n=None):
+    """Phase 12's sdf_fwd at n^2 (DENSE_N unless given; the z-carry march,
+    64 steps), where fwd_route takes the dense route. One forward, its
+    launch and route counted (_build.LAUNCHES, _build.ROUTES), held
+    bit-equal (img and ts) to sdf_fwd_plain on the card and to the
+    one-pixel route; the bf16 march's two routes bit-equal too. Each
+    route's time and its issue floor (derived, not measured): the SASS an
+    iteration of its march loop issues, from cuobjdump, times its warps'
+    iterations (the plain march's counts: a one-pixel warp's longest
+    lane's evaluations, a dense warp's dense_warp_iterations) over the
+    card's issue rate; the plain version's time, and the bound from this
+    scene's work as phase 4 counts it. Returns the log line and the
+    kernels line's sdf_fwd_dense entry."""
+    from enoki_tpu_torch import _build
+    n = n or DENSE_N
+    check(K.fwd_route(n) == "dense", f"sdf_fwd's route at {n}^2 is "
+          f"{K.fwd_route(n)}, not the dense route")
+    lib_path = _build.build("sdf_render")
+    sass = sass_of(lib_path)
+    rate, rate_text = issue_rate(torch)
+    cols, rows, _ = fwd_footprint("sdf_render.cu", dense=True)
+    kernels = {"dense": "sdf_fwd_dense_kernelIfE",
+               "pixel": "sdf_fwd_kernelIfLb0ELb0EE"}
+
+    def fwd(route, dtype=torch.float32):
+        with forced_route(K, route):
+            return K.sdf_fwd(p, n, STEPS, EXTENT, None, dtype)
+
+    def equal(a, b):
+        return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    _build.reset_launch_counts()
+    dense = K.sdf_fwd(p, n, STEPS, EXTENT)
+    launches = _build.ROUTES["sdf_fwd.dense"]
+    check(dict(_build.LAUNCHES) == {"sdf_fwd": 1}
+          and dict(_build.ROUTES) == {"sdf_fwd.dense": 1},
+          f"sdf_fwd at {n}^2: launches {dict(_build.LAUNCHES)}, routes "
+          f"{dict(_build.ROUTES)}; one sdf_fwd by the dense route expected")
+    plain = K.sdf_fwd_plain(p, n, STEPS, EXTENT)
+    err = max((a - b).abs().max().item() for a, b in zip(dense, plain))
+    check(equal(dense, plain), f"sdf_fwd's dense route differs from "
+          f"sdf_fwd_plain at {n}^2: max |diff| {err}")
+    del plain
+    check(equal(dense, fwd("pixel")), f"sdf_fwd's dense route differs "
+          f"from its pixel route at {n}^2")
+    hits = int((dense[1] >= 0).sum().item())
+    del dense
+    check(equal(fwd("dense", torch.bfloat16), fwd("pixel", torch.bfloat16)),
+          f"sdf_fwd_bf16's dense route differs from its pixel route at "
+          f"{n}^2")
+    torch.cuda.empty_cache()
+    ms = {route: timer(lambda route=route: fwd(route), 20)
+          for route in kernels}
+    plain_ms = timer(lambda: K.sdf_fwd_plain(p, n, STEPS, EXTENT), 1,
+                     hold_ms=1000.0, plain=True)
+    evals, adv = K.march_counts(p, n, STEPS, EXTENT)
+    total, advances = int(evals.sum().item()), int(adv.sum().item())
+    bound_ms, bound_by = bound(
+        8 * n * n + 64,
+        FWD_FLOPS_PER_EVAL * total + FWD_FLOPS_PER_ADVANCE * advances
+        + (FWD_FLOPS_PER_PIXEL + FWD_FLOPS_HIT_TEST) * n * n
+        + FWD_FLOPS_PER_HIT * hits)
+    check(bound_ms <= ms["dense"], f"sdf_fwd's dense route: its bound "
+          f"{bound_ms:.5f} ms is above its time {ms['dense']:.5f} ms")
+    pixel_cols = fwd_footprint("sdf_render.cu")[0]
+    iters = {"dense": dense_warp_iterations(adv, STEPS, cols * rows),
+             "pixel": warp_evaluations(evals, pixel_cols)}
+    slots = {"dense": 32 * cols * rows, "pixel": 32}
+    del evals, adv
+    parts = []
+    for route, kernel in kernels.items():
+        loop_ins = loop_counts(sass, kernel)[3]
+        floor_ms = 1e3 * loop_ins * iters[route] / rate
+        check(floor_ms <= ms[route], f"sdf_fwd's {route} route: its issue "
+              f"floor {floor_ms:.5f} ms is above its time {ms[route]:.5f} ms")
+        parts.append(
+            f"the {route} route {ms[route]:.5f} ms, its loop {loop_ins} SASS "
+            f"an iteration x {iters[route]} warp iterations (busy ray slots "
+            f"{total / (slots[route] * iters[route]):.4f}) = {floor_ms:.5f} "
+            f"ms, {floor_ms / ms[route]:.4f} of its time; ptxas: "
+            + resources_text(lib_path, (kernel,)))
+    line = (f"phase 12 sdf_fwd at {n}^2 ({total / n ** 2:.3f} evaluations a "
+            f"ray; patches of {rows} x {cols}; one launch, route dense; "
+            f"img and ts bit-equal to sdf_fwd_plain and to the pixel route, "
+            f"bf16's two routes bit-equal), issue floors (derived, not "
+            f"measured) over {rate_text}: " + "; ".join(parts)
+            + f"; the dense route takes {ms['dense'] / ms['pixel']:.4f} of "
+            f"the pixel route's time; plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms by {bound_by}")
+    row = dict(name="sdf_fwd_dense",
+               replaces="enoki_tpu/render/pallas_kernels.py:504",
+               route="cuda", source="enoki_tpu_torch/csrc/sdf_render.cu",
+               launches=launches, max_abs_err=err, ms=ms["dense"],
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=None)
+    return line, row
+
+
 def block_share(counts, cols, block_cols, block_rows):
     """The share of a block's warp slots its warps keep busy, a block
     holding its slot until its slowest warp ends: the warps' evaluations
@@ -1031,7 +1161,8 @@ def bwd_cases(torch, dev, phase, run, cuda_vec, vector_loads=None):
     n)``, the SDF pair's by default) must be float4 where a row is whole
     float4s. Returns the largest |kernel - plain|."""
     from enoki_tpu_torch.render import sdf_kernels as K
-    vector_loads = vector_loads or K.bwd_vector_loads
+    vector_loads = vector_loads or (
+        lambda g, ts, n: K.float4_rows(n, g, ts))
     worst = 0.0
     for n in BWD_SIZES:
         gs = {"seeded": torch.from_numpy(np.random.default_rng(7)
@@ -1274,7 +1405,7 @@ def run(torch, dev):
     g_ref = torch.full((N, N), 1.0 / rays, device=dev)
     fwd_ms = timer(lambda: K.sdf_fwd(p_ref, N, STEPS, EXTENT), 200)
     bwd_ms = timed_bwd(torch, timer, "sdf_bwd", lambda: K.sdf_bwd(
-        p_ref, g_ref, ts_ref, N, EXTENT), K.bwd_vector_loads(g_ref, ts_ref, N))
+        p_ref, g_ref, ts_ref, N, EXTENT), K.float4_rows(N, g_ref, ts_ref))
     fwd_plain_ms = timer(lambda: K.sdf_fwd_plain(p_ref, N, STEPS, EXTENT),
                          5, hold_ms=1000.0, plain=True)
     bwd_plain_ms = timer(lambda: K.sdf_bwd_plain(p_ref, g_ref, ts_ref, N,
@@ -4057,7 +4188,7 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
           if name != "sdf_bwd_ad"}
     ms["sdf_bwd_ad"] = timed_bwd(torch, timer, "phase 12 sdf_bwd_ad",
                                  work["sdf_bwd_ad"][0],
-                                 K.bwd_vector_loads(g_mean, ts_ref, N))
+                                 K.float4_rows(N, g_mean, ts_ref))
     # the plain versions as phases 4 and 8 time theirs: device time, the
     # stream held while the host enqueues. One call at a time: the
     # relaxed march is ~1600 eager launches, and a few calls of it fill
@@ -4075,7 +4206,7 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
         f"{BWD_FLOPS_PER_HIT} the function needs")
     log("phase 12 the backward pair, one launch each (csrc/pixel_sum.cuh), "
         "at the main path's tensors with "
-        + ("float4" if K.bwd_vector_loads(g_mean, ts_ref, N) else
+        + ("float4" if K.float4_rows(N, g_mean, ts_ref) else
            "single-float") + " loads; ptxas: " + "; ".join(
             f"{name} " + resources_text(_build.build(lib), (fn,))
             for name, lib, fn in (("sdf_bwd", "sdf_render", "AnalyticPixel"),
@@ -4203,6 +4334,8 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
         f"{ms['sdf_tail']:.5f} ms (bound {work['sdf_tail'][2][0]:.5f} ms "
         f"by {work['sdf_tail'][2][1]}); ptxas: "
         + resources_text(lib_path, ("sdf_tail_kernel",)))
+    dense_line, dense_row = dense_floor(torch, K, p_ref, timer)
+    log(dense_line)
 
     # the shipped tail and the three refill schedules, each held bit-equal
     # to the plain tail, timed in turns, then in the other order
@@ -4326,7 +4459,7 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
                  replaces=replaces[name], launches=launches.get(name, 0),
                  max_abs_err=err[name], ms=ms[name], plain_ms=plain_ms[name],
                  bound_ms=work[name][2][0], bound_by=work[name][2][1],
-                 library_ms=None) for name in work]
+                 library_ms=None) for name in work] + [dense_row]
 
 def run_generic(torch, dev, timer, scenes, first_use):
     """Phases 13-16: the bring-your-own-SDF renderer. ``scenes`` are

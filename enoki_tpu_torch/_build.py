@@ -25,8 +25,9 @@ Spans and counters: ``span`` opens a ``torch.profiler`` annotation
 ``enoki.<name>`` while the profiler records, and costs one check of the
 profiler's state otherwise; ``launch`` makes every kernel launch of the
 port, in its span ``enoki.launch.<kernel>``, and counts it in
-``LAUNCHES``; ``timed`` counts each build phase and its seconds in
-``BUILDS`` / ``BUILD_SECONDS``. docs/torch/render.md lists them.
+``LAUNCHES`` (and its route in ``ROUTES``); ``timed`` counts each build
+phase and its seconds in ``BUILDS`` / ``BUILD_SECONDS``.
+docs/torch/render.md lists them.
 """
 
 from __future__ import annotations
@@ -160,7 +161,7 @@ _U = ctypes.c_uint64
 # stream are c_void_p (a bare Python int would be cut to 32 bits)
 SIGNATURES = {
     "sdf_render": {
-        "sdf_fwd_launch": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _P),
+        "sdf_fwd_launch": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _I, _I, _P),
         "sdf_fwd_relax_launch": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _F, _F,
                                  _I, _P),
         "sdf_fwd_split_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F,
@@ -273,22 +274,29 @@ def span(name: str):
 # ``launch`` adds one after each launch that returned no error, and
 # nothing else does
 LAUNCHES: collections.Counter = collections.Counter()
+# the same launches of a kernel that has more than one route, by
+# "<kernel>.<route>" (sdf_fwd's "sdf_fwd.dense" and "sdf_fwd.pixel", ...)
+ROUTES: collections.Counter = collections.Counter()
 
 
 def reset_launch_counts():
     LAUNCHES.clear()
+    ROUTES.clear()
 
 
-def launch(kernel: str, entry, *args):
+def launch(kernel: str, entry, *args, route: str | None = None):
     """Launch ``kernel`` through its C entry point ``entry`` (a bound
     ctypes function that returns a cudaError_t) with ``args``, in the span
     ``enoki.launch.<kernel>`` (the arguments' conversion and the
-    launch); raise if the launch returned an error, else count it."""
+    launch); raise if the launch returned an error, else count it, and
+    its ``route`` where the kernel has routes."""
     with span("launch." + kernel):
         err = entry(*args)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
     LAUNCHES[kernel] += 1
+    if route is not None:
+        ROUTES[f"{kernel}.{route}"] += 1
 
 
 # the build's phases since the process started, by phase: calls and host

@@ -15,7 +15,7 @@ from .sdf import (  # noqa: F401
     shade_implicit, render_sdf_implicit, sdf_loss_implicit,
     render_sdf_grads_implicit,
 )
-from .._build import LAUNCHES, reset_launch_counts  # noqa: F401
+from .._build import LAUNCHES, ROUTES, reset_launch_counts  # noqa: F401
 from .sdf_kernels import (  # noqa: F401
     N_PARAMS, scene_to_vec, vec_to_scene, tile_pixels, march_tile, cone_t0,
     sdf_fwd_plain, sdf_fwd_split_plain, sdf_fwd_split_list_plain,

@@ -53,6 +53,9 @@ T_MAX = 10.0    # march escape distance, likewise
 CONT_FROZEN = -1e9   # pass 1's ``cont`` for a lane that froze before the cap
 MARCH_DTYPES = (torch.float32, torch.bfloat16)
 BWD_KERNELS = ("analytic", "ad")
+# samples a side from which the z-carry march takes sdf_fwd's dense route
+# (fwd_route)
+DENSE_MIN_N = 2048
 
 
 def scene_to_vec(scene) -> torch.Tensor:
@@ -523,6 +526,27 @@ def fwd_kernel_name(dtype, relax: float = 1.0, unimodal: bool = False) -> str:
             + ("_bf16" if dtype == torch.bfloat16 else ""))
 
 
+def fwd_route(n: int, relax: float = 1.0, unimodal: bool = False) -> str:
+    """The route of the sdf_fwd launch at n x n samples: "dense" (a thread
+    marches a patch of samples, csrc/sdf_render.cu's sdf_fwd_dense) for
+    the z-carry march from ``DENSE_MIN_N`` on, where neighbouring rays lie
+    so close that a patch's marches are alike, else "pixel" (a thread a
+    sample). Both give the same bits; ``_build.ROUTES`` counts them."""
+    plain = relax == 1.0 and not unimodal
+    return "dense" if plain and n >= DENSE_MIN_N else "pixel"
+
+
+def float4_rows(n: int, *tensors) -> bool:
+    """Whether a kernel moves the rows of these n x n float32 tensors as
+    float4s: a row is whole float4s (n % 4 == 0) and every one of
+    ``tensors`` that is given (not None) starts on 16 bytes. Otherwise it
+    moves every sample on its own. The backward kernels load ``g`` and
+    ``ts`` so; sdf_fwd's dense route stores ``img`` and ``ts``, and loads
+    the start map, so."""
+    return n % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in tensors
+                              if x is not None)
+
+
 def _check_t0(t0, n, device):
     if t0 is None:
         return 0
@@ -533,8 +557,9 @@ def _check_t0(t0, n, device):
 def sdf_fwd(params, n: int, n_steps: int, extent: float = 1.2, t0=None,
             dtype=torch.float32, relax: float = 1.0,
             unimodal: bool = False):
-    """Forward render -> (img, ts): the sdf_fwd kernel of these options
-    for a CUDA tensor, the plain version for a CPU one."""
+    """Forward render -> (img, ts): the sdf_fwd kernel of these options,
+    by ``fwd_route``'s route, for a CUDA tensor, the plain version for a
+    CPU one."""
     kernel = fwd_kernel_name(dtype, relax, unimodal)
     if not _build.is_cuda(params):
         return sdf_fwd_plain(params, n, n_steps, extent, t0, dtype, relax,
@@ -558,7 +583,11 @@ def sdf_fwd(params, n: int, n_steps: int, extent: float = 1.2, t0=None,
             _build.launch(kernel, lib.sdf_fwd_relax_launch, *head, w, back,
                           int(unimodal), stream)
         else:
-            _build.launch(kernel, lib.sdf_fwd_launch, *head, stream)
+            route = fwd_route(n)
+            dense = route == "dense"
+            vec = dense and float4_rows(n, img, ts, t0)
+            _build.launch(kernel, lib.sdf_fwd_launch, *head, int(dense),
+                          int(vec), stream, route=route)
     return img, ts
 
 
@@ -672,13 +701,6 @@ def sdf_split_plain(params, n: int, n_steps: int, extent: float = 1.2,
                           split, extent)
 
 
-def bwd_vector_loads(g, ts, n: int) -> bool:
-    """Whether the backward kernels load ``g`` and ``ts`` as float4: a row
-    is whole float4s (n % 4 == 0) and both start on 16 bytes. Otherwise
-    they load every pixel on its own."""
-    return n % 4 == 0 and g.data_ptr() % 16 == 0 and ts.data_ptr() % 16 == 0
-
-
 def sdf_bwd(params, g, ts, n: int, extent: float = 1.2,
             kernel: str = "analytic"):
     """Parameter cotangent dp[16] in one launch of the sdf_bwd kernel
@@ -709,7 +731,7 @@ def sdf_bwd(params, g, ts, n: int, extent: float = 1.2,
             name, getattr(lib, f"{name}_launch"), params.data_ptr(),
             g.data_ptr(), ts.data_ptr(), partial.data_ptr(),
             _build.ticket(dev, stream).data_ptr(), dp.data_ptr(), n,
-            pixel_step(n, extent), extent, int(bwd_vector_loads(g, ts, n)),
+            pixel_step(n, extent), extent, int(float4_rows(n, g, ts)),
             stream)
     return dp
 

@@ -2,8 +2,8 @@
 """Design variants of the kernels of the PyTorch/CUDA port, timed in
 turns on one CUDA card, and some of them of another checkout beside them.
 
-  python kernel_variants.py [--sdf-only | --bwd-only | --sphere-only |
-                             --split-only] [--ab OTHER_ROOT]
+  python kernel_variants.py [--sdf-only | --dense-only | --bwd-only |
+                             --sphere-only | --split-only] [--ab OTHER_ROOT]
 
 The SDF backward pair (sdf_bwd in csrc/sdf_render.cu, sdf_bwd_ad in
 csrc/sdf_bwd_ad.cu, both on csrc/pixel_sum.cuh) on the reference sphere at
@@ -81,6 +81,17 @@ other. The variants:
                each variant's busy-lane and block shares (the
                plain march's counts) and the SASS instructions of each
                kernel's march loop, laid out and issued an iteration
+  sdf_fwd dense
+               the z-carry march's dense route (sdf_fwd_dense) against
+               its one-pixel route at 1024^2-16384^2: a thread's patch of
+               2 rows x 4 columns of samples in blocks of 4 warps
+               (shipped), 1 x 4, 2 x 2, 1 x 8, 1 x 2, 4 x 2, 1 x 16 or
+               2 x 8 in 4 warps, 2 x 4 in 2 or 8 warps; each held
+               bit-equal to the one-pixel route (f32 and bf16, with and
+               without a start map, at 4096^2 and 4100^2; f32 at every
+               size), with its warp iterations, busy ray slots, march
+               loop's SASS and issue floor; then the bf16 march by both
+               routes; sdf_kernels.DENSE_MIN_N comes from these times
   generic_fwd  a warp on an 8 x 4 tile of pixels in blocks of 16 x 8
                (shipped), of 8 x 8 or 32 x 8; 4 x 8 tiles in the same
                three; 16 x 2 in 16 x 4, 32 x 1 in 32 x 2 and in 32 x 8
@@ -133,16 +144,17 @@ other. The variants:
                pipelined, and a row per warp for every bins (the earlier
                design)
 
---sdf-only times the sdf_fwd family's variants alone, --bwd-only the SDF
+--sdf-only times the sdf_fwd family's variants and its dense route's
+alone, --dense-only the dense route's alone, --bwd-only the SDF
 backward pair's, --sphere-only the sphere kernels', --split-only the
 split march's, --scatter-only the trace's SCATTER_ADD routes;
 --scatter-gate reads the weights gate of phase 28 (b)'s three timed
 SCATTER_ADDs alone (one kernel each, by its shipped route). --ab
 OTHER_ROOT
-times the sdf_fwd family, sdf_tail, the split forward's device time
-(torch.profiler), the chained fwd+bwd step with split 16 and without,
-the backward kernels (sdf_bwd, sdf_bwd_ad,
-sphere_bwd, generic_bwd), sphere_fwd (f32 and bf16), generic_fwd and
+times the sdf_fwd family, sdf_fwd at 16384^2 by the checkout's own
+route, sdf_tail, the split forward's device time (torch.profiler), the
+chained fwd+bwd step with split 16 and without, the backward kernels
+(sdf_bwd, sdf_bwd_ad, sphere_bwd, generic_bwd), sphere_fwd (f32 and bf16), generic_fwd and
 stochastic_round (f16 and bf16) of the enoki_tpu_torch under OTHER_ROOT
 (a checkout of another commit, with its own chip_smoke.py) in child
 processes, interleaved: other, this, this, other, each with its kernels'
@@ -225,6 +237,9 @@ def time_root(root):
     out = {"root": root}
     for name in SDF_KERNELS:
         out[f"{name}_ms"] = timer(sdf_call(torch, C, K, p_sdf, name), 200)
+    # the forward at the benchmark's 16384^2, by the checkout's own route
+    out["sdf_fwd_16384_ms"] = timer(
+        lambda: K.sdf_fwd(p_sdf, 16384, STEPS), 20)
     out.update(split_times(torch, C, K, p_sdf, timer))
     for name, fn in (
             ("sdf_bwd_ms", lambda: K.sdf_bwd(p_sdf, g, ts, N)),
@@ -752,6 +767,229 @@ def run_sdf_variants(torch, dev, timer, C):
                   + C.resources_text(path, (kernel,))
                   + f"; its march loop lays out {laid_out} SASS "
                   f"instructions and issues {issued} an iteration")
+
+
+# sdf_fwd's dense route (csrc/sdf_render.cu's sdf_fwd_dense): its patches
+DENSE_FOOTPRINT = ("constexpr int kPatchCols = {}, kPatchRows = {}, "
+                   "kDenseWarps = {};")
+DENSE_SHIPPED = (4, 2, 4)
+DENSE_VARIANTS = {  # name: (patch columns, patch rows, warps a block)
+    "2x4 patch, 4 warps (shipped)": DENSE_SHIPPED,
+    "1x4 patch, 4 warps": (4, 1, 4),
+    "2x2 patch, 4 warps": (2, 2, 4),
+    "1x8 patch, 4 warps": (8, 1, 4),
+    "1x2 patch, 4 warps": (2, 1, 4),
+    "4x2 patch, 4 warps": (2, 4, 4),
+    "1x16 patch, 4 warps": (16, 1, 4),
+    "2x8 patch, 4 warps": (8, 2, 4),
+    "2x4 patch, 2 warps": (4, 2, 2),
+    "2x4 patch, 8 warps": (4, 2, 8),
+}
+DENSE_SIZES = (1024, 2048, 3072, 4096, 8192, 16384)
+# the shipped patch row is one float4 (4 columns); a variant of another
+# width takes these rows in its place: float4s, or a float2 for 2 columns
+DENSE_ASSERT = 'static_assert(kPatchCols == 4, "a patch row is one float4");'
+DENSE_ASSERT_ANY = ("static_assert(32 % kPatchCols == 0 && (kPatchCols == 2 "
+                    "|| kPatchCols % 4 == 0), \"a patch row in float4s or a "
+                    "float2\");")
+DENSE_ROWS = "// A patch row's values from p (its first column's) in v:"
+DENSE_ROWS_ANY = r"""// A patch row's values from p (its first column's) in v: as float4s or a
+// float2 where vec, else one by one; a column past the image's edge
+// (left = n - col0 >= 1 columns are inside) takes the last one's value.
+__device__ __forceinline__ void load_row(const float* p, bool vec, int left,
+                                         float (&v)[kPatchCols]) {
+  if constexpr (kPatchCols % 4 == 0) {
+    if (vec) {
+#pragma unroll
+      for (int g = 0; g < kPatchCols / 4; ++g) {
+        // the first float4 is always inside: left >= 1
+        if (g == 0 || 4 * g < left) {
+          const float4 q = reinterpret_cast<const float4*>(p)[g];
+          v[4 * g] = q.x, v[4 * g + 1] = q.y;
+          v[4 * g + 2] = q.z, v[4 * g + 3] = q.w;
+        } else {
+#pragma unroll
+          for (int c = 4 * g; c < 4 * g + 4; ++c) v[c] = v[4 * g - 1];
+        }
+      }
+      return;
+    }
+  } else if constexpr (kPatchCols == 2) {
+    if (vec) {
+      const float2 q = *reinterpret_cast<const float2*>(p);
+      v[0] = q.x, v[1] = q.y;
+      return;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kPatchCols; ++c) v[c] = p[min(c, left - 1)];
+}
+
+// A patch row's values v to p (its first column's): as float4s or a
+// float2 where vec, else one by one; the columns past the image's edge
+// are not stored.
+__device__ __forceinline__ void store_row(float* p, bool vec, int left,
+                                          const float (&v)[kPatchCols]) {
+  if constexpr (kPatchCols % 4 == 0) {
+    if (vec) {
+#pragma unroll
+      for (int g = 0; g < kPatchCols / 4; ++g) {
+        if (g == 0 || 4 * g < left)
+          reinterpret_cast<float4*>(p)[g] = make_float4(
+              v[4 * g], v[4 * g + 1], v[4 * g + 2], v[4 * g + 3]);
+      }
+      return;
+    }
+  } else if constexpr (kPatchCols == 2) {
+    if (vec) {
+      *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kPatchCols; ++c)
+    if (c < left) p[c] = v[c];
+}
+"""
+
+
+def dense_variant_text(source, dims):
+    """sdf_render.cu with sdf_fwd_dense's patch (patch columns, patch rows,
+    warps a block) set to ``dims``: the footprint's line replaced, and for
+    a patch of other than 4 columns, the rows' loads and stores too."""
+    pairs = [(DENSE_FOOTPRINT.format(*DENSE_SHIPPED),
+              DENSE_FOOTPRINT.format(*dims))]
+    if dims[0] != DENSE_SHIPPED[0]:
+        start = source.index(DENSE_ROWS)
+        end = source.index("\n}\n", source.index("void store_row(")) + 3
+        pairs += [(DENSE_ASSERT, DENSE_ASSERT_ANY),
+                  (source[start:end], DENSE_ROWS_ANY)]
+    return substitute(source, pairs)
+
+
+DENSE_KERNEL = "sdf_fwd_dense_kernelIfE"
+PIXEL_KERNEL = "sdf_fwd_kernelIfLb0ELb0EE"
+
+
+def dense_reps(n):
+    """Calls a timing of one forward at n^2: a few hundred milliseconds
+    of the card's time at every size."""
+    return max(20, min(200, 200 * 4096 * 4096 // (n * n)))
+
+
+def dense_cases(torch, K, p, n):
+    """The forwards that the dense route is held to at n^2: (march dtype,
+    start map) for f32 and bf16, each without and with a start map (the
+    cone prepass's where its block divides n, else half the hit
+    distance of the f32 render)."""
+    if n % 8 == 0:
+        t0 = K._cone_t0(p, n, STEPS, 1.2, 8)
+    else:
+        t0 = 0.5 * K.sdf_fwd(p, n, STEPS, 1.2)[1].clamp_min(0.0)
+    return [(dtype, start) for dtype in (torch.float32, torch.bfloat16)
+            for start in (None, t0)]
+
+
+def run_sdf_dense(torch, dev, timer, C):
+    """sdf_fwd's routes at DENSE_SIZES on the reference sphere, 64 steps:
+    the one-pixel route and the dense route's patches (DENSE_VARIANTS),
+    each held bit-equal to the one-pixel route (img and ts; f32 and bf16,
+    with and without a start map, at 4096^2 and 4100^2; f32 at every
+    size) before it is timed, in two passes, one order then the other;
+    then each route's warp iterations (the plain march's counts), its
+    march loop's SASS an iteration and its issue floor, and ptxas's
+    report. DENSE_MIN_N is set from these times."""
+    import contextlib
+    from concurrent.futures import ThreadPoolExecutor
+    from unittest import mock
+
+    from enoki_tpu_torch import _build
+    from enoki_tpu_torch.render import sdf_kernels as K
+
+    source = (_build.CSRC_DIR / "sdf_render.cu").read_text()
+    texts = {name: dense_variant_text(source, dims)
+             for name, dims in DENSE_VARIANTS.items()}
+    with ThreadPoolExecutor(len(texts)) as ex:
+        libs = dict(zip(texts, ex.map(
+            lambda t: _build.load_generated("sdf_render", t),
+            texts.values())))
+    p = torch.from_numpy(C.scene_vec(None)).to(dev)
+
+    def fwd(n, route, lib=None, dtype=torch.float32, t0=None):
+        # the variant's library where it is given, else the shipped one
+        with (mock.patch.object(_build, "load", lambda _: lib) if lib
+              else contextlib.nullcontext()), C.forced_route(K, route):
+            return K.sdf_fwd(p, n, STEPS, 1.2, t0, dtype)
+
+    for n in DENSE_SIZES + (4100,):
+        cases = (dense_cases(torch, K, p, n) if n in (4096, 4100)
+                 else [(torch.float32, None)])
+        for dtype, t0 in cases:
+            want = fwd(n, "pixel", dtype=dtype, t0=t0)
+            for name, lib in libs.items():
+                got = fwd(n, "dense", lib, dtype, t0)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise RuntimeError(
+                        f"sdf_fwd dense {name} at {n}^2 ({dtype}, start "
+                        f"map {t0 is not None}): differs from the one-pixel "
+                        f"route")
+            del want, got
+    print("sdf_fwd dense route: every patch bit-equal to the one-pixel "
+          "route (img and ts)")
+    times = {}
+    calls = [("pixel route (8x4 warps, 16x8 blocks)", "pixel", None)] + [
+        (name, "dense", lib) for name, lib in libs.items()]
+    for n in DENSE_SIZES:
+        for order in (1, -1):
+            for name, route, lib in calls[::order]:
+                times.setdefault((n, name), []).append(timer(
+                    lambda: fwd(n, route, lib), dense_reps(n)))
+        torch.cuda.empty_cache()
+    rate, rate_text = C.issue_rate(torch)
+    loops = {}
+    for name, text in [(calls[0][0], source)] + list(texts.items()):
+        path = _build.build_generated("sdf_render", text)
+        sass = C.sass_of(path)
+        kernel = PIXEL_KERNEL if name == calls[0][0] else DENSE_KERNEL
+        loops[name] = C.loop_counts(sass, kernel)[3]
+        print(f"ptxas sdf_fwd {name}: " + C.resources_text(path, (kernel,))
+              + f"; its march loop issues {loops[name]} SASS instructions "
+              f"an iteration")
+    for n in DENSE_SIZES:
+        evals, adv = K.march_counts(p, n, STEPS, 1.2)
+        pixel = times[(n, calls[0][0])]
+        for name, route, _ in calls:
+            if route == "pixel":
+                iters = C.warp_evaluations(evals, 8)
+                lanes = 32
+            else:
+                cols, rows, _ = DENSE_VARIANTS[name]
+                iters = C.dense_warp_iterations(adv, STEPS, cols * rows)
+                lanes = 32 * cols * rows
+            floor = 1e3 * loops[name] * iters / rate
+            t_ms = times[(n, name)]
+            print(f"sdf_fwd {n}^2 {name}: "
+                  f"{' / '.join(f'{v:.5f}' for v in t_ms)} ms "
+                  f"({min(t_ms) / min(pixel):.4f} of the pixel route); "
+                  f"{iters} warp iterations (busy ray slots "
+                  f"{int(evals.sum().item()) / (lanes * iters):.4f}), issue "
+                  f"floor {floor:.5f} ms over {rate_text} (derived, not "
+                  f"measured)")
+        del evals, adv
+        torch.cuda.empty_cache()
+    # the bf16 march by both routes of the shipped source
+    for n in DENSE_SIZES:
+        t_ms = {}
+        for order in (1, -1):
+            for route in ("pixel", "dense")[::order]:
+                t_ms.setdefault(route, []).append(timer(
+                    lambda: fwd(n, route, dtype=torch.bfloat16),
+                    dense_reps(n)))
+        print(f"sdf_fwd_bf16 {n}^2: " + ", ".join(
+            f"{route} route {' / '.join(f'{v:.5f}' for v in t)} ms"
+            for route, t in t_ms.items())
+            + f" (dense {min(t_ms['dense']) / min(t_ms['pixel']):.4f} of "
+            f"pixel)")
 
 
 # the two-pass split march (csrc/sdf_render.cu: pass 1's append, sdf_tail)
@@ -1932,6 +2170,8 @@ def main():
                     help="also time the kernels of the checkout there")
     ap.add_argument("--sdf-only", action="store_true",
                     help="time the sdf_fwd family's variants alone")
+    ap.add_argument("--dense-only", action="store_true",
+                    help="time sdf_fwd's two routes alone")
     ap.add_argument("--bwd-only", action="store_true",
                     help="time the SDF backward pair's variants alone")
     ap.add_argument("--sphere-only", action="store_true",
@@ -1955,16 +2195,19 @@ def main():
         sys.exit("kernel_variants: needs a CUDA card")
     print(C.nvidia_smi("name,power.limit"))
     dev, timer = torch.device("cuda"), C.DeviceTimer(torch)
-    only = [args.sdf_only, args.bwd_only, args.sphere_only, args.split_only,
-            args.scatter_only, args.scatter_gate]
+    only = [args.sdf_only, args.dense_only, args.bwd_only,
+            args.sphere_only, args.split_only, args.scatter_only,
+            args.scatter_gate]
     if sum(only) > 1:
-        sys.exit("kernel_variants: at most one of --sdf-only, --bwd-only, "
-                 "--sphere-only, --split-only, --scatter-only and "
-                 "--scatter-gate")
+        sys.exit("kernel_variants: at most one of --sdf-only, --dense-only, "
+                 "--bwd-only, --sphere-only, --split-only, --scatter-only "
+                 "and --scatter-gate")
     if args.bwd_only or not any(only):
         run_bwd_variants(torch, dev, timer, C)
     if args.sdf_only or not any(only):
         run_sdf_variants(torch, dev, timer, C)
+    if args.sdf_only or args.dense_only or not any(only):
+        run_sdf_dense(torch, dev, timer, C)
     if args.sphere_only or not any(only):
         run_sphere_variants(torch, dev, timer, C)
     if args.split_only or not any(only):

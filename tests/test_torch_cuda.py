@@ -18,11 +18,12 @@ import chip_smoke
 from chip_smoke import SCATTER_CODES, SCATTER_SIZES, SCATTER_TIMED
 from enoki_tpu_torch import _build, ops as R
 from enoki_tpu_torch.ops import hist_kernels as H, rounding as RD
-from enoki_tpu_torch.render import (LAUNCHES, Vec3, generic as G,
-                                    reset_launch_counts, sdf_trace,
-                                    sdflib as sd)
+from enoki_tpu_torch.render import (LAUNCHES, ROUTES, Vec3, generic as G,
+                                    reset_launch_counts, sdf_kernels as SK,
+                                    sdf_trace, sdflib as sd)
 from enoki_tpu_torch.render.sdf_kernels import (
-    SDFRender, _cone_t0, bwd_vector_loads, fwd_kernel_name, render_sdf_cuda,
+    DENSE_MIN_N, SDFRender, _cone_t0, float4_rows, fwd_kernel_name,
+    fwd_route, render_sdf_cuda,
     sdf_bwd, sdf_bwd_ad_plain, sdf_bwd_plain, sdf_fwd, sdf_fwd_plain,
     sdf_fwd_split, sdf_fwd_split_list, sdf_fwd_split_list_plain,
     sdf_fwd_split_plain, sdf_split, sdf_split_plain, sdf_tail,
@@ -95,7 +96,7 @@ def _bwd_inputs(params, n, shift=0.0):
 @pytest.mark.parametrize("shift", [0.0, 10.0], ids=["mixed", "all_miss"])
 def test_sdf_bwd_kernel_matches_plain_and_is_deterministic(params, n, shift):
     p, g, ts = _bwd_inputs(params, n, shift)
-    assert bwd_vector_loads(g, ts, n) == (n % 4 == 0)
+    assert float4_rows(n, g, ts) == (n % 4 == 0)
     reset_launch_counts()
     dp1 = sdf_bwd(p, g, ts, n, 1.2)
     assert LAUNCHES == {"sdf_bwd": 1}
@@ -128,7 +129,7 @@ def test_sdf_bwd_takes_single_loads_from_a_misaligned_view(params, kernel):
     buf = torch.empty(N * N + 1, device=p.device)
     g_off = buf[1:].view(N, N)  # 4 bytes past a 16-byte boundary
     g_off.copy_(g)
-    assert bwd_vector_loads(g, ts, N) and not bwd_vector_loads(g_off, ts, N)
+    assert float4_rows(N, g, ts) and not float4_rows(N, g_off, ts)
     dp = sdf_bwd(p, g_off, ts, N, 1.2, kernel)
     plain = sdf_bwd_plain if kernel == "analytic" else sdf_bwd_ad_plain
     ref = plain(p, g, ts, N, 1.2)
@@ -145,6 +146,7 @@ def test_render_sdf_cuda_launches_one_of_each(cuda):
     render_sdf_cuda(p, N, STEPS, coarse=0).mean().backward()
     torch.cuda.synchronize()
     assert LAUNCHES == {"sdf_fwd": 1, "sdf_bwd": 1}
+    assert ROUTES == {"sdf_fwd.pixel": 1}  # N is below DENSE_MIN_N
     assert torch.isfinite(p.grad).all()
 
 
@@ -177,6 +179,87 @@ def test_sdf_fwd_variants_are_bit_equal_to_plain(params, name, n):
         kw.get("dtype", torch.float32), kw.get("relax", 1.0),
         kw.get("unimodal", False)): 1}
     assert torch.equal(img_k, img_p) and torch.equal(ts_k, ts_p)
+
+
+# sizes of the dense route: whole float4s a row, a ragged row (single
+# stores and loads), and the next size up
+DENSE_SIZES = (4096, 4100, 8192)
+
+
+def _start_map(params, n):
+    """A start map at n^2: the cone prepass's where its block divides n,
+    else half the hit distance of the f32 render."""
+    if n % 8 == 0:
+        return _cone_t0(params, n, STEPS, 1.2, 8)
+    return 0.5 * sdf_fwd(params, n, STEPS, 1.2)[1].clamp_min(0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", DENSE_SIZES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("start", [False, True], ids=["no_map", "map"])
+def test_sdf_fwd_dense_route_is_bit_equal_to_the_pixel_route_and_plain(
+        cuda, n, dtype, start, monkeypatch):
+    # a thread's patch marches interleaved, each ray by sdf_fwd's own
+    # rounded operations: the same trajectory, the same bits
+    assert DENSE_MIN_N <= 4096 and fwd_route(n) == "dense"
+    p = torch.from_numpy(scene_vec(1)).to(cuda)
+    t0 = _start_map(p, n) if start else None
+    name = fwd_kernel_name(dtype)
+    reset_launch_counts()
+    dense = sdf_fwd(p, n, STEPS, 1.2, t0, dtype)
+    assert LAUNCHES == {name: 1} and ROUTES == {f"{name}.dense": 1}
+    assert float4_rows(n, *dense, t0) == (n % 4 == 0)
+    monkeypatch.setattr(SK, "DENSE_MIN_N", n + 1)  # the one-pixel route
+    pixel = sdf_fwd(p, n, STEPS, 1.2, t0, dtype)
+    assert ROUTES == {f"{name}.dense": 1, f"{name}.pixel": 1}
+    plain = sdf_fwd_plain(p, n, STEPS, 1.2, t0, dtype)
+    torch.cuda.synchronize()
+    for a, b, c in zip(dense, pixel, plain):
+        assert torch.equal(a, b) and torch.equal(b, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [DENSE_MIN_N - 1, DENSE_MIN_N])
+def test_sdf_fwd_takes_its_route_from_n_at_the_threshold(cuda, n):
+    # one ray short of the threshold the one-pixel route, at it the dense
+    # route, each bit-equal to the plain version
+    p = torch.from_numpy(scene_vec(1)).to(cuda)
+    reset_launch_counts()
+    img, ts = sdf_fwd(p, n, STEPS, 1.2)
+    route = "dense" if n >= DENSE_MIN_N else "pixel"
+    assert LAUNCHES == {"sdf_fwd": 1} and ROUTES == {f"sdf_fwd.{route}": 1}
+    want = sdf_fwd_plain(p, n, STEPS, 1.2)
+    torch.cuda.synchronize()
+    assert torch.equal(img, want[0]) and torch.equal(ts, want[1])
+
+
+@pytest.mark.cuda
+def test_sdf_fwd_dense_route_loads_a_misaligned_start_map_singly(cuda):
+    n = 4096
+    p = torch.from_numpy(scene_vec(2)).to(cuda)
+    t0 = _start_map(p, n)
+    buf = torch.empty(n * n + 1, device=cuda)
+    t0_off = buf[1:].view(n, n)  # 4 bytes past a 16-byte boundary
+    t0_off.copy_(t0)
+    img, ts = sdf_fwd(p, n, STEPS, 1.2, t0_off)
+    assert not float4_rows(n, img, ts, t0_off)
+    want = sdf_fwd(p, n, STEPS, 1.2, t0)
+    assert torch.equal(img, want[0]) and torch.equal(ts, want[1])
+
+
+@pytest.mark.cuda
+def test_a_fit_step_at_4096_takes_the_dense_route_once(cuda):
+    model = SDFRender(n=4096, n_steps=STEPS, coarse=0, device=cuda)
+    opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+    reset_launch_counts()
+    model().mean().backward()
+    opt.step()
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"sdf_fwd": 1, "sdf_bwd": 1}
+    assert ROUTES == {"sdf_fwd.dense": 1}
+    assert torch.isfinite(model.params).all()
 
 
 SPLIT_CASES = [(split, coarse, n) for split, coarse in [(16, 0), (32, 0),

@@ -27,8 +27,9 @@ from enoki_tpu.render.pallas_kernels import (
 from enoki_tpu_torch import _build
 from enoki_tpu_torch.render import LAUNCHES, reset_launch_counts
 from enoki_tpu_torch.render.sdf_kernels import (
-    SDFRender, march_counts, render_sdf_cuda, sdf_bwd_ad_plain,
-    sdf_bwd_plain, sdf_fwd, sdf_fwd_plain, tile_pixels)
+    DENSE_MIN_N, SDFRender, float4_rows, fwd_route, march_counts,
+    render_sdf_cuda, sdf_bwd_ad_plain, sdf_bwd_plain, sdf_fwd, sdf_fwd_plain,
+    tile_pixels)
 from enoki_tpu_torch.ops.router import linspace
 
 from test_torch_cuda import SCENES, scene_vec as _scene_vec
@@ -149,6 +150,29 @@ def test_cpu_path_launches_no_kernel():
     p = torch.from_numpy(_scene_vec(None)).requires_grad_(True)
     render_sdf_cuda(p, 64, STEPS, 1.2, 64).sum().backward()
     assert all(v == 0 for v in LAUNCHES.values())
+
+
+def test_fwd_route_takes_the_dense_kernel_from_its_threshold():
+    for n in (DENSE_MIN_N, DENSE_MIN_N + 4, 2 * DENSE_MIN_N, 16384):
+        assert fwd_route(n) == "dense"
+    for n in (1, 64, DENSE_MIN_N // 2, DENSE_MIN_N - 1):
+        assert fwd_route(n) == "pixel"
+    # the relaxed march has the one-pixel route at every size
+    assert fwd_route(16384, 1.6) == "pixel"
+    assert fwd_route(16384, 1.0, True) == "pixel"
+
+
+def test_float4_rows_fall_back_on_a_ragged_row_or_a_misaligned_view():
+    buf = torch.zeros(64 * 64 + 4)
+    assert buf.data_ptr() % 16 == 0
+    whole = buf[:64 * 64].view(64, 64)
+    off = buf[1:64 * 64 + 1].view(64, 64)  # 4 bytes past 16
+    assert float4_rows(64, whole, whole)
+    assert float4_rows(64, whole, whole, None)  # no start map
+    assert not float4_rows(62, whole, whole)  # rows not whole float4s
+    assert not float4_rows(64, off, whole)
+    assert not float4_rows(64, whole, off)
+    assert not float4_rows(64, whole, whole, off)
 
 
 def test_march_counts_count_the_kernel_loop():
