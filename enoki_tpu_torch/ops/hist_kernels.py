@@ -149,14 +149,15 @@ def histogram(index, bins: int, weights=None, impl: str = "kernel"):
     the reference's name for its kernel, is another name for it;
     ``"fused"`` is the plain route through ``scatter_add`` on any device.
     Any other value raises ``ValueError``. The tensors' device decides
-    where it runs."""
+    where it runs. The call is the span ``enoki.ops.histogram``."""
     if impl not in ("kernel", "pallas", "fused"):
         raise ValueError(f"impl must be 'kernel', 'pallas' or 'fused', got "
                          f"{impl!r}")
-    if _is_lazy(index) or _is_lazy(weights):
-        return _hist_lazy(index, bins, weights)
-    index = index.detach().to(torch.int32).reshape(-1).contiguous()
-    if weights is None:
-        return _HistogramFn.apply(index, None, bins, impl)
-    flat = weights.to(torch.float32).reshape(-1).contiguous()
-    return _HistogramFn.apply(index, flat, bins, impl)
+    with _build.span("ops.histogram"):
+        if _is_lazy(index) or _is_lazy(weights):
+            return _hist_lazy(index, bins, weights)
+        index = index.detach().to(torch.int32).reshape(-1).contiguous()
+        if weights is None:
+            return _HistogramFn.apply(index, None, bins, impl)
+        flat = weights.to(torch.float32).reshape(-1).contiguous()
+        return _HistogramFn.apply(index, flat, bins, impl)

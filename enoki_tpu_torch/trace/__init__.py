@@ -49,6 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import _build
 from .._device import resolve_device
 from .build import load_library, load_pymod
 
@@ -469,15 +470,25 @@ def _run(comp, key, device, leaves, bits, codes):
 
 
 def _eval_ids(ids):
-    """Evaluate the given variable ids (plus pending side effects)."""
+    """Evaluate the given variable ids (plus pending side effects), in the
+    span ``enoki.trace.eval``; the schedule, its hash and the kernel
+    cache's look-up in ``enoki.trace.schedule`` inside it. A miss's build
+    is in ``enoki.build.<phase>``, the kernels' launches in
+    ``enoki.launch.trace``."""
+    with _build.span("trace.eval"):
+        _eval_schedule(ids)
+
+
+def _eval_schedule(ids):
     ids = [i for i in dict.fromkeys(ids) if not _nat.materialized(i)]
     if not ids and _lib.ett_num_side_effects() == 0:
         return
-    n, key, comp, leaf_vids, leaves, device, entries = _schedule(ids)
-    bits, codes = _collect_literals(n)
-    buf = (ctypes.c_uint32 * max(n, 1))()
-    n_out = _lib.ett_schedule_output_ids(buf, n)
-    out_vids = [buf[i] for i in range(n_out)]
+    with _build.span("trace.schedule"):
+        n, key, comp, leaf_vids, leaves, device, entries = _schedule(ids)
+        bits, codes = _collect_literals(n)
+        buf = (ctypes.c_uint32 * max(n, 1))()
+        n_out = _lib.ett_schedule_output_ids(buf, n)
+        out_vids = [buf[i] for i in range(n_out)]
 
     results = _run(comp, key, device, leaves, bits, codes)
 

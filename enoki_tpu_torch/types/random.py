@@ -37,6 +37,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from . import u64 as U
+from .. import _build
 from .._device import resolve_device
 from ..ops.router import _is_lazy
 
@@ -139,11 +140,12 @@ class PCG32(NamedTuple):
         return out, new_state
 
     def next_uint32(self, mask=None) -> Tuple[torch.Tensor, "PCG32"]:
-        """The next 32-bit draw; with ``mask``, inactive lanes do not
-        advance."""
-        out, new_state = self._step()
-        if mask is not None:
-            new_state = U.where(mask, new_state, self.state)
+        """The next 32-bit draw, in the span ``enoki.random.next``; with
+        ``mask``, inactive lanes do not advance."""
+        with _build.span("random.next"):
+            out, new_state = self._step()
+            if mask is not None:
+                new_state = U.where(mask, new_state, self.state)
         return out, PCG32(new_state, self.inc)
 
     def _eager_only(self, what):

@@ -239,3 +239,64 @@ def test_build_phases_timed_on_many_threads_lose_no_count(counters):
     finally:
         sys.setswitchinterval(switch)
     assert _build.BUILDS == {"digest": threads * calls}
+
+
+def lazy_step(n: int = 256):
+    """A lazy generator of ``n`` CPU lanes whose seed is evaluated, and
+    one recorded step of the histogram mini-app: (counts, the next
+    state), neither evaluated."""
+    from enoki_tpu_torch import ops, trace
+    from enoki_tpu_torch.types import PCG32
+    gen = PCG32.create_lazy(n, initstate=7, device="cpu")
+    trace.eval(gen.state.v, gen.inc.v)
+    u, gen = gen.next_float32()
+    g = ops.erfinv(2.0 * u - 1.0) * 2.0 ** 0.5
+    counts = ops.histogram(ops.floor((g + 4.0) * 8.0).to(torch.int32), 64)
+    return counts, gen.state.v
+
+
+def test_a_lazy_eval_opens_its_span_once_with_the_schedule_inside():
+    from enoki_tpu_torch import trace
+    counts, state = lazy_step()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        trace.eval(counts, state)
+    spans = port_annotations(prof)
+    evals = [(s, e) for n, s, e in spans if n == "enoki.trace.eval"]
+    scheds = [(s, e) for n, s, e in spans if n == "enoki.trace.schedule"]
+    assert len(evals) == 1 and len(scheds) == 1
+    assert evals[0][0] <= scheds[0][0] and scheds[0][1] <= evals[0][1]
+    assert counts.materialized and state.materialized
+    assert float(counts.torch().sum()) <= 256
+    # an array already evaluated opens no schedule
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        trace.eval(counts, state)
+    names = [n for n, _, _ in port_annotations(prof)]
+    assert "enoki.trace.schedule" not in names
+    trace.reset()
+
+
+def test_an_eager_draw_and_histogram_open_their_spans():
+    from enoki_tpu_torch import ops
+    from enoki_tpu_torch.types import PCG32
+    gen = PCG32.create(256, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        u, gen = gen.next_float32()
+        b = ops.floor((ops.erfinv(2.0 * u - 1.0) * 2.0 ** 0.5 + 4.0) * 8.0)
+        counts = ops.histogram(b.to(torch.int32), 64)
+    names = collections.Counter(n for n, _, _ in port_annotations(prof))
+    assert names["enoki.random.next"] == 1
+    assert names["enoki.ops.histogram"] == 1
+    assert float(counts.sum()) <= 256
+
+
+def test_the_histograms_spans_are_not_kept_off_the_profiler():
+    from enoki_tpu_torch import ops, trace
+    from enoki_tpu_torch.types import PCG32
+    assert not torch.autograd._profiler_enabled()
+    before = len(_build.SPANS)
+    gen = PCG32.create(64, device="cpu")
+    u, gen = gen.next_float32()
+    ops.histogram((u * 64.0).to(torch.int32), 64)
+    trace.eval(*lazy_step())
+    trace.reset()
+    assert len(_build.SPANS) == before
