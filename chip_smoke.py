@@ -150,7 +150,13 @@ rounding.
            bf16 and f16, each with its bound, its plain version and (hist)
            torch.bincount;
            the mini-app's stages in device time and its iteration as
-           samples/s
+           samples/s; the pcg32 kernel (csrc/pcg32.cu, the eager CUDA
+           draw of PCG32) at 16M lanes bit-equal to its plain version,
+           PCG32._step's op chain, for each out kind, aligned and on the
+           view state[1:], with and without a mask; its time beside its
+           floor (28 B a lane for a float32 draw), the op chain's time
+           and ptxas's registers and spills (library call: none,
+           torch.randint's Philox is another generator)
   phase 21 the render functions the port gained last, on the card
            against their CPU results: unit_angle and unit_angle_z on 10^4
            pairs of unit vectors (rtol 1e-5, atol 1e-6), cross3 bit-equal,
@@ -404,6 +410,7 @@ HIST_N = 1 << 24
 HIST_BINS = 64
 HIST_LO, HIST_HI = -4.0, 4.0
 HIST_ITERS = 3                 # chained iterations of phase 19
+PCG32_N = 1 << 24              # phase 20's pcg32 lanes: the mini-app's
 OPS_N = 1 << 20                # elements of phase 22's inputs
 MATH_N = 1 << 20               # elements of phase 23's inputs
 TYPES_N = 1 << 20              # elements of phase 24's inputs
@@ -434,6 +441,12 @@ ROUND_INT_OPS_PER_ELEMENT = 3
 # the span's exponent (field, max, halving, shift) in 32-bit integers
 F16_ROUND_FLOPS_PER_ELEMENT = 9
 F16_ROUND_INT_OPS_PER_ELEMENT = 12
+# the pcg32 kernel a lane: the state and increment read (16 bytes), the
+# next state written (8) and the draw (4 as float32, 8 as int64 or
+# float64); 15 INT32 operations, the step and the uniform's bits as
+# benchmark/work/histogram.py counts them
+PCG32_IN_BYTES = 16
+PCG32_INT_OPS_PER_LANE = 15
 # the five candidate configurations of bench.py:233-235:
 # (coarse, bands, relax, unimodal, split)
 CANDIDATES = ((0, 1, 1.0, False, 0), (8, 1, 1.0, False, 0),
@@ -5136,8 +5149,12 @@ def run_hist(torch, dev, timer):
             f"{'pass' if ok else 'FAIL'}")
         check(ok, f"mini-app iteration {it}")
     launches = dict(LAUNCHES)
-    check(launches == {"hist": HIST_ITERS, "hist_reduce": HIST_ITERS},
-          f"expected one hist (+ reduce) per iteration, got {launches}")
+    # the seeding's two draws and one an iteration
+    draws = HIST_ITERS + 2
+    check(launches == {"hist": HIST_ITERS, "hist_reduce": HIST_ITERS,
+                       "pcg32": draws},
+          f"expected one hist (+ reduce) and one pcg32 per iteration, and "
+          f"two pcg32 for the seeding, got {launches}")
 
     b0 = 31
     wg = w.clone().requires_grad_(True)
@@ -5166,9 +5183,9 @@ def run_hist(torch, dev, timer):
     launches = dict(LAUNCHES)
     log(f"phase 19 launches: {launches}")
     check(launches == {"hist": HIST_ITERS + 1, "hist_reduce": HIST_ITERS + 1,
-                       "stochastic_round": ACC_UPDATES},
-          f"expected {HIST_ITERS} + 1 hist (+ reduce) and {ACC_UPDATES} "
-          f"stochastic_round launches, got {launches}")
+                       "stochastic_round": ACC_UPDATES, "pcg32": draws},
+          f"expected {HIST_ITERS} + 1 hist (+ reduce), {ACC_UPDATES} "
+          f"stochastic_round and {draws} pcg32 launches, got {launches}")
 
     # -- phase 20: timing -----------------------------------------------------
     idx = idx_sets["normal"]
@@ -5254,6 +5271,7 @@ def run_hist(torch, dev, timer):
         f"{[round(a, 4) for a, _ in samples]} ms wall)")
 
     return [
+        run_pcg32(torch, dev, timer, launches["pcg32"]),
         dict(name="hist", route="cuda",
              source="enoki_tpu_torch/csrc/hist.cu",
              replaces="enoki_tpu/ops/pallas_hist.py:44",
@@ -5272,6 +5290,75 @@ def run_hist(torch, dev, timer):
              f16_bound_ms=f16_bound),
     ]
 
+
+
+def run_pcg32(torch, dev, timer, app_launches):
+    """Phase 20's pcg32 part: the kernel against its plain version (the op
+    chain) at PCG32_N lanes of seeded states and odd increments, the
+    edge states first, for each out kind, aligned and on the view
+    state[1:] (the scalar path), with and without a mask; then each
+    kind's time beside its floor, the op chain's float32 time, and
+    ptxas's report. Returns the kernel's entry of the kernels line, whose
+    launches are app_launches: phase 19's count over the chained mini-app
+    (the seeding's two draws and one an iteration)."""
+    from enoki_tpu_torch import _build
+    from enoki_tpu_torch.types import random as R
+
+    n, kinds = PCG32_N, ("uint32", "float32", "float64")
+    rng = np.random.default_rng(20)
+    i64 = np.iinfo(np.int64)
+    state = rng.integers(i64.min, i64.max, n + 1, dtype=np.int64,
+                         endpoint=True)
+    inc = rng.integers(i64.min, i64.max, n + 1, dtype=np.int64,
+                       endpoint=True) | 1
+    # the step wraps past 2^63 and 2^64; rotations of 0 and 31
+    state[:6] = [0, -1, i64.min, i64.max, (1 << 59) - 1, -(1 << 59)]
+    inc[:3] = [-1, i64.min + 1, i64.max]
+    state, inc = torch.from_numpy(state).to(dev), torch.from_numpy(inc).to(dev)
+    mask = torch.from_numpy(rng.random(n + 1) < 0.75).to(dev)
+    views = {"aligned": (state[:n], inc[:n], mask[:n]),
+             "state[1:]": (state[1:], inc[1:], mask[1:])}
+    before = _build.LAUNCHES["pcg32"]
+    for kind in kinds:
+        for view, (s, c, m) in views.items():
+            for mm in (None, m):
+                out, new_state = R.pcg32_next(s, c, mm, kind)
+                want, want_state = R.pcg32_next_plain(s, c, mm, kind)
+                check(same_tree(torch, (out, new_state),
+                                (want, want_state)),
+                      f"pcg32 {kind} {view} mask={mm is not None}: differs "
+                      f"from the op chain")
+    checked = _build.LAUNCHES["pcg32"] - before
+    check(checked == 4 * len(kinds), f"pcg32: {checked} launches of "
+          f"{4 * len(kinds)}")
+    log(f"phase 20 pcg32 at {n} lanes: states and draws bit-equal to the "
+        f"op chain for {', '.join(kinds)}, aligned and on the view "
+        f"state[1:], with and without a mask, the edge states wrapping "
+        f"past 2^63 and 2^64: pass")
+
+    s, c = views["aligned"][:2]
+    t = {k: timer(lambda k=k: R.pcg32_next(s, c, None, k), 200)
+         for k in kinds}
+    plain_ms = timer(lambda: R.pcg32_next_plain(s, c, None, "float32"), 10,
+                     1000.0, True)
+    floors = {k: bound((PCG32_IN_BYTES + 8 + (4 if k == "float32" else 8))
+                       * n, 0, int_ops=PCG32_INT_OPS_PER_LANE * n)
+              for k in kinds}
+    ptxas = resources_text(_build.build("pcg32"), (
+        "pcg32_kernelILi0ELb1E", "pcg32_kernelILi1ELb1E",
+        "pcg32_kernelILi2ELb1E", "pcg32_kernelILi1ELb0E"))
+    log("phase 20 pcg32 at " + str(n) + " lanes: " + "; ".join(
+        f"{k} {t[k]:.5f} ms (floor {floors[k][0]:.5f} ms by "
+        f"{floors[k][1]}, {t[k] / floors[k][0]:.2f}x)" for k in kinds)
+        + f"; the op chain's float32 draw {plain_ms:.4f} ms "
+        f"({plain_ms / t['float32']:.1f}x the kernel); library call: none "
+        f"(torch.randint's Philox is another generator); ptxas: {ptxas}")
+    return dict(name="pcg32", route="cuda",
+                source="enoki_tpu_torch/csrc/pcg32.cu", replaces=None,
+                launches=app_launches, max_abs_err=0.0, ms=t["float32"],
+                plain_ms=plain_ms, bound_ms=floors["float32"][0],
+                bound_by=floors["float32"][1], library_ms=None,
+                uint32_ms=t["uint32"], float64_ms=t["float64"])
 
 
 # ---------------------------------------------------------------------------

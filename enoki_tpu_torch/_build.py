@@ -199,6 +199,9 @@ SIGNATURES = {
     "stochastic_round": {
         "stochastic_round_launch": (_P, _P, _L, _U, _I, _P),
     },
+    "pcg32": {
+        "pcg32_next_launch": (_P, _P, _P, _L, _P, _I, _P, _P),
+    },
 }
 
 

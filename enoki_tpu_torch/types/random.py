@@ -16,6 +16,18 @@ What each draw returns:
   distance                           int32 (the low 32 bits, wrapped)
   distance_u64                       a ``U64``
 
+Where the state is an eager CUDA tensor, each 32-bit draw (``next_uint32``,
+``next_float32``, ``next_float64``, and through them ``next_uint64``, the
+seeding and the bounded draws) is one launch of the ``pcg32`` kernel
+(``csrc/pcg32.cu``): the LCG step, the XSH-RR output and the draw's
+conversion in one pass, counted in ``_build.LAUNCHES["pcg32"]`` and by
+out kind in ``_build.ROUTES["pcg32.uint32" | "pcg32.float32" |
+"pcg32.float64"]``. The op chain of ``PCG32._step`` over ``types/u64.py``
+is its plain version (``pcg32_next_plain``): the route for CPU tensors,
+which the tests hold against the reference, for tensors on any other
+device that is not CUDA, and for lazy generators,
+which record it into the trace. Both give the same bits.
+
 The bounded draws and ``shuffle`` read their loop condition on the host,
 one synchronisation per round: they are for small sizes.
 
@@ -139,14 +151,22 @@ class PCG32(NamedTuple):
         out = ((xs >> rot) | (xs << ((32 - rot) & 31))) & _M32
         return out, new_state
 
-    def next_uint32(self, mask=None) -> Tuple[torch.Tensor, "PCG32"]:
-        """The next 32-bit draw, in the span ``enoki.random.next``; with
-        ``mask``, inactive lanes do not advance."""
+    def _draw(self, kind: str, mask) -> Tuple[torch.Tensor, "PCG32"]:
+        """One draw of ``kind`` from every lane, in the span
+        ``enoki.random.next``: one launch of the pcg32 kernel for an eager
+        CUDA state, the op chain for one on any other device or,
+        recorded, for a lazy one; with ``mask``, inactive lanes do not
+        advance."""
+        v = self.state.v
+        draw = (pcg32_next if not _is_lazy(v) and v.device.type == "cuda"
+                else pcg32_next_plain)
         with _build.span("random.next"):
-            out, new_state = self._step()
-            if mask is not None:
-                new_state = U.where(mask, new_state, self.state)
-        return out, PCG32(new_state, self.inc)
+            out, new_state = draw(v, self.inc.v, mask, kind)
+        return out, PCG32(U.U64(new_state), self.inc)
+
+    def next_uint32(self, mask=None) -> Tuple[torch.Tensor, "PCG32"]:
+        """The next 32-bit draw (int64 in [0, 2**32); lazy: uint32)."""
+        return self._draw("uint32", mask)
 
     def _eager_only(self, what):
         if _is_lazy(self.state.v):
@@ -163,17 +183,11 @@ class PCG32(NamedTuple):
 
     def next_float32(self, mask=None) -> Tuple[torch.Tensor, "PCG32"]:
         """[0, 1) via the (x >> 9) | 0x3f800000 bit trick."""
-        bits, gen = self.next_uint32(mask)
-        pattern = ((bits >> 9) | 0x3F800000).to(torch.int32)
-        return pattern.view(torch.float32) - 1.0, gen
+        return self._draw("float32", mask)
 
     def next_float64(self, mask=None):
         """[0, 1) with 32 mantissa bits."""
-        bits, gen = self.next_uint32(mask)
-        if _is_lazy(bits):
-            bits = bits.cast(torch.uint64)
-        pattern = (bits << 20) | 0x3FF0000000000000
-        return pattern.view(torch.float64) - 1.0, gen
+        return self._draw("float64", mask)
 
     def next_uint32_bounded(self, bound: int, mask=None):
         """Unbiased bounded sampling: lanes redraw until they clear the
@@ -263,6 +277,87 @@ class PCG32(NamedTuple):
             xi, xj = x[i].clone(), x[j0].clone()
             x[i], x[j0] = xj, xi
         return x, gen
+
+
+def _float32_of(bits):
+    """The float32 in [0, 1) of 32-bit draws: (x >> 9) | 0x3f800000 as a
+    float, less 1."""
+    pattern = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return pattern.view(torch.float32) - 1.0
+
+
+def _float64_of(bits):
+    """The float64 in [0, 1) of 32-bit draws, 32 mantissa bits: (x << 20)
+    | 0x3FF0000000000000 as a float, less 1."""
+    if _is_lazy(bits):
+        bits = bits.cast(torch.uint64)
+    pattern = (bits << 20) | 0x3FF0000000000000
+    return pattern.view(torch.float64) - 1.0
+
+
+# a draw's kinds: the pcg32 kernel's out_kind, the draw's dtype, and the
+# op chain's conversion of the 32-bit draw
+_KINDS = {"uint32": (0, torch.int64, lambda bits: bits),
+          "float32": (1, torch.float32, _float32_of),
+          "float64": (2, torch.float64, _float64_of)}
+
+
+def _kind(kind: str):
+    if kind not in _KINDS:
+        raise ValueError(f"pcg32: kind must be one of {sorted(_KINDS)}, "
+                         f"got {kind!r}")
+    return _KINDS[kind]
+
+
+def pcg32_next(state, inc, mask, kind: str):
+    """One draw from every lane of an eager CUDA generator, one launch of
+    the pcg32 kernel (csrc/pcg32.cu): (the draw, the next state). ``state``
+    and ``inc`` are int64 tensors of uint64 bit patterns on one card,
+    ``inc`` broadcast to the state's shape; ``mask`` a bool tensor that
+    broadcasts to it (lanes where it is false keep their state) or None;
+    ``kind`` "uint32" (int64 in [0, 2**32)), "float32" or "float64" (in
+    [0, 1)), the draw of ``next_<kind>``. Neither input is written. Raises
+    on another dtype or device; a state of no lanes launches nothing."""
+    code, dtype, _ = _kind(kind)
+    dev, shape = state.device, state.shape
+    if state.dtype != torch.int64 or inc.dtype != torch.int64:
+        raise ValueError(f"pcg32: state and inc must be int64, got "
+                         f"{state.dtype} and {inc.dtype}")
+    if mask is not None and mask.dtype != torch.bool:
+        raise ValueError(f"pcg32: mask must be bool, got {mask.dtype}")
+    for name, x in (("inc", inc), ("mask", mask)):
+        if x is not None and x.device != dev:
+            raise ValueError(f"pcg32: {name} on {x.device}, the state on "
+                             f"{dev}")
+    # a copy only for a broadcast increment or mask, or a strided state
+    state = state.contiguous()
+    inc = inc.expand(shape).contiguous()
+    if mask is not None:
+        mask = mask.expand(shape).contiguous()
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    new_state = torch.empty(shape, dtype=torch.int64, device=dev)
+    n = state.numel()
+    if n == 0:
+        return out, new_state  # a zero-size grid is a launch error
+    lib = _build.load("pcg32")
+    with torch.cuda.device(dev):
+        _build.launch(
+            "pcg32", lib.pcg32_next_launch, state.data_ptr(), inc.data_ptr(),
+            None if mask is None else mask.data_ptr(), n, out.data_ptr(),
+            code, new_state.data_ptr(),
+            torch.cuda.current_stream().cuda_stream, route=kind)
+    return out, new_state
+
+
+def pcg32_next_plain(state, inc, mask, kind: str):
+    """The plain version of ``pcg32_next``, on any device, with the same
+    bits: ``PCG32._step``'s op chain and the draw's conversion."""
+    _, _, convert = _kind(kind)
+    gen = PCG32(U.U64(state), U.U64(inc))
+    bits, new_state = gen._step()
+    if mask is not None:
+        new_state = U.where(mask, new_state, gen.state)
+    return convert(bits), new_state.v
 
 
 def _u64_mod_const(value: U.U64, bound: int) -> U.U64:

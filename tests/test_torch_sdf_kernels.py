@@ -309,7 +309,7 @@ def test_cuda_sources_match_their_ctypes_signatures():
     card, _ = skeleton.split("#else  // a host compiler")
     sources = {"sdf_render": None, "sdf_bwd_ad": None, "sphere_render": None,
                "generic_render": card, "hist": None,
-               "stochastic_round": None}
+               "stochastic_round": None, "pcg32": None}
     assert set(_build.SIGNATURES) == set(sources)
     for lib, signatures in _build.SIGNATURES.items():
         src = sources[lib] or (_build.CSRC_DIR / f"{lib}.cu").read_text()
