@@ -34,10 +34,8 @@ rounding.
            (render.sdf, the twin of the reference's jnp path); the launch
            counters must show one sdf_fwd and one sdf_bwd per step (the
            backward sums its blocks' rows in its own last block)
-  phase 4  timing with CUDA events: a data-chained fwd+bwd loop (as
-           bench.py chains its steps) against the same loop through the
-           twin, each kernel alone, the plain versions, and each kernel's
-           bound
+  phase 4  timing with CUDA events: each kernel alone, the plain
+           versions, and each kernel's bound
   phase 5  sphere_fwd (f32 and bf16) bit-equal to sphere_fwd_plain at
            1024^2, 1000^2 and 257^2 (one vector store a thread at the
            first two, single stores at 257), reference + two seeded
@@ -57,8 +55,7 @@ rounding.
            an issue floor of each (the fewest SASS instructions a warp of
            these straight-line kernels issues, from cuobjdump, times the
            warps, over the SMs' issue slots at the max SM clock; derived,
-           for the record), the chained fwd+bwd loop through SphereRender
-           against the twin's, and the mini-app's contrast, render_staged
+           for the record), and the mini-app's contrast, render_staged
            (separate kernels) against one sphere_fwd launch
   phase 9  each further sdf_fwd instantiation (start map, bf16 march,
            over-relaxed march, and their combinations) against
@@ -98,9 +95,7 @@ rounding.
            the shipped tail against its three refill schedules, the split
            forward's device time (memset, pass 1, tail) and a split
            forward run under torch.cuda.set_sync_debug_mode("error");
-           timing of the
-           cone prepass, and of the chained fwd+bwd step for the five
-           candidate configurations of bench.py:233-235, interleaved
+           timing of the cone prepass
   phase 13 generic_fwd against generic_fwd_plain: the composed scene at
            the reference parameters and two seeded perturbations, through
            the orthographic and the perspective camera; a sphere-only
@@ -124,8 +119,7 @@ rounding.
            instructions an iteration of its march loop issues, from
            cuobjdump, its slow paths left out, times the warps'
            evaluations, over the SMs' issue slots at the max SM clock;
-           derived, and held below the measured time), the chained
-           fwd+bwd step against the twin's, the cone
+           derived, and held below the measured time), the cone
            prepass over the composed scene, trace and nvcc seconds per
            scene at first use and at a cached use
   phase 17 hist against hist_plain at 16M samples, 64 bins, on three index
@@ -447,13 +441,6 @@ F16_ROUND_INT_OPS_PER_ELEMENT = 12
 # benchmark/work/histogram.py counts them
 PCG32_IN_BYTES = 16
 PCG32_INT_OPS_PER_LANE = 15
-# the five candidate configurations of bench.py:233-235:
-# (coarse, bands, relax, unimodal, split)
-CANDIDATES = ((0, 1, 1.0, False, 0), (8, 1, 1.0, False, 0),
-              (0, 1, 1.0, False, 16), (0, 1, 1.0, False, 32),
-              (8, 1, 1.0, False, 16))
-
-
 class SmokeFailure(Exception):
     pass
 
@@ -590,45 +577,6 @@ class DeviceTimer:
             check(enqueue_ms < hold_ms, f"timer hold {hold_ms} ms shorter "
                   f"than the enqueue ({enqueue_ms:.1f} ms): raise hold_ms")
         return s.elapsed_time(e) / reps
-
-
-def chain_ms(torch, step, p0, iters, windows):
-    """Per-step time of ``iters`` data-chained steps, ``windows`` times:
-    each step's params depend on the previous step's loss and gradient
-    (bench.py:35-50), so no step can start before the last one ended."""
-    samples = []
-    p = step(p0, p0, 0)
-    torch.cuda.synchronize()
-    for _ in range(windows):
-        ev = torch.cuda.Event
-        s, e = ev(enable_timing=True), ev(enable_timing=True)
-        p = p0
-        s.record()
-        for k in range(iters):
-            p = step(p0, p, k)
-        e.record()
-        torch.cuda.synchronize()
-        samples.append(s.elapsed_time(e) / iters)
-    return robust(samples)
-
-
-def device_ms_by_kernel(torch, step, p0, iters):
-    """Device time per step of ``iters`` chained steps, by kernel name,
-    from torch.profiler ({} where it saw no device activity)."""
-    from torch.profiler import ProfilerActivity, profile
-    p = step(p0, p0, 0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        p = p0
-        for k in range(iters):
-            p = step(p0, p, k)
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            out[e.key] = e.self_device_time_total / 1e3 / iters
-    return out
 
 
 def bound(nbytes, flops, bf16_flops=0, int_ops=0):
@@ -1305,7 +1253,7 @@ def run(torch, dev):
         return torch.from_numpy(scene_vec(seed)).to(dev)
 
     # -- phase 1: sdf_fwd against its plain version ------------------------
-    fwd_err, flip_shares = 0.0, []
+    fwd_err = 0.0
     for seed in SEEDS:
         p = cuda_vec(seed)
         img_k, ts_k = K.sdf_fwd(p, N, STEPS, EXTENT)
@@ -1324,14 +1272,12 @@ def run(torch, dev):
         if mask_flips == 0:
             gate = f"image atol 1e-3 (max {dmax:.3e})"
             ok = dmax <= 1e-3
-            flip_shares.append(0.0)
         else:
             # silhouette pixels flipped: bench.py:209-212's gate, where a
             # hit/miss flip jumps by ~gain
             flips = d > 1.0
             share = flips.float().mean().item()
             off = d[~flips].max().item()
-            flip_shares.append(share)
             gate = f"flip share {share:.3e} < 1.5e-3, off-flip max {off:.3e}"
             ok = share < 1.5e-3 and off < 0.05
         log(f"phase 1 sdf_fwd scene={seed}: max|img-plain| {dmax:.3e}, "
@@ -1382,38 +1328,6 @@ def run(torch, dev):
     timer = DeviceTimer(torch)
     p_ref = cuda_vec(None)
 
-    def kernel_step(p0, p, k):
-        p = p.detach().requires_grad_(True)
-        loss = K.render_sdf_cuda(p, N, STEPS, EXTENT, min(128, N),
-                                 coarse=0).mean()
-        (g,) = torch.autograd.grad(loss, p)
-        return p0 + (loss.detach() + 1e-12 * g.sum()) * 1e-12 + 1e-6 * k
-
-    def twin_step(p0, p, k):
-        img, g = render_sdf_grads_implicit(K.vec_to_scene(p, SDFScene), N,
-                                           STEPS)
-        gsum = K.scene_to_vec(g).sum()
-        return p0 + (img.mean() + 1e-12 * gsum) * 1e-12 + 1e-6 * k
-
-    # interleaved: kernel, twin, twin, kernel
-    t_k1, sp_k1 = chain_ms(torch, kernel_step, p_ref, 100, 7)
-    t_x1, sp_x1 = chain_ms(torch, twin_step, p_ref, 5, 3)
-    t_x2, sp_x2 = chain_ms(torch, twin_step, p_ref, 5, 3)
-    t_k2, sp_k2 = chain_ms(torch, kernel_step, p_ref, 100, 7)
-    t_k, t_x = min(t_k1, t_k2), min(t_x1, t_x2)
-    log(f"phase 4 fwd+bwd step (chained, median of windows): kernels "
-        f"{t_k1:.4f} / {t_k2:.4f} ms (spread {sp_k1:.2%} / {sp_k2:.2%}), "
-        f"twin {t_x1:.3f} / {t_x2:.3f} ms (spread {sp_x1:.2%} / "
-        f"{sp_x2:.2%})")
-    by_kernel = device_ms_by_kernel(torch, kernel_step, p_ref, 50)
-    busy_ms = sum(by_kernel.values())
-    busy = busy_ms / t_k if by_kernel else None
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-    log("phase 4 device time per fwd+bwd step (torch.profiler): "
-        + (f"{busy_ms:.5f} ms of {t_k:.4f} ms, busy share {busy:.4f}; "
-           + ", ".join(f"{k[:48]} {v:.5f} ms" for k, v in top)
-           if by_kernel else "not measured (no device events)"))
-
     _, ts_ref = K.sdf_fwd(p_ref, N, STEPS, EXTENT)
     g_ref = torch.full((N, N), 1.0 / rays, device=dev)
     fwd_ms = timer(lambda: K.sdf_fwd(p_ref, N, STEPS, EXTENT), 200)
@@ -1457,20 +1371,6 @@ def run(torch, dev):
         f"{bwd_plain_ms:.4f} ms, bound {bwd_bound:.5f} ms by {bwd_by}); "
         f"library call: none computes either function")
 
-    result = {
-        "metric": "rays_per_s_per_chip_fwd_bwd",
-        "value": rays / (t_k * 1e-3),
-        "unit": "rays/s",
-        "vs_baseline": t_x / t_k,
-        "spread_pct": 100.0 * max(sp_k1, sp_k2),
-        "baseline": "plain PyTorch twin (render.sdf, implicit backward)",
-        "baseline_rays_per_s": rays / (t_x * 1e-3),
-        "step_ms": t_k, "baseline_step_ms": t_x,
-        "n": N, "n_steps": STEPS, "card": smi,
-        "fwd_flip_share_max": max(flip_shares),
-        "device_busy_share": busy,
-    }
-    log(json.dumps(result))
     common = {"route": "cuda", "source": "enoki_tpu_torch/csrc/sdf_render.cu",
               "library_ms": None}
     kernels = [
@@ -3664,40 +3564,6 @@ def run_sphere(torch, dev, timer, cuda_vec):
         f"sphere_fwd launch {ms['sphere_fwd']:.5f} ms, "
         f"{staged_ms / ms['sphere_fwd']:.1f}x")
 
-    def kernel_step(p0, p, k):
-        with torch.no_grad():
-            model.params.copy_(p)
-        model.params.grad = None
-        loss = model().mean()
-        loss.backward()
-        g = model.params.grad
-        return p0 + (loss.detach() + 1e-12 * g.sum()) * 1e-12 + 1e-6 * k
-
-    def twin_step(p0, p, k):
-        img, g = TS.render_and_grads(vec_to_scene(p, TS.SphereScene), N)
-        gsum = scene_to_vec(g).sum()
-        return p0 + (img.mean() + 1e-12 * gsum) * 1e-12 + 1e-6 * k
-
-    # interleaved: kernel, twin, twin, kernel
-    t_k1, sp_k1 = chain_ms(torch, kernel_step, p_ref, 100, 7)
-    t_x1, sp_x1 = chain_ms(torch, twin_step, p_ref, 10, 3)
-    t_x2, sp_x2 = chain_ms(torch, twin_step, p_ref, 10, 3)
-    t_k2, sp_k2 = chain_ms(torch, kernel_step, p_ref, 100, 7)
-    t_k, t_x = min(t_k1, t_k2), min(t_x1, t_x2)
-    log(f"phase 8 sphere fwd+bwd step through SphereRender (chained, "
-        f"median of windows): kernels {t_k1:.4f} / {t_k2:.4f} ms (spread "
-        f"{sp_k1:.2%} / {sp_k2:.2%}), twin {t_x1:.3f} / {t_x2:.3f} ms "
-        f"(spread {sp_x1:.2%} / {sp_x2:.2%}); {rays / (t_k * 1e-3):.4g} "
-        f"rays/s, {t_x / t_k:.2f}x the twin")
-    by_kernel = device_ms_by_kernel(torch, kernel_step, p_ref, 50)
-    busy_ms = sum(by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-    log("phase 8 device time per sphere fwd+bwd step (torch.profiler): "
-        + (f"{busy_ms:.5f} ms of {t_k:.4f} ms, busy share "
-           f"{busy_ms / t_k:.4f}; "
-           + ", ".join(f"{k[:48]} {v:.5f} ms" for k, v in top)
-           if by_kernel else "not measured (no device events)"))
-
     common = {"route": "cuda",
               "source": "enoki_tpu_torch/csrc/sphere_render.cu",
               "library_ms": None}
@@ -4427,34 +4293,6 @@ def run_sdf_options(torch, dev, timer, cuda_vec):
         f"{cone_wall_ms:.3f} ms ({cone_wall_ms / STEPS:.4f} ms per step, "
         f"spread {cone_spread:.2%})")
 
-    # the chained fwd+bwd step of the five candidates, interleaved:
-    # forwards through the list, then backwards
-    def make_step(cfg):
-        coarse, bands, relax, unimodal, split = cfg
-
-        def step(p0, p, k_):
-            p = p.detach().requires_grad_(True)
-            loss = K.render_sdf_cuda(p, N, STEPS, EXTENT, min(128, N), None,
-                                     coarse, 16, f32, bands, relax, unimodal,
-                                     split).mean()
-            (g,) = torch.autograd.grad(loss, p)
-            return p0 + (loss.detach() + 1e-12 * g.sum()) * 1e-12 + 1e-6 * k_
-        return step
-
-    samples = {cfg: [] for cfg in CANDIDATES}
-    for cfg in CANDIDATES + CANDIDATES[::-1]:
-        iters, windows = (20, 3) if cfg[0] else (100, 5)
-        samples[cfg].append(chain_ms(torch, make_step(cfg), p_ref, iters,
-                                     windows))
-    best = min(CANDIDATES, key=lambda c: min(t for t, _ in samples[c]))
-    for cfg in CANDIDATES:
-        (t1, s1), (t2, s2) = samples[cfg]
-        log(f"phase 12 chained fwd+bwd step, (coarse, bands, relax, "
-            f"unimodal, split) = {cfg}: {t1:.4f} / {t2:.4f} ms (spread "
-            f"{s1:.2%} / {s2:.2%}), {rays / (min(t1, t2) * 1e-3):.4g} rays/s"
-            + ("  <- fastest on this card in this call" if cfg == best
-               else ""))
-
     idle = [name for name in work if launches.get(name, 0) < 1]
     check(not idle, f"kernels never launched on the options' path: {idle}")
     replaces = {
@@ -4803,38 +4641,6 @@ def run_generic(torch, dev, timer, scenes, first_use):
         f"{bwd_plain_ms:.3f} ms, bound {bwd_bound:.5f} ms by {bwd_by}: "
         f"{bwd_flops} operations, {8 * rays + 2 * n_par} bytes); library "
         f"call: none computes either function")
-
-    def kernel_step(p0, p, k):
-        p = p.detach().requires_grad_(True)
-        loss = render(p, N, STEPS, EXTENT, min(128, N)).mean()
-        (g,) = torch.autograd.grad(loss, p)
-        return p0 + (loss.detach() + 1e-12 * g.sum()) * 1e-12 + 1e-6 * k
-
-    def twin_step(p0, p, k):
-        p = p.detach().requires_grad_(True)
-        loss = render_plain(p, N, STEPS, EXTENT).mean()
-        (g,) = torch.autograd.grad(loss, p)
-        return p0 + (loss.detach() + 1e-12 * g.sum()) * 1e-12 + 1e-6 * k
-
-    # interleaved: kernel, twin, twin, kernel
-    t_k1, sp_k1 = chain_ms(torch, kernel_step, p_c, 50, 5)
-    t_x1, sp_x1 = chain_ms(torch, twin_step, p_c, 2, 2)
-    t_x2, sp_x2 = chain_ms(torch, twin_step, p_c, 2, 2)
-    t_k2, sp_k2 = chain_ms(torch, kernel_step, p_c, 50, 5)
-    t_k, t_x = min(t_k1, t_k2), min(t_x1, t_x2)
-    log(f"phase 16 generic fwd+bwd step (chained, median of windows): "
-        f"kernels {t_k1:.4f} / {t_k2:.4f} ms (spread {sp_k1:.2%} / "
-        f"{sp_k2:.2%}), twin {t_x1:.3f} / {t_x2:.3f} ms (spread {sp_x1:.2%} "
-        f"/ {sp_x2:.2%}); {rays / (t_k * 1e-3):.4g} rays/s, "
-        f"{t_x / t_k:.1f}x the twin")
-    by_kernel = device_ms_by_kernel(torch, kernel_step, p_c, 30)
-    busy_ms = sum(by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
-    log("phase 16 device time per generic fwd+bwd step (torch.profiler): "
-        + (f"{busy_ms:.5f} ms of {t_k:.4f} ms, busy share "
-           f"{busy_ms / t_k:.4f}; "
-           + ", ".join(f"{k[:48]} {v:.5f} ms" for k, v in top)
-           if by_kernel else "not measured (no device events)"))
 
     # the cone prepass over the composed scene: eager ops on (N/8)^2 rays
     def cone():

@@ -46,7 +46,7 @@
 // relaxed, moved after it); the normal is one reverse sweep, not a
 // 3-partial dual over the scene; and a square root whose argument the
 // tracer bounds (sdflib's all) skips the range check of the IEEE one
-// (sqrt_pos_, common.cuh). kernel_variants.py times each choice.
+// (sqrt_pos_, common.cuh). Each choice was timed on an H100.
 // Each operation of the march is an IEEE operation of its own (the square
 // roots several instructions each), so the instructions a warp issues, not
 // the FP32 peak, are what is left: chip_smoke.py prints that floor.

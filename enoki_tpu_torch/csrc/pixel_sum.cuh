@@ -32,7 +32,7 @@
 // it adds any of them. sdf_bwd and sdf_bwd_ad take 256 threads x 4
 // pixels (kPixelSumThreads, kPixelSumPixels): at 1024^2 the grid is 1024
 // blocks, 1.55 waves at the 5 blocks an SM that ptxas's 46 registers leave;
-// kernel_variants.py found no geometry faster (2 or 8 pixels, 128 to 1024
+// no geometry timed on an H100 was faster (2 or 8 pixels, 128 to 1024
 // threads, registers capped to fit more blocks, a resident grid striding
 // over the image): a block's latency, not the bytes, sets the time
 // (PERF.md §6). sphere_bwd sets its own (sphere_render.cu).

@@ -48,8 +48,8 @@ constexpr int kSphereSumThreads = 256, kSphereSumPixels = 4;
 // the root and two selections. Where the wrapper passes vec != 0 (the
 // rows start on a thread's bytes: n % 4 == 0 and img 16-byte aligned), a
 // thread's 4 pixels are one store, of 16 bytes in f32 and 8 in bf16;
-// otherwise every pixel is stored on its own. kernel_variants.py found
-// 256 x 4 the fastest of 128, 256 or 512 threads x 1, 2, 4 or 8 pixels
+// otherwise every pixel is stored on its own. Timed on an H100, 256 x 4
+// was the fastest of 128, 256 or 512 threads x 1, 2, 4 or 8 pixels
 // in both dtypes (bf16 8 pixels, one 16-byte store, within 1%): what a
 // thread does once is worth sharing among a few pixels, and a block's
 // latency, not the bytes, sets the rest of the time (PERF.md §6).

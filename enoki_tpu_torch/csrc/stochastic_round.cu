@@ -41,7 +41,7 @@ constexpr int kThreads = 256;
 // loads issued before the first block's arithmetic: with one group per
 // thread the bf16 kernel took 0.069 ms for 16M elements on an H100, with
 // two 0.037 ms, the time of a plain f32 -> 16-bit copy of this shape
-// (PERF.md); kernel_variants.py times f16 with 2 and 4
+// (PERF.md); f16 with 4 groups timed slower than with 2
 constexpr int kGroupsBf16 = 2;
 constexpr int kGroupsF16 = 2;
 

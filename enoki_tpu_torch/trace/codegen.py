@@ -88,8 +88,8 @@ MAX_KERNEL_ENTRIES = 1024
 # copies share ACC_SMEM bytes a block, given out in the order of its
 # targets; a target that no longer fits takes the next route. The
 # thresholds are the H100's crossovers at 16M lanes, each from the worst
-# of three spreads of the indices (kernel_variants.py --scatter-only,
-# PERF.md §6, the thresholds).
+# of three spreads of the indices (each route forced in turn; the
+# readings are in docs/port.md, SCATTER_ADD's routes).
 ROUTE_ROWS, ROUTE_BLOCK, ROUTE_ATOMIC = 1, 2, 3
 ROW_SLOTS = {F32: 96}
 BLOCK_BYTES = 32 * 1024

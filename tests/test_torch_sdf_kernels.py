@@ -477,7 +477,7 @@ def _header_constant(name, source="pixel_sum.cuh"):
 def test_pixel_sum_layout_covers_the_image_once(n, threads, pixels):
     # pixel_sum.cuh's map from (row, segment, thread, chunk, element) to a
     # column, with the SDF pair's and sphere_bwd's shipped geometries and
-    # those kernel_variants.py builds
+    # others that the header's formula must cover as well
     if threads == "shipped":
         threads = _header_constant("kPixelSumThreads")
         pixels = _header_constant("kPixelSumPixels")

@@ -183,7 +183,7 @@ def _tail_schedule(p, pairs, counters, img, ts, n, n_steps, split, extent,
     lanes: lane j of the grid first takes list slot j. With
     ``refill_below`` None (the shipped kernel) each lane marches to the end
     and takes the slot a grid's lanes further on. Else (the refill
-    schedules chip_smoke.py and kernel_variants.py time beside it) each
+    schedules chip_smoke.py times beside it) each
     outer trip of a warp marches (with ``refill_below`` 1, every busy lane
     to its end; else ``steps_per_trip`` steps at a time while all lanes, at
     least ``refill_below`` of them, or once the list is drained any of
